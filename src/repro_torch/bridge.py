@@ -1,0 +1,59 @@
+"""Parameter bridge from the reference's pytree to the port's params.
+
+`params_from_numpy` takes the reference's parameter pytree as nested
+dicts of numpy arrays — e.g. `jax.tree.map(np.asarray, params)` — with
+leaves stacked over the repeat axis (`blocks/s0/attn/wq` is (R, K, N)),
+and returns the port's param dict with the same keys on `device`.
+bf16 and fp8 arrays cross as raw bits (`arr.view(np.uint16)` ->
+`torch.from_numpy` -> `.view(torch.bfloat16)`), which needs no
+`ml_dtypes`.  Quantized leaves — anything with `.data` and `.scales`
+(the reference's `QuantizedTensor` after `tree.map`), or a plain
+`(data, scales)` pair — become the port's `QuantizedTensor`.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.quant import QuantizedTensor
+
+# numpy dtype names of the ml_dtypes types -> (raw-bit view, torch dtype)
+_RAW_BITS = {
+    "bfloat16": (np.uint16, torch.bfloat16),
+    "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
+    "float8_e5m2": (np.uint8, torch.float8_e5m2),
+}
+
+
+def tensor_from_numpy(arr, device) -> torch.Tensor:
+    arr = np.require(arr, requirements=["C_CONTIGUOUS", "WRITEABLE"])
+    raw = _RAW_BITS.get(arr.dtype.name)
+    if raw is not None:
+        bits, dtype = raw
+        return torch.from_numpy(arr.view(bits)).view(dtype).to(device)
+    return torch.from_numpy(arr).to(device)
+
+
+def _quantized(data, scales, block, device) -> QuantizedTensor:
+    data = tensor_from_numpy(data, device)
+    if block is None:   # weights: 128x128 over the last two dims
+        block = (1,) * (data.dim() - 2) + (128, 128)
+    return QuantizedTensor(data, tensor_from_numpy(scales, device), tuple(block))
+
+
+def params_from_numpy(tree, device=None):
+    """Reference pytree (numpy leaves) -> the port's params on `device`."""
+    device = resolve_device(device)
+    return _convert(tree, device)
+
+
+def _convert(tree, device):
+    if isinstance(tree, dict):
+        return {k: _convert(v, device) for k, v in tree.items()}
+    if hasattr(tree, "scales") and hasattr(tree, "data"):
+        return _quantized(tree.data, tree.scales, getattr(tree, "block", None),
+                          device)
+    if isinstance(tree, tuple) and len(tree) == 2:
+        return _quantized(tree[0], tree[1], None, device)
+    return tensor_from_numpy(tree, device)

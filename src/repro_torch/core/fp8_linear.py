@@ -1,0 +1,50 @@
+"""FP8 linear layers, rollout path (port of `repro.core.fp8_linear`).
+
+W8A8 rollout (paper §2.1): weights were quantized at weight-sync time
+(128x128 E4M3 blocks); activations are quantized per call (1x128 E4M3
+tiles) by kernel 1 and multiplied by kernel 3 (`kernels.ops`).  Unlike the
+reference's CPU default (a QDQ matmul of dequantized bf16 operands), the
+port never materialises dequantized operands: its GEMM takes the fp8
+payloads and applies the block scales to each slab's f32 partial, which is
+what the reference's TPU kernel computes.  `fp8_dot`, the end-to-end FP8
+training path, comes with the training slice.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.precision import PrecisionConfig, ScaleFormat
+from repro_torch.core.quant import QuantizedTensor, dequantize
+from repro_torch.kernels import ops
+
+
+def _dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w with f32 accumulation, output in x.dtype (the reference's
+    `preferred_element_type=f32` dot)."""
+    return torch.matmul(x.float(), w.float()).to(x.dtype)
+
+
+def fp8_linear_rollout(x: torch.Tensor, w_q: QuantizedTensor, *,
+                       scale_format: ScaleFormat = ScaleFormat.FP32
+                       ) -> torch.Tensor:
+    """W8A8 blockwise FP8 linear, inference only (kernels 1 and 3)."""
+    x_q = ops.quantize_activation(x, scale_format=scale_format)
+    return ops.fp8_matmul(x_q, w_q, out_dtype=x.dtype)
+
+
+def linear(x: torch.Tensor, w, *, precision: Optional[PrecisionConfig] = None,
+           quantized: bool = True) -> torch.Tensor:
+    """Precision-dispatching linear: `w` is a bf16 tensor (bf16 path or an
+    excluded layer) or a `QuantizedTensor` (rollout path after sync)."""
+    if isinstance(w, QuantizedTensor):
+        if not quantized:  # excluded layer got a quantized weight: dequant
+            return _dot(x, dequantize(w, x.dtype))
+        fmt = precision.scale_format if precision else ScaleFormat.FP32
+        return fp8_linear_rollout(x, w, scale_format=fmt)
+    if precision is not None and precision.fp8_training and quantized:
+        raise NotImplementedError(
+            "fp8_dot (end-to-end FP8 training) is not ported yet: "
+            "ROADMAP queue 1, training slice")
+    return _dot(x, w.to(x.dtype))

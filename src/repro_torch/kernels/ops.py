@@ -1,0 +1,108 @@
+"""Public wrappers around the port's kernels (port of `repro.kernels.ops`).
+
+Responsibilities, as in the reference:
+  * dispatch — a CUDA tensor goes to the hand-written kernel (or the call
+    raises: there is no fallback), a CPU tensor to the kernel's plain
+    PyTorch version;
+  * shape normalization — flatten leading dims, pad K (and N) to tile
+    multiples, slice the result back;
+  * plumbing between `QuantizedTensor` and the raw kernel signatures.
+
+Launch counts are kept per kernel in `build.LAUNCHES`.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.precision import E4M3, ScaleFormat
+from repro_torch.core.quant import QuantizedTensor
+from repro_torch.kernels import fp8_gemm as _gemm
+from repro_torch.kernels import fp8_kv_attention as _attn
+from repro_torch.kernels import fp8_quant as _quant
+
+
+def _route(t: torch.Tensor, kernel, plain):
+    """The kernel for a CUDA tensor, the plain version for a CPU one."""
+    if t.is_cuda:
+        return kernel
+    if t.device.type == "cpu":
+        return plain
+    raise ValueError(f"no kernel for device {t.device}")
+
+
+def _pad_to(x: torch.Tensor, mults: tuple) -> torch.Tensor:
+    pads = []
+    for dim, m in zip(reversed(x.shape), reversed(mults)):
+        pads.extend((0, (-dim) % m))
+    if not any(pads):
+        return x
+    if x.element_size() == 1:   # fp8: pad the raw bytes (0x00 is +0.0)
+        return F.pad(x.view(torch.uint8), pads).view(x.dtype)
+    return F.pad(x, pads)
+
+
+def quantize_activation(x: torch.Tensor, fp8_dtype=E4M3,
+                        scale_format: ScaleFormat = ScaleFormat.FP32
+                        ) -> QuantizedTensor:
+    """Dynamic activation quantization in 1x128 tiles (kernel 1).
+
+    Any rank; leading dims are flattened into rows.  K is padded to a 128
+    multiple (zeros never win the amax).
+    """
+    shape = x.shape
+    k = shape[-1]
+    x2 = _pad_to(x.reshape(-1, k), (1, 128)).contiguous()
+    fn = _route(x, _quant.quantize_activation_kernel,
+                _quant.quantize_activation_ref)
+    q, s = fn(x2, fp8_dtype, scale_format)
+    q = q[:, :k].reshape(shape)
+    s = s.reshape(shape[:-1] + (-1,))
+    return QuantizedTensor(q, s, (1,) * (len(shape) - 1) + (128,))
+
+
+def quantize_weight(w: torch.Tensor, fp8_dtype=E4M3,
+                    scale_format: ScaleFormat = ScaleFormat.FP32
+                    ) -> QuantizedTensor:
+    """Static weight quantization in 128x128 blocks over the last two dims
+    (kernel 2); layer-stacked (L, K, N) weights take one launch."""
+    *lead, k, n = w.shape
+    wp = _pad_to(w, (128, 128)).contiguous()
+    fn = _route(w, _quant.quantize_weight_kernel, _quant.quantize_weight_ref)
+    q, s = fn(wp, fp8_dtype, scale_format)
+    return QuantizedTensor(q[..., :k, :n], s,
+                           (1,) * len(lead) + (128, 128))
+
+
+def fp8_matmul(x_q: QuantizedTensor, w_q: QuantizedTensor,
+               out_dtype=torch.bfloat16) -> torch.Tensor:
+    """y = dequant(x_q) @ dequant(w_q) by the blockwise GEMM (kernel 3).
+
+    x_q: activations in 1x128 tiles, any leading rank.  w_q: (K, N)
+    weights in 128x128 blocks.  K and N are padded to 128 multiples; M
+    needs no padding (the kernel masks its edge rows).
+    """
+    xshape = x_q.data.shape
+    k = xshape[-1]
+    kw, n = w_q.data.shape
+    assert k == kw, (xshape, w_q.data.shape)
+    a = _pad_to(x_q.data.reshape(-1, k), (1, 128)).contiguous()
+    a_s = x_q.scales.reshape(a.shape[0], -1).contiguous()
+    w = _pad_to(w_q.data, (128, 128)).contiguous()
+    w_s = w_q.scales.contiguous()
+    fn = _route(x_q.data, _gemm.fp8_gemm, _gemm.fp8_gemm_ref)
+    y = fn(a, w, a_s, w_s, out_dtype)
+    return y[:, :n].reshape(xshape[:-1] + (n,))
+
+
+def fp8_paged_decode_attention(q, k_pool, v_pool, k_scale, v_scale,
+                               block_tables, lengths):
+    """Paged decode attention over an fp8 (or bf16) pool (kernel 4).
+
+    `block_tables` must hold *physical* pool rows (the models layer maps
+    unmapped -1 entries to the trash row first); entries at or past each
+    slot's live block count are never read.
+    """
+    fn = _route(q, _attn.fp8_paged_decode_attention,
+                _attn.fp8_paged_decode_attention_ref)
+    return fn(q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths)

@@ -1,0 +1,210 @@
+"""GQA attention over a paged, quantizable KV cache (port of
+`repro.models.attention`, the rollout path).
+
+The cache is a pool of fixed-size token blocks shared by all sequences and
+addressed through per-sequence block tables (vLLM's layout), with one
+extra *trash* row: writes for unmapped entries (-1) and padded prompt
+positions go there, and reads of it are masked by `lengths`.  The KV
+payload is fp8 E4M3 (or bf16) with one f32 scale per layer for K and for
+V, recalibrated at prefill from the prompt's amax x 1.05 when
+`precision.calculate_kv_scales` is set.
+
+Prefill attention is plain PyTorch (the naive `_sdpa`, as the reference's
+is plain jnp) over K/V dequantized the way `dequantize_per_tensor` does.
+Decode attention always goes through kernel 4 (`ops.
+fp8_paged_decode_attention`), whose plain version dequantizes like the
+TPU kernel's `_deq`.  The pool is updated in place (eager PyTorch needs
+no functional copy); the contiguous `KVCache`, the chunked/`repeat`
+impls, chunked prefill and cross-attention are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.fp8_linear import linear
+from repro_torch.core.precision import E4M3, PrecisionConfig
+from repro_torch.core.quant import (
+    calibrate_scale,
+    dequantize_per_tensor,
+    quantize_per_tensor,
+)
+from repro_torch.kernels import ops
+from repro_torch.models.common import apply_rope, rms_norm
+
+_NEG_INF = -1e30
+
+
+@dataclasses.dataclass
+class PagedKVCache:
+    """Paged KV pool of one layer (N+1, BS, KVH, D), or of all R layers
+    stacked (R, N+1, BS, KVH, D); row N is the trash block."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: torch.Tensor    # () per layer, (R,) stacked
+    v_scale: torch.Tensor
+
+    @property
+    def quantized(self) -> bool:
+        return self.k.dtype in (torch.float8_e4m3fn, torch.float8_e5m2)
+
+    @property
+    def block_size(self) -> int:
+        return self.k.shape[-3]
+
+    def layer(self, r: int) -> "PagedKVCache":
+        """Layer `r` of a stacked cache; views, so writes land in the pool."""
+        return PagedKVCache(self.k[r], self.v[r], self.k_scale[r],
+                            self.v_scale[r])
+
+
+def init_paged_kv_cache(num_blocks: int, block_size: int, n_kv_heads: int,
+                        d_head: int, precision: PrecisionConfig, *,
+                        repeats: int, device, dtype=torch.bfloat16
+                        ) -> PagedKVCache:
+    kv_dtype = E4M3 if precision.kv_quantized else dtype
+    shape = (repeats, num_blocks + 1, block_size, n_kv_heads, d_head)
+    return PagedKVCache(
+        k=torch.zeros(shape, dtype=kv_dtype, device=device),
+        v=torch.zeros(shape, dtype=kv_dtype, device=device),
+        k_scale=torch.ones((repeats,), dtype=torch.float32, device=device),
+        v_scale=torch.ones((repeats,), dtype=torch.float32, device=device),
+    )
+
+
+def _paged_physical(cache: PagedKVCache, block_tables: torch.Tensor) -> torch.Tensor:
+    """Logical table entries -> physical pool rows (-1 -> trash)."""
+    trash = cache.k.shape[-4] - 1
+    return torch.where(block_tables < 0, trash, block_tables).to(torch.int32)
+
+
+def paged_write(cache: PagedKVCache, block_tables: torch.Tensor,
+                positions: torch.Tensor, valid: torch.Tensor,
+                kq: torch.Tensor, vq: torch.Tensor) -> None:
+    """Scatter K/V rows (B, S, KVH, D), already in the cache dtype, into a
+    layer's pool through the block table; invalid rows go to the trash."""
+    bs = cache.block_size
+    w = block_tables.shape[1]
+    blk = torch.clamp(positions // bs, 0, w - 1).long()
+    off = (positions % bs).long()
+    entry = torch.gather(block_tables.long(), 1, blk)              # (B, S)
+    trash = cache.k.shape[-4] - 1
+    phys = torch.where(valid & (entry >= 0), entry, trash)
+    cache.k[phys, off] = kq
+    cache.v[phys, off] = vq
+
+
+def paged_copy_rows(cache: PagedKVCache, src, dst) -> None:
+    """Copy pool rows `src` -> `dst` (the device half of copy-on-write);
+    the pool-row axis is indexed from the right, so this works on one
+    layer's pool and on the stacked (R, N+1, ...) form."""
+    src = torch.as_tensor(src, dtype=torch.long, device=cache.k.device)
+    dst = torch.as_tensor(dst, dtype=torch.long, device=cache.k.device)
+    cache.k[..., dst, :, :, :] = cache.k[..., src, :, :, :]
+    cache.v[..., dst, :, :, :] = cache.v[..., src, :, :, :]
+
+
+def _project_qkv(x, params, cfg, precision):
+    """q (B,S,H,D), k/v (B,S,KVH,D) in x.dtype (pre-RoPE)."""
+    b, s, _ = x.shape
+    h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = linear(x, params["wq"], precision=precision).reshape(b, s, h, dh)
+    k = linear(x, params["wk"], precision=precision).reshape(b, s, kvh, dh)
+    v = linear(x, params["wv"], precision=precision).reshape(b, s, kvh, dh)
+    if cfg.qk_norm and "q_norm_scale" in params:
+        q = rms_norm(q, params["q_norm_scale"], cfg.norm_eps)
+        k = rms_norm(k, params["k_norm_scale"], cfg.norm_eps)
+    return q, k, v
+
+
+def _sdpa(q, k, v, mask):
+    """Naive grouped attention. q (B,S,H,D), k/v (B,S',KVH,D) in bf16;
+    mask broadcast (B,S,S') or None."""
+    b, s, h, dh = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, s, kvh, g, dh)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float() * (dh ** -0.5)
+    if mask is not None:
+        scores = torch.where(mask[:, None, None], scores, _NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", p.to(v.dtype), v)
+    return out.reshape(b, s, h * dh)
+
+
+def _quantize_kv(k, v, cache: PagedKVCache, precision: PrecisionConfig,
+                 recalibrate: bool):
+    """Fresh K/V in the cache dtype.  recalibrate=True (prefill) sets the
+    layer's scales from this tensor's amax x 1.05 — over the whole padded
+    (B, S) prompt, padding rows included, as the reference does."""
+    if not cache.quantized:
+        return k.to(cache.k.dtype), v.to(cache.v.dtype)
+    if recalibrate and precision.calculate_kv_scales:
+        cache.k_scale.copy_(calibrate_scale(k.float().abs().amax(), margin=1.05))
+        cache.v_scale.copy_(calibrate_scale(v.float().abs().amax(), margin=1.05))
+    kq = quantize_per_tensor(k, cache.k_scale, cache.k.dtype)
+    vq = quantize_per_tensor(v, cache.v_scale, cache.v.dtype)
+    return kq, vq
+
+
+def attention_prefill(x, params, cfg, cache: PagedKVCache,
+                      precision: PrecisionConfig, *, lengths, positions,
+                      block_tables):
+    """Causal attention over the prompt; writes the layer's pool at
+    positions [0, S) through `block_tables` (padding past `lengths` goes to
+    the trash row)."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(x, params, cfg, precision)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    kq, vq = _quantize_kv(k, v, cache, precision, recalibrate=True)
+    pos = torch.broadcast_to(positions, (b, s))
+    valid = pos < lengths[:, None]
+    paged_write(cache, block_tables, pos, valid, kq, vq)
+
+    # attend over what the cache holds, so prefill numerics match decode's
+    if cache.quantized:
+        k_use = dequantize_per_tensor(kq, cache.k_scale, x.dtype)
+        v_use = dequantize_per_tensor(vq, cache.v_scale, x.dtype)
+    else:
+        k_use, v_use = k, v
+    ar = torch.arange(s, device=x.device)
+    mask = (ar[None, :] <= ar[:, None])[None]                    # causal
+    mask = mask & (ar[None, :] < lengths[:, None])[:, None, :]   # (B, S, S)
+    out = _sdpa(q, k_use, v_use, mask)
+    return linear(out, params["wo"], precision=precision)
+
+
+def attention_decode(x, params, cfg, cache: PagedKVCache, lengths,
+                     precision: PrecisionConfig, *, block_tables):
+    """One decode step: append K/V at `lengths`, attend over
+    [0, lengths] through kernel 4."""
+    b = x.shape[0]
+    q, k, v = _project_qkv(x, params, cfg, precision)
+    pos = lengths[:, None]
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    kq, vq = _quantize_kv(k, v, cache, precision, recalibrate=False)
+    paged_write(cache, block_tables, pos,
+                torch.ones((b, 1), dtype=torch.bool, device=x.device), kq, vq)
+    return _paged_attention_over_table(x, q, cache, block_tables, lengths + 1,
+                                       params, precision)
+
+
+def _paged_attention_over_table(x, q, cache: PagedKVCache, block_tables,
+                                new_lengths, params, precision):
+    """Attend one query token over the K/V reachable through the table.
+    The kernel reads only each slot's live leading entries; unmapped
+    entries are mapped to the trash row first."""
+    b, _, h, dh = q.shape
+    kvh = cache.k.shape[-2]
+    phys = _paged_physical(cache, block_tables)
+    out = ops.fp8_paged_decode_attention(
+        q.reshape(b, kvh, h // kvh, dh).to(torch.bfloat16).contiguous(),
+        cache.k, cache.v, cache.k_scale, cache.v_scale, phys,
+        new_lengths.to(torch.int32),
+    ).reshape(b, 1, h * dh).to(x.dtype)
+    return linear(out, params["wo"], precision=precision)

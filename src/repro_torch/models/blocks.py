@@ -1,0 +1,90 @@
+"""Layer-pattern assembly (port of `repro.models.blocks`).
+
+A model is `n_layers = R * len(pattern)` layers; params and caches are
+stacked over the R repeats, as in the reference, and the port walks them
+with a Python loop where the reference scans.  Only the attention + MLP
+slot (the dense decoder) is ported; SSM, MoE and cross-attention slots
+raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import mlp as mlp_mod
+from repro_torch.models.common import rms_norm
+
+
+@dataclasses.dataclass(frozen=True)
+class SlotSpec:
+    mixer: str                 # "attn" | "ssm"
+    ffn: Optional[str]         # "mlp" | "moe" | None
+    cross: bool = False        # enc-dec decoder slot
+
+
+def layer_pattern(cfg, decoder: bool = True) -> Tuple[SlotSpec, ...]:
+    period = 1
+    if cfg.attn_period > 1:
+        period = cfg.attn_period
+    if cfg.n_experts and cfg.moe_period > 1:
+        period = math.lcm(period, cfg.moe_period)
+    n = cfg.n_layers if decoder else cfg.n_enc_layers
+    assert n % period == 0, (n, period, cfg.name)
+    slots = []
+    for j in range(period):
+        if cfg.attention_free or (cfg.ssm_state and not cfg.is_attn_layer(j)):
+            mixer = "ssm"
+        else:
+            mixer = "attn"
+        if cfg.family == "ssm":
+            ffn = None
+        elif cfg.is_moe_layer(j):
+            ffn = "moe"
+        else:
+            ffn = "mlp"
+        slots.append(SlotSpec(mixer=mixer, ffn=ffn,
+                              cross=decoder and cfg.is_encdec))
+    return tuple(slots)
+
+
+def n_repeats(cfg, decoder: bool = True) -> int:
+    n = cfg.n_layers if decoder else cfg.n_enc_layers
+    return n // len(layer_pattern(cfg, decoder))
+
+
+def check_supported(spec: SlotSpec) -> None:
+    """The port runs attention + MLP slots only (ROADMAP queue 1)."""
+    if spec.mixer != "attn" or spec.ffn != "mlp" or spec.cross:
+        raise NotImplementedError(
+            f"slot {spec} is not ported yet: SSM, MoE and cross-attention "
+            "wait for the model-breadth item of ROADMAP queue 1")
+
+
+def _mlp(x, slot_params, cfg, precision):
+    p = slot_params["mlp"]
+    return x + mlp_mod.mlp_forward(rms_norm(x, p["norm_scale"], cfg.norm_eps),
+                                   p, cfg, precision)
+
+
+def apply_slot_full(x, slot_params, spec: SlotSpec, cfg, precision, *,
+                    kv_cache, positions, lengths, block_tables):
+    """Prefill branch of the reference's `apply_slot_full`: attention over
+    the prompt (writing the paged cache), then the MLP."""
+    p = slot_params["attn"]
+    xn = rms_norm(x, p["norm_scale"], cfg.norm_eps)
+    x = x + attn_mod.attention_prefill(
+        xn, p, cfg, kv_cache, precision, lengths=lengths,
+        positions=positions, block_tables=block_tables)
+    return _mlp(x, slot_params, cfg, precision)
+
+
+def apply_slot_decode(x, slot_params, spec: SlotSpec, cfg, precision, *,
+                      kv_cache, lengths, block_tables):
+    """One-token decode through the slot (attention via kernel 4)."""
+    p = slot_params["attn"]
+    xn = rms_norm(x, p["norm_scale"], cfg.norm_eps)
+    x = x + attn_mod.attention_decode(xn, p, cfg, kv_cache, lengths,
+                                      precision, block_tables=block_tables)
+    return _mlp(x, slot_params, cfg, precision)

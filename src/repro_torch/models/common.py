@@ -1,0 +1,50 @@
+"""Shared model components: norms, RoPE, initializers (port of
+`repro.models.common`)."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
+def rope_frequencies(d_head: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, d_head, 2, dtype=torch.float32, device=device) / d_head
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, D); positions broadcastable to (..., S)."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, x.device)                 # (D/2,)
+    angles = positions[..., None].float() * freqs                # (..., S, D/2)
+    cos = torch.cos(angles)[..., None, :]                        # (..., S, 1, D/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def dense_init(generator: torch.Generator, shape, in_axis_size: Optional[int] = None,
+               dtype=torch.bfloat16) -> torch.Tensor:
+    """normal * fan_in^-0.5, drawn in f32 one leading slice at a time (a
+    full-width stacked leaf never exists in f32 at once)."""
+    fan_in = in_axis_size if in_axis_size is not None else shape[-2]
+    std = fan_in ** -0.5
+    out = torch.empty(shape, dtype=dtype, device=generator.device)
+    flat = out.view(-1, *shape[-2:]) if len(shape) > 2 else out[None]
+    for i in range(flat.shape[0]):
+        flat[i] = torch.randn(shape[-2:], generator=generator,
+                              device=generator.device) * std
+    return out
+
+
+def embed_init(generator: torch.Generator, shape, dtype=torch.bfloat16) -> torch.Tensor:
+    return (torch.randn(shape, generator=generator, device=generator.device)
+            * 0.02).to(dtype)

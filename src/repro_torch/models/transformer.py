@@ -1,0 +1,181 @@
+"""Model assembly: init / paged cache / prefill / decode for the dense
+decoder (port of `repro.models.transformer`, rollout half).
+
+`Transformer` holds the configuration and the device; the parameters are
+a nested dict with the reference's key names and layer-stacked leaves
+(`blocks/s0/attn/wq` is (R, K, N)), so `bridge.params_from_numpy` maps a
+reference pytree onto it one to one and `core.fp8_params` selects the
+same leaves to quantize.  The reference's `lax.scan` over the R repeats is
+a Python loop over per-layer views here.  The cache is updated in place
+and returned.  `forward_train`/`token_logprobs` come with the training
+slice, chunked prefill with the serving slice.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.core.fp8_linear import linear
+from repro_torch.core.precision import PrecisionConfig
+from repro_torch.core.quant import QuantizedTensor
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import blocks as blocks_mod
+from repro_torch.models.common import dense_init, embed_init, rms_norm
+
+
+def _check_precision(precision: PrecisionConfig) -> None:
+    if precision.quantize_attention:
+        raise NotImplementedError(
+            "quantize_attention (FULL_FP8_ROLLOUT) is not ported yet: "
+            "ROADMAP queue 1")
+
+
+def _layer(tree, r: int):
+    """Layer `r` of a stacked param tree (views)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, r) for k, v in tree.items()}
+    if isinstance(tree, QuantizedTensor):
+        return tree.layer(r)
+    return tree[r]
+
+
+class Transformer(nn.Module):
+    """Dense decoder-only transformer on one device (CUDA by default)."""
+
+    def __init__(self, cfg, device=None, dtype=torch.bfloat16):
+        super().__init__()
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        self.pattern = blocks_mod.layer_pattern(cfg)
+        for spec in self.pattern:
+            blocks_mod.check_supported(spec)
+        self.repeats = blocks_mod.n_repeats(cfg)
+
+    # ------------------------------------------------------------------
+    # init
+    # ------------------------------------------------------------------
+
+    def init_params(self, seed: int = 0) -> dict:
+        """Random weights drawn from a seeded `torch.Generator` on the
+        model's device (normal x fan_in^-0.5; x 0.02 for the embedding;
+        ones for norm scales).  They cannot equal the reference's
+        `jax.random` draws: tests bridge the reference's params instead."""
+        cfg, r, dt = self.cfg, self.repeats, self.dtype
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        d, h, kvh, dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                            cfg.d_head, cfg.d_ff)
+
+        def ones(*shape):
+            return torch.ones(shape, dtype=dt, device=self.device)
+
+        params = {"emb": embed_init(gen, (cfg.vocab_size, d), dt)}
+        blocks = {}
+        for j, _ in enumerate(self.pattern):
+            attn = {
+                "wq": dense_init(gen, (r, d, h * dh), d, dt),
+                "wk": dense_init(gen, (r, d, kvh * dh), d, dt),
+                "wv": dense_init(gen, (r, d, kvh * dh), d, dt),
+                "wo": dense_init(gen, (r, h * dh, d), h * dh, dt),
+                "norm_scale": ones(r, d),
+            }
+            if cfg.qk_norm:
+                attn["q_norm_scale"] = ones(r, dh)
+                attn["k_norm_scale"] = ones(r, dh)
+            mlp = {"wg": dense_init(gen, (r, d, f), d, dt),
+                   "wd": dense_init(gen, (r, f, d), f, dt),
+                   "norm_scale": ones(r, d)}
+            if cfg.mlp_gated:
+                mlp["wu"] = dense_init(gen, (r, d, f), d, dt)
+            blocks[f"s{j}"] = {"attn": attn, "mlp": mlp}
+        params["blocks"] = blocks
+        params["final_norm_scale"] = ones(d)
+        if not cfg.tie_embeddings:
+            params["lm_head"] = dense_init(gen, (d, cfg.vocab_size), d, dt)
+        return params
+
+    def init_cache(self, batch: int, max_len: int, precision: PrecisionConfig,
+                   *, page_size: int, num_pages: Optional[int] = None) -> dict:
+        """Paged rollout cache: per-layer pools of `num_pages` blocks of
+        `page_size` tokens (+ the trash row) and a (B, W) block table,
+        W = ceil(max_len / page_size).  Without `num_pages` each sequence
+        owns a contiguous run of blocks (identity tables); with it the
+        tables start unmapped (-1) for an external allocator."""
+        cfg = self.cfg
+        pages_per_seq = -(-max_len // page_size)
+        self_owned = num_pages is None
+        if self_owned:
+            num_pages = batch * pages_per_seq
+        slots = {f"s{j}": {"kv": attn_mod.init_paged_kv_cache(
+            num_pages, page_size, cfg.n_kv_heads, cfg.d_head, precision,
+            repeats=self.repeats, device=self.device, dtype=self.dtype)}
+            for j, _ in enumerate(self.pattern)}
+        if self_owned:
+            tables = torch.arange(batch * pages_per_seq, dtype=torch.int32,
+                                  device=self.device).reshape(batch, pages_per_seq)
+        else:
+            tables = torch.full((batch, pages_per_seq), -1, dtype=torch.int32,
+                                device=self.device)
+        return {"slots": slots,
+                "lengths": torch.zeros((batch,), dtype=torch.int32,
+                                       device=self.device),
+                "block_tables": tables}
+
+    # ------------------------------------------------------------------
+    # shared pieces
+    # ------------------------------------------------------------------
+
+    def _unembed(self, params, x, precision):
+        x = rms_norm(x, params["final_norm_scale"], self.cfg.norm_eps)
+        head = params["emb"].T if self.cfg.tie_embeddings else params["lm_head"]
+        # the lm_head is never quantized (paper §2.1.1); logits are rounded
+        # to the activation dtype (bf16), then widened to f32
+        return linear(x, head, precision=precision, quantized=False).float()
+
+    def _layers(self, params, cache):
+        for r in range(self.repeats):
+            slot_params = _layer(params["blocks"], r)
+            for j, spec in enumerate(self.pattern):
+                name = f"s{j}"
+                yield spec, slot_params[name], cache["slots"][name]["kv"].layer(r)
+
+    # ------------------------------------------------------------------
+    # prefill / decode
+    # ------------------------------------------------------------------
+
+    def prefill(self, params, inputs: dict, cache: dict,
+                precision: PrecisionConfig):
+        """Process right-padded prompts `inputs["tokens"]` (B, T) with
+        lengths `inputs["lengths"]` (B,), fill the cache, return the logits
+        at each last valid position (B, V) f32 and the cache."""
+        _check_precision(precision)
+        tokens = inputs["tokens"].to(self.device)
+        lengths = inputs["lengths"].to(self.device, torch.int32)
+        b, t = tokens.shape
+        x = params["emb"][tokens.long()]
+        positions = torch.arange(t, device=self.device)[None, :]
+        for spec, p, kv in self._layers(params, cache):
+            x = blocks_mod.apply_slot_full(
+                x, p, spec, self.cfg, precision, kv_cache=kv,
+                positions=positions, lengths=lengths,
+                block_tables=cache["block_tables"])
+        cache["lengths"] = lengths
+        idx = torch.clamp(lengths.long() - 1, 0, t - 1)
+        x_last = x[torch.arange(b, device=self.device), idx]
+        return self._unembed(params, x_last, precision), cache
+
+    def decode_step(self, params, tokens: torch.Tensor, cache: dict,
+                    precision: PrecisionConfig):
+        """One autoregressive step on (B,) tokens -> (logits (B, V), cache)."""
+        _check_precision(precision)
+        lengths = cache["lengths"]
+        x = params["emb"][tokens.to(self.device).long()][:, None, :]
+        for spec, p, kv in self._layers(params, cache):
+            x = blocks_mod.apply_slot_decode(
+                x, p, spec, self.cfg, precision, kv_cache=kv,
+                lengths=lengths, block_tables=cache["block_tables"])
+        cache["lengths"] = lengths + 1
+        return self._unembed(params, x[:, 0], precision), cache

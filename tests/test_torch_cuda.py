@@ -1,0 +1,163 @@
+"""The port's CUDA kernels on the card, at the CPU tests' small geometries.
+
+This file imports no JAX, so it runs on the card's machine:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
+
+Without a CUDA device every test skips (the `cuda` fixture decides).
+`chip_smoke.py` holds the kernels to their plain versions at the main
+path's full-width shapes; these tests cover what it does not: padding in
+the `ops` wrappers (K and N not multiples of 128, ragged leading dims),
+E5M2 and UE8M0 quantizers, paged decode at block sizes 4/8, head widths
+16/32 and group sizes 2-4 with ragged tails and NaN-poisoned stale table
+entries, the GRPO fork on the card, and a wrapper without its library.
+Tolerances are those of the CPU tests: quantizers bit-equal, GEMM within
+one bf16 rounding (rtol 2**-7), decode attention within 1e-2.
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+# tiny tensors: one intra-op thread, so torch's thread pool does not
+# spin on the cores that the other test workers use
+torch.set_num_threads(1)
+
+from repro_torch.configs import tiny_serving_config  # noqa: E402
+from repro_torch.core.precision import (  # noqa: E402
+    E4M3,
+    E5M2,
+    PrecisionConfig,
+    ScaleFormat,
+)
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import fp8_kv_attention as fa  # noqa: E402
+from repro_torch.kernels import fp8_quant as fq  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.models import Transformer  # noqa: E402
+from repro_torch.rl import SamplerConfig, generate, sync_policy_weights  # noqa: E402
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _bits(t):
+    return t.view(torch.uint8)
+
+
+@pytest.mark.parametrize("fmt", [ScaleFormat.FP32, ScaleFormat.UE8M0])
+@pytest.mark.parametrize("fp8", [E4M3, E5M2])
+def test_quantizers_bit_equal_on_card(cuda, fp8, fmt):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = (torch.randn((3, 5, 200), generator=gen, device=cuda) * 7).to(torch.bfloat16)
+    w = (torch.randn((2, 200, 136), generator=gen, device=cuda) * 0.1).to(torch.bfloat16)
+    xk = ops.quantize_activation(x, fp8, fmt)
+    wk = ops.quantize_weight(w, fp8, fmt)
+    xp = fq.quantize_activation_ref(ops._pad_to(x.reshape(-1, 200), (1, 128)), fp8, fmt)
+    wp = fq.quantize_weight_ref(ops._pad_to(w, (128, 128)), fp8, fmt)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(xk.data), _bits(xp[0][:, :200].reshape(3, 5, 200)))
+    assert torch.equal(xk.scales, xp[1].reshape(3, 5, 2))
+    assert torch.equal(_bits(wk.data), _bits(wp[0][..., :200, :136]))
+    assert torch.equal(wk.scales, wp[1])
+
+
+@pytest.mark.parametrize("xshape,n", [((9, 200), 130), ((2, 3, 128), 256), ((1, 64), 64)])
+def test_fp8_matmul_wrapper_on_card(cuda, xshape, n):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(xshape, generator=gen, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((xshape[-1], n), generator=gen, device=cuda)
+         * xshape[-1] ** -0.5).to(torch.bfloat16)
+    x_q, w_q = ops.quantize_activation(x), ops.quantize_weight(w)
+    y = ops.fp8_matmul(x_q, w_q)
+    # the plain version on the same CUDA tensors
+    a = ops._pad_to(x_q.data.reshape(-1, xshape[-1]), (1, 128)).contiguous()
+    yp = ops._gemm.fp8_gemm_ref(a, ops._pad_to(w_q.data, (128, 128)),
+                                x_q.scales.reshape(a.shape[0], -1), w_q.scales)
+    yp = yp[:, :n].reshape(xshape[:-1] + (n,))
+    torch.cuda.synchronize()
+    assert y.shape == yp.shape and y.dtype == torch.bfloat16
+    assert torch.allclose(y.float(), yp.float(), rtol=2 ** -7,
+                          atol=1e-5 * yp.float().abs().max().item())
+
+
+@pytest.mark.parametrize("kv", ["fp8", "bf16"])
+@pytest.mark.parametrize("rem_of_bs", ["0", "1", "bs-1"])
+@pytest.mark.parametrize("bs,d,g", [(4, 16, 2), (4, 32, 4), (8, 16, 4), (8, 32, 3)])
+def test_paged_decode_on_card(cuda, bs, d, g, rem_of_bs, kv):
+    gen = torch.Generator(device=cuda).manual_seed(bs * 100 + d + g)
+    rem = {"0": 0, "1": 1, "bs-1": bs - 1}[rem_of_bs]
+    b, kvh, w = 3, 2, 6
+    lengths = torch.tensor([2 * bs + rem, 4 * bs + rem, 0], dtype=torch.int32,
+                           device=cuda).clamp(max=w * bs)
+    q, kq, vq, ks, vs, tables, lengths, poison = _decode_case(
+        cuda, gen, b, kvh, g, d, bs, w, lengths)
+    if kv == "bf16":
+        kq, vq = kq.float().to(torch.bfloat16), vq.float().to(torch.bfloat16)
+        ks, vs = torch.ones_like(ks), torch.ones_like(vs)
+    out = fa.fp8_paged_decode_attention(q, kq, vq, ks, vs, tables, lengths)
+    plain = fa.fp8_paged_decode_attention_ref(q, kq, vq, ks, vs, tables, lengths)
+    kn, vn = kq.clone(), vq.clone()
+    kn[poison] = float("nan")
+    vn[poison] = float("nan")
+    poisoned = fa.fp8_paged_decode_attention(q, kn, vn, ks, vs, tables, lengths)
+    torch.cuda.synchronize()
+    assert torch.allclose(out.float(), plain.float(), rtol=1e-2, atol=1e-2)
+    assert torch.equal(poisoned.view(torch.int16), out.view(torch.int16))
+    assert bool((out[2] == 0).all())          # the idle slot
+
+
+def _decode_case(dev, gen, b, kvh, g, d, bs, w, lengths):
+    nrows = b * w + 1
+    k = torch.randn((nrows, bs, kvh, d), generator=gen, device=dev)
+    v = torch.randn((nrows, bs, kvh, d), generator=gen, device=dev)
+    ks, vs = k.abs().amax() / 448, v.abs().amax() / 448
+    kq, vq = (k / ks).clamp(-448, 448).to(E4M3), (v / vs).clamp(-448, 448).to(E4M3)
+    q = torch.randn((b, kvh, g, d), generator=gen, device=dev).to(torch.bfloat16)
+    tables = torch.randperm(nrows - 1, generator=gen, device=dev)[: b * w].reshape(b, w)
+    live = ((lengths.long() + bs - 1) // bs).clamp(1, w)
+    dead = torch.arange(w, device=dev)[None, :] >= live[:, None]
+    tables = torch.where(dead, nrows - 1, tables).to(torch.int32)
+    return q, kq, vq, ks.float(), vs.float(), tables, lengths, nrows - 1
+
+
+def test_group_fork_on_card_equals_tiled_path(cuda):
+    """The GRPO fork (pool-row copies on the card) equals the tiled
+    group-1 run with the same CUDA generator seed: tokens and masks
+    exactly; logps to 1e-4, because the fork prefills 2 rows where the
+    tiled run prefills 6, and cuBLAS may pick another kernel (another sum
+    order) for the plain f32 lm_head at the other batch size."""
+    cfg = tiny_serving_config().reduced(d_model=128, d_ff=256, n_heads=4, n_kv_heads=2,
+                                        d_head=32)
+    prec = PrecisionConfig()
+    model = Transformer(cfg, cuda)
+    roll, _ = sync_policy_weights(model.init_params(3), prec)
+    prompts = torch.tensor([[1, 5, 6, 7, 8, 9, 10], [1, 9, 10, 11, 12, 4, 5]],
+                           dtype=torch.int32)
+    lens = torch.tensor([7, 7], dtype=torch.int32)
+    samp = SamplerConfig(max_new_tokens=6, temperature=1.0)
+    runs = []
+    for group_kw, p, ln in ((dict(num_samples_per_prompt=3, shared_prefix_blocks=1),
+                             prompts, lens),
+                            ({}, prompts.repeat_interleave(3, 0), lens.repeat_interleave(3, 0))):
+        gen = torch.Generator(device=cuda).manual_seed(7)
+        runs.append(generate(roll, p, ln, gen, cfg, prec, samp, page_size=4,
+                             device=cuda, **group_kw))
+    for field in ("response_tokens", "response_mask"):
+        assert torch.equal(getattr(runs[0], field), getattr(runs[1], field)), field
+    assert torch.allclose(runs[0].rollout_logps, runs[1].rollout_logps, atol=1e-4)
+
+
+def test_wrapper_without_library_raises(cuda, monkeypatch):
+    """Given a CUDA tensor and no kernel library, a wrapper raises instead
+    of falling back to the plain version."""
+    def no_build():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    monkeypatch.setattr(build, "_LIB", None)
+    monkeypatch.setattr(build, "build", no_build)
+    x = torch.randn((8, 256), device=cuda).to(torch.bfloat16)
+    with pytest.raises(RuntimeError, match="cannot be built"):
+        ops.quantize_activation(x)
