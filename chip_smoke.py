@@ -7,25 +7,36 @@ Needs one CUDA card, nvcc and the checkout's `src/`; imports nothing of
 JAX or of the JAX package.  Phases, in order (any failure exits non-zero):
 
 1. the card's name and power limit (nvidia-smi);
-2. build the four CUDA kernels from `src/repro_torch/csrc` (nvcc, sm_90a);
+2. build the five CUDA kernels from `src/repro_torch/csrc` (nvcc, sm_90a);
 3. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes: the quantizers bit-equal (FP32 scales; UE8M0
+   main paths' shapes: the quantizers bit-equal (FP32 scales; UE8M0
    mismatching tiles are counted and printed), fp8_gemm within one bf16
-   rounding (rtol 2**-7), paged decode within 1e-2 plus the stale-entry
-   (NaN-poison) and idle-slot checks;
-4. the main path on full-width, full-depth qwen3-8b with random weights
-   from a seed: `sync_policy_weights(PrecisionConfig())`, then `generate`
-   with 8 ragged prompts (64-128 tokens), 32 new tokens, page size 16 —
-   greedy, then temperature 1 with GRPO groups of 4 over shared prefix
-   blocks.  The launch counts are zeroed just before and read just after;
-   every kernel must have launched.  Outputs are checked (finite, in
-   range), and one decode step's logits through the kernels are held
-   against the plain versions on the same CUDA tensors (allclose within
-   LOGIT_ATOL plus argmax where the top-2 gap exceeds twice that); one
-   decode step is profiled for its device-busy share;
-5. each kernel's time at the main path's shapes beside its plain
+   rounding (rtol 2**-7), paged decode and chunked prefill within 1e-2
+   (the CPU tests' band) plus the stale-entry proofs (NaN / 448 poison)
+   and exact zeros for idle slots and dead chunk rows;
+4. the rollout path on full-width, full-depth qwen3-8b with random
+   weights from a seed: `sync_policy_weights(PrecisionConfig())`, then
+   `generate` with 8 ragged prompts (64-128 tokens), 32 new tokens, page
+   size 16 — greedy, then temperature 1 with GRPO groups of 4 over shared
+   prefix blocks.  Launch counts are zeroed just before and read just
+   after; every kernel of the path must have launched.  Outputs are
+   checked (finite, in range); one decode step's and one prefill chunk's
+   logits through the kernels are held against the plain versions on the
+   same CUDA tensors; one decode step is profiled;
+5. the serving path on the same synced weights: `ServingEngine` with
+   kernel_config "all", chunked prefill (C 128), 8 slots, ondemand
+   admission and a host tier, over 16 ragged prompts (96-640 tokens, four
+   groups sharing a 256-token prefix), 32 greedy tokens each — once with
+   a roomy KV budget and once with one tight enough to swap (counts zeroed
+   before and read after the two runs; kernels 1, 3, 4 and 5 must have
+   launched); completions must be bit-equal between the two, and between
+   plain and speculative (n-gram, k 4) decoding of 8 of them; the forked
+   copy-on-write recipe; the launcher `repro_torch.launch.serve.run`;
+6. each kernel's time at the main paths' shapes beside its plain
    version's, one library call's where one computes the same function,
-   and the bound (bytes over 3.35 TB/s or operations over the peak rate).
+   and the bound (bytes over 3.35 TB/s or operations over the peak rate);
+   engine tokens/s, ms per prefill chunk and per decode step, and one
+   profiled engine decode step.
 
 The line before the last is the `kernels` JSON object; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
@@ -51,12 +62,24 @@ F32_FLOPS = 67e12                  # f32 outside the tensor cores
 # activations over 36 layers); held at about 2.4x that
 LOGIT_ATOL = 0.5
 SEED = 0
+# 16-token chunk logits through the kernels vs the plain versions (W8A8 +
+# FP8 KV, full depth): measured 0.308 on the H100 (the GEMM's sum order and
+# `_deq` vs the plain path, amplified as at decode); held at 1.6x that
+CHUNK_LOGIT_ATOL = 0.5
+# the engine: `block_size` counts bf16-KV tokens, so an FP8 block holds 16
+ENGINE_BLOCK_SIZE = 8
+KV_BLOCK = 2 * ENGINE_BLOCK_SIZE
+ENGINE_MAX_NEW = 32
+ENGINE_MAX_SEQ = 640 + ENGINE_MAX_NEW
+TIGHT_BUDGET_TOKENS = 2000     # 4 swap-outs in this trace's schedule
 KERNEL_SOURCES = {
     "quant_act": ("src/repro_torch/csrc/fp8_quant.cu", "src/repro/kernels/fp8_quant.py:55"),
     "quant_weight": ("src/repro_torch/csrc/fp8_quant.cu", "src/repro/kernels/fp8_quant.py:90"),
     "fp8_gemm": ("src/repro_torch/csrc/fp8_gemm.cu", "src/repro/kernels/fp8_gemm.py:72"),
     "paged_decode": ("src/repro_torch/csrc/fp8_paged_decode.cu",
                      "src/repro/kernels/fp8_kv_attention.py:285"),
+    "paged_prefill": ("src/repro_torch/csrc/fp8_paged_prefill.cu",
+                      "src/repro/kernels/fp8_kv_attention.py:402"),
 }
 
 
@@ -203,6 +226,74 @@ def compare_decode(dev, gen, results):
     results["paged_decode"]["max_abs_err"] = err
 
 
+def prefill_case(dev, gen, start, lengths, c, kvh=8, g=4, d=128, bs=KV_BLOCK,
+                 w=-(-ENGINE_MAX_SEQ // KV_BLOCK), fp8=True):
+    """A chunk of C queries per slot over a paged pool whose table entries
+    past each slot's live blocks point at one poison row (the last)."""
+    import torch
+    from repro_torch.core.precision import E4M3
+    b = len(start)
+    nrows = b * w + 1
+    poison = nrows - 1
+    k = torch.randn((nrows, bs, kvh, d), generator=gen, device=dev)
+    v = torch.randn((nrows, bs, kvh, d), generator=gen, device=dev)
+    if fp8:
+        ks, vs = k.abs().amax() / 448, v.abs().amax() / 448
+        kq, vq = (k / ks).clamp(-448, 448).to(E4M3), (v / vs).clamp(-448, 448).to(E4M3)
+    else:
+        ks = vs = torch.ones((), device=dev)
+        kq, vq = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    q = torch.randn((b, c, kvh, g, d), generator=gen, device=dev).to(torch.bfloat16)
+    start = torch.tensor(start, dtype=torch.int32, device=dev)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    tables = torch.randperm(nrows - 1, generator=gen, device=dev)[: b * w].reshape(b, w)
+    ctx = torch.minimum(start + c, lengths).long()
+    live = ((ctx + bs - 1) // bs).clamp(1, w)
+    dead = torch.arange(w, device=dev)[None, :] >= live[:, None]
+    tables = torch.where(dead, poison, tables).to(torch.int32)
+    return q, kq, vq, ks.float(), vs.float(), tables, start, lengths, poison
+
+
+# (start, lengths) per slot: context % 16 in {0, 1, 15}; ragged chunks with
+# one valid row, a full chunk, and 3 valid rows (the rest past `lengths`)
+PREFILL_CASES = {
+    (1, 128): ([512], [640]),
+    (3, 128): ([255, 257, 508], [256, 385, 511]),
+    (1, 5): ([284], [289]),
+    (3, 5): ([255, 380, 508], [256, 385, 511]),
+}
+
+
+def compare_prefill(dev, gen, results):
+    import torch
+    from repro_torch.kernels import fp8_kv_attention as fa
+    worst = 0.0
+    for fp8 in (True, False):
+        for (b, c), (start, lengths) in PREFILL_CASES.items():
+            q, kq, vq, ks, vs, tables, st, ln, poison = prefill_case(
+                dev, gen, start, lengths, c, fp8=fp8)
+            out_k = fa.fp8_paged_prefill_attention(q, kq, vq, ks, vs, tables, st, ln)
+            out_p = fa.fp8_paged_prefill_attention_ref(q, kq, vq, ks, vs, tables, st, ln)
+            kn, vn = kq.clone(), vq.clone()
+            kn[poison] = 448.0
+            vn[poison] = 448.0
+            out_n = fa.fp8_paged_prefill_attention(q, kn, vn, ks, vs, tables, st, ln)
+            torch.cuda.synchronize()
+            err = (out_k.float() - out_p.float()).abs().max().item()
+            ok = torch.allclose(out_k.float(), out_p.float(), rtol=1e-2, atol=1e-2)
+            dead = (st[:, None] + torch.arange(c, device=dev)[None, :]) >= ln[:, None]
+            log(f"paged_prefill {'e4m3' if fp8 else 'bf16'} B={b} C={c} KVH=8 G=4 D=128 "
+                f"BS={KV_BLOCK} start {start} lengths {lengths}: max|kernel-plain| "
+                f"{err:.3e}, dead rows {int(dead.sum())} {'ok' if ok else 'FAIL'}")
+            check(ok, f"paged prefill B={b} C={c} disagrees with its plain version")
+            check(torch.equal(out_n.view(torch.int16), out_k.view(torch.int16)),
+                  "a poisoned (448) stale table entry reached the paged-prefill output")
+            check(bool((out_k[dead] == 0).all()), "a row past `lengths` is not exact zeros")
+            worst = max(worst, err)
+    log("paged_prefill: stale entries never read (448 poison), dead rows exact zeros")
+    results["paged_prefill"]["max_abs_err"] = worst
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -262,6 +353,43 @@ def decode_logits_check(model, roll, prec, prompts, lengths, dev):
         f"on all rows: {bool((lk.argmax(-1) == lp.argmax(-1)).all())}")
     check(bool(torch.isfinite(lk).all()), "kernel logits not finite")
     check(err <= LOGIT_ATOL and agree, "decode-step logits: kernels disagree with plain")
+    return err
+
+
+def chunk_logits_check(model, roll, prec, prompts, lengths, dev):
+    """One prefill chunk (16 tokens after each prompt, ragged valid rows)
+    through the kernels vs the plain versions on the same CUDA tensors."""
+    import copy
+
+    import numpy as np
+    import torch
+    from repro_torch.data import tasks
+    from repro_torch.kernels import ops
+    c = 16
+    cache = model.init_cache(len(prompts), prompts.shape[1] + c, prec, page_size=16)
+    model.prefill(roll, {"tokens": torch.from_numpy(prompts).to(dev),
+                         "lengths": torch.from_numpy(lengths).to(dev)}, cache, prec)
+    chunk = np.stack([tasks.random_prompt(SEED + 50 + i, c + 1)[1:] for i in range(len(prompts))])
+    n = np.array([16, 9, 1, 16, 5, 16, 12, 2])[:len(prompts)]
+    locked = prec.replace(calculate_kv_scales=False)
+    twin = copy.deepcopy(cache)
+    lk, _ = model.prefill_chunk(roll, torch.from_numpy(chunk), lengths, n, cache, locked,
+                                use_kernel=True, want_all_logits=True)
+    with mock.patch.object(ops, "_route", lambda t, kernel, plain: plain):
+        lp, _ = model.prefill_chunk(roll, torch.from_numpy(chunk), lengths, n, twin, locked,
+                                    use_kernel=True, want_all_logits=True)
+    torch.cuda.synchronize()
+    keep = torch.from_numpy(np.arange(c)[None, :] < n[:, None]).to(dev)
+    lk, lp = lk[keep], lp[keep]
+    err = (lk - lp).abs().max().item()
+    top2 = lp.topk(2, dim=-1).values
+    decisive = (top2[:, 0] - top2[:, 1]) > 2 * CHUNK_LOGIT_ATOL
+    agree = bool((lk.argmax(-1) == lp.argmax(-1))[decisive].all())
+    log(f"prefill-chunk logits kernel vs plain ({int(keep.sum())} rows): max abs err "
+        f"{err:.4f}, mean {(lk - lp).abs().mean().item():.5f} (tol {CHUNK_LOGIT_ATOL}); "
+        f"argmax equal on {int(decisive.sum())} decisive rows: {agree}")
+    check(bool(torch.isfinite(lk).all()), "chunk logits not finite")
+    check(err <= CHUNK_LOGIT_ATOL and agree, "chunk logits: kernels disagree with plain")
     return err
 
 
@@ -350,9 +478,9 @@ def main_path(dev, results, cfg):
     per_run = [{k: b[k] - a[k] for k in b} for a, b in zip(counts, counts[1:])]
     log(f"main-path launches: {launches}; weight sync: {counts[0]}; "
         f"greedy generate: {per_run[0]}; group generate: {per_run[1]}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
-        results[name]["launches"] = n
+    for name in ("quant_act", "quant_weight", "fp8_gemm", "paged_decode"):
+        check(launches[name] > 0, f"kernel {name} was not launched on the main path")
+        results[name]["launches"] = launches[name]
 
     steps = per_run[0]["paged_decode"] // cfg.n_layers
     check_trajectory(t_greedy, 8, 32, cfg.vocab_size, "greedy")
@@ -382,13 +510,225 @@ def main_path(dev, results, cfg):
         float(t_greedy.kv_scales["s0"]["k_scale"].max())]
     stats["decode_logit_max_abs_err"] = decode_logits_check(
         model, roll, prec, prompts, lengths, dev)
+    stats["chunk_logit_max_abs_err"] = chunk_logits_check(
+        model, roll, prec, prompts, lengths, dev)
     stats.update(profile_decode_step(model, roll, prec, prompts, lengths, dev))
     log("main path: " + json.dumps(stats))
-    return roll, t_greedy
+    return model, roll, t_greedy
 
 
 # ---------------------------------------------------------------------------
-# phase 5: times at the main path's shapes
+# phase 5: the serving path
+# ---------------------------------------------------------------------------
+
+def engine_trace(seed=SEED, n=16, groups=4, prefix=256, lo=96, hi=640):
+    """`n` prompts of seeded lengths in [lo, hi]; request i starts with the
+    `prefix`-token head of group i % groups (a prompt shorter than the
+    head is a prefix of it)."""
+    import numpy as np
+    from repro_torch.data import tasks
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(lo, hi + 1, size=n)
+    heads = [tasks.random_prompt(seed + 1000 + g, prefix) for g in range(groups)]
+    return [np.concatenate([heads[i % groups], tasks.random_prompt(seed + 2000 + i, hi)[1:]])
+            [: int(ln)] for i, ln in enumerate(lens)]
+
+
+def make_engine(roll, cfg, prec, dev, budget_tokens=None, spec=None, slots=8):
+    from repro_torch.serving import ServingEngine, kv_bytes_per_token
+    per = kv_bytes_per_token(cfg, prec)
+    eng = ServingEngine(
+        roll, cfg, prec, max_slots=slots, max_seq_len=ENGINE_MAX_SEQ,
+        kv_budget_bytes=None if budget_tokens is None else budget_tokens * per,
+        block_size=ENGINE_BLOCK_SIZE, admission="ondemand", host_kv_blocks=64,
+        prefill_chunk=128, kernel_config="all", eos_id=None, spec=spec, device=dev)
+    check(eng.block_mgr.block_size == KV_BLOCK, "engine block size")
+    return eng
+
+
+def check_engine_report(eng, rep, n, tag):
+    check(len(rep.completed) == n and not rep.stalled, f"{tag}: not every request completed")
+    check(all(len(r.generated) == ENGINE_MAX_NEW for r in rep.completed),
+          f"{tag}: a request stopped short")
+    check(eng.block_mgr.blocks_in_use == 0, f"{tag}: blocks still in use")
+    vocab = eng.cfg.vocab_size
+    check(all(0 <= t < vocab for r in rep.completed for t in r.generated),
+          f"{tag}: token out of range")
+    log(f"engine {tag}: {len(rep.completed)} completed, steps {rep.steps}, prefill chunks "
+        f"{rep.prefill_chunks}, prefix-hit blocks {rep.prefix_hit_blocks}, preemptions "
+        f"{rep.preemptions} (swap-outs {rep.swap_outs}, wasted {rep.wasted_tokens}), "
+        f"cow {rep.cow_copies}, spec steps {rep.spec_steps} (accepted {rep.accepted_tokens}), "
+        f"peak blocks {rep.peak_blocks_in_use} of {eng.block_mgr.num_blocks}")
+
+
+def _timed(fn, log_to):
+    """`fn` between two synchronizes; appends (ms, chunk width or None)."""
+    import torch
+
+    def wrapper(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        width = args[1].shape[1] if fn.__name__ == "prefill_chunk" else None
+        log_to.append(((time.perf_counter() - t0) * 1e3, width))
+        return out
+    return wrapper
+
+
+def _profile_step(eng):
+    """One engine step under torch.profiler: (device busy ms, kernels)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return sum(e.time_range.elapsed_us() for e in kernels) / 1e3, len(kernels)
+
+
+def engine_path(dev, results, cfg, roll):
+    """Roomy and tight runs (the serving path whose launches are counted),
+    then speculative decoding, the CoW fork and the launcher."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from repro_torch.core.precision import PrecisionConfig
+    from repro_torch.kernels import build
+    from repro_torch.serving import SpecConfig
+    from repro_torch.serving.scheduler import Cow, Grow
+    prec = PrecisionConfig()
+    trace = engine_trace()
+    stats = {"prompt_lengths": [len(p) for p in trace]}
+
+    build.reset_launch_counts()
+    # --- the serving path: a roomy run, then a tight one ------------------
+    eng = make_engine(roll, cfg, prec, dev)
+    for i, p in enumerate(trace):
+        eng.submit(p, max_new=ENGINE_MAX_NEW, rid=i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    roomy = eng.run(max_steps=2000)
+    torch.cuda.synchronize()
+    stats["roomy_wall_s"] = time.perf_counter() - t0
+    check_engine_report(eng, roomy, len(trace), "roomy")
+    stats["roomy_tokens_per_s"] = roomy.emitted_tokens / stats["roomy_wall_s"]
+
+    tight_eng = make_engine(roll, cfg, prec, dev, budget_tokens=TIGHT_BUDGET_TOKENS)
+    calls, decode_walls, profiled = [], [], None
+    tight_eng.model.prefill_chunk = _timed(tight_eng.model.prefill_chunk, calls)
+    tight_eng.model.decode_step = _timed(tight_eng.model.decode_step, calls)
+    for i, p in enumerate(trace):
+        tight_eng.submit(p, max_new=ENGINE_MAX_NEW, rid=i)
+    t0 = time.perf_counter()
+    while tight_eng.queue or any(r is not None for r in tight_eng.slot_req):
+        # after a pure decode step with nothing queued, the next step is one
+        # fused decode too: profile one such step
+        if profiled is None and len(decode_walls) >= 2 and not tight_eng.queue and all(
+                r is None or r.prefilled >= len(r.prompt) for r in tight_eng.slot_req):
+            profiled = _profile_step(tight_eng)
+            continue
+        ts = time.perf_counter()
+        d = tight_eng.step()
+        torch.cuda.synchronize()
+        check(not d.is_empty, "tight run stalled")
+        if d.decode_slots and all(isinstance(a, (Grow, Cow)) for a in d.actions):
+            decode_walls.append((time.perf_counter() - ts) * 1e3)
+    torch.cuda.synchronize()
+    stats["tight_wall_s"] = time.perf_counter() - t0
+    tight = tight_eng.run()
+    launches = dict(build.LAUNCHES)
+    # ----------------------------------------------------------------------
+    check_engine_report(tight_eng, tight, len(trace), "tight")
+    log(f"serving-path launches (roomy + tight runs): {launches}")
+    for name in ("quant_act", "fp8_gemm", "paged_decode", "paged_prefill"):
+        check(launches[name] > 0, f"kernel {name} was not launched on the serving path")
+    results["paged_prefill"]["launches"] = launches["paged_prefill"]
+    stats["serving_path_launches"] = launches
+    check(roomy.preemptions == 0 and tight.preemptions >= 1,
+          "the tight budget must preempt and the roomy one must not")
+    for rep in (roomy, tight):
+        check(rep.prefill_chunks > 0 and rep.prefix_hit_blocks > 0,
+              "no prefill chunks or no prefix hits")
+    done = {r.rid: r.generated for r in roomy.completed}
+    check(done == {r.rid: r.generated for r in tight.completed},
+          "greedy completions differ between the roomy and the tight run")
+    log("engine: roomy and tight runs give bit-equal greedy completions")
+    chunk_ms = [ms for ms, w in calls if w == 128]
+    decode_ms = [ms for ms, w in calls if w is None]
+    stats.update(
+        engine_chunk128_ms_mean=statistics.mean(chunk_ms), engine_chunk128_calls=len(chunk_ms),
+        engine_calibration_chunk_ms=[round(ms, 2) for ms, w in calls if w not in (None, 128)],
+        engine_decode_step_model_ms_mean=statistics.mean(decode_ms),
+        engine_decode_calls=len(decode_ms),
+        engine_pure_decode_step_wall_ms_median=statistics.median(decode_walls),
+        engine_pure_decode_steps=len(decode_walls),
+        engine_emitted_tokens=roomy.emitted_tokens, engine_steps=roomy.steps)
+    if profiled is not None:
+        busy_ms, n_kernels = profiled
+        stats.update(engine_decode_step_device_busy_ms=busy_ms,
+                     engine_decode_step_kernels=n_kernels,
+                     engine_decode_step_busy_share=busy_ms / statistics.median(decode_walls))
+    del eng, tight_eng
+
+    # --- speculative decoding of 8 requests: equal to plain greedy -------
+    spec_eng = make_engine(roll, cfg, prec, dev, spec=SpecConfig(num_draft_tokens=4))
+    for i, p in enumerate(trace[:8]):
+        spec_eng.submit(p, max_new=ENGINE_MAX_NEW, rid=i)
+    t0 = time.perf_counter()
+    spec = spec_eng.run(max_steps=2000)
+    torch.cuda.synchronize()
+    stats["spec_wall_s"] = time.perf_counter() - t0
+    check_engine_report(spec_eng, spec, 8, "spec k=4")
+    check(spec.spec_steps > 0, "no speculative verify ran")
+    check({r.rid: r.generated for r in spec.completed} == {i: done[i] for i in range(8)},
+          "speculative greedy completions differ from plain greedy")
+    log("engine: speculative greedy completions equal plain greedy")
+    stats.update(spec_steps=spec.spec_steps, spec_accepted=spec.accepted_tokens,
+                 spec_drafted=spec.draft_tokens)
+    del spec_eng
+
+    # --- copy-on-write: the forked-table recipe ---------------------------
+    # no unforked trace makes the scheduler plan a CoW (a decode write lands
+    # past the prompt's full blocks, the only shared ones); fork a running
+    # request's whole table, partial tail block included, as GRPO does
+    from repro_torch.serving.engine import Request
+    fork_eng = make_engine(roll, cfg, prec, dev, slots=2)
+    prompt = trace[5]                                  # 118 tokens: one chunk
+    fork_eng.submit(prompt, max_new=ENGINE_MAX_NEW, rid=0)
+    fork_eng._try_admit()
+    twin = Request(rid=1, prompt=prompt, max_new=ENGINE_MAX_NEW,
+                   prefilled=len(prompt), cached_tokens=len(prompt))
+    fork_eng.block_mgr.fork(0, 1)
+    slot = fork_eng._free_slot()
+    fork_eng._set_table_row(slot, fork_eng.block_mgr.blocks_of(1))
+    fork_eng._lengths[slot] = len(prompt)
+    fork_eng.pending_tok[slot] = fork_eng.pending_tok[0]
+    twin.generated = [int(fork_eng.pending_tok[0])]
+    fork_eng.slot_req[slot] = twin
+    fork = fork_eng.run(max_steps=200)
+    check_engine_report(fork_eng, fork, 2, "fork")
+    check(fork.cow_copies >= 1, "the fork made no copy-on-write")
+    got = {r.rid: r.generated for r in fork.completed}
+    check(got[0] == got[1], "forked request diverged from its donor")
+    log(f"engine: forked table copy-on-write ({fork.cow_copies} copies), fork equals donor")
+    del fork_eng
+
+    # --- the launcher, as a user runs it -----------------------------------
+    from repro_torch.launch import serve
+    out = serve.run(["--kernel-config", "all", "--prefill-chunk", "16"])
+    log("launch.serve report: " + json.dumps(out))
+    check(out["completed"] == 16 and not out["stalled"], "launcher run incomplete")
+    stats["launcher"] = {k: out[k] for k in ("completed", "steps", "prefill_chunks",
+                                             "emitted_tokens", "serve_wall_s", "sync_ms")}
+    log("serving path: " + json.dumps(stats))
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# phase 6: times at the main paths' shapes
 # ---------------------------------------------------------------------------
 
 def library_gemm(a, wq, a_s, w_s, reference):
@@ -483,6 +823,48 @@ def time_kernels(dev, gen, results, cfg, roll, traj, extra):
     extra.append(dict(kernel="paged_decode", shape=[8, kvh, g, dh], context=ctx, **row))
     results["paged_decode"].update(row)
 
+    # chunked prefill at the engine's chunk (C 128, 640 tokens of context)
+    # and at the speculative verify chunk (C 5)
+    for c, start, length in ((128, 512, 640), (5, 295, 300)):
+        q, kq, vq, ks, vs, tables, st, ln, _ = prefill_case(
+            dev, gen, [start], [length], c, kvh=kvh, g=g, d=dh)
+        args = (q, kq, vq, ks, vs, tables, st, ln)
+        lib = sdpa_yardstick(*args)
+        row = dict(ms=cuda_time_ms(lambda: fa.fp8_paged_prefill_attention(*args)),
+                   plain_ms=cuda_time_ms(lambda: fa.fp8_paged_prefill_attention_ref(*args)),
+                   library_ms=cuda_time_ms(lib))
+        keys = sum(p + 1 for p in range(start, min(start + c, length)))   # causal
+        live = -(-min(start + c, length) // KV_BLOCK) * KV_BLOCK
+        nbytes = 2 * live * kvh * dh + 2 * 2 * c * kvh * g * dh + tables.numel() * 4 + 8
+        row["bound_ms"], row["bound_by"] = bound(nbytes, 4 * keys * kvh * g * dh,
+                                                 BF16_TC_FLOPS)
+        extra.append(dict(kernel="paged_prefill", shape=[1, c, kvh, g, dh], start=start,
+                          lengths=length, library="scaled_dot_product_attention on a "
+                          "pre-gathered, pre-dequantized bf16 copy (gather excluded)", **row))
+        if c == 128:
+            results["paged_prefill"].update(row)
+
+
+def sdpa_yardstick(q, kq, vq, ks, vs, tables, st, ln):
+    """`F.scaled_dot_product_attention` over the chunk's live K/V, gathered
+    and dequantized beforehand (bf16, K/V repeated over the G heads of a
+    group), with the same causal mask: the gather is not timed."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import fp8_kv_attention as fa
+    b, c, kvh, g, d = q.shape
+    ctx = torch.minimum(st + c, ln)
+    kf, vf = fa._live_kv(kq, vq, ks, vs, tables, ctx)
+    s_len = -(-int(ctx.max()) // KV_BLOCK) * KV_BLOCK
+    kb = kf[:, :s_len].to(torch.bfloat16).permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
+    vb = vf[:, :s_len].to(torch.bfloat16).permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
+    qb = q.permute(0, 2, 3, 1, 4).reshape(b, kvh * g, c, d)
+    q_pos = st.long()[:, None] + torch.arange(c, device=q.device)[None, :]
+    k_pos = torch.arange(s_len, device=q.device)
+    mask = ((k_pos[None, None, :] <= q_pos[:, :, None])
+            & (q_pos < ln.long()[:, None])[:, :, None])[:, None]
+    return lambda: F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask)
+
 
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
@@ -508,7 +890,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build.library()
-    log(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    log(f"kernel build ({len(build._sources())} sources in parallel): "
+        f"{time.perf_counter() - t0:.1f} s")
 
     results = {name: dict(name=name, route="cuda", source=src, replaces=rep)
                for name, (src, rep) in KERNEL_SOURCES.items()}
@@ -519,9 +902,13 @@ def main() -> int:
     torch.cuda.synchronize()
     compare_decode(dev, gen, results)
     torch.cuda.synchronize()
+    compare_prefill(dev, gen, results)
+    torch.cuda.synchronize()
 
     cfg = get_config("qwen3-8b")
-    roll, traj = main_path(dev, results, cfg)
+    model, roll, traj = main_path(dev, results, cfg)
+    torch.cuda.synchronize()
+    engine_path(dev, results, cfg, roll)
     torch.cuda.synchronize()
     extra = []
     time_kernels(dev, gen, results, cfg, roll, traj, extra)

@@ -1,0 +1,52 @@
+"""Kernel routing configuration for the serving hot path (port of
+`repro.kernels.config`, same spellings).
+
+One small frozen config decides which attention hot paths run through the
+CUDA kernels instead of the table-gather paths.  It is threaded as a
+single object from `ServingEngine(kernel_config=...)` into
+`Transformer.prefill_chunk` / `Transformer.decode_step`, so "which
+mechanism serves this step" is decided in exactly one place.
+
+Accepted spellings (string shorthands map onto the dataclass):
+
+    "off"      — table gather + plain attention everywhere (the
+                 reference's debugging baseline)
+    "decode"   — fp8_paged_decode_attention (kernel 4) for the fused decode
+    "prefill"  — fp8_paged_prefill_attention (kernel 5) for chunks
+    "all"      — both (the production configuration)
+
+On the CPU the kernel wrappers run their plain versions; on the card they
+launch the CUDA kernels.  The numerics contract is the repo-wide one:
+allclose + argmax agreement with the gather paths, never token equality
+across mechanisms.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelConfig:
+    prefill: bool = False   # chunked-prefill attention through the kernel
+    decode: bool = False    # fused decode attention through the kernel
+
+    @classmethod
+    def parse(cls, spec) -> "KernelConfig":
+        """Accept a KernelConfig or one of the string shorthands."""
+        if isinstance(spec, KernelConfig):
+            return spec
+        table = {
+            "off": cls(),
+            "decode": cls(decode=True),
+            "prefill": cls(prefill=True),
+            "all": cls(prefill=True, decode=True),
+        }
+        if spec not in table:
+            raise ValueError(
+                f"unknown kernel_config {spec!r}; expected a KernelConfig "
+                f"or one of {sorted(table)}")
+        return table[spec]
+
+    @property
+    def any(self) -> bool:
+        return self.prefill or self.decode

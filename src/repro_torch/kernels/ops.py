@@ -106,3 +106,18 @@ def fp8_paged_decode_attention(q, k_pool, v_pool, k_scale, v_scale,
     fn = _route(q, _attn.fp8_paged_decode_attention,
                 _attn.fp8_paged_decode_attention_ref)
     return fn(q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths)
+
+
+def fp8_paged_prefill_attention(q, k_pool, v_pool, k_scale, v_scale,
+                                block_tables, start, lengths):
+    """Chunked-prefill attention over an fp8 (or bf16) pool (kernel 5).
+
+    q (B, C, KVH, G, D) at absolute positions [start, start + C);
+    `block_tables` holds *physical* pool rows; `lengths` counts each
+    slot's valid tokens after the chunk (rows at or past it are zeros).
+    Entries at or past ceil(min(start + C, lengths) / BS) are never read.
+    """
+    fn = _route(q, _attn.fp8_paged_prefill_attention,
+                _attn.fp8_paged_prefill_attention_ref)
+    return fn(q, k_pool, v_pool, k_scale, v_scale, block_tables, start,
+              lengths)

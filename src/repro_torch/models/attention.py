@@ -1,5 +1,5 @@
 """GQA attention over a paged, quantizable KV cache (port of
-`repro.models.attention`, the rollout path).
+`repro.models.attention`, the rollout and serving paths).
 
 The cache is a pool of fixed-size token blocks shared by all sequences and
 addressed through per-sequence block tables (vLLM's layout), with one
@@ -9,18 +9,26 @@ payload is fp8 E4M3 (or bf16) with one f32 scale per layer for K and for
 V, recalibrated at prefill from the prompt's amax x 1.05 when
 `precision.calculate_kv_scales` is set.
 
-Prefill attention is plain PyTorch (the naive `_sdpa`, as the reference's
-is plain jnp) over K/V dequantized the way `dequantize_per_tensor` does.
-Decode attention always goes through kernel 4 (`ops.
-fp8_paged_decode_attention`), whose plain version dequantizes like the
-TPU kernel's `_deq`.  The pool is updated in place (eager PyTorch needs
-no functional copy); the contiguous `KVCache`, the chunked/`repeat`
-impls, chunked prefill and cross-attention are not ported yet.
+One-shot prefill attention is plain PyTorch (the naive `_sdpa`, as the
+reference's is plain jnp) over K/V dequantized the way
+`dequantize_per_tensor` does.  Chunked prefill (`attention_prefill_chunk`)
+and decode each have two mechanisms, chosen by the caller (the serving
+engine's `KernelConfig`): the kernels (kernel 5 `ops.
+fp8_paged_prefill_attention`, kernel 4 `ops.fp8_paged_decode_attention`,
+whose plain versions dequantize like the TPU kernels' `_deq`), or the
+reference's table gather — a contiguous copy of the live leading blocks,
+dequantized by `dequantize_per_tensor`, through `_sdpa`.  The gather is
+sized by `_live_blocks` from host-side lengths, so it needs no device
+sync.  The pool is updated in place (eager PyTorch needs no functional
+copy); the contiguous `KVCache`, the chunked/`repeat` impls and
+cross-attention are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.fp8_linear import linear
@@ -78,6 +86,16 @@ def _paged_physical(cache: PagedKVCache, block_tables: torch.Tensor) -> torch.Te
     """Logical table entries -> physical pool rows (-1 -> trash)."""
     trash = cache.k.shape[-4] - 1
     return torch.where(block_tables < 0, trash, block_tables).to(torch.int32)
+
+
+def _live_blocks(context_lengths, w: int, bs: int) -> int:
+    """Leading table entries that can hold live context:
+    ceil(max(context_lengths) / bs), clipped to [1, w].  Takes host-side
+    lengths (ints, a list, a numpy array or a CPU tensor) from the caller,
+    so sizing a gather never waits for the device."""
+    lengths = np.asarray(context_lengths)
+    m = int(lengths.max()) if lengths.size else 0
+    return max(1, min(w, -(-m // bs)))
 
 
 def paged_write(cache: PagedKVCache, block_tables: torch.Tensor,
@@ -178,10 +196,55 @@ def attention_prefill(x, params, cfg, cache: PagedKVCache,
     return linear(out, params["wo"], precision=precision)
 
 
+def attention_prefill_chunk(x, params, cfg, cache: PagedKVCache,
+                            precision: PrecisionConfig, *, start, lengths,
+                            block_tables, live_blocks: int,
+                            use_kernel: bool = False):
+    """Chunked-prefill attention: write C prompt tokens at positions
+    [start, start + C) through the block table, then attend each over
+    everything reachable so far.  `start` (B,) counts the tokens already
+    in the cache, `lengths` (B,) the valid tokens after the chunk (device
+    int tensors); positions at or past `lengths` scatter to the trash row
+    and their outputs are never read.  `live_blocks` is
+    `_live_blocks(min(start + C, lengths), W, BS)` from the caller's host
+    ints.  With `use_kernel` the chunk attends through kernel 5, which
+    reads the pool in place; otherwise through the reference's gather of
+    the live leading blocks."""
+    b, c, _ = x.shape
+    q, k, v = _project_qkv(x, params, cfg, precision)
+    positions = start[:, None] + torch.arange(c, device=x.device)[None, :]
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    kq, vq = _quantize_kv(k, v, cache, precision, recalibrate=True)
+    valid = positions < lengths[:, None]
+    paged_write(cache, block_tables, positions, valid, kq, vq)
+
+    bs, kvh, dh = cache.block_size, cache.k.shape[-2], cfg.d_head
+    phys = _paged_physical(cache, block_tables)
+    if use_kernel:
+        out = ops.fp8_paged_prefill_attention(
+            q.reshape(b, c, kvh, cfg.n_heads // kvh, dh).to(torch.bfloat16)
+            .contiguous(), cache.k, cache.v, cache.k_scale, cache.v_scale,
+            phys, start.to(torch.int32), lengths.to(torch.int32),
+        ).reshape(b, c, cfg.n_heads * dh).to(x.dtype)
+    else:
+        k_all, v_all = _gather_live(cache, phys[:, :live_blocks], x.dtype)
+        k_pos = torch.arange(live_blocks * bs, device=x.device)[None, None, :]
+        mask = (k_pos <= positions[:, :, None]) \
+            & (k_pos < lengths[:, None, None])                 # (B, C, S')
+        out = _sdpa(q, k_all, v_all, mask)
+    return linear(out, params["wo"], precision=precision)
+
+
 def attention_decode(x, params, cfg, cache: PagedKVCache, lengths,
-                     precision: PrecisionConfig, *, block_tables):
+                     precision: PrecisionConfig, *, block_tables,
+                     use_kernel: bool = True,
+                     live_blocks: Optional[int] = None):
     """One decode step: append K/V at `lengths`, attend over
-    [0, lengths] through kernel 4."""
+    [0, lengths] through kernel 4, or (use_kernel=False) through the
+    gather of the first `live_blocks` table entries (all of them when
+    None)."""
     b = x.shape[0]
     q, k, v = _project_qkv(x, params, cfg, precision)
     pos = lengths[:, None]
@@ -191,20 +254,43 @@ def attention_decode(x, params, cfg, cache: PagedKVCache, lengths,
     paged_write(cache, block_tables, pos,
                 torch.ones((b, 1), dtype=torch.bool, device=x.device), kq, vq)
     return _paged_attention_over_table(x, q, cache, block_tables, lengths + 1,
-                                       params, precision)
+                                       params, precision, use_kernel=use_kernel,
+                                       live_blocks=live_blocks)
+
+
+def _gather_live(cache: PagedKVCache, phys, dtype):
+    """The reference's gather: pool rows `phys` (B, W_live) as contiguous
+    (B, W_live * BS, KVH, D) K/V in logical order, dequantized like
+    `dequantize_per_tensor`."""
+    b, w_live = phys.shape
+    bs, kvh, dh = cache.k.shape[-3:]
+    k_raw = cache.k[phys.long()].reshape(b, w_live * bs, kvh, dh)
+    v_raw = cache.v[phys.long()].reshape(b, w_live * bs, kvh, dh)
+    if not cache.quantized:
+        return k_raw, v_raw
+    return (dequantize_per_tensor(k_raw, cache.k_scale, dtype),
+            dequantize_per_tensor(v_raw, cache.v_scale, dtype))
 
 
 def _paged_attention_over_table(x, q, cache: PagedKVCache, block_tables,
-                                new_lengths, params, precision):
+                                new_lengths, params, precision, *,
+                                use_kernel: bool, live_blocks: Optional[int]):
     """Attend one query token over the K/V reachable through the table.
     The kernel reads only each slot's live leading entries; unmapped
     entries are mapped to the trash row first."""
     b, _, h, dh = q.shape
     kvh = cache.k.shape[-2]
     phys = _paged_physical(cache, block_tables)
-    out = ops.fp8_paged_decode_attention(
-        q.reshape(b, kvh, h // kvh, dh).to(torch.bfloat16).contiguous(),
-        cache.k, cache.v, cache.k_scale, cache.v_scale, phys,
-        new_lengths.to(torch.int32),
-    ).reshape(b, 1, h * dh).to(x.dtype)
+    if use_kernel:
+        out = ops.fp8_paged_decode_attention(
+            q.reshape(b, kvh, h // kvh, dh).to(torch.bfloat16).contiguous(),
+            cache.k, cache.v, cache.k_scale, cache.v_scale, phys,
+            new_lengths.to(torch.int32),
+        ).reshape(b, 1, h * dh).to(x.dtype)
+    else:
+        w_live = phys.shape[1] if live_blocks is None else live_blocks
+        k_all, v_all = _gather_live(cache, phys[:, :w_live], x.dtype)
+        k_pos = torch.arange(w_live * cache.block_size, device=x.device)
+        mask = (k_pos[None, :] < new_lengths[:, None])[:, None, :]
+        out = _sdpa(q, k_all, v_all, mask)
     return linear(out, params["wo"], precision=precision)

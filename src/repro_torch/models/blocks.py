@@ -69,22 +69,37 @@ def _mlp(x, slot_params, cfg, precision):
 
 
 def apply_slot_full(x, slot_params, spec: SlotSpec, cfg, precision, *,
-                    kv_cache, positions, lengths, block_tables):
+                    kv_cache, positions=None, lengths, block_tables,
+                    chunk_start=None, use_kernel: bool = False,
+                    live_blocks: Optional[int] = None):
     """Prefill branch of the reference's `apply_slot_full`: attention over
-    the prompt (writing the paged cache), then the MLP."""
+    the prompt (writing the paged cache) — or, with `chunk_start`, over one
+    chunk of it at [chunk_start, chunk_start + C) (`use_kernel` and
+    `live_blocks` as in `attention_prefill_chunk`) — then the MLP."""
     p = slot_params["attn"]
     xn = rms_norm(x, p["norm_scale"], cfg.norm_eps)
-    x = x + attn_mod.attention_prefill(
-        xn, p, cfg, kv_cache, precision, lengths=lengths,
-        positions=positions, block_tables=block_tables)
-    return _mlp(x, slot_params, cfg, precision)
+    if chunk_start is not None:
+        h = attn_mod.attention_prefill_chunk(
+            xn, p, cfg, kv_cache, precision, start=chunk_start,
+            lengths=lengths, block_tables=block_tables,
+            live_blocks=live_blocks, use_kernel=use_kernel)
+    else:
+        h = attn_mod.attention_prefill(
+            xn, p, cfg, kv_cache, precision, lengths=lengths,
+            positions=positions, block_tables=block_tables)
+    return _mlp(x + h, slot_params, cfg, precision)
 
 
 def apply_slot_decode(x, slot_params, spec: SlotSpec, cfg, precision, *,
-                      kv_cache, lengths, block_tables):
-    """One-token decode through the slot (attention via kernel 4)."""
+                      kv_cache, lengths, block_tables, use_kernel: bool = True,
+                      live_blocks: Optional[int] = None):
+    """One-token decode through the slot: attention through kernel 4, or
+    through the gather of `live_blocks` table entries when `use_kernel` is
+    off; then the MLP."""
     p = slot_params["attn"]
     xn = rms_norm(x, p["norm_scale"], cfg.norm_eps)
     x = x + attn_mod.attention_decode(xn, p, cfg, kv_cache, lengths,
-                                      precision, block_tables=block_tables)
+                                      precision, block_tables=block_tables,
+                                      use_kernel=use_kernel,
+                                      live_blocks=live_blocks)
     return _mlp(x, slot_params, cfg, precision)

@@ -5,12 +5,30 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
+
+
+# The card's reduction kernels and GEMM library pick their algorithm, and so
+# their summation order, by the number of rows.  Below ROW_FLOOR rows the
+# port pads to it, so that a row's norm and logits do not depend on how
+# many rows share the call (a decode step's slots, a speculative verify
+# chunk, one prompt's last position): the serving engine's bit-exact
+# contracts (speculative greedy = plain greedy) rest on that.  Padding
+# changes no value on the CPU, where each row is reduced on its own.
+ROW_FLOOR = 16
+
+
+def pad_rows(x2d: torch.Tensor) -> torch.Tensor:
+    """(n, d) -> (max(n, ROW_FLOOR), d), zero rows appended."""
+    n = x2d.shape[0]
+    return F.pad(x2d, (0, 0, 0, ROW_FLOOR - n)) if n < ROW_FLOOR else x2d
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps)
+    sq = (xf * xf).reshape(-1, xf.shape[-1])
+    var = torch.mean(pad_rows(sq), dim=-1)[: sq.shape[0]]
+    y = xf * torch.rsqrt(var.reshape(xf.shape[:-1] + (1,)) + eps)
     return (y * scale.float()).to(x.dtype)
 
 

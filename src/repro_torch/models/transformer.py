@@ -7,13 +7,15 @@ a nested dict with the reference's key names and layer-stacked leaves
 reference pytree onto it one to one and `core.fp8_params` selects the
 same leaves to quantize.  The reference's `lax.scan` over the R repeats is
 a Python loop over per-layer views here.  The cache is updated in place
-and returned.  `forward_train`/`token_logprobs` come with the training
-slice, chunked prefill with the serving slice.
+and returned.  `prefill_chunk` and the `use_kernel` switch of
+`decode_step` serve the continuous-batching engine (`repro_torch.serving`).
+`forward_train`/`token_logprobs` come with the training slice.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -23,7 +25,7 @@ from repro_torch.core.precision import PrecisionConfig
 from repro_torch.core.quant import QuantizedTensor
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as blocks_mod
-from repro_torch.models.common import dense_init, embed_init, rms_norm
+from repro_torch.models.common import dense_init, embed_init, pad_rows, rms_norm
 
 
 def _check_precision(precision: PrecisionConfig) -> None:
@@ -132,8 +134,12 @@ class Transformer(nn.Module):
         x = rms_norm(x, params["final_norm_scale"], self.cfg.norm_eps)
         head = params["emb"].T if self.cfg.tie_embeddings else params["lm_head"]
         # the lm_head is never quantized (paper §2.1.1); logits are rounded
-        # to the activation dtype (bf16), then widened to f32
-        return linear(x, head, precision=precision, quantized=False).float()
+        # to the activation dtype (bf16), then widened to f32.  Rows are
+        # padded to ROW_FLOOR (models.common) for row-count-independent sums.
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1])
+        logits = linear(pad_rows(x2), head, precision=precision, quantized=False)
+        return logits[: x2.shape[0]].reshape(lead + (-1,)).float()
 
     def _layers(self, params, cache):
         for r in range(self.repeats):
@@ -167,15 +173,58 @@ class Transformer(nn.Module):
         x_last = x[torch.arange(b, device=self.device), idx]
         return self._unembed(params, x_last, precision), cache
 
+    def prefill_chunk(self, params, tokens, start, chunk_lengths, cache: dict,
+                      precision: PrecisionConfig, *, use_kernel: bool = False,
+                      want_all_logits: bool = False):
+        """One chunk of prompt tokens (B, C) of a *paged* cache: write the
+        chunk's K/V at [start, start + chunk_lengths) and attend each
+        position over everything reachable so far — through kernel 5 with
+        `use_kernel`, else through the reference's table gather.  `start`
+        and `chunk_lengths` (B,) are host ints (they size the gather with
+        no device sync).  Returns the logits at each row's last valid
+        position (B, V) f32 — or at every chunk position (B, C, V) with
+        `want_all_logits` (the speculative verifier) — and the cache, whose
+        "lengths" become start + chunk_lengths."""
+        _check_precision(precision)
+        tokens = torch.as_tensor(tokens, device=self.device)
+        b, c = tokens.shape
+        start_h = np.asarray(start, np.int64).reshape(b)
+        n_h = np.asarray(chunk_lengths, np.int64).reshape(b)
+        new_h = start_h + n_h
+        tables = cache["block_tables"]
+        pools = next(iter(cache["slots"].values()))["kv"]
+        live = attn_mod._live_blocks(np.minimum(start_h + c, new_h),
+                                     tables.shape[1], pools.block_size)
+        start_t = torch.as_tensor(start_h, dtype=torch.int32, device=self.device)
+        lengths_t = torch.as_tensor(new_h, dtype=torch.int32, device=self.device)
+        x = params["emb"][tokens.long()]
+        for spec, p, kv in self._layers(params, cache):
+            x = blocks_mod.apply_slot_full(
+                x, p, spec, self.cfg, precision, kv_cache=kv,
+                lengths=lengths_t, block_tables=tables, chunk_start=start_t,
+                use_kernel=use_kernel, live_blocks=live)
+        cache["lengths"] = lengths_t
+        if want_all_logits:
+            return self._unembed(params, x, precision), cache
+        idx = np.clip(n_h - 1, 0, c - 1)
+        x_last = x[torch.arange(b, device=self.device),
+                   torch.as_tensor(idx, device=self.device)]
+        return self._unembed(params, x_last, precision), cache
+
     def decode_step(self, params, tokens: torch.Tensor, cache: dict,
-                    precision: PrecisionConfig):
-        """One autoregressive step on (B,) tokens -> (logits (B, V), cache)."""
+                    precision: PrecisionConfig, *, use_kernel: bool = True,
+                    live_blocks: Optional[int] = None):
+        """One autoregressive step on (B,) tokens -> (logits (B, V), cache).
+        Attention goes through kernel 4, or with `use_kernel=False` through
+        the gather of the first `live_blocks` table entries (the caller's
+        `attention._live_blocks` over lengths + 1; all entries when None)."""
         _check_precision(precision)
         lengths = cache["lengths"]
         x = params["emb"][tokens.to(self.device).long()][:, None, :]
         for spec, p, kv in self._layers(params, cache):
             x = blocks_mod.apply_slot_decode(
                 x, p, spec, self.cfg, precision, kv_cache=kv,
-                lengths=lengths, block_tables=cache["block_tables"])
+                lengths=lengths, block_tables=cache["block_tables"],
+                use_kernel=use_kernel, live_blocks=live_blocks)
         cache["lengths"] = lengths + 1
         return self._unembed(params, x[:, 0], precision), cache

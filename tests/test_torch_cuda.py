@@ -6,13 +6,17 @@ This file imports no JAX, so it runs on the card's machine:
 
 Without a CUDA device every test skips (the `cuda` fixture decides).
 `chip_smoke.py` holds the kernels to their plain versions at the main
-path's full-width shapes; these tests cover what it does not: padding in
+paths' full-width shapes; these tests cover what it does not: padding in
 the `ops` wrappers (K and N not multiples of 128, ragged leading dims),
-E5M2 and UE8M0 quantizers, paged decode at block sizes 4/8, head widths
-16/32 and group sizes 2-4 with ragged tails and NaN-poisoned stale table
-entries, the GRPO fork on the card, and a wrapper without its library.
-Tolerances are those of the CPU tests: quantizers bit-equal, GEMM within
-one bf16 rounding (rtol 2**-7), decode attention within 1e-2.
+E5M2 and UE8M0 quantizers, paged decode and chunked prefill at block
+sizes 4/8/16/40 (40 walks a pool block in three shared-memory tiles),
+head widths 16/32 and group sizes 2-4 with ragged tails, NaN-poisoned
+stale table entries and dead chunk rows, a chunk row equal bit for bit to
+a decode step at the same context, the serving engine's speculative and
+preempted greedy runs equal to plain ones on the card, the GRPO fork on
+the card, and a wrapper without its library.  Tolerances are those of
+the CPU tests: quantizers bit-equal, GEMM within one bf16 rounding (rtol
+2**-7), paged attention within 1e-2.
 """
 import pytest
 
@@ -34,6 +38,7 @@ from repro_torch.kernels import fp8_quant as fq  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import Transformer  # noqa: E402
 from repro_torch.rl import SamplerConfig, generate, sync_policy_weights  # noqa: E402
+from repro_torch.serving import ServingEngine, SpecConfig, kv_bytes_per_token  # noqa: E402
 
 
 @pytest.fixture
@@ -122,6 +127,99 @@ def _decode_case(dev, gen, b, kvh, g, d, bs, w, lengths):
     dead = torch.arange(w, device=dev)[None, :] >= live[:, None]
     tables = torch.where(dead, nrows - 1, tables).to(torch.int32)
     return q, kq, vq, ks.float(), vs.float(), tables, lengths, nrows - 1
+
+
+def _prefill_case(dev, gen, kvh, g, d, bs, w, start, lengths, c):
+    b = len(start)
+    nrows = b * w + 1
+    k = torch.randn((nrows, bs, kvh, d), generator=gen, device=dev)
+    v = torch.randn((nrows, bs, kvh, d), generator=gen, device=dev)
+    ks, vs = k.abs().amax() / 448, v.abs().amax() / 448
+    kq, vq = (k / ks).clamp(-448, 448).to(E4M3), (v / vs).clamp(-448, 448).to(E4M3)
+    q = torch.randn((b, c, kvh, g, d), generator=gen, device=dev).to(torch.bfloat16)
+    start = torch.tensor(start, dtype=torch.int32, device=dev)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev).clamp(max=w * bs)
+    tables = torch.randperm(nrows - 1, generator=gen, device=dev)[: b * w].reshape(b, w)
+    ctx = torch.minimum(start + c, lengths).long()
+    live = ((ctx + bs - 1) // bs).clamp(1, w)
+    dead = torch.arange(w, device=dev)[None, :] >= live[:, None]
+    tables = torch.where(dead, nrows - 1, tables).to(torch.int32)
+    return q, kq, vq, ks.float(), vs.float(), tables, start, lengths, nrows - 1
+
+
+@pytest.mark.parametrize("kv", ["fp8", "bf16"])
+@pytest.mark.parametrize("rem_of_bs", ["0", "1", "bs-1"])
+@pytest.mark.parametrize("bs,d,g", [(4, 16, 2), (8, 32, 4), (16, 32, 3), (40, 16, 4)])
+def test_paged_prefill_on_card(cuda, bs, d, g, rem_of_bs, kv):
+    gen = torch.Generator(device=cuda).manual_seed(bs * 100 + d + g)
+    rem = {"0": 0, "1": 1, "bs-1": bs - 1}[rem_of_bs]
+    c, kvh, w = 5, 2, 6
+    lengths = [2 * bs + rem, 4 * bs + rem, 0]
+    start = [max(lengths[0] - 1, 0), max(lengths[1] - c, 0), 0]
+    q, kq, vq, ks, vs, tables, st, ln, poison = _prefill_case(
+        cuda, gen, kvh, g, d, bs, w, start, lengths, c)
+    if kv == "bf16":
+        kq, vq = kq.float().to(torch.bfloat16), vq.float().to(torch.bfloat16)
+        ks, vs = torch.ones_like(ks), torch.ones_like(vs)
+    out = fa.fp8_paged_prefill_attention(q, kq, vq, ks, vs, tables, st, ln)
+    plain = fa.fp8_paged_prefill_attention_ref(q, kq, vq, ks, vs, tables, st, ln)
+    kn, vn = kq.clone(), vq.clone()
+    kn[poison] = float("nan")
+    vn[poison] = float("nan")
+    poisoned = fa.fp8_paged_prefill_attention(q, kn, vn, ks, vs, tables, st, ln)
+    torch.cuda.synchronize()
+    assert torch.allclose(out.float(), plain.float(), rtol=1e-2, atol=1e-2)
+    assert torch.equal(poisoned.view(torch.int16), out.view(torch.int16))
+    dead = (st[:, None] + torch.arange(c, device=cuda)[None, :]) >= ln[:, None]
+    assert bool((out[dead] == 0).all()) and bool(dead[2].all())
+
+
+@pytest.mark.parametrize("bs", [4, 16, 40])
+def test_chunk_row_equals_decode_step_on_card(cuda, bs):
+    """Kernel 5's row at position T over keys [0, T] is bit-equal to
+    kernel 4 at length T + 1: the two share their block body."""
+    gen = torch.Generator(device=cuda).manual_seed(bs)
+    c, kvh, g, d, w = 7, 2, 4, 32, 6
+    start, lengths = [3 * bs - 2], [3 * bs + 5]
+    q, kq, vq, ks, vs, tables, st, ln, _ = _prefill_case(
+        cuda, gen, kvh, g, d, bs, w, start, lengths, c)
+    out = fa.fp8_paged_prefill_attention(q, kq, vq, ks, vs, tables, st, ln)
+    for ci in range(c):
+        dec = fa.fp8_paged_decode_attention(
+            q[:, ci].contiguous(), kq, vq, ks, vs, tables,
+            torch.tensor([start[0] + ci + 1], dtype=torch.int32, device=cuda))
+        assert torch.equal(dec.view(torch.int16), out[:, ci].view(torch.int16)), ci
+
+
+def _engine_run(cfg, roll, prec, dev, trace, **kw):
+    eng = ServingEngine(roll, cfg, prec, max_slots=4, max_seq_len=64, prefill_chunk=8,
+                        eos_id=None, admission="ondemand", kernel_config="all",
+                        device=dev, **kw)
+    for i, p in enumerate(trace):
+        eng.submit(p, max_new=10, rid=i)
+    rep = eng.run(max_steps=500)
+    assert len(rep.completed) == len(trace) and not rep.stalled
+    assert eng.block_mgr.blocks_in_use == 0
+    return rep, {r.rid: r.generated for r in rep.completed}
+
+
+def test_engine_greedy_contracts_on_card(cuda):
+    """On the card (kernels 1, 3, 4, 5): speculative greedy equals plain
+    greedy, and a budget that preempts gives the uncontended tokens."""
+    cfg = tiny_serving_config().reduced(d_model=128, d_ff=256, n_heads=4, n_kv_heads=2,
+                                        d_head=32)
+    prec = PrecisionConfig()
+    roll, _ = sync_policy_weights(Transformer(cfg, cuda).init_params(5), prec)
+    gen = torch.Generator().manual_seed(0)
+    trace = [torch.cat([torch.tensor([1]), torch.randint(4, 19, (3,), generator=gen).repeat(5)])
+             .to(torch.int32).numpy() for _ in range(5)]
+    plain, toks = _engine_run(cfg, roll, prec, cuda, trace)
+    spec, spec_toks = _engine_run(cfg, roll, prec, cuda, trace,
+                                  spec=SpecConfig(num_draft_tokens=4))
+    tight, tight_toks = _engine_run(cfg, roll, prec, cuda, trace,
+                                    kv_budget_bytes=48 * kv_bytes_per_token(cfg, prec))
+    assert plain.preemptions == 0 and tight.preemptions >= 1 and spec.spec_steps > 0
+    assert spec_toks == toks and tight_toks == toks
 
 
 def test_group_fork_on_card_equals_tiled_path(cuda):
