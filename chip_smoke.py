@@ -4,16 +4,18 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, nvcc and the checkout's `src/`; imports nothing of
-JAX or of the JAX package.  Phases, in order (any failure exits non-zero):
+JAX or of the JAX package.  Phases (any failure exits non-zero), run in
+the order 1-5, 7, 6:
 
 1. the card's name and power limit (nvidia-smi);
-2. build the five CUDA kernels from `src/repro_torch/csrc` (nvcc, sm_90a);
+2. build the six CUDA kernels from `src/repro_torch/csrc` (nvcc, sm_90a);
 3. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes: the quantizers bit-equal (FP32 scales; UE8M0
    mismatching tiles are counted and printed), fp8_gemm within one bf16
-   rounding (rtol 2**-7), paged decode and chunked prefill within 1e-2
-   (the CPU tests' band) plus the stale-entry proofs (NaN / 448 poison)
-   and exact zeros for idle slots and dead chunk rows;
+   rounding (rtol 2**-7), paged decode, chunked prefill and contiguous
+   decode within 1e-2 (the CPU tests' band) plus the stale-entry proofs
+   (NaN / 448 poison in stale table entries and past each length) and
+   exact zeros for idle slots and rows and dead chunk rows;
 4. the rollout path on full-width, full-depth qwen3-8b with random
    weights from a seed: `sync_policy_weights(PrecisionConfig())`, then
    `generate` with 8 ragged prompts (64-128 tokens), 32 new tokens, page
@@ -36,7 +38,21 @@ JAX or of the JAX package.  Phases, in order (any failure exits non-zero):
    version's, one library call's where one computes the same function,
    and the bound (bytes over 3.35 TB/s or operations over the peak rate);
    engine tokens/s, ms per prefill chunk and per decode step, and one
-   profiled engine decode step.
+   profiled engine decode step.  It runs last, after 7 has freed its
+   38.7 GB cache; kernel 6's LONG_500K row is taken in 7c on that cache;
+7. the contiguous-cache path (`launch.steps`, kernel 6) on the same synced
+   weights, launch counts zeroed before and read after each of:
+   a. `make_prefill_step` at (B 8, S 1056) over 8 seeded prompts of
+      512-1024 tokens, then 32 greedy `serve_step`s: kernel 6 launched
+      36 x 32 times; first decode-step logits within 0.5 of the paged
+      path's and greedy tokens equal to paged `generate`'s on decisive
+      steps; one serve step through the kernels vs the plain versions;
+   b. one 16384-token prompt (half of PREFILL_32K's 32768) prefilled under
+      `attention_impl("chunked")`, then 16 serve steps at 16K context;
+   c. the LONG_500K decode cell: a B 1, S 524288 cache of E4M3 (38.7 GB)
+      built from `cache_specs` and filled from a seeded generator, lengths
+      524284, 4 serve steps; kernel 6 vs its plain version on one layer;
+      peak memory beside the bf16 cache's 77.3 GB.
 
 The line before the last is the `kernels` JSON object; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
@@ -80,7 +96,29 @@ KERNEL_SOURCES = {
                      "src/repro/kernels/fp8_kv_attention.py:285"),
     "paged_prefill": ("src/repro_torch/csrc/fp8_paged_prefill.cu",
                       "src/repro/kernels/fp8_kv_attention.py:402"),
+    "decode": ("src/repro_torch/csrc/fp8_decode.cu",
+               "src/repro/kernels/fp8_kv_attention.py:169"),
 }
+# phase 7: kernel 6 at 7a's shape, and the chunked-attention prefill of 7b
+CONTIG_SHAPE = ("smoke_prefill", 1056, 8, "prefill")
+CONTIG_STEPS = 32
+LONG_PROMPT = 16384            # half of PREFILL_32K's 32768
+LONG_STEPS = 16
+LONG_500K_LENGTH = 524284
+LONG_500K_STEPS = 4
+# kernel 6 vs its plain version: within DECODE_TOL elementwise (rtol and
+# atol) and within DECODE_TOL x the output's largest magnitude.  The second
+# bound keeps a long flat softmax honest: unit q over 524288 unit keys
+# averages V into outputs of ~1e-2, all inside the absolute bound.  Each
+# shape is also held at q x PEAKED_Q (scores ~ N(0, 16)), where a few keys
+# carry the softmax and the output is O(1), so a wrong split weight shows.
+DECODE_TOL = 1e-2
+PEAKED_Q = 4.0
+# 7a: contiguous vs paged, and kernels vs plain, were measured at most
+# 0.328 apart in a decode step's logits on the H100.  No such difference
+# can flip a top-2 gap over twice that (rounded up): there the two paths
+# must pick the same token
+DECISIVE_GAP = 0.7
 
 
 def check(cond, msg):
@@ -254,6 +292,78 @@ def prefill_case(dev, gen, start, lengths, c, kvh=8, g=4, d=128, bs=KV_BLOCK,
     return q, kq, vq, ks.float(), vs.float(), tables, start, lengths, poison
 
 
+def contiguous_case(dev, gen, b, s_len, lengths, kvh=8, g=4, d=128, fp8=True):
+    """One layer's contiguous cache (B, S, KVH, D) and q (B, KVH, G, D)."""
+    import torch
+    from repro_torch.core.precision import E4M3
+    k = torch.randn((b, s_len, kvh, d), generator=gen, device=dev)
+    v = torch.randn((b, s_len, kvh, d), generator=gen, device=dev)
+    if fp8:
+        ks, vs = k.abs().amax() / 448, v.abs().amax() / 448
+        kq, vq = (k / ks).clamp(-448, 448).to(E4M3), (v / vs).clamp(-448, 448).to(E4M3)
+    else:
+        ks = vs = torch.ones((), device=dev)
+        kq, vq = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    del k, v
+    q = torch.randn((b, kvh, g, d), generator=gen, device=dev).to(torch.bfloat16)
+    lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+    return q, kq, vq, ks.float(), vs.float(), lengths
+
+
+def nan_past(x, lengths):
+    """A copy of cache `x` (B, S, ...) with NaN bits at every position at
+    or past each row's length (e4m3fn 0x7f, bf16 0x7fc0)."""
+    import torch
+    dead = torch.arange(x.shape[1], device=x.device)[None, :] >= lengths[:, None].long()
+    bits, nan = (torch.uint8, 0x7F) if x.element_size() == 1 else (torch.int16, 0x7FC0)
+    out = x.clone()
+    out.view(bits)[dead] = nan
+    return out
+
+
+def hold_decode(args, tag, results):
+    """Kernel 6 vs its plain version on `args`, at q and at q x PEAKED_Q
+    (see DECODE_TOL); the worst error goes into the kernels line.
+    Returns the kernel's output at q."""
+    import torch
+    from repro_torch.kernels import fp8_kv_attention as fa
+    q, rest = args[0], args[1:]
+    outs = []
+    for q_scale in (1.0, PEAKED_Q):
+        qs = (q.float() * q_scale).to(q.dtype)
+        out_k = fa.fp8_decode_attention(qs, *rest)
+        out_p = fa.fp8_decode_attention_ref(qs, *rest).float()
+        torch.cuda.synchronize()
+        err = (out_k.float() - out_p).abs().max().item()
+        top = out_p.abs().max().item()
+        ok = (torch.allclose(out_k.float(), out_p, rtol=DECODE_TOL, atol=DECODE_TOL)
+              and err <= DECODE_TOL * top)
+        log(f"{tag}, q x {q_scale:g}: max|kernel-plain| {err:.3e}, max|plain| {top:.3e} "
+            f"(tol {DECODE_TOL} and {DECODE_TOL} x max|plain|) {'ok' if ok else 'FAIL'}")
+        check(ok, f"{tag}: kernel 6 disagrees with its plain version at q x {q_scale:g}")
+        results["decode"]["max_abs_err"] = max(results["decode"].get("max_abs_err", 0.0), err)
+        outs.append(out_k)
+        del out_p
+    return outs[0]
+
+
+def compare_contiguous_decode(dev, gen, results):
+    import torch
+    from repro_torch.kernels import fp8_kv_attention as fa
+    for fp8 in (True, False):
+        lengths = torch.randint(1, 1058, (8,), generator=gen, device=dev)
+        lengths[0], lengths[1] = 0, 1057
+        q, kq, vq, ks, vs, ln = contiguous_case(dev, gen, 8, 1057, lengths, fp8=fp8)
+        out_k = hold_decode((q, kq, vq, ks, vs, ln), f"decode {'e4m3' if fp8 else 'bf16'} "
+                            f"B=8 KVH=8 G=4 D=128 S=1057 lengths {ln.tolist()}", results)
+        out_n = fa.fp8_decode_attention(q, nan_past(kq, ln), nan_past(vq, ln), ks, vs, ln)
+        torch.cuda.synchronize()
+        check(torch.equal(out_n.view(torch.int16), out_k.view(torch.int16)),
+              "NaN past a row's length reached the contiguous-decode output")
+        check(bool((out_k[0] == 0).all()), "an idle row (length 0) is not exact zeros")
+    log("decode: nothing past a length is read (NaN poison), idle row exact zeros")
+
+
 # (start, lengths) per slot: context % 16 in {0, 1, 15}; ragged chunks with
 # one valid row, a full chunk, and 3 valid rows (the rest past `lengths`)
 PREFILL_CASES = {
@@ -397,34 +507,21 @@ def profile_decode_step(model, roll, prec, prompts, lengths, dev):
     """Device-busy share of one decode step: kernel time on the stream
     (torch.profiler) over the step's wall time without the profiler."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     cache = model.init_cache(len(prompts), prompts.shape[1] + 4, prec, page_size=16)
     logits, cache = model.prefill(roll, {"tokens": torch.from_numpy(prompts).to(dev),
                                          "lengths": torch.from_numpy(lengths).to(dev)},
                                   cache, prec)
     tok = logits.argmax(-1)
     model.decode_step(roll, tok, cache, prec)          # warm
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    model.decode_step(roll, tok, cache, prec)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        model.decode_step(roll, tok, cache, prec)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kernels:
+    _, wall_ms = _sync_ms(model.decode_step, roll, tok, cache, prec)
+    _, busy_ms, n_kernels, by_name = _profile(lambda: model.decode_step(roll, tok, cache, prec))
+    if not n_kernels:
         log(f"decode step: wall {wall_ms:.1f} ms; device time not measured "
             "(the profiler saw no CUDA events)")
         return {"decode_step_wall_ms": wall_ms}
-    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     out = {"decode_step_wall_ms": wall_ms, "decode_step_device_busy_ms": busy_ms,
-           "decode_step_device_kernels": len(kernels),
+           "decode_step_device_kernels": n_kernels,
            "decode_step_device_busy_share": busy_ms / wall_ms}
     log("decode step profile: " + json.dumps(out) + "; top kernels (ms): "
         + json.dumps([[name[:60], round(ms, 3)] for name, ms in top]))
@@ -576,16 +673,20 @@ def _timed(fn, log_to):
     return wrapper
 
 
-def _profile_step(eng):
-    """One engine step under torch.profiler: (device busy ms, kernels)."""
+def _profile(fn):
+    """`fn()` under torch.profiler: (its result, device busy ms, kernels,
+    busy ms by kernel name)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        eng.step()
+        out = fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return sum(e.time_range.elapsed_us() for e in kernels) / 1e3, len(kernels)
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return out, sum(by_name.values()), len(kernels), by_name
 
 
 def engine_path(dev, results, cfg, roll):
@@ -628,7 +729,7 @@ def engine_path(dev, results, cfg, roll):
         # fused decode too: profile one such step
         if profiled is None and len(decode_walls) >= 2 and not tight_eng.queue and all(
                 r is None or r.prefilled >= len(r.prompt) for r in tight_eng.slot_req):
-            profiled = _profile_step(tight_eng)
+            profiled = _profile(tight_eng.step)[1:3]
             continue
         ts = time.perf_counter()
         d = tight_eng.step()
@@ -728,8 +829,323 @@ def engine_path(dev, results, cfg, roll):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the contiguous-cache path (launch.steps, kernel 6)
+# ---------------------------------------------------------------------------
+
+def _sync_ms(fn, *args):
+    """(fn(*args), ms between two synchronizes)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _path_launches(tag, need):
+    """Read the counts of the run just driven; every kernel in `need` must
+    have launched."""
+    from repro_torch.kernels import build
+    launches = dict(build.LAUNCHES)
+    log(f"{tag} launches: {launches}")
+    for name in need:
+        check(launches[name] > 0, f"kernel {name} was not launched on {tag}")
+    return launches
+
+
+def _top2_gap(logits):
+    top2 = logits.topk(2, dim=-1).values
+    return top2[:, 0] - top2[:, 1]
+
+
+def contiguous_7a(dev, cfg, roll, prec, stats):
+    """Prefill + 32 greedy serve steps at (B 8, S 1056), held against the
+    paged path and against the plain versions."""
+    import copy
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import steps
+    from repro_torch.models import Transformer
+    from repro_torch.rl import SamplerConfig, generate
+    shape = ShapeConfig(*CONTIG_SHAPE)
+    b = shape.global_batch
+    prompts, lengths = make_prompts(np.random.default_rng(SEED + 7), b=b, lo=512, hi=1024)
+    tokens = np.zeros((b, shape.seq_len), np.int32)
+    tokens[:, :prompts.shape[1]] = prompts
+    batch = {"tokens": torch.from_numpy(tokens).to(dev), "lengths": torch.from_numpy(lengths)}
+    prefill_step = steps.make_prefill_step(cfg, shape, prec, device=dev)
+    serve_step = steps.make_serve_step(cfg, prec, device=dev)
+
+    build.reset_launch_counts()
+    # --- the contiguous path: prefill, then 32 greedy serve steps ----------
+    (logits, cache), prefill_ms = _sync_ms(prefill_step, roll, batch)
+    prefill_logits = logits
+    toks, gaps, step_ms = [logits.argmax(-1)], [_top2_gap(logits)], []
+    for i in range(CONTIG_STEPS):
+        (logits, cache), ms = _sync_ms(serve_step, roll, toks[-1], cache)
+        if i == 0:
+            first_step_logits = logits
+        step_ms.append(ms)
+        toks.append(logits.argmax(-1))
+        gaps.append(_top2_gap(logits))
+    launches = _path_launches("contiguous path 7a", ("quant_act", "fp8_gemm", "decode"))
+    # ----------------------------------------------------------------------
+    check(launches["decode"] == cfg.n_layers * CONTIG_STEPS,
+          f"kernel 6 launched {launches['decode']} times, not {cfg.n_layers} x {CONTIG_STEPS}")
+    check(bool(torch.isfinite(logits).all()), "7a: serve-step logits not finite")
+    check(cache["max_length"] == int(lengths.max()) + CONTIG_STEPS, "7a: host length bound")
+    stats.update(contig_prefill_ms=prefill_ms, contig_serve_step_ms_mean=float(np.mean(step_ms)),
+                 contig_serve_step_ms_median=float(np.median(step_ms)),
+                 contig_prompt_lengths=lengths.tolist())
+
+    # against the paged path (kernel 4) on the same prompts
+    model = Transformer(cfg, dev)
+    pc = model.init_cache(b, shape.seq_len + 1, prec, page_size=16)
+    lp, pc = model.prefill(roll, batch, pc, prec)
+    lp1, _ = model.decode_step(roll, lp.argmax(-1), pc, prec)
+    del pc
+    torch.cuda.synchronize()
+    prefill_gap = (lp - prefill_logits).abs().max().item()
+    step_gap = (lp1 - first_step_logits).abs().max().item()
+    decisive = _top2_gap(first_step_logits) > DECISIVE_GAP
+    agree = bool((lp1.argmax(-1) == first_step_logits.argmax(-1))[decisive].all())
+    log(f"7a contiguous vs paged: prefill logits max gap {prefill_gap:.4f}, first decode "
+        f"step {step_gap:.4f} (tol {LOGIT_ATOL}); argmax equal on {int(decisive.sum())} "
+        f"decisive rows: {agree}")
+    check(prefill_gap <= LOGIT_ATOL and step_gap <= LOGIT_ATOL and agree,
+          "contiguous and paged first-step logits disagree")
+    greedy = SamplerConfig(max_new_tokens=CONTIG_STEPS, temperature=0.0)
+    traj = generate(roll, prompts, lengths, None, cfg, prec, greedy, page_size=16, device=dev)
+    mine = torch.stack(toks[:CONTIG_STEPS], 1).cpu()
+    gap_t = torch.stack(gaps[:CONTIG_STEPS], 1).cpu()
+    theirs, mask = traj.response_tokens.cpu(), traj.response_mask.cpu()
+    # while a row's tokens agree, both paths see the same inputs: every
+    # decisive step must agree; the first near-tie they part at ends the row
+    compared = equal_run = 0
+    for r in range(b):
+        for i in range(CONTIG_STEPS):
+            if mask[r, i] == 0:
+                break                      # past EOS
+            same = int(mine[r, i]) == int(theirs[r, i])
+            if gap_t[r, i] > DECISIVE_GAP:
+                compared += 1
+                check(same, f"7a: greedy token {i} of row {r} differs from paged generate's")
+            elif not same:
+                break                      # a near-tie: the two part here
+        equal_run += int(torch.equal(mine[r][mask[r] > 0], theirs[r][mask[r] > 0]))
+    log(f"7a greedy tokens vs paged generate: {compared} decisive steps (top-2 gap > "
+        f"{DECISIVE_GAP}) equal; {equal_run} of {b} rows equal throughout")
+    check(compared > 0, "7a: no decisive step compared against paged generate")
+
+    # one serve step through the kernels vs the plain versions, same tensors
+    twin = copy.deepcopy(cache)
+    tok = toks[-1]
+    lk, _ = serve_step(roll, tok, cache)
+    with mock.patch.object(ops, "_route", lambda t, kernel, plain: plain):
+        lpl, _ = serve_step(roll, tok, twin)
+    torch.cuda.synchronize()
+    err = (lk - lpl).abs().max().item()
+    decisive = _top2_gap(lpl) > DECISIVE_GAP
+    agree = bool((lk.argmax(-1) == lpl.argmax(-1))[decisive].all())
+    log(f"7a serve-step logits kernels vs plain: max abs err {err:.4f}, mean "
+        f"{(lk - lpl).abs().mean().item():.5f} (tol {LOGIT_ATOL}); argmax equal on "
+        f"{int(decisive.sum())} decisive rows: {agree}")
+    check(err <= LOGIT_ATOL and agree, "serve-step logits: kernels disagree with plain")
+    stats.update(contig_vs_paged_prefill_gap=prefill_gap, contig_vs_paged_step_gap=step_gap,
+                 contig_decisive_tokens_equal=compared, contig_serve_logit_err=err)
+    final_lengths = cache["lengths"].clone()
+    del cache, twin
+    return launches, final_lengths
+
+
+def contiguous_7b(dev, cfg, roll, prec, stats):
+    """A 16384-token prompt through the chunked attention impl, then 16
+    serve steps at 16K context."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data import tasks
+    from repro_torch.kernels import build
+    from repro_torch.launch import steps
+    from repro_torch.models.attention import attention_impl
+    shape = ShapeConfig("smoke_prefill_16k", LONG_PROMPT + LONG_STEPS, 1, "prefill")
+    tokens = np.zeros((1, shape.seq_len), np.int32)
+    tokens[0, :LONG_PROMPT] = tasks.random_prompt(SEED + 9, LONG_PROMPT)
+    batch = {"tokens": torch.from_numpy(tokens).to(dev),
+             "lengths": torch.tensor([LONG_PROMPT], dtype=torch.int32)}
+    prefill_step = steps.make_prefill_step(cfg, shape, prec, device=dev)
+    serve_step = steps.make_serve_step(cfg, prec, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    # --- the contiguous path at 16K: chunked prefill, 16 serve steps -------
+    with attention_impl("chunked"):
+        (logits, cache), prefill_ms = _sync_ms(prefill_step, roll, batch)
+    step_ms = []
+    for _ in range(LONG_STEPS):
+        (logits, cache), ms = _sync_ms(serve_step, roll, logits.argmax(-1), cache)
+        step_ms.append(ms)
+    launches = _path_launches("contiguous path 7b", ("quant_act", "fp8_gemm", "decode"))
+    # ----------------------------------------------------------------------
+    check(launches["decode"] == cfg.n_layers * LONG_STEPS, "7b: kernel 6 launch count")
+    check(bool(torch.isfinite(logits).all()), "7b: logits not finite")
+    check(cache["lengths"].tolist() == [LONG_PROMPT + LONG_STEPS], "7b: lengths")
+    stats.update(long_prefill_s=prefill_ms / 1e3,
+                 long_serve_step_ms_median=float(np.median(step_ms)),
+                 long_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"7b: {LONG_PROMPT}-token prompt prefilled (chunked attention) in "
+        f"{prefill_ms / 1e3:.2f} s, serve step at 16K context {np.median(step_ms):.1f} ms "
+        f"(median of {LONG_STEPS}), peak {stats['long_peak_gib']:.1f} GiB")
+    del cache
+    return launches
+
+
+def contiguous_7c(dev, gen, cfg, roll, prec, stats, extra, results):
+    """The LONG_500K decode cell: 4 serve steps at 524284-524288 tokens of
+    context on one card, kernel 6 timed and held against its plain version
+    on one layer."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import LONG_500K
+    from repro_torch.core.quant import calibrate_scale, quantize_per_tensor
+    from repro_torch.kernels import build
+    from repro_torch.launch import steps
+    b, s_len = LONG_500K.global_batch, LONG_500K.seq_len
+    kvh, g, d = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.d_head
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    specs = steps.cache_specs(cfg, LONG_500K, prec)
+    kv_spec = specs["slots"]["s0"]["kv"]
+    kv = type(kv_spec)(*(torch.empty(t.shape, dtype=t.dtype, device=dev)
+                         for t in (kv_spec.k, kv_spec.v, kv_spec.k_scale, kv_spec.v_scale)))
+    cache = {"slots": {"s0": {"kv": kv}},
+             "lengths": torch.full((b,), LONG_500K_LENGTH, dtype=torch.int32, device=dev),
+             "max_length": LONG_500K_LENGTH}
+    t0 = time.perf_counter()
+    for r in range(cfg.n_layers):       # the reference's recipe, one layer at a time
+        for data, scale in ((kv.k[r], kv.k_scale[r]), (kv.v[r], kv.v_scale[r])):
+            x = torch.randn(data.shape, generator=gen, device=dev)
+            scale.copy_(calibrate_scale(x.abs().amax(), margin=1.05))
+            data.copy_(quantize_per_tensor(x, scale, data.dtype))
+            del x
+    torch.cuda.synchronize()
+    cache_gb = 2 * kv.k.numel() * kv.k.element_size() / 1e9
+    bf16_gb = 2 * kv.k.numel() * 2 / 1e9
+    card_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
+    log(f"7c: LONG_500K cache {tuple(kv.k.shape)} x2 E4M3 = {cache_gb:.1f} GB filled in "
+        f"{time.perf_counter() - t0:.1f} s; in bf16 it would be {bf16_gb:.1f} GB, the card "
+        f"has {card_gb:.1f} GB")
+    serve_step = steps.make_serve_step(cfg, prec, device=dev)
+    tok = torch.randint(4, 19, (b,), generator=gen, device=dev)
+    build.reset_launch_counts()
+    # --- the LONG_500K decode cell: 4 serve steps, the last one profiled ---
+    step_ms = []
+    for _ in range(LONG_500K_STEPS - 1):
+        (logits, cache), ms = _sync_ms(serve_step, roll, tok, cache)
+        tok = logits.argmax(-1)
+        step_ms.append(ms)
+    (logits, cache), busy_ms, n_kernels, by_name = _profile(
+        lambda: serve_step(roll, tok, cache))
+    launches = _path_launches("LONG_500K decode 7c", ("quant_act", "fp8_gemm", "decode"))
+    # ----------------------------------------------------------------------
+    check(launches["decode"] == cfg.n_layers * LONG_500K_STEPS, "7c: kernel 6 launch count")
+    check(bool(torch.isfinite(logits).all()), "7c: logits not finite")
+    check(cache["lengths"].tolist() == [LONG_500K_LENGTH + LONG_500K_STEPS], "7c: lengths")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    wall_ms = float(np.median(step_ms))
+    attn_ms = sum(ms for name, ms in by_name.items() if "decode_" in name)
+    gemm_ms = sum(ms for name, ms in by_name.items() if "gemm" in name)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log(f"7c profiled serve step: {n_kernels} kernels, device busy {busy_ms:.2f} ms of a "
+        f"{wall_ms:.2f} ms step (median of {len(step_ms)} unprofiled): kernel 6 (split + "
+        f"combine) {attn_ms:.2f} ms, GEMMs (fp8 linears + the f32 lm_head) {gemm_ms:.2f} ms, "
+        f"other kernels {busy_ms - attn_ms - gemm_ms:.2f} ms, host (not kernel time) "
+        f"{wall_ms - busy_ms:.2f} ms; top kernels (ms): "
+        + json.dumps([[name[:60], round(ms, 3)] for name, ms in top]))
+
+    # kernel 6 on one layer at this shape: held to its plain version, timed
+    q = torch.randn((b, kvh, g, d), generator=gen, device=dev).to(torch.bfloat16)
+    args = (q, kv.k[0], kv.v[0], kv.k_scale[0], kv.v_scale[0], cache["lengths"])
+    hold_decode(args, f"7c kernel 6 vs plain, one layer at S {s_len}, length "
+                f"{int(cache['lengths'][0])}", results)
+    row = decode_row(args, reps=20, plain_reps=3)
+    extra.append(dict(kernel="decode", shape=[b, kvh, g, d], s_max=s_len,
+                      context=int(cache["lengths"].sum()), **row))
+    stats.update(long500k_serve_step_ms=step_ms, long500k_peak_gb=peak_gb,
+                 long500k_cache_gb=cache_gb, long500k_bf16_cache_gb=bf16_gb,
+                 long500k_card_gb=card_gb, long500k_kernel6_ms=row["ms"],
+                 long500k_step_busy_ms=busy_ms, long500k_step_kernel6_ms=attn_ms,
+                 long500k_step_gemm_ms=gemm_ms, long500k_step_host_ms=wall_ms - busy_ms)
+    log(f"7c: serve steps at {LONG_500K_LENGTH}-{LONG_500K_LENGTH + LONG_500K_STEPS} tokens "
+        f"of context: {[round(ms, 2) for ms in step_ms]} ms; kernel 6 {row['ms']:.4f} ms per "
+        f"launch (bound {row['bound_ms']:.4f}), x {cfg.n_layers} layers = "
+        f"{cfg.n_layers * row['ms']:.1f} ms of a step; peak device memory {peak_gb:.1f} GB "
+        f"of {card_gb:.1f}")
+    del cache, kv, args
+    torch.cuda.empty_cache()
+    return launches
+
+
+def contiguous_path(dev, gen, results, cfg, roll, extra):
+    """Phase 7: 7a, 7b and 7c, each a path whose launches are counted."""
+    from repro_torch.core.precision import PrecisionConfig
+    prec = PrecisionConfig()
+    stats = {}
+    runs = []
+    la, final_lengths = contiguous_7a(dev, cfg, roll, prec, stats)
+    runs.append(la)
+    runs.append(contiguous_7b(dev, cfg, roll, prec, stats))
+    runs.append(contiguous_7c(dev, gen, cfg, roll, prec, stats, extra, results))
+    total = {k: sum(r[k] for r in runs) for k in runs[0]}
+    results["decode"]["launches"] = total["decode"]
+    stats["contiguous_path_launches"] = total
+    log("contiguous path: " + json.dumps(stats))
+    return final_lengths
+
+
+# ---------------------------------------------------------------------------
 # phase 6: times at the main paths' shapes
 # ---------------------------------------------------------------------------
+
+def sdpa_decode_yardstick(q, kf, vf, lengths):
+    """`F.scaled_dot_product_attention(..., enable_gqa=True)` over K/V
+    dequantized beforehand into bf16 (B, KVH, S, D), with the length mask:
+    the dequant (and a pool's gather) is not timed."""
+    import torch
+    import torch.nn.functional as F
+    b, kvh, g, d = q.shape
+    qb = q.reshape(b, kvh * g, 1, d)
+    kb = kf.to(torch.bfloat16).permute(0, 2, 1, 3).contiguous()
+    vb = vf.to(torch.bfloat16).permute(0, 2, 1, 3).contiguous()
+    mask = (torch.arange(kb.shape[2], device=q.device)[None, :]
+            < lengths.long()[:, None])[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask, enable_gqa=True)
+
+
+def decode_row(args, reps=20, plain_reps=5):
+    """Kernel 6's phase-6 row at one shape: its time, its plain version's,
+    the SDPA yardstick's and the bound (the live K/V bytes read once)."""
+    import torch
+    from repro_torch.kernels import fp8_kv_attention as fa
+    q, k, v, ks, vs, lengths = args
+    b, kvh, g, d = q.shape
+    row = dict(ms=cuda_time_ms(lambda: fa.fp8_decode_attention(*args), reps=reps),
+               plain_ms=cuda_time_ms(lambda: fa.fp8_decode_attention_ref(*args),
+                                     reps=plain_reps, warmup=1))
+    kf = k.float() * ks
+    vf = (v.float() * vs).to(torch.bfloat16)
+    kf = kf.to(torch.bfloat16)
+    row["library_ms"] = cuda_time_ms(sdpa_decode_yardstick(q, kf, vf, lengths), reps=reps)
+    del kf, vf
+    ctx = int(lengths.long().clamp(max=k.shape[1]).sum())
+    nbytes = 2 * ctx * kvh * d * k.element_size() + 2 * 2 * q.numel() + 4 * b
+    row["bound_ms"], row["bound_by"] = bound(nbytes, 4 * ctx * kvh * g * d, BF16_TC_FLOPS)
+    row["library"] = ("scaled_dot_product_attention(enable_gqa=True) on a pre-dequantized "
+                      "bf16 copy, length mask (dequant excluded)")
+    return row
+
 
 def library_gemm(a, wq, a_s, w_s, reference):
     """torch's blockwise-scaled fp8 GEMM (1x128 x 128x128 scales) as the
@@ -757,7 +1173,7 @@ def library_gemm(a, wq, a_s, w_s, reference):
     return None
 
 
-def time_kernels(dev, gen, results, cfg, roll, traj, extra):
+def time_kernels(dev, gen, results, cfg, roll, traj, contig_lengths, extra):
     import torch
     from repro_torch.kernels import fp8_gemm as fg
     from repro_torch.kernels import fp8_kv_attention as fa
@@ -811,17 +1227,35 @@ def time_kernels(dev, gen, results, cfg, roll, traj, extra):
     q, kq, vq, ks, vs, tables, lengths, _ = decode_case(
         dev, gen, b=8, kvh=cfg.n_kv_heads, g=cfg.n_heads // cfg.n_kv_heads,
         d=cfg.d_head, bs=16, max_len=int(lengths.max()), lengths=lengths)
+    kf, vf = fa._live_kv(kq, vq, ks, vs, tables, lengths)    # gathered, `_deq`-ed
     row = dict(
         ms=cuda_time_ms(lambda: fa.fp8_paged_decode_attention(q, kq, vq, ks, vs, tables, lengths)),
         plain_ms=cuda_time_ms(
             lambda: fa.fp8_paged_decode_attention_ref(q, kq, vq, ks, vs, tables, lengths)),
-        library_ms=None)
+        library_ms=cuda_time_ms(sdpa_decode_yardstick(q, kf, vf, lengths)))
+    del kf, vf
     ctx = int(lengths.sum())
     kvh, g, dh = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.d_head
     nbytes = 2 * ctx * kvh * dh + 2 * 2 * 8 * kvh * g * dh + tables.numel() * 4 + 8 * 4
     row["bound_ms"], row["bound_by"] = bound(nbytes, 4 * ctx * kvh * g * dh, BF16_TC_FLOPS)
-    extra.append(dict(kernel="paged_decode", shape=[8, kvh, g, dh], context=ctx, **row))
+    extra.append(dict(kernel="paged_decode", shape=[8, kvh, g, dh], context=ctx,
+                      library="scaled_dot_product_attention(enable_gqa=True) on a "
+                      "pre-gathered, pre-dequantized bf16 copy, length mask (gather "
+                      "excluded)", **row))
     results["paged_decode"].update(row)
+
+    # contiguous decode (kernel 6) at 7a's final lengths (S 1057), and at
+    # DECODE_32K's cache (S 32768, all live) at batch 8; LONG_500K's row
+    # was taken in phase 7c on the real cache
+    for b, s_len, lens in ((8, CONTIG_SHAPE[1] + 1, contig_lengths), (8, 32768, [32768] * 8)):
+        args = contiguous_case(dev, gen, b, s_len, lens, kvh, g, dh)
+        hold_decode(args, f"decode B={b} S={s_len} lengths {args[-1].tolist()}", results)
+        row = decode_row(args)
+        extra.append(dict(kernel="decode", shape=[b, kvh, g, dh], s_max=s_len,
+                          context=int(args[-1].sum()), **row))
+        if s_len == CONTIG_SHAPE[1] + 1:
+            results["decode"].update(row)
+        del args
 
     # chunked prefill at the engine's chunk (C 128, 640 tokens of context)
     # and at the speculative verify chunk (C 5)
@@ -904,6 +1338,8 @@ def main() -> int:
     torch.cuda.synchronize()
     compare_prefill(dev, gen, results)
     torch.cuda.synchronize()
+    compare_contiguous_decode(dev, gen, results)
+    torch.cuda.synchronize()
 
     cfg = get_config("qwen3-8b")
     model, roll, traj = main_path(dev, results, cfg)
@@ -911,7 +1347,9 @@ def main() -> int:
     engine_path(dev, results, cfg, roll)
     torch.cuda.synchronize()
     extra = []
-    time_kernels(dev, gen, results, cfg, roll, traj, extra)
+    contig_lengths = contiguous_path(dev, gen, results, cfg, roll, extra)
+    torch.cuda.synchronize()
+    time_kernels(dev, gen, results, cfg, roll, traj, contig_lengths, extra)
     log("kernel_timings " + json.dumps(extra))
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, "
         f"wall {time.perf_counter() - t_start:.1f} s")

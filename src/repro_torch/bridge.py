@@ -9,6 +9,9 @@ bf16 and fp8 arrays cross as raw bits (`arr.view(np.uint16)` ->
 `ml_dtypes`.  Quantized leaves — anything with `.data` and `.scales`
 (the reference's `QuantizedTensor` after `tree.map`), or a plain
 `(data, scales)` pair — become the port's `QuantizedTensor`.
+`kv_cache_from_numpy` carries a reference contiguous `KVCache` across the
+same way (raw fp8 bytes and f32 scales, one layer or stacked by layer), so
+a test can start the port's decode from the reference's exact cache.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.quant import QuantizedTensor
+from repro_torch.models.attention import KVCache
 
 # numpy dtype names of the ml_dtypes types -> (raw-bit view, torch dtype)
 _RAW_BITS = {
@@ -57,3 +61,12 @@ def _convert(tree, device):
     if isinstance(tree, tuple) and len(tree) == 2:
         return _quantized(tree[0], tree[1], None, device)
     return tensor_from_numpy(tree, device)
+
+
+def kv_cache_from_numpy(kv, device=None) -> KVCache:
+    """A reference `KVCache` with numpy leaves (`jax.tree.map(np.asarray,
+    cache)`: k/v (B, S, KVH, D) or (R, B, S, KVH, D), scales () or (R,))
+    -> the port's `KVCache` on `device`, bit for bit."""
+    device = resolve_device(device)
+    return KVCache(*(tensor_from_numpy(getattr(kv, f), device)
+                     for f in ("k", "v", "k_scale", "v_scale")))

@@ -1,9 +1,18 @@
-"""Architecture registry of the port (port of `repro.configs`).
+"""Architecture registry and shape cells of the port (port of
+`repro.configs`).
 
 Only the dense family is ported so far; the registry holds the paper's
 dense model, qwen3-8b.
 """
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import (
+    ALL_SHAPES,
+    DECODE_32K,
+    LONG_500K,
+    PREFILL_32K,
+    TRAIN_4K,
+    ArchConfig,
+    ShapeConfig,
+)
 from repro_torch.configs.qwen3_8b import CONFIG as qwen3_8b
 
 REGISTRY = {qwen3_8b.name: qwen3_8b}
@@ -25,5 +34,6 @@ def tiny_serving_config() -> ArchConfig:
         n_heads=4, n_kv_heads=2, d_head=16)
 
 
-__all__ = ["ArchConfig", "REGISTRY", "get_config", "qwen3_8b",
-           "tiny_serving_config"]
+__all__ = ["ALL_SHAPES", "ArchConfig", "DECODE_32K", "LONG_500K",
+           "PREFILL_32K", "REGISTRY", "ShapeConfig", "TRAIN_4K", "get_config",
+           "qwen3_8b", "tiny_serving_config"]

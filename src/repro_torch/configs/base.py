@@ -1,12 +1,36 @@
-"""Architecture configuration (port of `repro.configs.base`).
+"""Architecture and shape configuration (port of `repro.configs.base`).
 
 The port keeps its own copy of `ArchConfig` and `reduced()` with the same
-fields and defaults, so a reference config maps onto it field for field.
+fields and defaults, so a reference config maps onto it field for field,
+and of the four input-shape cells (`ShapeConfig`) that `launch.steps`
+builds its steps and specs for.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One (seq_len, global_batch) cell."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -42,11 +42,13 @@ SIGNATURES = {
                            _I32, _I32, _I32, _I32, _F32, _P],
     "fp8rl_paged_prefill": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32,
                             _I32, _I32, _I32, _I32, _I32, _I32, _F32, _P],
+    "fp8rl_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32,
+                     _I32, _I64, _I64, _I32, _I32, _I32, _F32, _P],
 }
 
 # launches per kernel since the last reset (chip_smoke.py reads these)
 LAUNCHES = {"quant_act": 0, "quant_weight": 0, "fp8_gemm": 0,
-            "paged_decode": 0, "paged_prefill": 0}
+            "paged_decode": 0, "paged_prefill": 0, "decode": 0}
 
 _LIB = None
 

@@ -1,6 +1,6 @@
-"""Paged attention over an FP8 KV pool: kernels 4 and 5 of the port.
+"""Attention over an FP8 KV cache: kernels 4, 5 and 6 of the port.
 
-Kernel 4, decode: port of
+Kernel 4, paged decode: port of
 `repro.kernels.fp8_kv_attention.fp8_paged_decode_attention`
 (repro/kernels/fp8_kv_attention.py:285; body `_paged_decode_attn_kernel`
 :236, `_live_block_counts` :228, `_clamped_kv_map` :81, `_flash_update`
@@ -20,18 +20,26 @@ past `lengths` come out as exact zeros; only entries
 w < clip(ceil(min(start + C, lengths) / BS), 1, W) are read.  It runs for
 every chunked-prefill chunk and every speculative-verify chunk.
 
-On the H100 kernel 4 is bound by the bytes of the live K/V rows and
-kernel 5 about equally by bytes and the bf16 tensor-core rate;
-`csrc/fp8_paged_decode.cu`, `csrc/fp8_paged_prefill.cu` and their shared
-block body `csrc/fp8_paged_attn.cuh` give the design.
+Kernel 6, contiguous decode: port of `fp8_decode_attention`
+(repro/kernels/fp8_kv_attention.py:169; body `_decode_attn_kernel` :110).
+q (B, KVH, G, D) attends over one layer's contiguous cache
+(B, S, KVH, D), masked by `lengths`; it dequantizes in f32 with no bf16
+rounding (unlike `_deq`), and a row of length 0 gives exact zeros.  It
+runs at every `launch.steps` serve step in every layer.
 
-The `_ref` functions are the plain versions: they dequantize like `_deq`
-(f32 multiply, then a bf16 rounding), read only the clamped live entries,
-and take the softmax in the kernels' masked form (-1e30 fill, zeroed
-probabilities, max(l, 1e-30) denominator).  The CPU path and the on-card
-comparisons use them; the card's main path never does.  The
-contiguous-cache kernel (`fp8_decode_attention`) is not ported yet
-(ROADMAP).
+On the H100 kernels 4 and 6 are bound by the bytes of the live K/V rows
+and kernel 5 about equally by bytes and the bf16 tensor-core rate;
+`csrc/fp8_paged_decode.cu`, `csrc/fp8_paged_prefill.cu`, their shared
+block body `csrc/fp8_paged_attn.cuh` and `csrc/fp8_decode.cu` give the
+designs.
+
+The `_ref` functions are the plain versions: the paged ones dequantize
+like `_deq` (f32 multiply, then a bf16 rounding) and read only the
+clamped live entries; kernel 6's dequantizes in f32 and walks S in the
+TPU kernel's tiles with its online softmax.  All take the softmax in the
+kernels' masked form (-1e30 fill, zeroed probabilities, max(l, 1e-30)
+denominator).  The CPU path and the on-card comparisons use them; the
+card's main path never does.
 """
 from __future__ import annotations
 
@@ -175,4 +183,123 @@ def fp8_paged_prefill_attention(q, k_pool, v_pool, k_scale, v_scale,
                  block_tables.data_ptr(), start.data_ptr(), lengths.data_ptr(),
                  out.data_ptr(), b, c, kvh, g, d, bs, n_w,
                  DTYPE_CODE[k_pool.dtype], float(sm_scale))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# kernel 6: decode over a contiguous cache
+# ---------------------------------------------------------------------------
+
+# a split walks at most this many keys, unless that takes more splits
+# than the card has SMs (then one split per SM and row)
+SPLIT_KEYS = 512
+
+
+def decode_splits(s_max: int, sm_count: int) -> tuple:
+    """(n_split, span) of kernel 6's grid for a cache of `s_max` positions
+    on a card with `sm_count` SMs: from the shape alone, never from the
+    lengths, so a row's sum order is fixed for a given cache shape."""
+    n = max(1, min(sm_count, -(-s_max // SPLIT_KEYS)))
+    span = -(-s_max // n)
+    return -(-s_max // span), span
+
+
+def _lane_elements(d: int) -> int:
+    """Head-dim elements per lane (16 lanes share a key): the least of
+    1, 2, 4, 8, 16 with 16 x it >= D."""
+    return next(e for e in (1, 2, 4, 8, 16) if 16 * e >= d)
+
+
+def _g_bucket(g: int) -> int:
+    return next(b for b in (1, 2, 4, 8, 16) if b >= g)
+
+
+def fp8_decode_attention_ref(q, k_cache, v_cache, k_scale, v_scale, lengths,
+                             sm_scale=None, bs=None):
+    """Plain version of kernel 6 (same arguments, same output).
+
+    Walks S in tiles of `bs` (all of S when None; S % bs == 0) with the
+    TPU kernel's online softmax, so with the reference's tile it sums in
+    the reference's order.  K/V are dequantized in f32 with no bf16
+    rounding; V past each row's length is zeroed before P @ V, so stale
+    bytes there (NaN included) never reach the output."""
+    b, kvh, g, d = q.shape
+    s = k_cache.shape[1]
+    if sm_scale is None:
+        sm_scale = 1.0 / (d ** 0.5)
+    bs = s if bs is None else bs
+    assert s % bs == 0, (s, bs)
+    qf = q.float()
+    lengths = lengths.long().to(q.device)
+    m = torch.full((b, kvh, g, 1), _NEG_INF, device=q.device)
+    l = torch.zeros((b, kvh, g, 1), device=q.device)
+    acc = torch.zeros((b, kvh, g, d), device=q.device)
+    for t0 in range(0, s, bs):
+        pos = torch.arange(t0, t0 + bs, device=q.device)
+        valid = pos[None, :] < lengths[:, None]                    # (B, bs)
+        kf = k_cache[:, t0:t0 + bs].float() * k_scale.float()
+        vf = v_cache[:, t0:t0 + bs].float() * v_scale.float()
+        vf = torch.where(valid[:, :, None, None], vf, 0.0)
+        scores = torch.einsum("bhgd,bshd->bhgs", qf, kf) * sm_scale
+        v4 = valid[:, None, None, :]
+        scores = torch.where(v4, scores, _NEG_INF)
+        m_new = torch.maximum(m, scores.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(v4, torch.exp(scores - m_new), 0.0)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhgs,bshd->bhgd", p, vf)
+        m = m_new
+    return (acc / torch.clamp_min(l, 1e-30)).to(q.dtype)
+
+
+def fp8_decode_attention(q, k_cache, v_cache, k_scale, v_scale, lengths,
+                         sm_scale=None):
+    """Kernel 6 on the card -> (B, KVH, G, D) bf16.
+
+    `k_cache`/`v_cache` are one layer (B, S, KVH, D), possibly a view into
+    the layer-stacked cache: only the KVH and D dims must be dense.  No
+    padded copy is made; the kernel masks the ragged tail itself.  The
+    split count comes from S and the card's SM count (`decode_splits`)."""
+    if q.dim() != 4 or k_cache.dim() != 4:
+        raise ValueError("decode q must be (B, KVH, G, D) and the cache (B, S, KVH, D)")
+    b, kvh, g, d = q.shape
+    b2, s_max, kvh2, d2 = k_cache.shape
+    if (b2, kvh2, d2) != (b, kvh, d) or v_cache.shape != k_cache.shape \
+            or v_cache.stride() != k_cache.stride() or lengths.shape != (b,):
+        raise ValueError("inconsistent decode-attention shapes or strides")
+    if s_max < 1 or g > MAX_G or d > MAX_D or d % 16 \
+            or _g_bucket(g) * _lane_elements(d) > 128:
+        raise ValueError(f"S={s_max}, G={g}, D={d}: kernel 6 takes S >= 1, "
+                         f"G <= {MAX_G}, D <= {MAX_D}, D % 16 == 0 and G x D "
+                         "within its register tile")
+    if q.dtype != torch.bfloat16 or k_cache.dtype not in (E4M3, torch.bfloat16) \
+            or v_cache.dtype != k_cache.dtype or lengths.dtype != torch.int32:
+        raise ValueError("q must be bf16, the cache e4m3 or bf16, lengths int32")
+    if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32 \
+            or k_scale.numel() != 1 or v_scale.numel() != 1:
+        raise ValueError("k/v scales must be f32 scalars")
+    if k_cache.stride(3) != 1 or k_cache.stride(2) != d:
+        raise ValueError("the cache's KVH and D dims must be dense")
+    vec = min(16, _lane_elements(d) * k_cache.element_size())
+    if any(t.data_ptr() % 16 for t in (k_cache, v_cache)) \
+            or (k_cache.stride(0) * k_cache.element_size()) % vec \
+            or (k_cache.stride(1) * k_cache.element_size()) % vec:
+        raise ValueError("the cache must be 16-byte aligned")
+    tensors = (q, k_cache, v_cache, k_scale, v_scale, lengths)
+    if not all(t.is_cuda for t in tensors) \
+            or not all(t.is_contiguous() for t in (q, lengths)):
+        raise ValueError("kernel 6 takes CUDA tensors (q and lengths contiguous)")
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    n_split, span = decode_splits(s_max, sms)
+    if sm_scale is None:
+        sm_scale = 1.0 / (d ** 0.5)
+    out = torch.empty_like(q)
+    ws = torch.empty((b * kvh * n_split * g * (d + 2),), dtype=torch.float32,
+                     device=q.device)
+    build.launch("decode", "fp8rl_decode", q.device,
+                 q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                 k_scale.data_ptr(), v_scale.data_ptr(), lengths.data_ptr(),
+                 out.data_ptr(), ws.data_ptr(), b, s_max, kvh, g, d,
+                 k_cache.stride(0), k_cache.stride(1), n_split, span,
+                 DTYPE_CODE[k_cache.dtype], float(sm_scale))
     return out

@@ -121,3 +121,36 @@ def fp8_paged_prefill_attention(q, k_pool, v_pool, k_scale, v_scale,
                 _attn.fp8_paged_prefill_attention_ref)
     return fn(q, k_pool, v_pool, k_scale, v_scale, block_tables, start,
               lengths)
+
+
+DECODE_BS = 512     # the reference's `fp8_kv_attention.DEFAULT_BS`
+
+
+def _decode_tile(s: int, bs: int) -> int:
+    """The reference wrapper's S tile for a cache of `s` positions
+    (repro/kernels/ops.py:134-148; its Pallas call clamps it to the padded
+    S); S is then padded to a multiple of it."""
+    bs = min(bs, max(128, 1 << (s - 1).bit_length()))
+    while s % bs and bs > 128:
+        bs //= 2
+    if s % bs:
+        bs = min(bs, 1 << (s - 1).bit_length())
+    return min(bs, -(-s // bs) * bs)
+
+
+def fp8_decode_attention(q, k_cache, v_cache, k_scale, v_scale, lengths,
+                         bs: int = DECODE_BS):
+    """Decode attention over one layer's contiguous fp8 (or bf16) cache
+    (kernel 6); positions at or past `lengths` are masked.
+
+    CPU tensors take the reference's tile choice and pad S to it, so the
+    plain version sums in the reference's tile order.  CUDA tensors are
+    never padded (at S 524289 a padded copy would be 1 GiB per layer per
+    step): the kernel masks the ragged tail itself."""
+    fn = _route(q, _attn.fp8_decode_attention, _attn.fp8_decode_attention_ref)
+    if q.is_cuda:
+        return fn(q, k_cache, v_cache, k_scale, v_scale, lengths)
+    bs = _decode_tile(k_cache.shape[1], bs)
+    k_cache = _pad_to(k_cache, (1, bs, 1, 1))
+    v_cache = _pad_to(v_cache, (1, bs, 1, 1))
+    return fn(q, k_cache, v_cache, k_scale, v_scale, lengths, bs=bs)

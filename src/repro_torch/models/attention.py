@@ -1,31 +1,41 @@
-"""GQA attention over a paged, quantizable KV cache (port of
+"""GQA attention over a quantizable KV cache (port of
 `repro.models.attention`, the rollout and serving paths).
 
-The cache is a pool of fixed-size token blocks shared by all sequences and
-addressed through per-sequence block tables (vLLM's layout), with one
-extra *trash* row: writes for unmapped entries (-1) and padded prompt
-positions go there, and reads of it are masked by `lengths`.  The KV
-payload is fp8 E4M3 (or bf16) with one f32 scale per layer for K and for
-V, recalibrated at prefill from the prompt's amax x 1.05 when
-`precision.calculate_kv_scales` is set.
+Two cache layouts, as in the reference.  The default `KVCache` is one
+contiguous (B, S_max, KVH, D) region per layer: prefill writes [0, S),
+padding included, and each decode step writes at `lengths`.  The
+`PagedKVCache` is a pool of fixed-size token blocks shared by all
+sequences and addressed through per-sequence block tables (vLLM's
+layout), with one extra *trash* row: writes for unmapped entries (-1) and
+padded prompt positions go there, and reads of it are masked by
+`lengths`.  Either way the KV payload is fp8 E4M3 (or bf16) with one f32
+scale per layer for K and for V, recalibrated at prefill from the
+prompt's amax x 1.05 when `precision.calculate_kv_scales` is set.
 
-One-shot prefill attention is plain PyTorch (the naive `_sdpa`, as the
-reference's is plain jnp) over K/V dequantized the way
-`dequantize_per_tensor` does.  Chunked prefill (`attention_prefill_chunk`)
-and decode each have two mechanisms, chosen by the caller (the serving
-engine's `KernelConfig`): the kernels (kernel 5 `ops.
-fp8_paged_prefill_attention`, kernel 4 `ops.fp8_paged_decode_attention`,
-whose plain versions dequantize like the TPU kernels' `_deq`), or the
-reference's table gather — a contiguous copy of the live leading blocks,
-dequantized by `dequantize_per_tensor`, through `_sdpa`.  The gather is
-sized by `_live_blocks` from host-side lengths, so it needs no device
-sync.  The pool is updated in place (eager PyTorch needs no functional
-copy); the contiguous `KVCache`, the chunked/`repeat` impls and
-cross-attention are not ported yet.
+One-shot prefill attention is plain PyTorch (as the reference's is plain
+jnp) over K/V dequantized the way `dequantize_per_tensor` does: the naive
+`_sdpa`, or `_sdpa_chunked` (online softmax over KV chunks, so the scores
+never exist at (S, S)) under `attention_impl("chunked")`.  Chunked
+prefill (`attention_prefill_chunk`, paged only) and decode each have two
+mechanisms, chosen by the caller: the kernels (kernel 5 `ops.
+fp8_paged_prefill_attention`; at decode kernel 4 `ops.
+fp8_paged_decode_attention` for a pool, kernel 6 `ops.
+fp8_decode_attention` for a contiguous cache), or the reference's jnp
+paths — for a pool a contiguous copy of the live leading blocks, for a
+contiguous cache the full S_max region, dequantized by
+`dequantize_per_tensor`, through `_sdpa`.  The pool gather is sized by
+`_live_blocks` from host-side lengths, so it needs no device sync.
+Caches are updated in place (eager PyTorch needs no functional copy);
+a decode write at or past S_max raises (`IndexError` here; the steps of
+`Transformer.decode_step` raise a `ValueError` before it), where the
+reference's XLA scatter drops it.  The `repeat` impl (a tensor-parallel
+layout) and cross-attention are not ported.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 from typing import Optional
 
 import numpy as np
@@ -42,6 +52,42 @@ from repro_torch.kernels import ops
 from repro_torch.models.common import apply_rope, rms_norm
 
 _NEG_INF = -1e30
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Contiguous KV cache of one layer (B, S_max, KVH, D), or of all R
+    layers stacked (R, B, S_max, KVH, D)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: torch.Tensor    # () per layer, (R,) stacked
+    v_scale: torch.Tensor
+
+    @property
+    def quantized(self) -> bool:
+        return self.k.dtype in (torch.float8_e4m3fn, torch.float8_e5m2)
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[-3]
+
+    def layer(self, r: int) -> "KVCache":
+        """Layer `r` of a stacked cache; views, so writes land in the cache."""
+        return KVCache(self.k[r], self.v[r], self.k_scale[r], self.v_scale[r])
+
+
+def init_kv_cache(batch: int, max_len: int, n_kv_heads: int, d_head: int,
+                  precision: PrecisionConfig, *, repeats: int, device,
+                  dtype=torch.bfloat16) -> KVCache:
+    kv_dtype = E4M3 if precision.kv_quantized else dtype
+    shape = (repeats, batch, max_len, n_kv_heads, d_head)
+    return KVCache(
+        k=torch.zeros(shape, dtype=kv_dtype, device=device),
+        v=torch.zeros(shape, dtype=kv_dtype, device=device),
+        k_scale=torch.ones((repeats,), dtype=torch.float32, device=device),
+        v_scale=torch.ones((repeats,), dtype=torch.float32, device=device),
+    )
 
 
 @dataclasses.dataclass
@@ -152,7 +198,68 @@ def _sdpa(q, k, v, mask):
     return out.reshape(b, s, h * dh)
 
 
-def _quantize_kv(k, v, cache: PagedKVCache, precision: PrecisionConfig,
+# ---------------------------------------------------------------------------
+# attention implementation selector (the reference's `attention_impl`)
+# ---------------------------------------------------------------------------
+
+_IMPL_CTX = threading.local()
+
+
+@contextlib.contextmanager
+def attention_impl(name: str):
+    """naive — the full (S, S') scores (the default); chunked — online
+    softmax over KV chunks, for prompts whose naive scores would not fit
+    (B 1, S 32768: 137 GB of f32 scores naive, 4.3 GB per chunk)."""
+    if name not in ("naive", "chunked"):
+        raise ValueError(f"attention impl {name!r}: the port has naive and chunked")
+    prev = getattr(_IMPL_CTX, "impl", "naive")
+    _IMPL_CTX.impl = name
+    try:
+        yield
+    finally:
+        _IMPL_CTX.impl = prev
+
+
+def _impl() -> str:
+    return getattr(_IMPL_CTX, "impl", "naive")
+
+
+def _sdpa_chunked(q, k, v, *, lengths=None, kv_chunk: int = 1024):
+    """Online-softmax attention over KV chunks (causal [+ lengths]);
+    q (B,S,H,D), k/v (B,S',KVH,D) bf16 -> (B,S,H*D).  Equal to
+    the naive path up to f32 accumulation order; scores exist only at
+    (..., S, C) per chunk.  The last chunk may be short (the reference
+    pads it with masked zeros, which adds exact zeros)."""
+    b, s, h, dh = q.shape
+    s_kv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    c = min(kv_chunk, s_kv)
+    qg = q.reshape(b, s, kvh, g, dh)
+    q_pos = torch.arange(s, device=q.device)[:, None]
+    m = torch.full((b, kvh, g, s, 1), _NEG_INF, device=q.device)
+    l = torch.zeros((b, kvh, g, s, 1), device=q.device)
+    acc = torch.zeros((b, kvh, g, s, dh), device=q.device)
+    for t0 in range(0, s_kv, c):
+        k_blk, v_blk = k[:, t0:t0 + c], v[:, t0:t0 + c]
+        scores = torch.einsum("bskgd,btkd->bkgst", qg, k_blk).float() * (dh ** -0.5)
+        k_pos = t0 + torch.arange(k_blk.shape[1], device=q.device)[None, :]
+        mask = (k_pos <= q_pos)[None]                              # (1, S, C)
+        if lengths is not None:
+            mask = mask & (k_pos[None] < lengths[:, None, None])   # (B, S, C)
+        mask = mask[:, None, None]
+        scores = torch.where(mask, scores, _NEG_INF)
+        m_new = torch.maximum(m, scores.amax(dim=-1, keepdim=True))
+        p = torch.where(mask, torch.exp(scores - m_new), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        pv = torch.einsum("bkgst,btkd->bkgsd", p.to(v_blk.dtype), v_blk)
+        acc = acc * alpha + pv.float()
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h * dh).to(q.dtype)
+
+
+def _quantize_kv(k, v, cache, precision: PrecisionConfig,
                  recalibrate: bool):
     """Fresh K/V in the cache dtype.  recalibrate=True (prefill) sets the
     layer's scales from this tensor's amax x 1.05 — over the whole padded
@@ -167,21 +274,27 @@ def _quantize_kv(k, v, cache: PagedKVCache, precision: PrecisionConfig,
     return kq, vq
 
 
-def attention_prefill(x, params, cfg, cache: PagedKVCache,
-                      precision: PrecisionConfig, *, lengths, positions,
-                      block_tables):
-    """Causal attention over the prompt; writes the layer's pool at
-    positions [0, S) through `block_tables` (padding past `lengths` goes to
-    the trash row)."""
+def attention_prefill(x, params, cfg, cache, precision: PrecisionConfig, *,
+                      lengths, positions, block_tables=None):
+    """Causal attention over the prompt; writes the layer's cache at
+    positions [0, S): a contiguous `KVCache` takes all S rows, padding
+    included, as the reference's `dynamic_update_slice` does; a pool takes
+    them through `block_tables` (padding past `lengths` goes to the trash
+    row).  Attention is the naive `_sdpa`, or `_sdpa_chunked` under
+    `attention_impl("chunked")`."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(x, params, cfg, precision)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
     kq, vq = _quantize_kv(k, v, cache, precision, recalibrate=True)
-    pos = torch.broadcast_to(positions, (b, s))
-    valid = pos < lengths[:, None]
-    paged_write(cache, block_tables, pos, valid, kq, vq)
+    if isinstance(cache, KVCache):
+        cache.k[:, :s] = kq
+        cache.v[:, :s] = vq
+    else:
+        pos = torch.broadcast_to(positions, (b, s))
+        valid = pos < lengths[:, None]
+        paged_write(cache, block_tables, pos, valid, kq, vq)
 
     # attend over what the cache holds, so prefill numerics match decode's
     if cache.quantized:
@@ -189,10 +302,13 @@ def attention_prefill(x, params, cfg, cache: PagedKVCache,
         v_use = dequantize_per_tensor(vq, cache.v_scale, x.dtype)
     else:
         k_use, v_use = k, v
-    ar = torch.arange(s, device=x.device)
-    mask = (ar[None, :] <= ar[:, None])[None]                    # causal
-    mask = mask & (ar[None, :] < lengths[:, None])[:, None, :]   # (B, S, S)
-    out = _sdpa(q, k_use, v_use, mask)
+    if _impl() == "chunked":
+        out = _sdpa_chunked(q, k_use, v_use, lengths=lengths)
+    else:
+        ar = torch.arange(s, device=x.device)
+        mask = (ar[None, :] <= ar[:, None])[None]                    # causal
+        mask = mask & (ar[None, :] < lengths[:, None])[:, None, :]   # (B, S, S)
+        out = _sdpa(q, k_use, v_use, mask)
     return linear(out, params["wo"], precision=precision)
 
 
@@ -237,25 +353,57 @@ def attention_prefill_chunk(x, params, cfg, cache: PagedKVCache,
     return linear(out, params["wo"], precision=precision)
 
 
-def attention_decode(x, params, cfg, cache: PagedKVCache, lengths,
-                     precision: PrecisionConfig, *, block_tables,
+def attention_decode(x, params, cfg, cache, lengths,
+                     precision: PrecisionConfig, *, block_tables=None,
                      use_kernel: bool = True,
                      live_blocks: Optional[int] = None):
-    """One decode step: append K/V at `lengths`, attend over
-    [0, lengths] through kernel 4, or (use_kernel=False) through the
-    gather of the first `live_blocks` table entries (all of them when
-    None)."""
+    """One decode step: append K/V at `lengths` (device ints, each below
+    S_max for a contiguous cache), attend over [0, lengths].  A contiguous
+    `KVCache` attends through kernel 6, or (use_kernel=False) through the
+    reference's dequantized full-S_max `_sdpa`; a pool through kernel 4,
+    or through the gather of the first `live_blocks` table entries (all of
+    them when None)."""
     b = x.shape[0]
     q, k, v = _project_qkv(x, params, cfg, precision)
     pos = lengths[:, None]
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
     kq, vq = _quantize_kv(k, v, cache, precision, recalibrate=False)
+    if isinstance(cache, KVCache):
+        rows = torch.arange(b, device=x.device)
+        cache.k[rows, lengths.long()] = kq[:, 0]
+        cache.v[rows, lengths.long()] = vq[:, 0]
+        return _contiguous_attention(x, q, cache, lengths + 1, params,
+                                     precision, use_kernel=use_kernel)
     paged_write(cache, block_tables, pos,
                 torch.ones((b, 1), dtype=torch.bool, device=x.device), kq, vq)
     return _paged_attention_over_table(x, q, cache, block_tables, lengths + 1,
                                        params, precision, use_kernel=use_kernel,
                                        live_blocks=live_blocks)
+
+
+def _contiguous_attention(x, q, cache: KVCache, new_lengths, params, precision,
+                          *, use_kernel: bool):
+    """Attend one query token over a contiguous cache: kernel 6, or the
+    reference's dequantized full-S_max copy through `_sdpa`."""
+    b, _, h, dh = q.shape
+    kvh = cache.k.shape[-2]
+    if use_kernel:
+        out = ops.fp8_decode_attention(
+            q.reshape(b, kvh, h // kvh, dh).to(torch.bfloat16).contiguous(),
+            cache.k, cache.v, cache.k_scale, cache.v_scale,
+            new_lengths.to(torch.int32),
+        ).reshape(b, 1, h * dh).to(x.dtype)
+    else:
+        if cache.quantized:
+            k_all = dequantize_per_tensor(cache.k, cache.k_scale, x.dtype)
+            v_all = dequantize_per_tensor(cache.v, cache.v_scale, x.dtype)
+        else:
+            k_all, v_all = cache.k, cache.v
+        k_pos = torch.arange(cache.max_len, device=x.device)
+        mask = (k_pos[None, :] < new_lengths[:, None])[:, None, :]
+        out = _sdpa(q, k_all, v_all, mask)
+    return linear(out, params["wo"], precision=precision)
 
 
 def _gather_live(cache: PagedKVCache, phys, dtype):

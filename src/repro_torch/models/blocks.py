@@ -69,12 +69,13 @@ def _mlp(x, slot_params, cfg, precision):
 
 
 def apply_slot_full(x, slot_params, spec: SlotSpec, cfg, precision, *,
-                    kv_cache, positions=None, lengths, block_tables,
+                    kv_cache, positions=None, lengths, block_tables=None,
                     chunk_start=None, use_kernel: bool = False,
                     live_blocks: Optional[int] = None):
     """Prefill branch of the reference's `apply_slot_full`: attention over
-    the prompt (writing the paged cache) — or, with `chunk_start`, over one
-    chunk of it at [chunk_start, chunk_start + C) (`use_kernel` and
+    the prompt, writing the cache (a contiguous `KVCache`, or a pool
+    through `block_tables`) — or, with `chunk_start`, over one chunk of it
+    at [chunk_start, chunk_start + C) of a pool (`use_kernel` and
     `live_blocks` as in `attention_prefill_chunk`) — then the MLP."""
     p = slot_params["attn"]
     xn = rms_norm(x, p["norm_scale"], cfg.norm_eps)
@@ -91,11 +92,13 @@ def apply_slot_full(x, slot_params, spec: SlotSpec, cfg, precision, *,
 
 
 def apply_slot_decode(x, slot_params, spec: SlotSpec, cfg, precision, *,
-                      kv_cache, lengths, block_tables, use_kernel: bool = True,
+                      kv_cache, lengths, block_tables=None,
+                      use_kernel: bool = True,
                       live_blocks: Optional[int] = None):
-    """One-token decode through the slot: attention through kernel 4, or
-    through the gather of `live_blocks` table entries when `use_kernel` is
-    off; then the MLP."""
+    """One-token decode through the slot: attention through kernel 6 (a
+    contiguous `KVCache`, no `block_tables`) or kernel 4 (a pool), or with
+    `use_kernel` off through the reference's full-cache path or the gather
+    of `live_blocks` table entries; then the MLP."""
     p = slot_params["attn"]
     xn = rms_norm(x, p["norm_scale"], cfg.norm_eps)
     x = x + attn_mod.attention_decode(xn, p, cfg, kv_cache, lengths,

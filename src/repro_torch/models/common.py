@@ -50,19 +50,21 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 
 def dense_init(generator: torch.Generator, shape, in_axis_size: Optional[int] = None,
-               dtype=torch.bfloat16) -> torch.Tensor:
+               dtype=torch.bfloat16, device=None) -> torch.Tensor:
     """normal * fan_in^-0.5, drawn in f32 one leading slice at a time (a
-    full-width stacked leaf never exists in f32 at once)."""
+    full-width stacked leaf never exists in f32 at once).  On `device`
+    (the generator's when None; "meta" gives shapes only)."""
+    device = generator.device if device is None else device
     fan_in = in_axis_size if in_axis_size is not None else shape[-2]
     std = fan_in ** -0.5
-    out = torch.empty(shape, dtype=dtype, device=generator.device)
+    out = torch.empty(shape, dtype=dtype, device=device)
     flat = out.view(-1, *shape[-2:]) if len(shape) > 2 else out[None]
     for i in range(flat.shape[0]):
-        flat[i] = torch.randn(shape[-2:], generator=generator,
-                              device=generator.device) * std
+        flat[i] = torch.randn(shape[-2:], generator=generator, device=device) * std
     return out
 
 
-def embed_init(generator: torch.Generator, shape, dtype=torch.bfloat16) -> torch.Tensor:
-    return (torch.randn(shape, generator=generator, device=generator.device)
-            * 0.02).to(dtype)
+def embed_init(generator: torch.Generator, shape, dtype=torch.bfloat16,
+               device=None) -> torch.Tensor:
+    device = generator.device if device is None else device
+    return (torch.randn(shape, generator=generator, device=device) * 0.02).to(dtype)

@@ -1,5 +1,5 @@
-"""Model assembly: init / paged cache / prefill / decode for the dense
-decoder (port of `repro.models.transformer`, rollout half).
+"""Model assembly: init / cache / prefill / decode for the dense decoder
+(port of `repro.models.transformer`, rollout half).
 
 `Transformer` holds the configuration and the device; the parameters are
 a nested dict with the reference's key names and layer-stacked leaves
@@ -7,9 +7,13 @@ a nested dict with the reference's key names and layer-stacked leaves
 reference pytree onto it one to one and `core.fp8_params` selects the
 same leaves to quantize.  The reference's `lax.scan` over the R repeats is
 a Python loop over per-layer views here.  The cache is updated in place
-and returned.  `prefill_chunk` and the `use_kernel` switch of
-`decode_step` serve the continuous-batching engine (`repro_torch.serving`).
-`forward_train`/`token_logprobs` come with the training slice.
+and returned.  Its default layout is contiguous (one (B, S_max) region
+per layer, decode through kernel 6); with `page_size` it is a paged pool
+(kernel 4).  `prefill_chunk` and the `use_kernel` switch of
+`decode_step` serve the continuous-batching engine (`repro_torch.
+serving`).  On the "meta" device the model builds shapes only
+(`launch.steps` specs).  `forward_train`/`token_logprobs` come with the
+training slice.
 """
 from __future__ import annotations
 
@@ -65,48 +69,64 @@ class Transformer(nn.Module):
         """Random weights drawn from a seeded `torch.Generator` on the
         model's device (normal x fan_in^-0.5; x 0.02 for the embedding;
         ones for norm scales).  They cannot equal the reference's
-        `jax.random` draws: tests bridge the reference's params instead."""
-        cfg, r, dt = self.cfg, self.repeats, self.dtype
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        `jax.random` draws: tests bridge the reference's params instead.
+        A "meta" model returns the shapes and dtypes only."""
+        cfg, r, dt, dev = self.cfg, self.repeats, self.dtype, self.device
+        gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
+        gen.manual_seed(seed)
         d, h, kvh, dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                             cfg.d_head, cfg.d_ff)
 
         def ones(*shape):
-            return torch.ones(shape, dtype=dt, device=self.device)
+            return torch.ones(shape, dtype=dt, device=dev)
 
-        params = {"emb": embed_init(gen, (cfg.vocab_size, d), dt)}
+        def dense(shape, fan_in):
+            return dense_init(gen, shape, fan_in, dt, dev)
+
+        params = {"emb": embed_init(gen, (cfg.vocab_size, d), dt, dev)}
         blocks = {}
         for j, _ in enumerate(self.pattern):
             attn = {
-                "wq": dense_init(gen, (r, d, h * dh), d, dt),
-                "wk": dense_init(gen, (r, d, kvh * dh), d, dt),
-                "wv": dense_init(gen, (r, d, kvh * dh), d, dt),
-                "wo": dense_init(gen, (r, h * dh, d), h * dh, dt),
+                "wq": dense((r, d, h * dh), d),
+                "wk": dense((r, d, kvh * dh), d),
+                "wv": dense((r, d, kvh * dh), d),
+                "wo": dense((r, h * dh, d), h * dh),
                 "norm_scale": ones(r, d),
             }
             if cfg.qk_norm:
                 attn["q_norm_scale"] = ones(r, dh)
                 attn["k_norm_scale"] = ones(r, dh)
-            mlp = {"wg": dense_init(gen, (r, d, f), d, dt),
-                   "wd": dense_init(gen, (r, f, d), f, dt),
+            mlp = {"wg": dense((r, d, f), d),
+                   "wd": dense((r, f, d), f),
                    "norm_scale": ones(r, d)}
             if cfg.mlp_gated:
-                mlp["wu"] = dense_init(gen, (r, d, f), d, dt)
+                mlp["wu"] = dense((r, d, f), d)
             blocks[f"s{j}"] = {"attn": attn, "mlp": mlp}
         params["blocks"] = blocks
         params["final_norm_scale"] = ones(d)
         if not cfg.tie_embeddings:
-            params["lm_head"] = dense_init(gen, (d, cfg.vocab_size), d, dt)
+            params["lm_head"] = dense((d, cfg.vocab_size), d)
         return params
 
     def init_cache(self, batch: int, max_len: int, precision: PrecisionConfig,
-                   *, page_size: int, num_pages: Optional[int] = None) -> dict:
-        """Paged rollout cache: per-layer pools of `num_pages` blocks of
+                   *, page_size: Optional[int] = None,
+                   num_pages: Optional[int] = None) -> dict:
+        """Rollout cache.  Default layout: one contiguous (B, max_len)
+        region per sequence and layer (`attention.KVCache`), plus
+        "max_length", the host's bound on the lengths (see `decode_step`).
+        With `page_size`: per-layer pools of `num_pages` blocks of
         `page_size` tokens (+ the trash row) and a (B, W) block table,
-        W = ceil(max_len / page_size).  Without `num_pages` each sequence
-        owns a contiguous run of blocks (identity tables); with it the
+        W = ceil(max_len / page_size); without `num_pages` each sequence
+        owns a contiguous run of blocks (identity tables), with it the
         tables start unmapped (-1) for an external allocator."""
         cfg = self.cfg
+        lengths = torch.zeros((batch,), dtype=torch.int32, device=self.device)
+        if page_size is None:
+            slots = {f"s{j}": {"kv": attn_mod.init_kv_cache(
+                batch, max_len, cfg.n_kv_heads, cfg.d_head, precision,
+                repeats=self.repeats, device=self.device, dtype=self.dtype)}
+                for j, _ in enumerate(self.pattern)}
+            return {"slots": slots, "lengths": lengths, "max_length": 0}
         pages_per_seq = -(-max_len // page_size)
         self_owned = num_pages is None
         if self_owned:
@@ -121,10 +141,7 @@ class Transformer(nn.Module):
         else:
             tables = torch.full((batch, pages_per_seq), -1, dtype=torch.int32,
                                 device=self.device)
-        return {"slots": slots,
-                "lengths": torch.zeros((batch,), dtype=torch.int32,
-                                       device=self.device),
-                "block_tables": tables}
+        return {"slots": slots, "lengths": lengths, "block_tables": tables}
 
     # ------------------------------------------------------------------
     # shared pieces
@@ -141,6 +158,11 @@ class Transformer(nn.Module):
         logits = linear(pad_rows(x2), head, precision=precision, quantized=False)
         return logits[: x2.shape[0]].reshape(lead + (-1,)).float()
 
+    @staticmethod
+    def _max_len(cache) -> int:
+        """S_max of a contiguous cache."""
+        return next(iter(cache["slots"].values()))["kv"].max_len
+
     def _layers(self, params, cache):
         for r in range(self.repeats):
             slot_params = _layer(params["blocks"], r)
@@ -156,19 +178,28 @@ class Transformer(nn.Module):
                 precision: PrecisionConfig):
         """Process right-padded prompts `inputs["tokens"]` (B, T) with
         lengths `inputs["lengths"]` (B,), fill the cache, return the logits
-        at each last valid position (B, V) f32 and the cache."""
+        at each last valid position (B, V) f32 and the cache.  A contiguous
+        cache takes T <= S_max and records max(lengths) on the host (one
+        device sync when the lengths are a CUDA tensor)."""
         _check_precision(precision)
         tokens = inputs["tokens"].to(self.device)
         lengths = inputs["lengths"].to(self.device, torch.int32)
         b, t = tokens.shape
+        contiguous = "block_tables" not in cache
+        if contiguous:
+            s_max = self._max_len(cache)
+            if t > s_max:
+                raise ValueError(f"prompts of {t} positions exceed the cache's {s_max}")
         x = params["emb"][tokens.long()]
         positions = torch.arange(t, device=self.device)[None, :]
         for spec, p, kv in self._layers(params, cache):
             x = blocks_mod.apply_slot_full(
                 x, p, spec, self.cfg, precision, kv_cache=kv,
                 positions=positions, lengths=lengths,
-                block_tables=cache["block_tables"])
+                block_tables=cache.get("block_tables"))
         cache["lengths"] = lengths
+        if contiguous:
+            cache["max_length"] = int(inputs["lengths"].max()) if b else 0
         idx = torch.clamp(lengths.long() - 1, 0, t - 1)
         x_last = x[torch.arange(b, device=self.device), idx]
         return self._unembed(params, x_last, precision), cache
@@ -215,16 +246,29 @@ class Transformer(nn.Module):
                     precision: PrecisionConfig, *, use_kernel: bool = True,
                     live_blocks: Optional[int] = None):
         """One autoregressive step on (B,) tokens -> (logits (B, V), cache).
-        Attention goes through kernel 4, or with `use_kernel=False` through
-        the gather of the first `live_blocks` table entries (the caller's
-        `attention._live_blocks` over lengths + 1; all entries when None)."""
+        A contiguous cache attends through kernel 6, or with
+        `use_kernel=False` through the reference's full-S_max path; it
+        raises a `ValueError` before any write when the host's bound on
+        the lengths ("max_length") has reached S_max — the reference's XLA
+        scatter drops such a write, a CUDA index past the cache would kill
+        the context.  A paged cache attends through kernel 4, or with
+        `use_kernel=False` through the gather of the first `live_blocks`
+        table entries (the caller's `attention._live_blocks` over
+        lengths + 1; all entries when None)."""
         _check_precision(precision)
+        contiguous = "block_tables" not in cache
+        if contiguous and cache["max_length"] >= self._max_len(cache):
+            raise ValueError(
+                f"decode step past the cache: a length reaches {cache['max_length']}"
+                f" and the cache holds {self._max_len(cache)} positions")
         lengths = cache["lengths"]
         x = params["emb"][tokens.to(self.device).long()][:, None, :]
         for spec, p, kv in self._layers(params, cache):
             x = blocks_mod.apply_slot_decode(
                 x, p, spec, self.cfg, precision, kv_cache=kv,
-                lengths=lengths, block_tables=cache["block_tables"],
+                lengths=lengths, block_tables=cache.get("block_tables"),
                 use_kernel=use_kernel, live_blocks=live_blocks)
         cache["lengths"] = lengths + 1
+        if contiguous:
+            cache["max_length"] += 1
         return self._unembed(params, x[:, 0], precision), cache

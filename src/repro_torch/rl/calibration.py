@@ -12,8 +12,8 @@ import torch
 
 
 def apply_kv_scales(cache: dict, scales: dict) -> dict:
-    """Install {slot: {"k_scale": (R,), "v_scale": (R,)}} into `cache`
-    (in place; the cache is returned)."""
+    """Install {slot: {"k_scale": (R,), "v_scale": (R,)}} into `cache`,
+    contiguous or paged (in place; the cache is returned)."""
     for name, sc in scales.items():
         slot = cache["slots"].get(name, {})
         if "kv" in slot:

@@ -14,9 +14,13 @@ head widths 16/32 and group sizes 2-4 with ragged tails, NaN-poisoned
 stale table entries and dead chunk rows, a chunk row equal bit for bit to
 a decode step at the same context, the serving engine's speculative and
 preempted greedy runs equal to plain ones on the card, the GRPO fork on
-the card, and a wrapper without its library.  Tolerances are those of
-the CPU tests: quantizers bit-equal, GEMM within one bf16 rounding (rtol
-2**-7), paged attention within 1e-2.
+the card, and a wrapper without its library.  Kernel 6 (contiguous
+decode): G 1-8, D 16-128, S 13/200/1057 with ragged tails, NaN poison
+past each length, idle rows, a layer view of a stacked cache, split
+counts > 1 against one split, and a serve step past the cache that
+raises on the host.  Tolerances are those of the CPU tests: quantizers
+bit-equal, GEMM within one bf16 rounding (rtol 2**-7), attention within
+1e-2.
 """
 import pytest
 
@@ -25,7 +29,7 @@ torch = pytest.importorskip("torch")
 # spin on the cores that the other test workers use
 torch.set_num_threads(1)
 
-from repro_torch.configs import tiny_serving_config  # noqa: E402
+from repro_torch.configs import ShapeConfig, tiny_serving_config  # noqa: E402
 from repro_torch.core.precision import (  # noqa: E402
     E4M3,
     E5M2,
@@ -36,6 +40,7 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import fp8_kv_attention as fa  # noqa: E402
 from repro_torch.kernels import fp8_quant as fq  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.launch import steps  # noqa: E402
 from repro_torch.models import Transformer  # noqa: E402
 from repro_torch.rl import SamplerConfig, generate, sync_policy_weights  # noqa: E402
 from repro_torch.serving import ServingEngine, SpecConfig, kv_bytes_per_token  # noqa: E402
@@ -189,6 +194,109 @@ def test_chunk_row_equals_decode_step_on_card(cuda, bs):
             q[:, ci].contiguous(), kq, vq, ks, vs, tables,
             torch.tensor([start[0] + ci + 1], dtype=torch.int32, device=cuda))
         assert torch.equal(dec.view(torch.int16), out[:, ci].view(torch.int16)), ci
+
+
+def _contiguous_case(dev, gen, b, kvh, g, d, s, lengths, fp8=True):
+    k = torch.randn((b, s, kvh, d), generator=gen, device=dev)
+    v = torch.randn((b, s, kvh, d), generator=gen, device=dev)
+    if fp8:
+        ks, vs = k.abs().amax() / 448, v.abs().amax() / 448
+        kq, vq = (k / ks).clamp(-448, 448).to(E4M3), (v / vs).clamp(-448, 448).to(E4M3)
+    else:
+        ks = vs = torch.ones((), device=dev)
+        kq, vq = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    q = torch.randn((b, kvh, g, d), generator=gen, device=dev).to(torch.bfloat16)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return q, kq, vq, ks.float(), vs.float(), lengths
+
+
+def _poison_past(kq, vq, lengths):
+    """Copies with NaN bit patterns at every position at or past a row's
+    length (e4m3fn NaN 0x7f, bf16 NaN 0x7fc0)."""
+    dead = torch.arange(kq.shape[1], device=kq.device)[None, :] >= lengths[:, None].long()
+    bits, nan = (torch.uint8, 0x7F) if kq.element_size() == 1 else (torch.int16, 0x7FC0)
+    kn, vn = kq.clone(), vq.clone()
+    kn.view(bits)[dead] = nan
+    vn.view(bits)[dead] = nan
+    assert bool(kn.float()[dead].isnan().all())
+    return kn, vn
+
+
+@pytest.mark.parametrize("kv", ["fp8", "bf16"])
+@pytest.mark.parametrize("s", [13, 200, 1057])
+@pytest.mark.parametrize("g,d", [(1, 32), (2, 16), (4, 64), (4, 128), (8, 128), (8, 32)])
+def test_contiguous_decode_on_card(cuda, g, d, s, kv):
+    gen = torch.Generator(device=cuda).manual_seed(g * 1000 + d + s)
+    lengths = [1, s, 0, max(s // 2 - 1, 1)]
+    q, kq, vq, ks, vs, ln = _contiguous_case(cuda, gen, 4, 2, g, d, s, lengths, kv == "fp8")
+    out = fa.fp8_decode_attention(q, kq, vq, ks, vs, ln)
+    plain = fa.fp8_decode_attention_ref(q, kq, vq, ks, vs, ln)
+    kn, vn = _poison_past(kq, vq, ln)
+    poisoned = fa.fp8_decode_attention(q, kn, vn, ks, vs, ln)
+    torch.cuda.synchronize()
+    assert torch.allclose(out.float(), plain.float(), rtol=1e-2, atol=1e-2)
+    assert torch.equal(poisoned.view(torch.int16), out.view(torch.int16))
+    assert bool((out[2] == 0).all())          # the idle row
+
+
+def _forced_splits(n):
+    """`decode_splits` forced to `n` splits (the fewest equal spans that
+    cover S), whatever the SM count."""
+    def splits(s_max, sm_count):
+        span = -(-s_max // n)
+        return -(-s_max // span), span
+    return splits
+
+
+@pytest.mark.parametrize("n_split", [2, 3, 7, 64])
+def test_contiguous_decode_split_counts_on_card(cuda, n_split, monkeypatch):
+    """More splits change only the sum order: within 1e-2 of one split."""
+    gen = torch.Generator(device=cuda).manual_seed(n_split)
+    q, kq, vq, ks, vs, ln = _contiguous_case(cuda, gen, 3, 2, 4, 128, 1057,
+                                             [1057, 300, 5])
+    monkeypatch.setattr(fa, "decode_splits", _forced_splits(1))
+    one = fa.fp8_decode_attention(q, kq, vq, ks, vs, ln)
+    monkeypatch.setattr(fa, "decode_splits", _forced_splits(n_split))
+    many = fa.fp8_decode_attention(q, kq, vq, ks, vs, ln)
+    again = fa.fp8_decode_attention(q, kq, vq, ks, vs, ln)
+    torch.cuda.synchronize()
+    assert torch.allclose(many.float(), one.float(), rtol=1e-2, atol=1e-2)
+    assert torch.equal(many.view(torch.int16), again.view(torch.int16))
+
+
+def test_contiguous_decode_layer_view_on_card(cuda):
+    """A layer of the stacked (R, B, S, KVH, D) cache is a view at an
+    offset; the kernel reads it in place, as a copy of it would read."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, kq, vq, ks, vs, ln = _contiguous_case(cuda, gen, 2, 2, 4, 64, 200, [200, 77])
+    kst = torch.stack([torch.zeros_like(kq), kq, torch.zeros_like(kq)])
+    vst = torch.stack([torch.zeros_like(vq), vq, torch.zeros_like(vq)])
+    view = fa.fp8_decode_attention(q, kst[1], vst[1], ks, vs, ln)
+    copy = fa.fp8_decode_attention(q, kq.clone(), vq.clone(), ks, vs, ln)
+    torch.cuda.synchronize()
+    assert torch.equal(view.view(torch.int16), copy.view(torch.int16))
+
+
+def test_serve_step_past_the_cache_raises_on_card(cuda):
+    """The steps keep the lengths' maximum on the host: a serve step whose
+    write would land past S_max raises a ValueError before any launch,
+    and the card stays usable (no device-side assert)."""
+    cfg = tiny_serving_config().reduced(d_model=128, d_ff=256, n_heads=4, n_kv_heads=2,
+                                        d_head=32)
+    prec = PrecisionConfig()
+    roll, _ = sync_policy_weights(Transformer(cfg, cuda).init_params(2), prec)
+    prefill = steps.make_prefill_step(cfg, ShapeConfig("t", 8, 2, "prefill"), prec)
+    serve = steps.make_serve_step(cfg, prec)
+    tokens = torch.randint(4, 19, (2, 8), dtype=torch.int32, device=cuda)
+    logits, cache = prefill(roll, {"tokens": tokens,
+                                   "lengths": torch.tensor([6, 8], dtype=torch.int32)})
+    build.reset_launch_counts()
+    logits, cache = serve(roll, logits.argmax(-1), cache)       # writes position 8
+    assert build.LAUNCHES["decode"] == cfg.n_layers
+    with pytest.raises(ValueError, match="past the cache"):
+        serve(roll, logits.argmax(-1), cache)
+    torch.cuda.synchronize()
+    assert cache["lengths"].tolist() == [7, 9] and bool(torch.isfinite(logits).all())
 
 
 def _engine_run(cfg, roll, prec, dev, trace, **kw):
