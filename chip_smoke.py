@@ -37,6 +37,10 @@ the order 1-5, 7, 6:
 6. each kernel's time at the main paths' shapes beside its plain
    version's, one library call's where one computes the same function,
    and the bound (bytes over 3.35 TB/s or operations over the peak rate);
+   kernel 5 at the engine's chunk (C 128 at 640 tokens; the kernels line
+   keeps this row), the verify chunk (C 5), the first chunk (128 tokens)
+   and a 4096-token context, with the paged body's rows per block and key
+   tile;
    engine tokens/s, ms per prefill chunk and per decode step, and one
    profiled engine decode step.  It runs last, after 7 has freed its
    38.7 GB cache; kernel 6's LONG_500K row is taken in 7c on that cache;
@@ -1257,11 +1261,15 @@ def time_kernels(dev, gen, results, cfg, roll, traj, contig_lengths, extra):
             results["decode"].update(row)
         del args
 
-    # chunked prefill at the engine's chunk (C 128, 640 tokens of context)
-    # and at the speculative verify chunk (C 5)
-    for c, start, length in ((128, 512, 640), (5, 295, 300)):
+    # chunked prefill at the engine's chunk (C 128, 640 tokens of context),
+    # at the speculative verify chunk (C 5), at the engine's first chunk
+    # (128 tokens) and at a 4096-token context
+    log(f"paged attention body (kernels 4 and 5): {fa.PAGED_ROWS_PER_BLOCK} query rows "
+        f"per block, key tiles of {fa.paged_key_tile(dh)} positions at D {dh}")
+    for c, start, length in ((128, 512, 640), (5, 295, 300), (128, 0, 128), (128, 3968, 4096)):
         q, kq, vq, ks, vs, tables, st, ln, _ = prefill_case(
-            dev, gen, [start], [length], c, kvh=kvh, g=g, d=dh)
+            dev, gen, [start], [length], c, kvh=kvh, g=g, d=dh,
+            w=max(-(-ENGINE_MAX_SEQ // KV_BLOCK), -(-length // KV_BLOCK)))
         args = (q, kq, vq, ks, vs, tables, st, ln)
         lib = sdpa_yardstick(*args)
         row = dict(ms=cuda_time_ms(lambda: fa.fp8_paged_prefill_attention(*args)),
@@ -1275,7 +1283,7 @@ def time_kernels(dev, gen, results, cfg, roll, traj, contig_lengths, extra):
         extra.append(dict(kernel="paged_prefill", shape=[1, c, kvh, g, dh], start=start,
                           lengths=length, library="scaled_dot_product_attention on a "
                           "pre-gathered, pre-dequantized bf16 copy (gather excluded)", **row))
-        if c == 128:
+        if (c, start) == (128, 512):
             results["paged_prefill"].update(row)
 
 

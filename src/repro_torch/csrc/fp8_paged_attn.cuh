@@ -1,159 +1,341 @@
 // The block body shared by the two paged-attention kernels: kernel 4
 // (`fp8_paged_decode.cu`) and kernel 5 (`fp8_paged_prefill.cu`).
 //
-// One 128-thread block attends up to kAttnMaxRows query rows, all of one
-// (slot, kv-head), over that slot's live pool blocks: table entries
-// w < nb only, so stale ids past the live region are never dereferenced.
-// Row r counts the keys at positions k_pos < limit[r] (decode: the slot's
-// length; chunked prefill: q_pos + 1 while q_pos < lengths, else 0).
-// Each pool block is walked in shared-memory tiles of at most kAttnTile
-// keys; a tile is dequantized the way the TPU kernels' `_deq` does (f32
-// multiply, then a bf16 rounding), scores and P @ V accumulate in f32, and
-// the online softmax is the TPU kernels' masked `_flash_update`: masked
-// scores are -1e30, masked probabilities exact zeros, the denominator
-// max(l, 1e-30) — so a row with no valid key comes out as exact zeros.
+// It computes what the TPU kernels' shared pieces compute
+// (repro/kernels/fp8_kv_attention.py: `_deq` :73, `_flash_update` :89,
+// the clamped table walk `_clamped_kv_map` :81): K/V dequantized as an f32
+// multiply by the scale, then a bf16 rounding; the masked online softmax
+// (masked scores -1e30, masked probabilities exact zeros, denominator
+// max(l, 1e-30), so a row with no valid key comes out as exact zeros);
+// and only table entries w < nb read.
 //
-// Every row's arithmetic is independent of which other rows share its
-// block, and the same in both kernels: a chunk row at position T over
-// keys [0, T] computes bit for bit what a decode step at length T + 1
-// computes.  Tiles past a row's last valid key change nothing (alpha is
-// exp(0) = 1, every p is 0), so the extra tiles a chunk walks for its
-// later rows leave its earlier rows exact.  That is what keeps greedy
-// speculative decoding (verify through kernel 5) bit-equal to plain
-// decoding (kernel 4).
+// What bounds it on the H100: at the engine's chunk (C 128, G 4, D 128,
+// 640 tokens) ~1.3 GFLOP against ~3.4 MB, so the bf16 tensor cores and the
+// bytes bound it about equally (~1 us each); at decode the bytes.  What
+// the design does about it:
+// - Tensor cores.  A block has kAttnWarps warps; each owns 16 query rows,
+//   the M of `mma.sync.m16n8k16` bf16 -> f32.  S = Q K^T and O += P V run
+//   on the tensor cores; Q is bf16 already and the dequantized K/V are
+//   bf16 values, so they enter exactly; P enters as two bf16 terms (hi and
+//   lo, ~16 bits), so P V stays within the plain version's f32 band even
+//   at |V| in the hundreds.  The softmax
+//   state lives in registers, reduced across a fragment's quad by
+//   shuffles in a fixed order.
+// - Key tiles are kKeys logical positions aligned from position 0 and
+//   gathered through the table, so every block size works.  Positions in
+//   pool blocks at or past nb are zero-filled in shared memory and never
+//   dereferenced.  The warps of a block share each tile.
+// - Staging.  A tile's raw fp8 (or bf16) bytes are read as 16-byte loads
+//   and dequantized into bf16 shared memory (rows padded by 16 bytes, so
+//   the ldmatrix reads are conflict-free).
+// - A block walks tiles only up to its rows' largest limit (the causal
+//   early exit of kernel 5's early row blocks).
+//
+// Row r counts keys at positions k_pos < limit[r].  A row's arithmetic
+// depends on its q, its limit and the keys only: not on which fragment
+// row or warp it lands in, nor on the other rows.  Tiles past a row's
+// last valid key change nothing (alpha is exp(0) = 1, every p is 0, and
+// 0 x a finite V adds exact zeros), so a chunk row at position T over keys
+// [0, T] equals bit for bit a decode step at length T + 1, however many
+// tiles each walks.  That keeps greedy speculative decoding (verify
+// through kernel 5) bit-equal to plain decoding (kernel 4).
 #pragma once
+
+#include <type_traits>
 
 #include "fp8_common.cuh"
 
 namespace fp8rl {
 
-constexpr int kAttnThreads = 128;
-constexpr int kAttnMaxRows = 16;        // query rows per block
-constexpr int kAttnMaxDPerThread = 2;   // D <= 256
-constexpr int kAttnTile = 16;           // keys per shared-memory tile
+constexpr int kAttnWarps = 2;
+constexpr int kAttnThreads = 32 * kAttnWarps;
+constexpr int kAttnRows = 16 * kAttnWarps;   // query rows per block
 constexpr float kAttnNegInf = -1e30f;
 
-template <int kKV> __device__ __forceinline__ float kv_load(const void* p, int64_t i);
-template <> __device__ __forceinline__ float kv_load<kE4M3>(const void* p, int64_t i) {
-  return fp8_to_f32<kE4M3>(static_cast<const uint8_t*>(p)[i]);
-}
-template <> __device__ __forceinline__ float kv_load<kBF16>(const void* p, int64_t i) {
-  return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
+// Tile geometry for head width kD (a multiple of 16, <= 256); a smaller
+// head width runs in the next larger kD, zero-padded.
+template <int kKV, int kD>
+struct PagedAttnShape {
+  static constexpr int kKeys = kD <= 128 ? 64 : 32;    // keys per tile
+  static constexpr int kStride = kD + 8;               // bf16 per smem row
+  static constexpr int kEsz = kKV == kE4M3 ? 1 : 2;    // pool element bytes
+  static constexpr int kChunks = kD * kEsz / 16;       // 16-B chunks per key
+  static constexpr size_t kSmemBytes =
+      2 * (static_cast<size_t>(kAttnRows + 2 * kKeys) * kStride);
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// `_deq`: (tile * scale) in f32, rounded to bf16, used as f32
-__device__ __forceinline__ float deq(float v, float scale) {
-  return __bfloat162float(__float2bfloat16_rn(__fmul_rn(v, scale)));
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
 }
 
-// shared-memory floats the body needs for `rows` rows of width d
-__host__ __device__ inline size_t paged_attn_smem_floats(int rows, int d) {
-  return static_cast<size_t>(rows) * d + 2 * kAttnTile * d + rows * kAttnTile + 3 * rows;
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
 }
 
-// q and out rows start at element offsets row_off[r]; limit[r] as above.
-// row_off and limit live in shared memory, written before the call and
-// followed by a barrier.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// (x, y) as hi = bf16(x, y) and lo = bf16(x - hi.x, y - hi.y); the
+// differences are exact in f32
+__device__ __forceinline__ void split_bf16(uint32_t& hi, uint32_t& lo, float x, float y) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(__fsub_rn(x, hf.x), __fsub_rn(y, hf.y));
+}
+
+// `_deq` of one 16-byte chunk of a raw tile into bf16 (f32 multiply by
+// the scale, then a round to nearest): 16 e4m3 or 8 bf16 values
 template <int kKV>
+__device__ __forceinline__ void deq_chunk(__nv_bfloat16* dst, const uint8_t* src, float scale);
+template <>
+__device__ __forceinline__ void deq_chunk<kE4M3>(__nv_bfloat16* dst, const uint8_t* src,
+                                                 float scale) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(src);
+  const uint16_t* pairs = reinterpret_cast<const uint16_t*>(&raw);
+  uint4 o[2];
+  uint32_t* w = reinterpret_cast<uint32_t*>(o);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float2 f = __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(pairs[i], __NV_E4M3)));
+    w[i] = pack_bf16(__fmul_rn(f.x, scale), __fmul_rn(f.y, scale));
+  }
+  reinterpret_cast<uint4*>(dst)[0] = o[0];
+  reinterpret_cast<uint4*>(dst)[1] = o[1];
+}
+template <>
+__device__ __forceinline__ void deq_chunk<kBF16>(__nv_bfloat16* dst, const uint8_t* src,
+                                                 float scale) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(src);
+  const __nv_bfloat162* in = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  uint4 o;
+  uint32_t* w = reinterpret_cast<uint32_t*>(&o);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(in[i]);
+    w[i] = pack_bf16(__fmul_rn(f.x, scale), __fmul_rn(f.y, scale));
+  }
+  *reinterpret_cast<uint4*>(dst) = o;
+}
+
+// The block's kAttnRows rows: q and out rows start at element offsets
+// row_off[r]; row r counts keys k_pos < limit[r] (0 for r >= rows, and
+// never past nb * bs); kv_end is the largest limit.  row_off and limit
+// live in shared memory, written before the call and followed by a
+// barrier.  d % 16 == 0 and d <= kD; pointers 16-byte aligned.
+template <int kKV, int kD>
 __device__ void paged_attn_rows(const __nv_bfloat16* __restrict__ q,
-                                __nv_bfloat16* __restrict__ out,
-                                const int64_t* row_off, const int* limit, int rows,
+                                __nv_bfloat16* __restrict__ out, const int64_t* row_off,
+                                const int* limit, int rows, int kv_end,
                                 const void* __restrict__ k_pool,
                                 const void* __restrict__ v_pool, float ks, float vs,
                                 const int32_t* __restrict__ table, int nb, int kvh, int h,
-                                int d, int bs, float sm_scale, float* smem) {
-  float* q_s = smem;                   // (rows, D)
-  float* k_s = q_s + rows * d;         // (kAttnTile, D)
-  float* v_s = k_s + kAttnTile * d;    // (kAttnTile, D)
-  float* p_s = v_s + kAttnTile * d;    // (rows, nt) scores, then probabilities
-  float* m_s = p_s + rows * kAttnTile; // (rows,) running max
-  float* l_s = m_s + rows;             // (rows,) running denominator
-  float* a_s = l_s + rows;             // (rows,) rescale factor of this tile
+                                int d, int bs, float sm_scale, uint8_t* smem) {
+  using S = PagedAttnShape<kKV, kD>;
+  constexpr int kKeys = S::kKeys, kStride = S::kStride, kEsz = S::kEsz;
+  constexpr int kChunks = S::kChunks;
+  // 16-byte chunks of a K (or V) tile and of q_s, and their rounds per thread
+  constexpr int kKvChunks = kKeys * kChunks, kQChunks = kAttnRows * (kD / 8);
+  constexpr int kKvIters = (kKvChunks + kAttnThreads - 1) / kAttnThreads;
+  constexpr int kQIters = (kQChunks + kAttnThreads - 1) / kAttnThreads;
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);   // (kAttnRows, kStride)
+  __nv_bfloat16* k_s = q_s + kAttnRows * kStride;                 // (kKeys, kStride)
+  __nv_bfloat16* v_s = k_s + kKeys * kStride;                     // (kKeys, kStride)
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid & 31;
-  const int nwarps = blockDim.x / 32;
+  const int g = lane >> 2, t = lane & 3;   // mma fragment coordinates
+  const int kv_stop = nb * bs;             // positions past it are never read
+  const int n_tiles = (kv_end + kKeys - 1) / kKeys;
+  const uint8_t* kp = static_cast<const uint8_t*>(k_pool);
+  const uint8_t* vp = static_cast<const uint8_t*>(v_pool);
 
-  for (int i = tid; i < rows * d; i += blockDim.x)
-    q_s[i] = __bfloat162float(q[row_off[i / d] + i % d]);
-  if (tid < rows) {
-    m_s[tid] = kAttnNegInf;
-    l_s[tid] = 0.0f;
+  // q rows (zero past `rows` and past d); the pad columns of K and V
+#pragma unroll
+  for (int i = 0; i < kQIters; ++i) {
+    const int c = tid + i * kAttnThreads, r = c / (kD / 8), col = (c % (kD / 8)) * 8;
+    if (c >= kQChunks) break;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (r < rows && col < d) v = *reinterpret_cast<const uint4*>(q + row_off[r] + col);
+    *reinterpret_cast<uint4*>(q_s + r * kStride + col) = v;
   }
-  float acc[kAttnMaxRows][kAttnMaxDPerThread];
-#pragma unroll
-  for (int r = 0; r < kAttnMaxRows; ++r)
-#pragma unroll
-    for (int j = 0; j < kAttnMaxDPerThread; ++j) acc[r][j] = 0.0f;
+  if (d < kD) {
+    for (int c = tid; c < kKeys * ((kD - d) / 8); c += kAttnThreads) {
+      const int key = c / ((kD - d) / 8), col = d + (c % ((kD - d) / 8)) * 8;
+      *reinterpret_cast<uint4*>(k_s + key * kStride + col) = make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(v_s + key * kStride + col) = make_uint4(0, 0, 0, 0);
+    }
+  }
 
-  for (int blk = 0; blk < nb; ++blk) {
-    const int64_t row = table[blk];
-    for (int t0 = 0; t0 < bs; t0 += kAttnTile) {
-      const int nt = min(kAttnTile, bs - t0);
-      const int kpos0 = blk * bs + t0;
-      __syncthreads();  // previous tile fully consumed (and q/m/l initialized)
-      for (int i = tid; i < nt * d; i += blockDim.x) {
-        const int s = i / d, dd = i % d;
-        const int64_t src = ((row * bs + t0 + s) * kvh + h) * d + dd;
-        k_s[i] = deq(kv_load<kKV>(k_pool, src), ks);
-        v_s[i] = deq(kv_load<kKV>(v_pool, src), vs);
-      }
-      __syncthreads();
-      // scores (rows, nt): one warp per (row, key) pair, lanes split D
-      for (int pair = warp; pair < rows * nt; pair += nwarps) {
-        const int r = pair / nt, s = pair % nt;
-        float dot = 0.0f;
-        for (int dd = lane; dd < d; dd += 32) dot += q_s[r * d + dd] * k_s[s * d + dd];
-        dot = warp_sum(dot);
-        if (lane == 0) p_s[pair] = kpos0 + s < limit[r] ? dot * sm_scale : kAttnNegInf;
-      }
-      __syncthreads();
-      // online-softmax update per query row (`_flash_update`)
-      if (tid < rows) {
-        const int r = tid;
-        const float m_prev = m_s[r];
-        float m_cur = kAttnNegInf;
-        for (int s = 0; s < nt; ++s) m_cur = fmaxf(m_cur, p_s[r * nt + s]);
-        const float m_new = fmaxf(m_prev, m_cur);
-        const float alpha = expf(m_prev - m_new);
-        float sum = 0.0f;
-        for (int s = 0; s < nt; ++s) {
-          const float p = kpos0 + s < limit[r] ? expf(p_s[r * nt + s] - m_new) : 0.0f;
-          p_s[r * nt + s] = p;
-          sum += p;
-        }
-        l_s[r] = l_s[r] * alpha + sum;
-        m_s[r] = m_new;
-        a_s[r] = alpha;
-      }
-      __syncthreads();
-      // acc (rows, D) = acc * alpha + P @ V; thread owns columns tid, tid + 128
+  const bool active = warp * 16 < rows;   // warp-uniform
+  const int r0 = warp * 16 + g, r1 = r0 + 8;
+  const int lim0 = limit[r0], lim1 = limit[r1];
+  float o[kD / 8][4];
 #pragma unroll
-      for (int j = 0; j < kAttnMaxDPerThread; ++j) {
-        const int dd = tid + j * kAttnThreads;
-        if (dd < d) {
+  for (int n = 0; n < kD / 8; ++n)
 #pragma unroll
-          for (int r = 0; r < kAttnMaxRows; ++r) {
-            if (r < rows) {
-              float pv = 0.0f;
-              for (int s = 0; s < nt; ++s) pv += p_s[r * nt + s] * v_s[s * d + dd];
-              acc[r][j] = acc[r][j] * a_s[r] + pv;
-            }
-          }
-        }
+    for (int j = 0; j < 4; ++j) o[n][j] = 0.0f;
+  float m0 = kAttnNegInf, m1 = kAttnNegInf, l0 = 0.0f, l1 = 0.0f;
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    __syncthreads();      // the previous tile is consumed (q_s written)
+#pragma unroll
+    for (int i = 0; i < kKvIters; ++i) {
+      const int c = tid + i * kAttnThreads, key = c / kChunks, part = c % kChunks;
+      if (c >= kKvChunks) break;
+      if (part * 16 >= d * kEsz) continue;
+      const int pos = tile * kKeys + key;
+      uint4 kr = make_uint4(0, 0, 0, 0), vr = kr;
+      if (pos < kv_stop) {
+        const int64_t row = table[pos / bs];
+        const int64_t off =
+            ((row * bs + pos % bs) * kvh + h) * static_cast<int64_t>(d) * kEsz + part * 16;
+        kr = *reinterpret_cast<const uint4*>(kp + off);
+        vr = *reinterpret_cast<const uint4*>(vp + off);
+      }
+      const int col = part * 16 / kEsz;
+      deq_chunk<kKV>(k_s + key * kStride + col, reinterpret_cast<const uint8_t*>(&kr), ks);
+      deq_chunk<kKV>(v_s + key * kStride + col, reinterpret_cast<const uint8_t*>(&vr), vs);
+    }
+    __syncthreads();      // K/V tile ready
+    if (!active) continue;
+
+    // S (16 rows x kKeys) = Q K^T
+    float s[kKeys / 8][4];
+#pragma unroll
+    for (int n = 0; n < kKeys / 8; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[n][j] = 0.0f;
+#pragma unroll
+    for (int kd = 0; kd < kD / 16; ++kd) {
+      uint32_t a[4];
+      ldsm_x4(a, q_s + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kStride + kd * 16 +
+                     (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < kKeys / 16; ++np) {
+        uint32_t b[4];
+        ldsm_x4(b, k_s + (np * 16 + (lane & 7) + (lane >> 4) * 8) * kStride + kd * 16 +
+                       ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * np], a, b[0], b[1]);
+        mma_bf16(s[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+
+    // masked online softmax (`_flash_update`) for rows r0 (s[.][0..1])
+    // and r1 (s[.][2..3]); this thread holds keys 8n + 2t, 8n + 2t + 1
+    const int kpos0 = tile * kKeys + 2 * t;
+    float mc0 = kAttnNegInf, mc1 = kAttnNegInf;
+#pragma unroll
+    for (int n = 0; n < kKeys / 8; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int key = kpos0 + 8 * n + j;
+        s[n][j] = key < lim0 ? __fmul_rn(s[n][j], sm_scale) : kAttnNegInf;
+        s[n][2 + j] = key < lim1 ? __fmul_rn(s[n][2 + j], sm_scale) : kAttnNegInf;
+        mc0 = fmaxf(mc0, s[n][j]);
+        mc1 = fmaxf(mc1, s[n][2 + j]);
+      }
+    mc0 = fmaxf(mc0, __shfl_xor_sync(0xffffffffu, mc0, 1));
+    mc0 = fmaxf(mc0, __shfl_xor_sync(0xffffffffu, mc0, 2));
+    mc1 = fmaxf(mc1, __shfl_xor_sync(0xffffffffu, mc1, 1));
+    mc1 = fmaxf(mc1, __shfl_xor_sync(0xffffffffu, mc1, 2));
+    const float mn0 = fmaxf(m0, mc0), mn1 = fmaxf(m1, mc1);
+    const float alpha0 = expf(m0 - mn0), alpha1 = expf(m1 - mn1);
+    float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+    for (int n = 0; n < kKeys / 8; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int key = kpos0 + 8 * n + j;
+        s[n][j] = key < lim0 ? expf(s[n][j] - mn0) : 0.0f;
+        s[n][2 + j] = key < lim1 ? expf(s[n][2 + j] - mn1) : 0.0f;
+        sum0 = __fadd_rn(sum0, s[n][j]);
+        sum1 = __fadd_rn(sum1, s[n][2 + j]);
+      }
+    sum0 = __fadd_rn(sum0, __shfl_xor_sync(0xffffffffu, sum0, 1));
+    sum0 = __fadd_rn(sum0, __shfl_xor_sync(0xffffffffu, sum0, 2));
+    sum1 = __fadd_rn(sum1, __shfl_xor_sync(0xffffffffu, sum1, 1));
+    sum1 = __fadd_rn(sum1, __shfl_xor_sync(0xffffffffu, sum1, 2));
+    l0 = __fadd_rn(__fmul_rn(l0, alpha0), sum0);
+    l1 = __fadd_rn(__fmul_rn(l1, alpha1), sum1);
+    m0 = mn0;
+    m1 = mn1;
+
+    // O = O * alpha + P V.  P enters the tensor cores as two bf16 terms,
+    // hi = bf16(p) and lo = bf16(p - hi), so it keeps ~16 bits: a lone
+    // bf16 P is off by up to 2^-9 of |V| (0.9 at the |V| ~ 448 of a bf16
+    // pool), far outside the 1e-2 that holds the kernel to its plain
+    // version.  The S fragments of two key octets are the A fragment of
+    // one 16-key step.
+#pragma unroll
+    for (int n = 0; n < kD / 8; ++n) {
+      o[n][0] = __fmul_rn(o[n][0], alpha0);
+      o[n][1] = __fmul_rn(o[n][1], alpha0);
+      o[n][2] = __fmul_rn(o[n][2], alpha1);
+      o[n][3] = __fmul_rn(o[n][3], alpha1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+      uint32_t hi[4], lo[4];
+      split_bf16(hi[0], lo[0], s[2 * kk][0], s[2 * kk][1]);
+      split_bf16(hi[1], lo[1], s[2 * kk][2], s[2 * kk][3]);
+      split_bf16(hi[2], lo[2], s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      split_bf16(hi[3], lo[3], s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int dp = 0; dp < kD / 16; ++dp) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, v_s + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kStride +
+                             dp * 16 + (lane >> 4) * 8);
+        mma_bf16(o[2 * dp], hi, b[0], b[1]);
+        mma_bf16(o[2 * dp], lo, b[0], b[1]);
+        mma_bf16(o[2 * dp + 1], hi, b[2], b[3]);
+        mma_bf16(o[2 * dp + 1], lo, b[2], b[3]);
       }
     }
   }
-  __syncthreads();
+
+  if (!active) return;
+  const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
 #pragma unroll
-  for (int j = 0; j < kAttnMaxDPerThread; ++j) {
-    const int dd = tid + j * kAttnThreads;
-    if (dd < d) {
-#pragma unroll
-      for (int r = 0; r < kAttnMaxRows; ++r)
-        if (r < rows)
-          out[row_off[r] + dd] = __float2bfloat16_rn(acc[r][j] / fmaxf(l_s[r], 1e-30f));
-    }
+  for (int n = 0; n < kD / 8; ++n) {
+    const int col = 8 * n + 2 * t;
+    if (col < d && r0 < rows)
+      *reinterpret_cast<__nv_bfloat162*>(out + row_off[r0] + col) =
+          __floats2bfloat162_rn(o[n][0] / den0, o[n][1] / den0);
+    if (col < d && r1 < rows)
+      *reinterpret_cast<__nv_bfloat162*>(out + row_off[r1] + col) =
+          __floats2bfloat162_rn(o[n][2] / den1, o[n][3] / den1);
   }
+}
+
+// fn(std::integral_constant<int, kD>()) for the least kD in {16, 32, 64,
+// 128, 256} with d <= kD: the instantiated head widths
+template <typename Fn>
+int with_head_width(int d, Fn fn) {
+  if (d <= 16) return fn(std::integral_constant<int, 16>());
+  if (d <= 32) return fn(std::integral_constant<int, 32>());
+  if (d <= 64) return fn(std::integral_constant<int, 64>());
+  if (d <= 128) return fn(std::integral_constant<int, 128>());
+  if (d <= 256) return fn(std::integral_constant<int, 256>());
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Opt in to more than 48 KB of dynamic shared memory where needed; returns

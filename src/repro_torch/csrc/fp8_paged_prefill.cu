@@ -12,25 +12,21 @@
 // ragged final chunk come out as exact zeros.  Only table entries
 // w < nb = clip(ceil(min(start + C, lengths) / BS), 1, W) are read.
 //
-// What bounds it on the H100: at the engine's chunk (C = 128, KVH 8, G 4,
-// D 128, 640 tokens of context) the work is ~1.3 GFLOP against ~3.4 MB of
-// q, K/V and output, so the bf16 tensor-core rate and the bytes bound it
-// about equally (~1 us each).  This first version does not use the tensor
-// cores.  Where the TPU kernel holds all C * G rows of
-// a (slot, kv-head) in one grid step, a CUDA block cannot hold C * G x D
-// f32 accumulators: the grid is (B * KVH, ceil(C * G / 16)), each block
-// takes 16 consecutive (c, g) rows and walks the slot's live blocks with
-// the block body it shares with kernel 4 (`paged_attn_rows`,
-// fp8_paged_attn.cuh): the same `_deq`, the same f32 scalar dot products
-// and online-softmax update, so a chunk row equals a decode step bit for
-// bit.  Tensor cores (wgmma), TMA and a per-row-tile causal early exit are
-// for the PR that makes it fast.
+// The design: grid (B * KVH, ceil(C * G / kAttnRows)); a block takes
+// kAttnRows consecutive (c, g) rows of one (slot, kv-head) and runs the
+// tensor-core block body it shares with kernel 4 (`paged_attn_rows`,
+// fp8_paged_attn.cuh, which says what bounds it and why).  Where the TPU
+// kernel holds all C * G rows of a (slot, kv-head) in one grid step, the
+// rows here are split over blocks so that the engine's chunk (B 1, KVH 8,
+// C 128, G 4) fills the card with 128 blocks; each block walks key tiles
+// only up to its last valid row's position (the causal early exit), and
+// the row blocks with the most keys are scheduled first.
 #include "fp8_paged_attn.cuh"
 
 namespace fp8rl {
 namespace {
 
-template <int kKV>
+template <int kKV, int kD>
 __global__ void __launch_bounds__(kAttnThreads) paged_prefill_kernel(
     const __nv_bfloat16* __restrict__ q, const void* __restrict__ k_pool,
     const void* __restrict__ v_pool, const float* __restrict__ k_scale,
@@ -38,26 +34,30 @@ __global__ void __launch_bounds__(kAttnThreads) paged_prefill_kernel(
     const int32_t* __restrict__ start, const int32_t* __restrict__ lengths,
     __nv_bfloat16* __restrict__ out, int c, int kvh, int g, int d, int bs, int w,
     float sm_scale) {
-  extern __shared__ float smem[];
-  __shared__ int64_t row_off[kAttnMaxRows];
-  __shared__ int limit[kAttnMaxRows];
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int64_t row_off[kAttnRows];
+  __shared__ int limit[kAttnRows];
   const int b = blockIdx.x / kvh, h = blockIdx.x % kvh;
-  const int r0 = blockIdx.y * kAttnMaxRows;
-  const int rows = min(kAttnMaxRows, c * g - r0);
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * kAttnRows;   // most keys first
+  const int rows = min(kAttnRows, c * g - r0);
   const int st = start[b], len = lengths[b];
   const int ctx = min(st + c, len);
   const int nb = min(max((ctx + bs - 1) / bs, 1), w);   // `_live_block_counts`
-  if (threadIdx.x < rows) {
+  if (threadIdx.x < kAttnRows) {
     const int r = r0 + threadIdx.x, ci = r / g, gi = r % g;
     const int q_pos = st + ci;
     row_off[threadIdx.x] =
         (((static_cast<int64_t>(b) * c + ci) * kvh + h) * g + gi) * d;
-    limit[threadIdx.x] = q_pos < len ? q_pos + 1 : 0;
+    limit[threadIdx.x] =
+        threadIdx.x < rows && q_pos < len ? min(q_pos + 1, nb * bs) : 0;
   }
+  // the largest limit: that of the block's last row before `len`
+  const int first = st + r0 / g, last = min(st + (r0 + rows - 1) / g, len - 1);
+  const int kv_end = last >= first ? min(last + 1, nb * bs) : 0;
   __syncthreads();
-  paged_attn_rows<kKV>(q, out, row_off, limit, rows, k_pool, v_pool, *k_scale, *v_scale,
-                       tables + static_cast<int64_t>(b) * w, nb, kvh, h, d, bs, sm_scale,
-                       smem);
+  paged_attn_rows<kKV, kD>(q, out, row_off, limit, rows, kv_end, k_pool, v_pool, *k_scale,
+                           *v_scale, tables + static_cast<int64_t>(b) * w, nb, kvh, h, d, bs,
+                           sm_scale, smem);
 }
 
 template <int kKV>
@@ -65,17 +65,20 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* k_
            const void* v_scale, const void* tables, const void* start, const void* lengths,
            void* out, int b, int c, int kvh, int g, int d, int bs, int w, float sm_scale,
            cudaStream_t stream) {
-  const size_t smem = sizeof(float) * paged_attn_smem_floats(kAttnMaxRows, d);
-  const int err = set_smem(paged_prefill_kernel<kKV>, smem);
-  if (err != 0) return err;
-  const dim3 grid(b * kvh, (c * g + kAttnMaxRows - 1) / kAttnMaxRows);
-  paged_prefill_kernel<kKV><<<grid, kAttnThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), k_pool, v_pool,
-      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
-      static_cast<const int32_t*>(tables), static_cast<const int32_t*>(start),
-      static_cast<const int32_t*>(lengths), static_cast<__nv_bfloat16*>(out), c, kvh, g, d,
-      bs, w, sm_scale);
-  return static_cast<int>(cudaGetLastError());
+  return with_head_width(d, [&](auto width) {
+    constexpr int kD = decltype(width)::value;
+    const size_t smem = PagedAttnShape<kKV, kD>::kSmemBytes;
+    const int err = set_smem(paged_prefill_kernel<kKV, kD>, smem);
+    if (err != 0) return err;
+    const dim3 grid(b * kvh, (c * g + kAttnRows - 1) / kAttnRows);
+    paged_prefill_kernel<kKV, kD><<<grid, kAttnThreads, smem, stream>>>(
+        static_cast<const __nv_bfloat16*>(q), k_pool, v_pool,
+        static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+        static_cast<const int32_t*>(tables), static_cast<const int32_t*>(start),
+        static_cast<const int32_t*>(lengths), static_cast<__nv_bfloat16*>(out), c, kvh, g, d,
+        bs, w, sm_scale);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // namespace
@@ -85,7 +88,8 @@ using namespace fp8rl;
 
 // q (B, C, KVH, G, D) bf16; pools (N+1, BS, KVH, D) e4m3|bf16; scales ()
 // f32; tables (B, W) i32 physical rows; start, lengths (B,) i32 -> out
-// (B, C, KVH, G, D) bf16.  G <= 16, D <= 256 (the wrapper checks).
+// (B, C, KVH, G, D) bf16.  G <= 16, D % 16 == 0, D <= 256, q and the pools
+// 16-byte aligned (the wrapper checks).
 extern "C" int fp8rl_paged_prefill(const void* q, const void* k_pool, const void* v_pool,
                                    const void* k_scale, const void* v_scale,
                                    const void* tables, const void* start, const void* lengths,

@@ -28,10 +28,14 @@ rounding (unlike `_deq`), and a row of length 0 gives exact zeros.  It
 runs at every `launch.steps` serve step in every layer.
 
 On the H100 kernels 4 and 6 are bound by the bytes of the live K/V rows
-and kernel 5 about equally by bytes and the bf16 tensor-core rate;
-`csrc/fp8_paged_decode.cu`, `csrc/fp8_paged_prefill.cu`, their shared
-block body `csrc/fp8_paged_attn.cuh` and `csrc/fp8_decode.cu` give the
-designs.
+and kernel 5 about equally by bytes and the bf16 tensor-core rate.
+Kernels 4 and 5 share one block body, `csrc/fp8_paged_attn.cuh`: Q K^T
+and P V on the tensor cores (`mma.sync` bf16, P rounded to bf16), K/V
+staged in key tiles of fixed logical positions; kernel 5 launches it over
+tiles of 32 chunk rows, kernel 4 over a slot's G rows, so a chunk row
+equals a decode step bit for bit.  Their CUDA wrappers take D % 16 == 0
+only.  `csrc/fp8_paged_decode.cu`, `csrc/fp8_paged_prefill.cu` and
+`csrc/fp8_decode.cu` give the designs.
 
 The `_ref` functions are the plain versions: the paged ones dequantize
 like `_deq` (f32 multiply, then a bf16 rounding) and read only the
@@ -51,6 +55,14 @@ from repro_torch.kernels.fp8_quant import DTYPE_CODE
 
 _NEG_INF = -1e30
 MAX_G, MAX_D = 16, 256
+# the paged kernels' block geometry (csrc/fp8_paged_attn.cuh: kAttnRows,
+# PagedAttnShape::kKeys), for the logs
+PAGED_ROWS_PER_BLOCK = 32
+
+
+def paged_key_tile(d: int) -> int:
+    """Keys per tile of kernels 4 and 5 at head width `d`."""
+    return 64 if d <= 128 else 32
 
 
 def live_block_counts(lengths: torch.Tensor, bs: int, n_w: int) -> torch.Tensor:
@@ -130,8 +142,9 @@ def _check_paged(q, k_pool, v_pool, k_scale, v_scale, block_tables, ints):
             or any(t.shape != (b,) for t in ints):
         raise ValueError("inconsistent paged-attention shapes")
     n_w = block_tables.shape[1]
-    if g > MAX_G or d > MAX_D or n_w < 1:
-        raise ValueError(f"G={g} > {MAX_G} or D={d} > {MAX_D} or W={n_w} < 1")
+    if g > MAX_G or d > MAX_D or d % 16 or n_w < 1:
+        raise ValueError(f"G={g}, D={d}, W={n_w}: the paged kernels take "
+                         f"G <= {MAX_G}, D <= {MAX_D}, D % 16 == 0 and W >= 1")
     if q.dtype != torch.bfloat16 or k_pool.dtype not in (E4M3, torch.bfloat16) \
             or v_pool.dtype != k_pool.dtype:
         raise ValueError("q must be bf16 and the pools e4m3 or bf16")
@@ -144,6 +157,9 @@ def _check_paged(q, k_pool, v_pool, k_scale, v_scale, block_tables, ints):
     tensors = (q, k_pool, v_pool, k_scale, v_scale, block_tables, *ints)
     if not all(t.is_cuda and t.is_contiguous() for t in tensors):
         raise ValueError("paged attention takes contiguous CUDA tensors")
+    if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
+        raise ValueError("paged attention reads q and the pools in 16-byte "
+                         "chunks: they must be 16-byte aligned")
     return b, kvh, g, d, bs, n_w
 
 

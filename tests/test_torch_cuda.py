@@ -9,10 +9,13 @@ Without a CUDA device every test skips (the `cuda` fixture decides).
 paths' full-width shapes; these tests cover what it does not: padding in
 the `ops` wrappers (K and N not multiples of 128, ragged leading dims),
 E5M2 and UE8M0 quantizers, paged decode and chunked prefill at block
-sizes 4/8/16/40 (40 walks a pool block in three shared-memory tiles),
-head widths 16/32 and group sizes 2-4 with ragged tails, NaN-poisoned
-stale table entries and dead chunk rows, a chunk row equal bit for bit to
-a decode step at the same context, the serving engine's speculative and
+sizes 4/8/16/40 (key tiles of 64 positions gathered across pool blocks),
+head widths 16-256 and group sizes 2-4 with ragged tails, chunks of 5 and
+40 rows (several row blocks, the causal early exit), NaN-poisoned stale
+table entries and dead chunk rows, a chunk row equal bit for bit to a
+decode step at the same context (up to the engine's geometry, and G 3
+and 16), head widths not a multiple of 16 and misaligned q refused with
+a ValueError, the serving engine's speculative and
 preempted greedy runs equal to plain ones on the card, the GRPO fork on
 the card, and a wrapper without its library.  Kernel 6 (contiguous
 decode): G 1-8, D 16-128, S 13/200/1057 with ragged tails, NaN poison
@@ -154,11 +157,14 @@ def _prefill_case(dev, gen, kvh, g, d, bs, w, start, lengths, c):
 
 @pytest.mark.parametrize("kv", ["fp8", "bf16"])
 @pytest.mark.parametrize("rem_of_bs", ["0", "1", "bs-1"])
-@pytest.mark.parametrize("bs,d,g", [(4, 16, 2), (8, 32, 4), (16, 32, 3), (40, 16, 4)])
-def test_paged_prefill_on_card(cuda, bs, d, g, rem_of_bs, kv):
+@pytest.mark.parametrize("bs,d,g,c", [(4, 16, 2, 5), (8, 32, 4, 5), (16, 32, 3, 5), (40, 16, 4, 5),
+                                      (16, 64, 4, 40), (16, 128, 3, 40), (8, 256, 4, 40)])
+def test_paged_prefill_on_card(cuda, bs, d, g, c, rem_of_bs, kv):
+    """C 40 spans several 32-row blocks; slot 1's early row blocks stop
+    at fewer key tiles than its last (the causal early exit)."""
     gen = torch.Generator(device=cuda).manual_seed(bs * 100 + d + g)
     rem = {"0": 0, "1": 1, "bs-1": bs - 1}[rem_of_bs]
-    c, kvh, w = 5, 2, 6
+    kvh, w = 2, 6
     lengths = [2 * bs + rem, 4 * bs + rem, 0]
     start = [max(lengths[0] - 1, 0), max(lengths[1] - c, 0), 0]
     q, kq, vq, ks, vs, tables, st, ln, poison = _prefill_case(
@@ -179,21 +185,47 @@ def test_paged_prefill_on_card(cuda, bs, d, g, rem_of_bs, kv):
     assert bool((out[dead] == 0).all()) and bool(dead[2].all())
 
 
-@pytest.mark.parametrize("bs", [4, 16, 40])
-def test_chunk_row_equals_decode_step_on_card(cuda, bs):
+@pytest.mark.parametrize("bs,c,kvh,g,d,start,w", [
+    pytest.param(4, 7, 2, 4, 32, 10, 6, id="4"),
+    pytest.param(16, 7, 2, 4, 32, 46, 6, id="16"),
+    pytest.param(40, 7, 2, 4, 32, 118, 6, id="40"),
+    # the engine's geometry; start is not a multiple of the 64-key tile
+    pytest.param(16, 128, 8, 4, 128, 100, 16, id="production"),
+    # G 3 and G 16: a 16-row mma tile straddles positions, a position
+    # straddles warps (G 3) or a tile holds one position (G 16)
+    pytest.param(8, 40, 2, 3, 64, 37, 12, id="g3"),
+    pytest.param(16, 24, 2, 16, 128, 70, 7, id="g16"),
+])
+def test_chunk_row_equals_decode_step_on_card(cuda, bs, c, kvh, g, d, start, w):
     """Kernel 5's row at position T over keys [0, T] is bit-equal to
     kernel 4 at length T + 1: the two share their block body."""
-    gen = torch.Generator(device=cuda).manual_seed(bs)
-    c, kvh, g, d, w = 7, 2, 4, 32, 6
-    start, lengths = [3 * bs - 2], [3 * bs + 5]
+    gen = torch.Generator(device=cuda).manual_seed(bs if c == 7 else bs * 1000 + c + g)
     q, kq, vq, ks, vs, tables, st, ln, _ = _prefill_case(
-        cuda, gen, kvh, g, d, bs, w, start, lengths, c)
+        cuda, gen, kvh, g, d, bs, w, [start], [start + c], c)
     out = fa.fp8_paged_prefill_attention(q, kq, vq, ks, vs, tables, st, ln)
     for ci in range(c):
         dec = fa.fp8_paged_decode_attention(
             q[:, ci].contiguous(), kq, vq, ks, vs, tables,
-            torch.tensor([start[0] + ci + 1], dtype=torch.int32, device=cuda))
+            torch.tensor([start + ci + 1], dtype=torch.int32, device=cuda))
         assert torch.equal(dec.view(torch.int16), out[:, ci].view(torch.int16)), ci
+
+
+def test_paged_wrappers_reject_unsupported_inputs_on_card(cuda):
+    """On a CUDA call kernels 4 and 5 raise ValueError for a head width
+    that is not a multiple of 16, and for q not 16-byte aligned."""
+    gen = torch.Generator(device=cuda).manual_seed(24)
+    lengths = torch.tensor([5, 9], dtype=torch.int32, device=cuda)
+    q, kq, vq, ks, vs, tables, lengths, _ = _decode_case(cuda, gen, 2, 2, 4, 24, 4, 3, lengths)
+    with pytest.raises(ValueError, match="D % 16"):
+        fa.fp8_paged_decode_attention(q, kq, vq, ks, vs, tables, lengths)
+    with pytest.raises(ValueError, match="D % 16"):
+        fa.fp8_paged_prefill_attention(q[:, None].contiguous(), kq, vq, ks, vs, tables,
+                                       lengths - 1, lengths)
+    q, kq, vq, ks, vs, tables, lengths, _ = _decode_case(cuda, gen, 2, 2, 4, 32, 4, 3, lengths)
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)[1:].view(q.shape)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.fp8_paged_decode_attention(shifted, kq, vq, ks, vs, tables, lengths)
 
 
 def _contiguous_case(dev, gen, b, kvh, g, d, s, lengths, fp8=True):
