@@ -32,8 +32,10 @@ the order 1-5, 7, 6:
    a roomy KV budget and once with one tight enough to swap (counts zeroed
    before and read after the two runs; kernels 1, 3, 4 and 5 must have
    launched); completions must be bit-equal between the two, and between
-   plain and speculative (n-gram, k 4) decoding of 8 of them; the forked
-   copy-on-write recipe; the launcher `repro_torch.launch.serve.run`;
+   plain and speculative (n-gram, k 4) decoding of 8 of them; one fused
+   decode step and one 128-token chunk of the tight run profiled (device
+   busy ms; kernel 5's share of the chunk); the forked copy-on-write
+   recipe; the launcher `repro_torch.launch.serve.run`;
 6. each kernel's time at the main paths' shapes beside its plain
    version's, one library call's where one computes the same function,
    and the bound (bytes over 3.35 TB/s or operations over the peak rate);
@@ -662,16 +664,25 @@ def check_engine_report(eng, rep, n, tag):
         f"peak blocks {rep.peak_blocks_in_use} of {eng.block_mgr.num_blocks}")
 
 
-def _timed(fn, log_to):
-    """`fn` between two synchronizes; appends (ms, chunk width or None)."""
+def _timed(fn, log_to, profiled=None):
+    """`fn` between two synchronizes; appends (ms, chunk width or None).
+    Given a dict `profiled`, the third 128-token chunk runs under the
+    profiler instead (untimed): its device busy ms, kernel count and
+    kernel 5's share go into the dict."""
     import torch
 
     def wrapper(*args, **kw):
+        width = args[1].shape[1] if fn.__name__ == "prefill_chunk" else None
+        if profiled is not None and not profiled and width == 128 \
+                and sum(w == 128 for _, w in log_to) == 2:
+            out, busy, n, by_name = _profile(lambda: fn(*args, **kw))
+            profiled.update(busy_ms=busy, kernels=n, paged_prefill_ms=sum(
+                ms for name, ms in by_name.items() if "paged_prefill" in name))
+            return out
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn(*args, **kw)
         torch.cuda.synchronize()
-        width = args[1].shape[1] if fn.__name__ == "prefill_chunk" else None
         log_to.append(((time.perf_counter() - t0) * 1e3, width))
         return out
     return wrapper
@@ -722,8 +733,8 @@ def engine_path(dev, results, cfg, roll):
     stats["roomy_tokens_per_s"] = roomy.emitted_tokens / stats["roomy_wall_s"]
 
     tight_eng = make_engine(roll, cfg, prec, dev, budget_tokens=TIGHT_BUDGET_TOKENS)
-    calls, decode_walls, profiled = [], [], None
-    tight_eng.model.prefill_chunk = _timed(tight_eng.model.prefill_chunk, calls)
+    calls, decode_walls, profiled, chunk_profile = [], [], None, {}
+    tight_eng.model.prefill_chunk = _timed(tight_eng.model.prefill_chunk, calls, chunk_profile)
     tight_eng.model.decode_step = _timed(tight_eng.model.decode_step, calls)
     for i, p in enumerate(trace):
         tight_eng.submit(p, max_new=ENGINE_MAX_NEW, rid=i)
@@ -771,6 +782,12 @@ def engine_path(dev, results, cfg, roll):
         engine_pure_decode_step_wall_ms_median=statistics.median(decode_walls),
         engine_pure_decode_steps=len(decode_walls),
         engine_emitted_tokens=roomy.emitted_tokens, engine_steps=roomy.steps)
+    if chunk_profile:
+        stats.update(engine_chunk128_device_busy_ms=chunk_profile["busy_ms"],
+                     engine_chunk128_kernels=chunk_profile["kernels"],
+                     engine_chunk128_paged_prefill_ms=chunk_profile["paged_prefill_ms"],
+                     engine_chunk128_busy_share=chunk_profile["busy_ms"] / statistics.mean(
+                         chunk_ms))
     if profiled is not None:
         busy_ms, n_kernels = profiled
         stats.update(engine_decode_step_device_busy_ms=busy_ms,
@@ -1264,8 +1281,9 @@ def time_kernels(dev, gen, results, cfg, roll, traj, contig_lengths, extra):
     # chunked prefill at the engine's chunk (C 128, 640 tokens of context),
     # at the speculative verify chunk (C 5), at the engine's first chunk
     # (128 tokens) and at a 4096-token context
-    log(f"paged attention body (kernels 4 and 5): {fa.PAGED_ROWS_PER_BLOCK} query rows "
-        f"per block, key tiles of {fa.paged_key_tile(dh)} positions at D {dh}")
+    log(f"paged attention body: kernel 5 {fa.PREFILL_ROWS_PER_BLOCK} chunk rows per block, "
+        f"kernel 4 one (slot, kv-head) per block; key tiles of {fa.paged_key_tile(dh)} "
+        f"positions at D {dh}")
     for c, start, length in ((128, 512, 640), (5, 295, 300), (128, 0, 128), (128, 3968, 4096)):
         q, kq, vq, ks, vs, tables, st, ln, _ = prefill_case(
             dev, gen, [start], [length], c, kvh=kvh, g=g, d=dh,

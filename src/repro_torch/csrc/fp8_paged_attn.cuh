@@ -13,27 +13,27 @@
 // 640 tokens) ~1.3 GFLOP against ~3.4 MB, so the bf16 tensor cores and the
 // bytes bound it about equally (~1 us each); at decode the bytes.  What
 // the design does about it:
-// - Tensor cores.  A block has kAttnWarps warps; each owns 16 query rows,
+// - Tensor cores.  A block has kWarps warps; each owns 16 query rows,
 //   the M of `mma.sync.m16n8k16` bf16 -> f32.  S = Q K^T and O += P V run
-//   on the tensor cores; Q is bf16 already and the dequantized K/V are
-//   bf16 values, so they enter exactly; P enters as two bf16 terms (hi and
-//   lo, ~16 bits), so P V stays within the plain version's f32 band even
-//   at |V| in the hundreds.  The softmax
-//   state lives in registers, reduced across a fragment's quad by
-//   shuffles in a fixed order.
+//   on the tensor cores.  Q is bf16 already and the dequantized K/V are
+//   bf16 values, so they enter exactly; P enters as two bf16 terms (hi
+//   and lo, ~16 bits), so P V stays within the plain version's f32 band
+//   even at |V| in the hundreds.  The softmax state lives in registers,
+//   reduced across a fragment's quad by shuffles in a fixed order.
 // - Key tiles are kKeys logical positions aligned from position 0 and
 //   gathered through the table, so every block size works.  Positions in
 //   pool blocks at or past nb are zero-filled in shared memory and never
 //   dereferenced.  The warps of a block share each tile.
-// - Staging.  A tile's raw fp8 (or bf16) bytes are read as 16-byte loads
-//   and dequantized into bf16 shared memory (rows padded by 16 bytes, so
-//   the ldmatrix reads are conflict-free).
+// - Staging.  A tile's raw fp8 (or bf16) bytes arrive as 16-byte cp.async
+//   copies into a two-stage ring, so tile t + 1 is in flight while tile t
+//   is computed; each tile is then dequantized in shared memory into bf16
+//   (rows padded by 16 bytes, so the ldmatrix reads are conflict-free).
 // - A block walks tiles only up to its rows' largest limit (the causal
 //   early exit of kernel 5's early row blocks).
 //
 // Row r counts keys at positions k_pos < limit[r].  A row's arithmetic
 // depends on its q, its limit and the keys only: not on which fragment
-// row or warp it lands in, nor on the other rows.  Tiles past a row's
+// row or warp it lands in, nor on the other rows or the warp count.  Tiles past a row's
 // last valid key change nothing (alpha is exp(0) = 1, every p is 0, and
 // 0 x a finite V adds exact zeros), so a chunk row at position T over keys
 // [0, T] equals bit for bit a decode step at length T + 1, however many
@@ -47,21 +47,22 @@
 
 namespace fp8rl {
 
-constexpr int kAttnWarps = 2;
-constexpr int kAttnThreads = 32 * kAttnWarps;
-constexpr int kAttnRows = 16 * kAttnWarps;   // query rows per block
 constexpr float kAttnNegInf = -1e30f;
 
-// Tile geometry for head width kD (a multiple of 16, <= 256); a smaller
-// head width runs in the next larger kD, zero-padded.
-template <int kKV, int kD>
+// Block and tile geometry for kWarps warps and head width kD (a multiple
+// of 16, <= 256); a smaller head width runs in the next larger kD,
+// zero-padded.
+template <int kKV, int kD, int kWarps>
 struct PagedAttnShape {
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kRows = 16 * kWarps;            // query rows per block
   static constexpr int kKeys = kD <= 128 ? 64 : 32;    // keys per tile
   static constexpr int kStride = kD + 8;               // bf16 per smem row
   static constexpr int kEsz = kKV == kE4M3 ? 1 : 2;    // pool element bytes
   static constexpr int kChunks = kD * kEsz / 16;       // 16-B chunks per key
+  static constexpr int kRawBytes = kKeys * kD * kEsz;  // one raw K (or V) tile
   static constexpr size_t kSmemBytes =
-      2 * (static_cast<size_t>(kAttnRows + 2 * kKeys) * kStride);
+      2 * (static_cast<size_t>(kRows + 2 * kKeys) * kStride) + 2 * 2 * kRawBytes;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -87,6 +88,22 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16 bytes global -> shared; zero-filled (the source is not read) when
+// !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most one group (the newest) is still in flight
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -137,12 +154,12 @@ __device__ __forceinline__ void deq_chunk<kBF16>(__nv_bfloat16* dst, const uint8
   *reinterpret_cast<uint4*>(dst) = o;
 }
 
-// The block's kAttnRows rows: q and out rows start at element offsets
+// The block's S::kRows rows: q and out rows start at element offsets
 // row_off[r]; row r counts keys k_pos < limit[r] (0 for r >= rows, and
 // never past nb * bs); kv_end is the largest limit.  row_off and limit
 // live in shared memory, written before the call and followed by a
 // barrier.  d % 16 == 0 and d <= kD; pointers 16-byte aligned.
-template <int kKV, int kD>
+template <int kKV, int kD, int kWarps>
 __device__ void paged_attn_rows(const __nv_bfloat16* __restrict__ q,
                                 __nv_bfloat16* __restrict__ out, const int64_t* row_off,
                                 const int* limit, int rows, int kv_end,
@@ -150,16 +167,18 @@ __device__ void paged_attn_rows(const __nv_bfloat16* __restrict__ q,
                                 const void* __restrict__ v_pool, float ks, float vs,
                                 const int32_t* __restrict__ table, int nb, int kvh, int h,
                                 int d, int bs, float sm_scale, uint8_t* smem) {
-  using S = PagedAttnShape<kKV, kD>;
+  using S = PagedAttnShape<kKV, kD, kWarps>;
+  constexpr int kThreads = S::kThreads, kRows = S::kRows;
   constexpr int kKeys = S::kKeys, kStride = S::kStride, kEsz = S::kEsz;
   constexpr int kChunks = S::kChunks;
   // 16-byte chunks of a K (or V) tile and of q_s, and their rounds per thread
-  constexpr int kKvChunks = kKeys * kChunks, kQChunks = kAttnRows * (kD / 8);
-  constexpr int kKvIters = (kKvChunks + kAttnThreads - 1) / kAttnThreads;
-  constexpr int kQIters = (kQChunks + kAttnThreads - 1) / kAttnThreads;
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);   // (kAttnRows, kStride)
-  __nv_bfloat16* k_s = q_s + kAttnRows * kStride;                 // (kKeys, kStride)
+  constexpr int kKvChunks = kKeys * kChunks, kQChunks = kRows * (kD / 8);
+  constexpr int kKvIters = (kKvChunks + kThreads - 1) / kThreads;
+  constexpr int kQIters = (kQChunks + kThreads - 1) / kThreads;
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);   // (kRows, kStride)
+  __nv_bfloat16* k_s = q_s + kRows * kStride;                     // (kKeys, kStride)
   __nv_bfloat16* v_s = k_s + kKeys * kStride;                     // (kKeys, kStride)
+  uint8_t* raw = reinterpret_cast<uint8_t*>(v_s + kKeys * kStride);  // [slot][K, V]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;   // mma fragment coordinates
@@ -168,17 +187,43 @@ __device__ void paged_attn_rows(const __nv_bfloat16* __restrict__ q,
   const uint8_t* kp = static_cast<const uint8_t*>(k_pool);
   const uint8_t* vp = static_cast<const uint8_t*>(v_pool);
 
+  // the raw K and V bytes of `tile` into ring slot tile % 2: one group
+  auto issue = [&](int tile) {
+    if (tile < n_tiles) {
+      uint8_t* kr = raw + (tile & 1) * 2 * S::kRawBytes;
+      uint8_t* vr = kr + S::kRawBytes;
+#pragma unroll
+      for (int i = 0; i < kKvIters; ++i) {
+        const int c = tid + i * kThreads, key = c / kChunks, part = c % kChunks;
+        if (c >= kKvChunks) break;
+        if (part * 16 >= d * kEsz) continue;
+        const int pos = tile * kKeys + key;
+        const bool live = pos < kv_stop;
+        int64_t off = 0;
+        if (live) {
+          const int64_t row = table[pos / bs];
+          off = ((row * bs + pos % bs) * kvh + h) * static_cast<int64_t>(d) * kEsz + part * 16;
+        }
+        cp_async16(kr + c * 16, kp + off, live);
+        cp_async16(vr + c * 16, vp + off, live);
+      }
+    }
+    cp_async_commit();
+  };
+  issue(0);
+  issue(1);
+
   // q rows (zero past `rows` and past d); the pad columns of K and V
 #pragma unroll
   for (int i = 0; i < kQIters; ++i) {
-    const int c = tid + i * kAttnThreads, r = c / (kD / 8), col = (c % (kD / 8)) * 8;
+    const int c = tid + i * kThreads, r = c / (kD / 8), col = (c % (kD / 8)) * 8;
     if (c >= kQChunks) break;
     uint4 v = make_uint4(0, 0, 0, 0);
     if (r < rows && col < d) v = *reinterpret_cast<const uint4*>(q + row_off[r] + col);
     *reinterpret_cast<uint4*>(q_s + r * kStride + col) = v;
   }
   if (d < kD) {
-    for (int c = tid; c < kKeys * ((kD - d) / 8); c += kAttnThreads) {
+    for (int c = tid; c < kKeys * ((kD - d) / 8); c += kThreads) {
       const int key = c / ((kD - d) / 8), col = d + (c % ((kD - d) / 8)) * 8;
       *reinterpret_cast<uint4*>(k_s + key * kStride + col) = make_uint4(0, 0, 0, 0);
       *reinterpret_cast<uint4*>(v_s + key * kStride + col) = make_uint4(0, 0, 0, 0);
@@ -196,26 +241,23 @@ __device__ void paged_attn_rows(const __nv_bfloat16* __restrict__ q,
   float m0 = kAttnNegInf, m1 = kAttnNegInf, l0 = 0.0f, l1 = 0.0f;
 
   for (int tile = 0; tile < n_tiles; ++tile) {
-    __syncthreads();      // the previous tile is consumed (q_s written)
+    cp_async_wait_one();  // this thread's copies of `tile` have landed
+    __syncthreads();      // everyone's have; the previous tile is consumed
+    {
+      const uint8_t* kr = raw + (tile & 1) * 2 * S::kRawBytes;
+      const uint8_t* vr = kr + S::kRawBytes;
 #pragma unroll
-    for (int i = 0; i < kKvIters; ++i) {
-      const int c = tid + i * kAttnThreads, key = c / kChunks, part = c % kChunks;
-      if (c >= kKvChunks) break;
-      if (part * 16 >= d * kEsz) continue;
-      const int pos = tile * kKeys + key;
-      uint4 kr = make_uint4(0, 0, 0, 0), vr = kr;
-      if (pos < kv_stop) {
-        const int64_t row = table[pos / bs];
-        const int64_t off =
-            ((row * bs + pos % bs) * kvh + h) * static_cast<int64_t>(d) * kEsz + part * 16;
-        kr = *reinterpret_cast<const uint4*>(kp + off);
-        vr = *reinterpret_cast<const uint4*>(vp + off);
+      for (int i = 0; i < kKvIters; ++i) {
+        const int c = tid + i * kThreads, key = c / kChunks, part = c % kChunks;
+        if (c >= kKvChunks) break;
+        if (part * 16 >= d * kEsz) continue;
+        const int col = part * 16 / kEsz;
+        deq_chunk<kKV>(k_s + key * kStride + col, kr + c * 16, ks);
+        deq_chunk<kKV>(v_s + key * kStride + col, vr + c * 16, vs);
       }
-      const int col = part * 16 / kEsz;
-      deq_chunk<kKV>(k_s + key * kStride + col, reinterpret_cast<const uint8_t*>(&kr), ks);
-      deq_chunk<kKV>(v_s + key * kStride + col, reinterpret_cast<const uint8_t*>(&vr), vs);
     }
-    __syncthreads();      // K/V tile ready
+    __syncthreads();      // the K/V tile is ready; its ring slot is free
+    issue(tile + 2);
     if (!active) continue;
 
     // S (16 rows x kKeys) = Q K^T

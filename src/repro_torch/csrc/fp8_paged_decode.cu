@@ -16,7 +16,7 @@
 // only its live key tiles with the tensor-core block body it shares with
 // kernel 5 (`paged_attn_rows`, fp8_paged_attn.cuh): the G <= 16 query rows
 // sit in the first rows of one warp's 16-row mma tile (the other rows are
-// idle), every warp of the block stages the shared K/V tiles, and a row
+// idle), both warps of the block stage the shared K/V tiles, and a row
 // computes bit for bit what kernel 5 computes for a chunk row at the same
 // context.  Split-KV (more blocks per slot for small B) is left for the PR
 // that makes this kernel fast.
@@ -25,28 +25,31 @@
 namespace fp8rl {
 namespace {
 
+constexpr int kWarps = 2;   // one computes (G <= 16 rows); both stage K/V
+constexpr int kRows = 16 * kWarps;
+
 template <int kKV, int kD>
-__global__ void __launch_bounds__(kAttnThreads) paged_decode_kernel(
+__global__ void __launch_bounds__(32 * kWarps) paged_decode_kernel(
     const __nv_bfloat16* __restrict__ q, const void* __restrict__ k_pool,
     const void* __restrict__ v_pool, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, const int32_t* __restrict__ tables,
     const int32_t* __restrict__ lengths, __nv_bfloat16* __restrict__ out,
     int kvh, int g, int d, int bs, int w, float sm_scale) {
   extern __shared__ __align__(16) uint8_t smem[];
-  __shared__ int64_t row_off[kAttnRows];
-  __shared__ int limit[kAttnRows];
+  __shared__ int64_t row_off[kRows];
+  __shared__ int limit[kRows];
   const int b = blockIdx.x / kvh, h = blockIdx.x % kvh;
   const int len = lengths[b];
   const int nb = min(max((len + bs - 1) / bs, 1), w);   // `_live_block_counts`
   const int kv_end = max(min(len, nb * bs), 0);
-  if (threadIdx.x < kAttnRows) {
+  if (threadIdx.x < kRows) {
     row_off[threadIdx.x] = ((static_cast<int64_t>(b) * kvh + h) * g + threadIdx.x) * d;
     limit[threadIdx.x] = threadIdx.x < g ? kv_end : 0;
   }
   __syncthreads();
-  paged_attn_rows<kKV, kD>(q, out, row_off, limit, g, kv_end, k_pool, v_pool, *k_scale,
-                           *v_scale, tables + static_cast<int64_t>(b) * w, nb, kvh, h, d, bs,
-                           sm_scale, smem);
+  paged_attn_rows<kKV, kD, kWarps>(q, out, row_off, limit, g, kv_end, k_pool, v_pool,
+                                   *k_scale, *v_scale, tables + static_cast<int64_t>(b) * w,
+                                   nb, kvh, h, d, bs, sm_scale, smem);
 }
 
 template <int kKV>
@@ -55,10 +58,10 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* k_
            int kvh, int g, int d, int bs, int w, float sm_scale, cudaStream_t stream) {
   return with_head_width(d, [&](auto width) {
     constexpr int kD = decltype(width)::value;
-    const size_t smem = PagedAttnShape<kKV, kD>::kSmemBytes;
+    const size_t smem = PagedAttnShape<kKV, kD, kWarps>::kSmemBytes;
     const int err = set_smem(paged_decode_kernel<kKV, kD>, smem);
     if (err != 0) return err;
-    paged_decode_kernel<kKV, kD><<<b * kvh, kAttnThreads, smem, stream>>>(
+    paged_decode_kernel<kKV, kD><<<b * kvh, 32 * kWarps, smem, stream>>>(
         static_cast<const __nv_bfloat16*>(q), k_pool, v_pool,
         static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
         static_cast<const int32_t*>(tables), static_cast<const int32_t*>(lengths),

@@ -12,22 +12,27 @@
 // ragged final chunk come out as exact zeros.  Only table entries
 // w < nb = clip(ceil(min(start + C, lengths) / BS), 1, W) are read.
 //
-// The design: grid (B * KVH, ceil(C * G / kAttnRows)); a block takes
-// kAttnRows consecutive (c, g) rows of one (slot, kv-head) and runs the
+// The design: grid (B * KVH, ceil(C * G / 64)); a block of 4 warps takes
+// 64 consecutive (c, g) rows of one (slot, kv-head) and runs the
 // tensor-core block body it shares with kernel 4 (`paged_attn_rows`,
 // fp8_paged_attn.cuh, which says what bounds it and why).  Where the TPU
 // kernel holds all C * G rows of a (slot, kv-head) in one grid step, the
-// rows here are split over blocks so that the engine's chunk (B 1, KVH 8,
-// C 128, G 4) fills the card with 128 blocks; each block walks key tiles
-// only up to its last valid row's position (the causal early exit), and
-// the row blocks with the most keys are scheduled first.
+// rows here are split over blocks; each block walks key tiles only up to
+// its last valid row's position (the causal early exit), and the row
+// blocks with the most keys are scheduled first.  At the engine's chunk
+// (B 1, KVH 8, C 128, G 4) that is 64 blocks: the body is bound by the
+// latency of each warp's instruction stream, and 4 warps sharing a tile's
+// staging beat twice the blocks of 2 warps (see PERF.md).
 #include "fp8_paged_attn.cuh"
 
 namespace fp8rl {
 namespace {
 
+constexpr int kWarps = 4;
+constexpr int kRows = 16 * kWarps;
+
 template <int kKV, int kD>
-__global__ void __launch_bounds__(kAttnThreads) paged_prefill_kernel(
+__global__ void __launch_bounds__(32 * kWarps) paged_prefill_kernel(
     const __nv_bfloat16* __restrict__ q, const void* __restrict__ k_pool,
     const void* __restrict__ v_pool, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, const int32_t* __restrict__ tables,
@@ -35,15 +40,15 @@ __global__ void __launch_bounds__(kAttnThreads) paged_prefill_kernel(
     __nv_bfloat16* __restrict__ out, int c, int kvh, int g, int d, int bs, int w,
     float sm_scale) {
   extern __shared__ __align__(16) uint8_t smem[];
-  __shared__ int64_t row_off[kAttnRows];
-  __shared__ int limit[kAttnRows];
+  __shared__ int64_t row_off[kRows];
+  __shared__ int limit[kRows];
   const int b = blockIdx.x / kvh, h = blockIdx.x % kvh;
-  const int r0 = (gridDim.y - 1 - blockIdx.y) * kAttnRows;   // most keys first
-  const int rows = min(kAttnRows, c * g - r0);
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * kRows;   // most keys first
+  const int rows = min(kRows, c * g - r0);
   const int st = start[b], len = lengths[b];
   const int ctx = min(st + c, len);
   const int nb = min(max((ctx + bs - 1) / bs, 1), w);   // `_live_block_counts`
-  if (threadIdx.x < kAttnRows) {
+  if (threadIdx.x < kRows) {
     const int r = r0 + threadIdx.x, ci = r / g, gi = r % g;
     const int q_pos = st + ci;
     row_off[threadIdx.x] =
@@ -55,9 +60,9 @@ __global__ void __launch_bounds__(kAttnThreads) paged_prefill_kernel(
   const int first = st + r0 / g, last = min(st + (r0 + rows - 1) / g, len - 1);
   const int kv_end = last >= first ? min(last + 1, nb * bs) : 0;
   __syncthreads();
-  paged_attn_rows<kKV, kD>(q, out, row_off, limit, rows, kv_end, k_pool, v_pool, *k_scale,
-                           *v_scale, tables + static_cast<int64_t>(b) * w, nb, kvh, h, d, bs,
-                           sm_scale, smem);
+  paged_attn_rows<kKV, kD, kWarps>(q, out, row_off, limit, rows, kv_end, k_pool, v_pool, *k_scale,
+                                   *v_scale, tables + static_cast<int64_t>(b) * w, nb, kvh,
+                                   h, d, bs, sm_scale, smem);
 }
 
 template <int kKV>
@@ -67,11 +72,11 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* k_
            cudaStream_t stream) {
   return with_head_width(d, [&](auto width) {
     constexpr int kD = decltype(width)::value;
-    const size_t smem = PagedAttnShape<kKV, kD>::kSmemBytes;
+    const size_t smem = PagedAttnShape<kKV, kD, kWarps>::kSmemBytes;
     const int err = set_smem(paged_prefill_kernel<kKV, kD>, smem);
     if (err != 0) return err;
-    const dim3 grid(b * kvh, (c * g + kAttnRows - 1) / kAttnRows);
-    paged_prefill_kernel<kKV, kD><<<grid, kAttnThreads, smem, stream>>>(
+    const dim3 grid(b * kvh, (c * g + kRows - 1) / kRows);
+    paged_prefill_kernel<kKV, kD><<<grid, 32 * kWarps, smem, stream>>>(
         static_cast<const __nv_bfloat16*>(q), k_pool, v_pool,
         static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
         static_cast<const int32_t*>(tables), static_cast<const int32_t*>(start),

@@ -30,12 +30,12 @@ runs at every `launch.steps` serve step in every layer.
 On the H100 kernels 4 and 6 are bound by the bytes of the live K/V rows
 and kernel 5 about equally by bytes and the bf16 tensor-core rate.
 Kernels 4 and 5 share one block body, `csrc/fp8_paged_attn.cuh`: Q K^T
-and P V on the tensor cores (`mma.sync` bf16, P rounded to bf16), K/V
-staged in key tiles of fixed logical positions; kernel 5 launches it over
-tiles of 32 chunk rows, kernel 4 over a slot's G rows, so a chunk row
-equals a decode step bit for bit.  Their CUDA wrappers take D % 16 == 0
-only.  `csrc/fp8_paged_decode.cu`, `csrc/fp8_paged_prefill.cu` and
-`csrc/fp8_decode.cu` give the designs.
+and P V on the tensor cores (`mma.sync` bf16; P as two bf16 terms), K/V
+staged through a cp.async ring in key tiles of fixed logical positions.
+Kernel 5 launches it over tiles of 64 chunk rows, kernel 4 over a slot's
+G rows, so a chunk row equals a decode step bit for bit.  Their CUDA
+wrappers take D % 16 == 0 only.  `csrc/fp8_paged_decode.cu`,
+`csrc/fp8_paged_prefill.cu` and `csrc/fp8_decode.cu` give the designs.
 
 The `_ref` functions are the plain versions: the paged ones dequantize
 like `_deq` (f32 multiply, then a bf16 rounding) and read only the
@@ -55,9 +55,10 @@ from repro_torch.kernels.fp8_quant import DTYPE_CODE
 
 _NEG_INF = -1e30
 MAX_G, MAX_D = 16, 256
-# the paged kernels' block geometry (csrc/fp8_paged_attn.cuh: kAttnRows,
-# PagedAttnShape::kKeys), for the logs
-PAGED_ROWS_PER_BLOCK = 32
+# the paged kernels' block geometry, for the logs: kernel 5's chunk rows
+# per block (csrc/fp8_paged_prefill.cu kRows) and the key tile
+# (csrc/fp8_paged_attn.cuh PagedAttnShape::kKeys)
+PREFILL_ROWS_PER_BLOCK = 64
 
 
 def paged_key_tile(d: int) -> int:
