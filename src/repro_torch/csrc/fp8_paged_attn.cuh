@@ -188,7 +188,7 @@ __device__ void paged_attn_rows(const __nv_bfloat16* __restrict__ q,
   const uint8_t* vp = static_cast<const uint8_t*>(v_pool);
 
   // the raw K and V bytes of `tile` into ring slot tile % 2: one group
-  auto issue = [&](int tile) {
+  auto stage_tile = [&](int tile) {
     if (tile < n_tiles) {
       uint8_t* kr = raw + (tile & 1) * 2 * S::kRawBytes;
       uint8_t* vr = kr + S::kRawBytes;
@@ -210,8 +210,8 @@ __device__ void paged_attn_rows(const __nv_bfloat16* __restrict__ q,
     }
     cp_async_commit();
   };
-  issue(0);
-  issue(1);
+  stage_tile(0);
+  stage_tile(1);
 
   // q rows (zero past `rows` and past d); the pad columns of K and V
 #pragma unroll
@@ -257,7 +257,7 @@ __device__ void paged_attn_rows(const __nv_bfloat16* __restrict__ q,
       }
     }
     __syncthreads();      // the K/V tile is ready; its ring slot is free
-    issue(tile + 2);
+    stage_tile(tile + 2);
     if (!active) continue;
 
     // S (16 rows x kKeys) = Q K^T
