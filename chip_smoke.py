@@ -158,6 +158,33 @@ def cuda_time_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+def device_time_ms(fn, reps=20, warmup=3):
+    """Mean device time of `fn()`: the kernel durations the profiler
+    records over `reps` back-to-back calls, divided by `reps`.  Unlike
+    `cuda_time_ms` it does not count the host's time between launches."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    _, busy_ms, n_kernels, _ = _profile(lambda: [fn() for _ in range(reps)])
+    check(n_kernels > 0, "device time: the profiler saw no kernel")
+    return busy_ms / reps
+
+
+def timed_row(fn, plain, library=None, reps=20, plain_reps=20, plain_warmup=3):
+    """A phase-6 row's times: `ms` (CUDA events around back-to-back
+    wrapper calls, host work included), `device_ms` (the kernels alone,
+    profiler), `plain_ms`, and `library_ms` with its `library_device_ms`
+    (None without a library call)."""
+    row = dict(ms=cuda_time_ms(fn, reps=reps), device_ms=device_time_ms(fn, reps=reps),
+               plain_ms=cuda_time_ms(plain, reps=plain_reps, warmup=plain_warmup),
+               library_ms=None, library_device_ms=None)
+    if library is not None:
+        row.update(library_ms=cuda_time_ms(library, reps=reps),
+                   library_device_ms=device_time_ms(library, reps=reps))
+    return row
+
+
 def bound(nbytes, flops, peak_flops):
     """(bound_ms, bound_by): the larger of bytes/HBM rate and flops/peak."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak_flops * 1e3
@@ -616,8 +643,38 @@ def main_path(dev, results, cfg):
     stats["chunk_logit_max_abs_err"] = chunk_logits_check(
         model, roll, prec, prompts, lengths, dev)
     stats.update(profile_decode_step(model, roll, prec, prompts, lengths, dev))
+    stats.update(bf16_rollout(model, params, prompts, lengths, greedy, cfg, dev))
+    log(f"greedy rollout, same prompts, PrecisionConfig() vs BF16_ROLLOUT: "
+        f"{stats['greedy_tokens_per_s']:.1f} vs {stats['bf16_greedy_tokens_per_s']:.1f} "
+        f"tokens/s, decode {stats['decode_ms_per_step']:.1f} vs "
+        f"{stats['bf16_decode_ms_per_step']:.1f} ms/step")
     log("main path: " + json.dumps(stats))
     return model, roll, t_greedy
+
+
+def bf16_rollout(model, params, prompts, lengths, sampler, cfg, dev):
+    """The paper's baseline beside the FP8 run: one greedy `generate` under
+    BF16_ROLLOUT (bf16 linears through `_dot`, a bf16 paged KV cache) on
+    the same prompts; its tokens/s and decode ms/step, measured as the FP8
+    run's are."""
+    import torch
+    from repro_torch.core.precision import BF16_ROLLOUT
+    from repro_torch.kernels import build
+    from repro_torch.rl import generate, sync_policy_weights
+    roll, _ = sync_policy_weights(params, BF16_ROLLOUT)
+    before = build.LAUNCHES["paged_decode"]
+    traj, gen_ms = _sync_ms(lambda: generate(roll, prompts, lengths, None, cfg, BF16_ROLLOUT,
+                                             sampler, page_size=16, device=dev))
+    steps = (build.LAUNCHES["paged_decode"] - before) // cfg.n_layers
+    check_trajectory(traj, len(prompts), sampler.max_new_tokens, cfg.vocab_size, "bf16 greedy")
+    cache = model.init_cache(len(prompts), prompts.shape[1] + 33, BF16_ROLLOUT, page_size=16)
+    inputs = {"tokens": torch.from_numpy(prompts).to(dev),
+              "lengths": torch.from_numpy(lengths).to(dev)}
+    _, prefill_ms = _sync_ms(model.prefill, roll, inputs, cache, BF16_ROLLOUT)
+    tokens = int(traj.response_lengths.sum())
+    return {"bf16_greedy_generate_s": gen_ms / 1e3, "bf16_greedy_tokens": tokens,
+            "bf16_greedy_tokens_per_s": tokens / (gen_ms / 1e3), "bf16_prefill_ms": prefill_ms,
+            "bf16_decode_ms_per_step": (gen_ms - prefill_ms) / max(steps, 1)}
 
 
 # ---------------------------------------------------------------------------
@@ -1077,11 +1134,17 @@ def contiguous_7c(dev, gen, cfg, roll, prec, stats, extra, results):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     wall_ms = float(np.median(step_ms))
     attn_ms = sum(ms for name, ms in by_name.items() if "decode_" in name)
-    gemm_ms = sum(ms for name, ms in by_name.items() if "gemm" in name)
+    fp8_gemm_ms = sum(ms for name, ms in by_name.items() if "fp8_gemm" in name)
+    # the lm_head is the step's one library GEMM (bf16 in, f32 sums: `_dot`)
+    head_ms = sum(ms for name, ms in by_name.items() if "fp8_gemm" not in name
+                  and any(k in name.lower() for k in ("gemm", "nvjet", "xmma", "cutlass")))
+    head_bound_ms = cfg.d_model * cfg.vocab_size * 2 / HBM_BYTES_PER_S * 1e3
+    gemm_ms = fp8_gemm_ms + head_ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     log(f"7c profiled serve step: {n_kernels} kernels, device busy {busy_ms:.2f} ms of a "
         f"{wall_ms:.2f} ms step (median of {len(step_ms)} unprofiled): kernel 6 (split + "
-        f"combine) {attn_ms:.2f} ms, GEMMs (fp8 linears + the f32 lm_head) {gemm_ms:.2f} ms, "
+        f"combine) {attn_ms:.2f} ms, fp8 linears {fp8_gemm_ms:.2f} ms, the lm_head GEMM "
+        f"{head_ms:.3f} ms (bound {head_bound_ms:.3f} ms: its bf16 weight read once), "
         f"other kernels {busy_ms - attn_ms - gemm_ms:.2f} ms, host (not kernel time) "
         f"{wall_ms - busy_ms:.2f} ms; top kernels (ms): "
         + json.dumps([[name[:60], round(ms, 3)] for name, ms in top]))
@@ -1098,7 +1161,8 @@ def contiguous_7c(dev, gen, cfg, roll, prec, stats, extra, results):
                  long500k_cache_gb=cache_gb, long500k_bf16_cache_gb=bf16_gb,
                  long500k_card_gb=card_gb, long500k_kernel6_ms=row["ms"],
                  long500k_step_busy_ms=busy_ms, long500k_step_kernel6_ms=attn_ms,
-                 long500k_step_gemm_ms=gemm_ms, long500k_step_host_ms=wall_ms - busy_ms)
+                 long500k_step_gemm_ms=gemm_ms, long500k_step_lm_head_ms=head_ms,
+                 long500k_step_host_ms=wall_ms - busy_ms)
     log(f"7c: serve steps at {LONG_500K_LENGTH}-{LONG_500K_LENGTH + LONG_500K_STEPS} tokens "
         f"of context: {[round(ms, 2) for ms in step_ms]} ms; kernel 6 {row['ms']:.4f} ms per "
         f"launch (bound {row['bound_ms']:.4f}), x {cfg.n_layers} layers = "
@@ -1152,13 +1216,13 @@ def decode_row(args, reps=20, plain_reps=5):
     from repro_torch.kernels import fp8_kv_attention as fa
     q, k, v, ks, vs, lengths = args
     b, kvh, g, d = q.shape
-    row = dict(ms=cuda_time_ms(lambda: fa.fp8_decode_attention(*args), reps=reps),
-               plain_ms=cuda_time_ms(lambda: fa.fp8_decode_attention_ref(*args),
-                                     reps=plain_reps, warmup=1))
     kf = k.float() * ks
     vf = (v.float() * vs).to(torch.bfloat16)
     kf = kf.to(torch.bfloat16)
-    row["library_ms"] = cuda_time_ms(sdpa_decode_yardstick(q, kf, vf, lengths), reps=reps)
+    row = timed_row(lambda: fa.fp8_decode_attention(*args),
+                    lambda: fa.fp8_decode_attention_ref(*args),
+                    library=sdpa_decode_yardstick(q, kf, vf, lengths), reps=reps,
+                    plain_reps=plain_reps, plain_warmup=1)
     del kf, vf
     ctx = int(lengths.long().clamp(max=k.shape[1]).sum())
     nbytes = 2 * ctx * kvh * d * k.element_size() + 2 * 2 * q.numel() + 4 * b
@@ -1196,6 +1260,7 @@ def library_gemm(a, wq, a_s, w_s, reference):
 
 def time_kernels(dev, gen, results, cfg, roll, traj, contig_lengths, extra):
     import torch
+    from repro_torch.core.precision import E4M3
     from repro_torch.kernels import fp8_gemm as fg
     from repro_torch.kernels import fp8_kv_attention as fa
     from repro_torch.kernels import fp8_quant as fq
@@ -1204,9 +1269,8 @@ def time_kernels(dev, gen, results, cfg, roll, traj, contig_lengths, extra):
     # quant_act at the decode shape (8, d_model) and the prefill shape
     for m in (8, 1024):
         x = torch.randn((m, d), generator=gen, device=dev).to(torch.bfloat16)
-        row = dict(ms=cuda_time_ms(lambda: fq.quantize_activation_kernel(x)),
-                   plain_ms=cuda_time_ms(lambda: fq.quantize_activation_ref(x)),
-                   library_ms=None)
+        row = timed_row(lambda: fq.quantize_activation_kernel(x),
+                        lambda: fq.quantize_activation_ref(x))
         row["bound_ms"], row["bound_by"] = bound(m * d * 3 + m * d // 128 * 4,
                                                  6 * m * d, F32_FLOPS)
         extra.append(dict(kernel="quant_act", shape=[m, d], **row))
@@ -1216,9 +1280,8 @@ def time_kernels(dev, gen, results, cfg, roll, traj, contig_lengths, extra):
     # quant_weight on the largest stacked leaf the sync quantizes
     w = torch.empty((cfg.n_layers, d, f), dtype=torch.bfloat16, device=dev)
     w.normal_(generator=gen)
-    row = dict(ms=cuda_time_ms(lambda: fq.quantize_weight_kernel(w), reps=3, warmup=1),
-               plain_ms=cuda_time_ms(lambda: fq.quantize_weight_ref(w), reps=3, warmup=1),
-               library_ms=None)
+    row = timed_row(lambda: fq.quantize_weight_kernel(w), lambda: fq.quantize_weight_ref(w),
+                    reps=3, plain_reps=3, plain_warmup=1)
     row["bound_ms"], row["bound_by"] = bound(w.numel() * 3 + w.numel() // 16384 * 4,
                                              6 * w.numel(), F32_FLOPS)
     del w
@@ -1234,9 +1297,8 @@ def time_kernels(dev, gen, results, cfg, roll, traj, contig_lengths, extra):
         a, a_s = fq.quantize_activation_kernel(x)
         wq, w_s = wqt.data.contiguous(), wqt.scales.contiguous()
         lib = library_gemm(a, wq, a_s, w_s, fg.fp8_gemm_ref(a, wq, a_s, w_s).float())
-        row = dict(ms=cuda_time_ms(lambda: fg.fp8_gemm(a, wq, a_s, w_s)),
-                   plain_ms=cuda_time_ms(lambda: fg.fp8_gemm_ref(a, wq, a_s, w_s), reps=5),
-                   library_ms=cuda_time_ms(lib) if lib is not None else None)
+        row = timed_row(lambda: fg.fp8_gemm(a, wq, a_s, w_s),
+                        lambda: fg.fp8_gemm_ref(a, wq, a_s, w_s), library=lib, plain_reps=5)
         nbytes = m * k + k * n + m * (k // 128) * 4 + (k // 128) * (n // 128) * 4 + m * n * 2
         row["bound_ms"], row["bound_by"] = bound(nbytes, 2 * m * n * k, FP8_TC_FLOPS)
         extra.append(dict(kernel="fp8_gemm", shape=[m, k, n], weight=name, **row))
@@ -1249,11 +1311,10 @@ def time_kernels(dev, gen, results, cfg, roll, traj, contig_lengths, extra):
         dev, gen, b=8, kvh=cfg.n_kv_heads, g=cfg.n_heads // cfg.n_kv_heads,
         d=cfg.d_head, bs=16, max_len=int(lengths.max()), lengths=lengths)
     kf, vf = fa._live_kv(kq, vq, ks, vs, tables, lengths)    # gathered, `_deq`-ed
-    row = dict(
-        ms=cuda_time_ms(lambda: fa.fp8_paged_decode_attention(q, kq, vq, ks, vs, tables, lengths)),
-        plain_ms=cuda_time_ms(
-            lambda: fa.fp8_paged_decode_attention_ref(q, kq, vq, ks, vs, tables, lengths)),
-        library_ms=cuda_time_ms(sdpa_decode_yardstick(q, kf, vf, lengths)))
+    row = timed_row(
+        lambda: fa.fp8_paged_decode_attention(q, kq, vq, ks, vs, tables, lengths),
+        lambda: fa.fp8_paged_decode_attention_ref(q, kq, vq, ks, vs, tables, lengths),
+        library=sdpa_decode_yardstick(q, kf, vf, lengths))
     del kf, vf
     ctx = int(lengths.sum())
     kvh, g, dh = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.d_head
@@ -1268,6 +1329,12 @@ def time_kernels(dev, gen, results, cfg, roll, traj, contig_lengths, extra):
     # contiguous decode (kernel 6) at 7a's final lengths (S 1057), and at
     # DECODE_32K's cache (S 32768, all live) at batch 8; LONG_500K's row
     # was taken in phase 7c on the real cache
+    geo = fa.decode_geometry(dh, g, E4M3)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    log(f"kernel 6 body (e4m3, D {dh}, G {g}): ring of {geo['stages']} stages, tiles of "
+        f"{geo['tile_keys']} keys, {geo['warps']} warps per block, {geo['smem_bytes']} bytes "
+        f"of dynamic shared memory per block; (n_split, span) at S 1057 / 32768 / 524288: "
+        + ", ".join(str(fa.decode_splits(s_len, sms)) for s_len in (1057, 32768, 524288)))
     for b, s_len, lens in ((8, CONTIG_SHAPE[1] + 1, contig_lengths), (8, 32768, [32768] * 8)):
         args = contiguous_case(dev, gen, b, s_len, lens, kvh, g, dh)
         hold_decode(args, f"decode B={b} S={s_len} lengths {args[-1].tolist()}", results)
@@ -1290,9 +1357,8 @@ def time_kernels(dev, gen, results, cfg, roll, traj, contig_lengths, extra):
             w=max(-(-ENGINE_MAX_SEQ // KV_BLOCK), -(-length // KV_BLOCK)))
         args = (q, kq, vq, ks, vs, tables, st, ln)
         lib = sdpa_yardstick(*args)
-        row = dict(ms=cuda_time_ms(lambda: fa.fp8_paged_prefill_attention(*args)),
-                   plain_ms=cuda_time_ms(lambda: fa.fp8_paged_prefill_attention_ref(*args)),
-                   library_ms=cuda_time_ms(lib))
+        row = timed_row(lambda: fa.fp8_paged_prefill_attention(*args),
+                        lambda: fa.fp8_paged_prefill_attention_ref(*args), library=lib)
         keys = sum(p + 1 for p in range(start, min(start + c, length)))   # causal
         live = -(-min(start + c, length) // KV_BLOCK) * KV_BLOCK
         nbytes = 2 * live * kvh * dh + 2 * 2 * c * kvh * g * dh + tables.numel() * 4 + 8
@@ -1380,7 +1446,7 @@ def main() -> int:
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, "
         f"wall {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(smi)
     print(json.dumps({"kernels": [{k: results[n][k] for k in keys} for n in results]}))
     print(json.dumps({"ok": True, "device": {

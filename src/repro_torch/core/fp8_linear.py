@@ -22,7 +22,15 @@ from repro_torch.kernels import ops
 
 def _dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w with f32 accumulation, output in x.dtype (the reference's
-    `preferred_element_type=f32` dot)."""
+    `preferred_element_type=f32` dot).
+
+    On the card the operands go into one GEMM as they are, which sums in
+    f32 and writes f32 (`aten::mm.dtype`, CUDA only), rounded to x.dtype
+    once: no widened copy of w and no reduced-precision split-K sum.  On
+    the CPU the operands are widened to f32, as before."""
+    if x.is_cuda:
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return out.to(x.dtype).reshape(*x.shape[:-1], w.shape[-1])
     return torch.matmul(x.float(), w.float()).to(x.dtype)
 
 

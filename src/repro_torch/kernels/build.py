@@ -44,6 +44,7 @@ SIGNATURES = {
                             _I32, _I32, _I32, _I32, _I32, _I32, _F32, _P],
     "fp8rl_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32,
                      _I32, _I64, _I64, _I32, _I32, _I32, _F32, _P],
+    "fp8rl_decode_geometry": [_I32, _I32, _I32, _P],
 }
 
 # launches per kernel since the last reset (chip_smoke.py reads these)

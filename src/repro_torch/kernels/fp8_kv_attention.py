@@ -33,8 +33,12 @@ Kernels 4 and 5 share one block body, `csrc/fp8_paged_attn.cuh`: Q K^T
 and P V on the tensor cores (`mma.sync` bf16; P as two bf16 terms), K/V
 staged through a cp.async ring in key tiles of fixed logical positions.
 Kernel 5 launches it over tiles of 64 chunk rows, kernel 4 over a slot's
-G rows, so a chunk row equals a decode step bit for bit.  Their CUDA
-wrappers take D % 16 == 0 only.  `csrc/fp8_paged_decode.cu`,
+G rows, so a chunk row equals a decode step bit for bit.  Kernel 6 splits
+S over the SMs and runs its own tensor-core body (`csrc/fp8_decode.cu`):
+raw K/V tiles through a deeper cp.async ring, the payload entering the
+`mma.sync` exactly and the scales factored out of the products.  All
+three CUDA wrappers take D % 16 == 0 only; the helpers the two bodies
+share are in `csrc/fp8_mma.cuh`.  `csrc/fp8_paged_decode.cu`,
 `csrc/fp8_paged_prefill.cu` and `csrc/fp8_decode.cu` give the designs.
 
 The `_ref` functions are the plain versions: the paged ones dequantize
@@ -221,14 +225,15 @@ def decode_splits(s_max: int, sm_count: int) -> tuple:
     return -(-s_max // span), span
 
 
-def _lane_elements(d: int) -> int:
-    """Head-dim elements per lane (16 lanes share a key): the least of
-    1, 2, 4, 8, 16 with 16 x it >= D."""
-    return next(e for e in (1, 2, 4, 8, 16) if 16 * e >= d)
-
-
-def _g_bucket(g: int) -> int:
-    return next(b for b in (1, 2, 4, 8, 16) if b >= g)
+def decode_geometry(d: int, g: int, kv_dtype: torch.dtype) -> dict:
+    """Kernel 6's block geometry at head width `d`, group size `g` and cache
+    dtype `kv_dtype`, as the compiled library reports it (for the logs)."""
+    import ctypes
+    out = (ctypes.c_int * 4)()
+    err = build.library().fp8rl_decode_geometry(d, g, DTYPE_CODE[kv_dtype], out)
+    if err != 0:
+        raise ValueError(f"kernel 6 takes no D={d}, G={g}")
+    return dict(stages=out[0], tile_keys=out[1], warps=out[2], smem_bytes=out[3])
 
 
 def fp8_decode_attention_ref(q, k_cache, v_cache, k_scale, v_scale, lengths,
@@ -284,11 +289,9 @@ def fp8_decode_attention(q, k_cache, v_cache, k_scale, v_scale, lengths,
     if (b2, kvh2, d2) != (b, kvh, d) or v_cache.shape != k_cache.shape \
             or v_cache.stride() != k_cache.stride() or lengths.shape != (b,):
         raise ValueError("inconsistent decode-attention shapes or strides")
-    if s_max < 1 or g > MAX_G or d > MAX_D or d % 16 \
-            or _g_bucket(g) * _lane_elements(d) > 128:
+    if s_max < 1 or g > MAX_G or d > MAX_D or d % 16:
         raise ValueError(f"S={s_max}, G={g}, D={d}: kernel 6 takes S >= 1, "
-                         f"G <= {MAX_G}, D <= {MAX_D}, D % 16 == 0 and G x D "
-                         "within its register tile")
+                         f"G <= {MAX_G}, D <= {MAX_D} and D % 16 == 0")
     if q.dtype != torch.bfloat16 or k_cache.dtype not in (E4M3, torch.bfloat16) \
             or v_cache.dtype != k_cache.dtype or lengths.dtype != torch.int32:
         raise ValueError("q must be bf16, the cache e4m3 or bf16, lengths int32")
@@ -297,15 +300,15 @@ def fp8_decode_attention(q, k_cache, v_cache, k_scale, v_scale, lengths,
         raise ValueError("k/v scales must be f32 scalars")
     if k_cache.stride(3) != 1 or k_cache.stride(2) != d:
         raise ValueError("the cache's KVH and D dims must be dense")
-    vec = min(16, _lane_elements(d) * k_cache.element_size())
-    if any(t.data_ptr() % 16 for t in (k_cache, v_cache)) \
-            or (k_cache.stride(0) * k_cache.element_size()) % vec \
-            or (k_cache.stride(1) * k_cache.element_size()) % vec:
-        raise ValueError("the cache must be 16-byte aligned")
     tensors = (q, k_cache, v_cache, k_scale, v_scale, lengths)
     if not all(t.is_cuda for t in tensors) \
             or not all(t.is_contiguous() for t in (q, lengths)):
         raise ValueError("kernel 6 takes CUDA tensors (q and lengths contiguous)")
+    esz = k_cache.element_size()
+    if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)) \
+            or (k_cache.stride(0) * esz) % 16 or (k_cache.stride(1) * esz) % 16:
+        raise ValueError("kernel 6 reads q and the cache in 16-byte chunks: they "
+                         "must be 16-byte aligned")
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     n_split, span = decode_splits(s_max, sms)
     if sm_scale is None:

@@ -18,12 +18,16 @@ and 16), head widths not a multiple of 16 and misaligned q refused with
 a ValueError, the serving engine's speculative and
 preempted greedy runs equal to plain ones on the card, the GRPO fork on
 the card, and a wrapper without its library.  Kernel 6 (contiguous
-decode): G 1-8, D 16-128, S 13/200/1057 with ragged tails, NaN poison
-past each length, idle rows, a layer view of a stacked cache, split
-counts > 1 against one split, and a serve step past the cache that
-raises on the host.  Tolerances are those of the CPU tests: quantizers
-bit-equal, GEMM within one bf16 rounding (rtol 2**-7), attention within
-1e-2.
+decode): G 1-16, D 16-256 (80 included), S 13/200/1057/1300 with ragged
+tails, lengths on and next to the key-tile and split boundaries of a
+cache whose S is a multiple of neither, fp8 and bf16 caches at q and
+q x 4 (within 1e-2 and 1e-2 x max|plain|), NaN poison past each length,
+idle rows, a layer view of a stacked cache, split counts > 1 against one
+split and bit-equal repeats, the inputs it refuses, and a serve step
+past the cache that raises on the host.  `_dot` on the card: one bf16
+GEMM with f32 sums, no widened operand.  Tolerances are those of the CPU
+tests: quantizers bit-equal, GEMM within one bf16 rounding (rtol 2**-7),
+attention within 1e-2.
 """
 import pytest
 
@@ -33,6 +37,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro_torch.configs import ShapeConfig, tiny_serving_config  # noqa: E402
+from repro_torch.core import fp8_linear  # noqa: E402
 from repro_torch.core.precision import (  # noqa: E402
     E4M3,
     E5M2,
@@ -307,6 +312,99 @@ def test_contiguous_decode_layer_view_on_card(cuda):
     copy = fa.fp8_decode_attention(q, kq.clone(), vq.clone(), ks, vs, ln)
     torch.cuda.synchronize()
     assert torch.equal(view.view(torch.int16), copy.view(torch.int16))
+
+
+def _hold_decode(q, kq, vq, ks, vs, ln):
+    """Kernel 6 vs its plain version at q and q x 4, as `chip_smoke.py`
+    holds it: within 1e-2 elementwise and within 1e-2 x max|plain|."""
+    for q_scale in (1.0, 4.0):
+        qs = (q.float() * q_scale).to(q.dtype)
+        out = fa.fp8_decode_attention(qs, kq, vq, ks, vs, ln).float()
+        plain = fa.fp8_decode_attention_ref(qs, kq, vq, ks, vs, ln).float()
+        torch.cuda.synchronize()
+        err = (out - plain).abs().max().item()
+        assert torch.allclose(out, plain, rtol=1e-2, atol=1e-2), (q_scale, err)
+        assert err <= 1e-2 * plain.abs().max().item(), (q_scale, err)
+
+
+@pytest.mark.parametrize("kv", ["fp8", "bf16"])
+@pytest.mark.parametrize("g,d", [(12, 128), (16, 128), (16, 64), (4, 80), (12, 80),
+                                 (4, 256), (16, 256)])
+def test_contiguous_decode_wide_groups_and_heads_on_card(cuda, g, d, kv):
+    """G 12 and 16 (both halves of the 16 mma rows), D 80 (zero-padded
+    to a 128 body) and 256, ragged lengths over several splits."""
+    gen = torch.Generator(device=cuda).manual_seed(g * 1000 + d)
+    s = 1300
+    q, kq, vq, ks, vs, ln = _contiguous_case(cuda, gen, 3, 2, g, d, s, [s, 0, 517],
+                                             kv == "fp8")
+    _hold_decode(q, kq, vq, ks, vs, ln)
+    kn, vn = _poison_past(kq, vq, ln)
+    out = fa.fp8_decode_attention(q, kq, vq, ks, vs, ln)
+    poisoned = fa.fp8_decode_attention(q, kn, vn, ks, vs, ln)
+    torch.cuda.synchronize()
+    assert torch.equal(poisoned.view(torch.int16), out.view(torch.int16))
+    assert bool((out[1] == 0).all())          # the idle row
+
+
+@pytest.mark.parametrize("kv", ["fp8", "bf16"])
+def test_contiguous_decode_tile_and_split_boundaries_on_card(cuda, kv):
+    """Lengths on and next to the key-tile and split boundaries, in a cache
+    whose S is a multiple of neither: every last tile and last split is
+    ragged or exactly full."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    g, d = 4, 128
+    tile = fa.decode_geometry(d, g, E4M3 if kv == "fp8" else torch.bfloat16)["tile_keys"]
+    s = 4099
+    n_split, span = fa.decode_splits(s, sms)
+    assert n_split > 1 and s % tile and s % span
+    lengths = sorted({n for base in (tile, 2 * tile, span, 2 * span, s)
+                      for n in (base - 1, base, base + 1) if 1 <= n <= s})
+    gen = torch.Generator(device=cuda).manual_seed(len(lengths))
+    q, kq, vq, ks, vs, ln = _contiguous_case(cuda, gen, len(lengths), 2, g, d, s, lengths,
+                                             kv == "fp8")
+    _hold_decode(q, kq, vq, ks, vs, ln)
+    kn, vn = _poison_past(kq, vq, ln)
+    out = fa.fp8_decode_attention(q, kq, vq, ks, vs, ln)
+    poisoned = fa.fp8_decode_attention(q, kn, vn, ks, vs, ln)
+    torch.cuda.synchronize()
+    assert torch.equal(poisoned.view(torch.int16), out.view(torch.int16))
+
+
+def test_contiguous_decode_refuses_unsupported_inputs_on_card(cuda):
+    """Kernel 6 raises ValueError for G > 16, D > 256, D % 16 != 0 and q
+    not 16-byte aligned, and takes everything else."""
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    for g, d in ((17, 64), (4, 272), (4, 24)):
+        q, kq, vq, ks, vs, ln = _contiguous_case(cuda, gen, 2, 2, g, d, 40, [40, 7])
+        with pytest.raises(ValueError, match="kernel 6 takes"):
+            fa.fp8_decode_attention(q, kq, vq, ks, vs, ln)
+    q, kq, vq, ks, vs, ln = _contiguous_case(cuda, gen, 2, 2, 4, 32, 40, [40, 7])
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)[1:].view(q.shape)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.fp8_decode_attention(shifted, kq, vq, ks, vs, ln)
+
+
+def test_dot_on_card_is_one_bf16_gemm(cuda):
+    """`_dot` on CUDA: one GEMM of the bf16 operands with f32 sums, within
+    one bf16 rounding of the f32 product, in x.dtype, and with no widened
+    copy of an operand (a f32 w alone would take 4 bytes an element)."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn((16, 4096), generator=gen, device=cuda).to(torch.bfloat16)
+    w = torch.randn((4096, 8192), generator=gen, device=cuda).to(torch.bfloat16)
+    ref = x.float() @ w.float()
+    fp8_linear._dot(x, w)                     # warm: the GEMM library's workspace
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fp8_linear._dot(x, w)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    assert out.dtype == x.dtype and out.shape == ref.shape
+    assert extra < w.numel() * 2, extra
+    assert torch.allclose(out.float(), ref, rtol=2 ** -7, atol=1e-2)
+    x3 = x.reshape(2, 8, 4096)
+    assert torch.equal(fp8_linear._dot(x3, w).reshape(16, 8192), out)
 
 
 def test_serve_step_past_the_cache_raises_on_card(cuda):
