@@ -24,7 +24,9 @@ the order 1-5, 7, 6:
    after; every kernel of the path must have launched.  Outputs are
    checked (finite, in range); one decode step's and one prefill chunk's
    logits through the kernels are held against the plain versions on the
-   same CUDA tensors; one decode step is profiled;
+   same CUDA tensors; one decode step is profiled; then one greedy
+   `generate` under BF16_ROLLOUT on the same prompts (the paper's
+   baseline: tokens/s and decode ms/step beside the FP8 run's);
 5. the serving path on the same synced weights: `ServingEngine` with
    kernel_config "all", chunked prefill (C 128), 8 slots, ondemand
    admission and a host tier, over 16 ragged prompts (96-640 tokens, four
@@ -38,7 +40,12 @@ the order 1-5, 7, 6:
    recipe; the launcher `repro_torch.launch.serve.run`;
 6. each kernel's time at the main paths' shapes beside its plain
    version's, one library call's where one computes the same function,
-   and the bound (bytes over 3.35 TB/s or operations over the peak rate);
+   and the bound (bytes over 3.35 TB/s or operations over the peak rate):
+   `ms` from CUDA events around back-to-back wrapper calls (host work
+   between launches included) and `device_ms` from CUDA events around
+   calls queued behind a spin kernel (the kernels alone, back to back),
+   for the kernel and its library call;
+   kernel 6's ring geometry on one line;
    kernel 5 at the engine's chunk (C 128 at 640 tokens; the kernels line
    keeps this row), the verify chunk (C 5), the first chunk (128 tokens)
    and a 4096-token context, with the paged body's rows per block and key
@@ -57,8 +64,10 @@ the order 1-5, 7, 6:
       `attention_impl("chunked")`, then 16 serve steps at 16K context;
    c. the LONG_500K decode cell: a B 1, S 524288 cache of E4M3 (38.7 GB)
       built from `cache_specs` and filled from a seeded generator, lengths
-      524284, 4 serve steps; kernel 6 vs its plain version on one layer;
-      peak memory beside the bf16 cache's 77.3 GB.
+      524284, 4 serve steps, the last one profiled (kernel 6, the fp8
+      linears and the lm_head GEMM beside its byte bound); kernel 6 vs its
+      plain version on one layer; peak memory beside the bf16 cache's
+      77.3 GB.
 
 The line before the last is the `kernels` JSON object; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
@@ -79,6 +88,9 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM
 FP8_TC_FLOPS = 1979e12             # dense fp8 tensor cores
 BF16_TC_FLOPS = 989e12
 F32_FLOPS = 67e12                  # f32 outside the tensor cores
+# at least the SM clock (1.98 GHz at most): a spin of n cycles lasts
+# n / SPIN_HZ seconds or more
+SPIN_HZ = 2.0e9
 # kernel vs plain decode-step logits on full-depth qwen3-8b: measured 0.207
 # on the H100 (1-ulp attention differences flip fp8 roundings of later
 # activations over 36 layers); held at about 2.4x that
@@ -159,22 +171,36 @@ def cuda_time_ms(fn, reps=20, warmup=3):
 
 
 def device_time_ms(fn, reps=20, warmup=3):
-    """Mean device time of `fn()`: the kernel durations the profiler
-    records over `reps` back-to-back calls, divided by `reps`.  Unlike
-    `cuda_time_ms` it does not count the host's time between launches."""
+    """Mean device time of `fn()` over `reps` back-to-back calls, with the
+    host's time between launches hidden: a spin kernel holds the stream
+    while the calls are enqueued behind it, so the CUDA events around
+    them see the kernels run back to back (as a replayed graph would).
+    Unlike `cuda_time_ms`, a call shorter than its wrapper's host work is
+    not timed at the host's pace."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    _, busy_ms, n_kernels, _ = _profile(lambda: [fn() for _ in range(reps)])
-    check(n_kernels > 0, "device time: the profiler saw no kernel")
-    return busy_ms / reps
+    spin_s = 1e-3
+    while True:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin_s * SPIN_HZ))
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        enqueue_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        if enqueue_s < spin_s / 2:       # the queue never ran dry
+            return start.elapsed_time(end) / reps
+        spin_s = 4 * enqueue_s
 
 
 def timed_row(fn, plain, library=None, reps=20, plain_reps=20, plain_warmup=3):
     """A phase-6 row's times: `ms` (CUDA events around back-to-back
     wrapper calls, host work included), `device_ms` (the kernels alone,
-    profiler), `plain_ms`, and `library_ms` with its `library_device_ms`
+    `device_time_ms`), `plain_ms`, and `library_ms` with its `library_device_ms`
     (None without a library call)."""
     row = dict(ms=cuda_time_ms(fn, reps=reps), device_ms=device_time_ms(fn, reps=reps),
                plain_ms=cuda_time_ms(plain, reps=plain_reps, warmup=plain_warmup),
@@ -1333,7 +1359,8 @@ def time_kernels(dev, gen, results, cfg, roll, traj, contig_lengths, extra):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     log(f"kernel 6 body (e4m3, D {dh}, G {g}): ring of {geo['stages']} stages, tiles of "
         f"{geo['tile_keys']} keys, {geo['warps']} warps per block, {geo['smem_bytes']} bytes "
-        f"of dynamic shared memory per block; (n_split, span) at S 1057 / 32768 / 524288: "
+        f"of dynamic shared memory per block, registers held to {geo['register_blocks']} "
+        f"blocks per SM; (n_split, span) at S 1057 / 32768 / 524288: "
         + ", ".join(str(fa.decode_splits(s_len, sms)) for s_len in (1057, 32768, 524288)))
     for b, s_len, lens in ((8, CONTIG_SHAPE[1] + 1, contig_lengths), (8, 32768, [32768] * 8)):
         args = contiguous_case(dev, gen, b, s_len, lens, kvh, g, dh)

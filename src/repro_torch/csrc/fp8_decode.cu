@@ -30,8 +30,8 @@
 // - Bytes in flight.  A tile of kTileKeys consecutive keys of one
 //   (b, kv-head) arrives as 16-byte cp.async copies of its raw K and V
 //   rows into a ring of kStages tiles in shared memory, kStages - 1 of
-//   them in flight while one is computed (48 KB per block at e4m3, D 128;
-//   three blocks per SM).  A copy past the split's last key is
+//   them in flight while one is computed (at e4m3, D 128: 32 KB in
+//   flight per block, four blocks per SM).  A copy past the split's last key is
 //   zero-filled and reads nothing, so a byte at or past `len` never
 //   reaches the output (NaN stored there included).  The 16-byte chunks
 //   of odd keys are stored XOR-swizzled, so the fragment loads below are
@@ -64,14 +64,19 @@ constexpr float kDecNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kCombineThreads = 128;
 
-// Block geometry (tools/ab_decode_attention.py rewrites these three for
+// Block geometry (tools/time_decode_attention.py rewrites these four for
 // its A/B runs): warps per block, keys per warp per tile (a multiple of
-// 16), ring stages.  A ring never takes more than kRingCap bytes; rows
-// wider than 256 bytes (bf16 at D 256) take 16 keys a warp.
+// 16), ring stages, and the most blocks per SM the registers are held to
+// (3 when both row halves are live).  A ring never takes more than
+// kRingCap bytes; rows wider than 256 bytes (bf16 at D 256) take 16 keys
+// a warp.  On the H100 at e4m3, D 128, G 4 (PERF.md §6): 3 stages of 64
+// keys, 4 warps, 48 KB a block, registers held to 4 blocks an SM.
 constexpr int kDecWarps = 4;
 constexpr int kDecWarpKeys = 16;
-constexpr int kDecStages = 4;
+constexpr int kDecStages = 3;
+constexpr int kDecMinBlocks = 4;
 constexpr int kRingCap = 200 * 1024;
+constexpr int kSmemPerSM = 227 * 1024;
 
 template <int kKV, int kD, int kHalves>
 struct DecodeShape {
@@ -95,6 +100,12 @@ struct DecodeShape {
   static constexpr size_t kSmemBytes =
       static_cast<size_t>(kStages) * kStageBytes > kMergeBytes
           ? static_cast<size_t>(kStages) * kStageBytes : kMergeBytes;
+  // blocks per SM: as many as the shared memory admits, up to the cap
+  static constexpr int kSmemBlocks = static_cast<int>(kSmemPerSM / kSmemBytes);
+  static constexpr int kBlockCap =
+      kHalves == 1 || kDecMinBlocks < 3 ? kDecMinBlocks : 3;
+  static constexpr int kMinBlocks =
+      kSmemBlocks < 1 ? 1 : (kSmemBlocks < kBlockCap ? kSmemBlocks : kBlockCap);
 };
 
 // workspace layout: m (rows,) in the log2 domain, l (rows,), acc (rows, D);
@@ -149,7 +160,9 @@ __device__ __forceinline__ void mma_rows(float (&acc)[2 * kHalves], const uint32
 }
 
 template <int kKV, int kD, int kHalves>
-__global__ void __launch_bounds__(DecodeShape<kKV, kD, kHalves>::kThreads) decode_split_kernel(
+__global__ void __launch_bounds__(DecodeShape<kKV, kD, kHalves>::kThreads,
+                                   DecodeShape<kKV, kD, kHalves>::kMinBlocks)
+decode_split_kernel(
     const __nv_bfloat16* __restrict__ q, const uint8_t* __restrict__ k_cache,
     const uint8_t* __restrict__ v_cache, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, const int32_t* __restrict__ lengths, float* ws_base,
@@ -498,7 +511,7 @@ extern "C" int fp8rl_decode(const void* q, const void* k_cache, const void* v_ca
 
 // The split pass's geometry at head width d, group size g and cache dtype
 // kv_dtype: out = {ring stages, keys per tile, warps per block, dynamic
-// shared memory bytes per block}.
+// shared memory bytes per block, blocks per SM the registers are held to}.
 extern "C" int fp8rl_decode_geometry(int d, int g, int kv_dtype, int* out) {
   auto geometry = [&](auto width, auto halves) {
     constexpr int kD = decltype(width)::value, kHalves = decltype(halves)::value;
@@ -508,6 +521,7 @@ extern "C" int fp8rl_decode_geometry(int d, int g, int kv_dtype, int* out) {
       out[1] = S::kTileKeys;
       out[2] = S::kWarps;
       out[3] = static_cast<int>(S::kSmemBytes);
+      out[4] = S::kMinBlocks;
       return 0;
     };
     return kv_dtype == kE4M3 ? fill(DecodeShape<kE4M3, kD, kHalves>())

@@ -8,8 +8,9 @@
 
 Each run is a checkout root (`LABEL=PATH`), optionally with the block
 geometry constants of its `csrc/fp8_decode.cu` rewritten
-(`LABEL=PATH:kDecStages=6,kDecWarps=8`) or its split width
-(`SPLIT_KEYS=1024`, set on the Python side): a rewritten run is a copy of
+(`LABEL=PATH:kDecStages=6,kDecWarps=8`) or its split constants
+(`SPLIT_KEYS=1024`, `SPLITS_PER_SM=2`, set on the Python side): a run
+with rewritten CUDA constants is a copy of
 PATH's `src/` under `.chip_scratch/variants/LABEL/`, which builds its own
 kernel library.  The runs go in `--order`, each in its own process, so
 two trees are compared on one card in turns.
@@ -20,7 +21,9 @@ layer of the LONG_500K cell; KVH 8, G 4, D 128, an e4m3 cache from a
 seed) a run holds the kernel to its plain version (within 1e-2 and
 1e-2 x max|plain|, at q and q x 4, as `chip_smoke.py` does) and prints
 one `ROW {json}` line: `ms` (CUDA events around 20 back-to-back calls),
-`device_ms` (profiler kernel time per call), the SDPA yardstick's
+`device_ms` (CUDA events around 20 calls queued behind a spin kernel,
+so the host's time between launches is hidden), `profiler_ms` (the
+profiler's kernel durations per call, a cross-check), the SDPA yardstick's
 `library_ms` / `library_device_ms` on a pre-dequantized bf16 copy, and the
 byte bound.  `--ptxas` first prints `nvcc -Xptxas -v`'s registers and
 spills for the kernel 6 instantiations of each run's source.
@@ -34,16 +37,22 @@ import re
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
 BF16_TC_FLOPS = 989e12
 TOL = 1e-2
+SPIN_HZ = 2.0e9                    # at most the SM clock: a spin lasts at least this
 SHAPES = ((8, 1057), (8, 32768), (1, 524288))
 
 
-def worker(src: str, split_keys: int | None) -> None:
+# constants of `repro_torch.kernels.fp8_kv_attention` a run may set
+PY_CONSTS = ("SPLIT_KEYS", "SPLITS_PER_SM")
+
+
+def worker(src: str, py_sets: dict) -> None:
     sys.path.insert(0, src)
     import numpy as np
     import torch
@@ -57,8 +66,8 @@ def worker(src: str, split_keys: int | None) -> None:
 
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
-    if split_keys is not None:
-        fa.SPLIT_KEYS = split_keys
+    for name, value in py_sets.items():
+        setattr(fa, name, int(value))
     dev = torch.device("cuda", 0)
     build.library()
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -77,8 +86,30 @@ def worker(src: str, split_keys: int | None) -> None:
         return start.elapsed_time(end) / reps
 
     def device_ms(fn, reps=20):
+        """CUDA events around `reps` calls enqueued behind a spin kernel,
+        so the host's time between launches is hidden (chip_smoke.py's
+        `device_time_ms`)."""
         for _ in range(3):
             fn()
+        torch.cuda.synchronize()
+        spin_s = 1e-3
+        while True:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(int(spin_s * SPIN_HZ))
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            enqueue_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            if enqueue_s < spin_s / 2:
+                return start.elapsed_time(end) / reps
+            spin_s = 4 * enqueue_s
+
+    def profiler_ms(fn, reps=20):
+        """The profiler's kernel durations per call (a cross-check)."""
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -134,6 +165,7 @@ def worker(src: str, split_keys: int | None) -> None:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         row = dict(b=b, s_max=s_len, context=ctx, splits=list(fa.decode_splits(s_len, sms)),
                    ms=events_ms(kernel), device_ms=device_ms(kernel),
+                   profiler_ms=profiler_ms(kernel),
                    library_ms=events_ms(sdpa), library_device_ms=device_ms(sdpa),
                    bound_ms=bound, max_abs_err=max(errs))
         print("ROW " + json.dumps(row), flush=True)
@@ -143,7 +175,7 @@ def worker(src: str, split_keys: int | None) -> None:
 
 def variant(label: str, path: Path, sets: dict) -> Path:
     """`path` itself, or a copy of its `src/` with constants rewritten."""
-    consts = {k: v for k, v in sets.items() if k != "SPLIT_KEYS"}
+    consts = {k: v for k, v in sets.items() if k not in PY_CONSTS}
     if not consts:
         return path
     dst = ROOT / ".chip_scratch" / "variants" / label
@@ -160,23 +192,34 @@ def variant(label: str, path: Path, sets: dict) -> Path:
     return dst
 
 
-def ptxas(label: str, tree: Path) -> None:
-    csrc = tree / "src" / "repro_torch" / "csrc"
+def ptxas(trees: dict) -> None:
+    """`nvcc -Xptxas -v` of each tree's kernel 6 source, all at once: one
+    line per kernel with its registers and spills."""
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    out = subprocess.run(
-        [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-Xptxas", "-v", "-I", str(csrc), "-c", str(csrc / "fp8_decode.cu"),
-         "-o", os.devnull], capture_output=True, text=True)
-    kernel = None
-    for line in out.stderr.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            kernel = subprocess.run(["c++filt"], input=m.group(1), capture_output=True,
-                                    text=True).stdout.strip()
-        elif "registers" in line or "spill" in line:
-            print(f"PTXAS {label} {kernel}: {line.strip()}", flush=True)
-    if out.returncode != 0:
-        sys.exit(f"{label}: nvcc failed\n{out.stderr}")
+    procs = {}
+    for tree, label in trees.items():
+        csrc = tree / "src" / "repro_torch" / "csrc"
+        procs[label] = subprocess.Popen(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+             "-Xptxas", "-v", "-I", str(csrc), "-c", str(csrc / "fp8_decode.cu"),
+             "-o", os.devnull], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for label, proc in procs.items():
+        out, _ = proc.communicate()
+        kernel, spills = None, ""
+        for line in out.splitlines():
+            m = re.search(r"Compiling entry function '_ZN\S*?(decode_\w+?)(?:I|E)(\S*)'", line)
+            if m:
+                kernel = m.group(1)
+                tmpl = re.findall(r"Li(\d+)E", m.group(2))
+                if tmpl:
+                    kernel += "<kv " + tmpl[0] + ", D " + tmpl[1] + ", halves " + tmpl[2] + ">"
+            elif "spill" in line:
+                spills = line.split(":", 1)[-1].strip()
+            elif "registers" in line:
+                regs = re.search(r"Used (\d+) registers", line).group(1)
+                print(f"PTXAS {label} {kernel}: {regs} registers, {spills}", flush=True)
+        if proc.returncode != 0:
+            print(f"PTXAS {label}: nvcc failed\n{out[-3000:]}", flush=True)
 
 
 def main() -> int:
@@ -186,10 +229,10 @@ def main() -> int:
     ap.add_argument("--order", help="comma-separated labels (default: each run once)")
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
-    ap.add_argument("--split-keys", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--py-sets", default="{}", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        worker(args.worker, args.split_keys)
+        worker(args.worker, json.loads(args.py_sets))
         return 0
     runs = {}
     for spec in args.run or [f"this={ROOT}"]:
@@ -197,29 +240,29 @@ def main() -> int:
         path, _, sets = rest.partition(":")
         sets = dict(kv.split("=") for kv in sets.split(",") if kv)
         tree = variant(label, (ROOT / path).resolve(), sets)
-        runs[label] = (tree, sets.get("SPLIT_KEYS"))
+        runs[label] = (tree, {k: v for k, v in sets.items() if k in PY_CONSTS})
     order = args.order.split(",") if args.order else list(runs)
     if args.ptxas:
-        for label, (tree, _) in runs.items():
-            ptxas(label, tree)
+        ptxas({tree: label for label, (tree, _) in reversed(runs.items())})
+    failed = []
     for label in order:
-        tree, split_keys = runs[label]
-        cmd = [sys.executable, __file__, "--worker", str(tree / "src")]
-        if split_keys:
-            cmd += ["--split-keys", split_keys]
+        tree, py_sets = runs[label]
+        cmd = [sys.executable, __file__, "--worker", str(tree / "src"),
+               "--py-sets", json.dumps(py_sets)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         for line in proc.stdout.splitlines():
             if line.startswith("ROW "):
                 row = json.loads(line[4:])
                 print(f"{label}: B {row['b']} S {row['s_max']}: ms {row['ms']:.4f}, device ms "
-                      f"{row['device_ms']:.4f}, SDPA {row['library_ms']:.4f} / "
+                      f"{row['device_ms']:.4f} (profiler {row['profiler_ms']:.4f}), "
+                      f"SDPA {row['library_ms']:.4f} / "
                       f"{row['library_device_ms']:.4f}, bound {row['bound_ms']:.4f}, "
                       f"splits {row['splits']}, err {row['max_abs_err']:.2e}", flush=True)
                 print(f"JSON {label} " + json.dumps(row), flush=True)
         if proc.returncode != 0:
             print(f"{label}: failed (rc {proc.returncode})\n{proc.stderr[-4000:]}", flush=True)
-            return 1
-    return 0
+            failed.append(label)
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":
