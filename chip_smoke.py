@@ -200,8 +200,8 @@ def device_time_ms(fn, reps=20, warmup=3):
 def timed_row(fn, plain, library=None, reps=20, plain_reps=20, plain_warmup=3):
     """A phase-6 row's times: `ms` (CUDA events around back-to-back
     wrapper calls, host work included), `device_ms` (the kernels alone,
-    `device_time_ms`), `plain_ms`, and `library_ms` with its `library_device_ms`
-    (None without a library call)."""
+    `device_time_ms`), `plain_ms`, and `library_ms` with its
+    `library_device_ms` (None without a library call)."""
     row = dict(ms=cuda_time_ms(fn, reps=reps), device_ms=device_time_ms(fn, reps=reps),
                plain_ms=cuda_time_ms(plain, reps=plain_reps, warmup=plain_warmup),
                library_ms=None, library_device_ms=None)
@@ -562,9 +562,10 @@ def chunk_logits_check(model, roll, prec, prompts, lengths, dev):
     return err
 
 
-def profile_decode_step(model, roll, prec, prompts, lengths, dev):
+def profile_decode_step(model, roll, prec, prompts, lengths, dev, tag=""):
     """Device-busy share of one decode step: kernel time on the stream
-    (torch.profiler) over the step's wall time without the profiler."""
+    (torch.profiler) over the step's wall time without the profiler.  The
+    keys of the result start with `tag`."""
     import torch
     cache = model.init_cache(len(prompts), prompts.shape[1] + 4, prec, page_size=16)
     logits, cache = model.prefill(roll, {"tokens": torch.from_numpy(prompts).to(dev),
@@ -575,14 +576,14 @@ def profile_decode_step(model, roll, prec, prompts, lengths, dev):
     _, wall_ms = _sync_ms(model.decode_step, roll, tok, cache, prec)
     _, busy_ms, n_kernels, by_name = _profile(lambda: model.decode_step(roll, tok, cache, prec))
     if not n_kernels:
-        log(f"decode step: wall {wall_ms:.1f} ms; device time not measured "
+        log(f"{tag}decode step: wall {wall_ms:.1f} ms; device time not measured "
             "(the profiler saw no CUDA events)")
-        return {"decode_step_wall_ms": wall_ms}
+        return {f"{tag}decode_step_wall_ms": wall_ms}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    out = {"decode_step_wall_ms": wall_ms, "decode_step_device_busy_ms": busy_ms,
-           "decode_step_device_kernels": n_kernels,
-           "decode_step_device_busy_share": busy_ms / wall_ms}
-    log("decode step profile: " + json.dumps(out) + "; top kernels (ms): "
+    out = {f"{tag}decode_step_wall_ms": wall_ms, f"{tag}decode_step_device_busy_ms": busy_ms,
+           f"{tag}decode_step_device_kernels": n_kernels,
+           f"{tag}decode_step_device_busy_share": busy_ms / wall_ms}
+    log(f"{tag}decode step profile: " + json.dumps(out) + "; top kernels (ms): "
         + json.dumps([[name[:60], round(ms, 3)] for name, ms in top]))
     return out
 
@@ -682,7 +683,7 @@ def bf16_rollout(model, params, prompts, lengths, sampler, cfg, dev):
     """The paper's baseline beside the FP8 run: one greedy `generate` under
     BF16_ROLLOUT (bf16 linears through `_dot`, a bf16 paged KV cache) on
     the same prompts; its tokens/s and decode ms/step, measured as the FP8
-    run's are."""
+    run's are, and one decode step profiled."""
     import torch
     from repro_torch.core.precision import BF16_ROLLOUT
     from repro_torch.kernels import build
@@ -700,7 +701,8 @@ def bf16_rollout(model, params, prompts, lengths, sampler, cfg, dev):
     tokens = int(traj.response_lengths.sum())
     return {"bf16_greedy_generate_s": gen_ms / 1e3, "bf16_greedy_tokens": tokens,
             "bf16_greedy_tokens_per_s": tokens / (gen_ms / 1e3), "bf16_prefill_ms": prefill_ms,
-            "bf16_decode_ms_per_step": (gen_ms - prefill_ms) / max(steps, 1)}
+            "bf16_decode_ms_per_step": (gen_ms - prefill_ms) / max(steps, 1),
+            **profile_decode_step(model, roll, BF16_ROLLOUT, prompts, lengths, dev, "bf16_")}
 
 
 # ---------------------------------------------------------------------------

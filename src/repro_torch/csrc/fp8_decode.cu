@@ -119,7 +119,7 @@ struct Workspace {
 
 // elements 16u .. 16u + 15 of one raw key row as eight bf16 pairs (pair p
 // = elements 16u + 2p, 2p + 1); zeros when !live.  e4m3 -> bf16 is exact.
-template <int kKV, int kRowBytes, int kSwz>
+template <int kKV, int kSwz>
 __device__ __forceinline__ void load_unit(uint32_t (&w)[8], const uint8_t* row, int key, int u,
                                           bool live) {
   const int swz = (key & 1) * kSwz;
@@ -266,8 +266,7 @@ decode_split_kernel(
 #pragma unroll
       for (int j = 0; j < kGroups; ++j) {
         uint32_t kb[8];
-        load_unit<kKV, kRowBytes, S::kSwz>(kb, kt + kk * kRowBytes, kk, 4 * j + t,
-                                           16 * (4 * j + t) < d);
+        load_unit<kKV, S::kSwz>(kb, kt + kk * kRowBytes, kk, 4 * j + t, 16 * (4 * j + t) < d);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const uint32_t a[4] = {qa[0][j][2 * i], kHalves == 2 ? qa[kHalves - 1][j][2 * i] : 0u,
@@ -341,8 +340,8 @@ decode_split_kernel(
       for (int j = 0; j < kGroups; ++j) {
         const int u = 4 * j + t;
         uint32_t v0[8], v1[8];
-        load_unit<kKV, kRowBytes, S::kSwz>(v0, vt + k0 * kRowBytes, k0, u, 16 * u < d);
-        load_unit<kKV, kRowBytes, S::kSwz>(v1, vt + k1 * kRowBytes, k1, u, 16 * u < d);
+        load_unit<kKV, S::kSwz>(v0, vt + k0 * kRowBytes, k0, u, 16 * u < d);
+        load_unit<kKV, S::kSwz>(v1, vt + k1 * kRowBytes, k1, u, 16 * u < d);
 #pragma unroll
         for (int p = 0; p < 8; ++p) {
           const uint32_t b0 = movmatrix_trans(v0[p]), b1 = movmatrix_trans(v1[p]);

@@ -51,6 +51,8 @@ card's main path never does.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.core.precision import E4M3

@@ -207,7 +207,8 @@ def ptxas(trees: dict) -> None:
         out, _ = proc.communicate()
         kernel, spills = None, ""
         for line in out.splitlines():
-            m = re.search(r"Compiling entry function '_ZN\S*?(decode_\w+?)(?:I|E)(\S*)'", line)
+            m = re.search(r"Compiling entry function '\S*?(decode_(?:split|combine)_kernel)(\S*)'",
+                          line)
             if m:
                 kernel = m.group(1)
                 tmpl = re.findall(r"Li(\d+)E", m.group(2))
