@@ -91,6 +91,8 @@ F32_FLOPS = 67e12                  # f32 outside the tensor cores
 # at least the SM clock (1.98 GHz at most): a spin of n cycles lasts
 # n / SPIN_HZ seconds or more
 SPIN_HZ = 2.0e9
+# `device_time_ms` lengthens its spin this many times before it fails
+SPIN_TRIES = 4
 # kernel vs plain decode-step logits on full-depth qwen3-8b: measured 0.207
 # on the H100 (1-ulp attention differences flip fp8 roundings of later
 # activations over 36 layers); held at about 2.4x that
@@ -182,7 +184,7 @@ def device_time_ms(fn, reps=20, warmup=3):
         fn()
     torch.cuda.synchronize()
     spin_s = 1e-3
-    while True:
+    for _ in range(SPIN_TRIES):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(int(spin_s * SPIN_HZ))
         t0 = time.perf_counter()
@@ -195,6 +197,9 @@ def device_time_ms(fn, reps=20, warmup=3):
         if enqueue_s < spin_s / 2:       # the queue never ran dry
             return start.elapsed_time(end) / reps
         spin_s = 4 * enqueue_s
+    check(False, f"device_time_ms: enqueuing {reps} calls took {enqueue_s * 1e3:.1f} ms, "
+                 f"more than half the spin before them, {SPIN_TRIES} times (does a call "
+                 "wait for the card?)")
 
 
 def timed_row(fn, plain, library=None, reps=20, plain_reps=20, plain_warmup=3):
@@ -1067,6 +1072,24 @@ def contiguous_7a(dev, cfg, roll, prec, stats):
     return launches, final_lengths
 
 
+def fresh_peak(tag, stats):
+    """Reset the peak-memory counter before a phase, after collecting the
+    earlier phases' garbage: a reference cycle keeps its device tensors
+    allocated until Python's collector runs, and they would count in the
+    phase's peak.  Logs, and puts into `stats` under `tag`, what stays
+    allocated and what the collection freed (GB)."""
+    import gc
+    import torch
+    before = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated()
+    stats[f"{tag}_resident_gb"], stats[f"{tag}_gc_freed_gb"] = after / 1e9, (before - after) / 1e9
+    log(f"{tag}: {after / 1e9:.2f} GB allocated before the phase, "
+        f"{(before - after) / 1e9:.2f} GB of it freed by gc.collect()")
+    torch.cuda.reset_peak_memory_stats()
+
+
 def contiguous_7b(dev, cfg, roll, prec, stats):
     """A 16384-token prompt through the chunked attention impl, then 16
     serve steps at 16K context."""
@@ -1084,7 +1107,7 @@ def contiguous_7b(dev, cfg, roll, prec, stats):
              "lengths": torch.tensor([LONG_PROMPT], dtype=torch.int32)}
     prefill_step = steps.make_prefill_step(cfg, shape, prec, device=dev)
     serve_step = steps.make_serve_step(cfg, prec, device=dev)
-    torch.cuda.reset_peak_memory_stats()
+    fresh_peak("long", stats)
     build.reset_launch_counts()
     # --- the contiguous path at 16K: chunked prefill, 16 serve steps -------
     with attention_impl("chunked"):
@@ -1120,8 +1143,7 @@ def contiguous_7c(dev, gen, cfg, roll, prec, stats, extra, results):
     from repro_torch.launch import steps
     b, s_len = LONG_500K.global_batch, LONG_500K.seq_len
     kvh, g, d = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.d_head
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    fresh_peak("long500k", stats)
     specs = steps.cache_specs(cfg, LONG_500K, prec)
     kv_spec = specs["slots"]["s0"]["kv"]
     kv = type(kv_spec)(*(torch.empty(t.shape, dtype=t.dtype, device=dev)

@@ -64,8 +64,7 @@ constexpr float kDecNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kCombineThreads = 128;
 
-// Block geometry (tools/time_decode_attention.py rewrites these four for
-// its A/B runs): warps per block, keys per warp per tile (a multiple of
+// Block geometry: warps per block, keys per warp per tile (a multiple of
 // 16), ring stages, and the most blocks per SM the registers are held to
 // (3 when both row halves are live).  A ring never takes more than
 // kRingCap bytes; rows wider than 256 bytes (bf16 at D 256) take 16 keys

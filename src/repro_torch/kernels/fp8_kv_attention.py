@@ -213,19 +213,17 @@ def fp8_paged_prefill_attention(q, k_pool, v_pool, k_scale, v_scale,
 # kernel 6: decode over a contiguous cache
 # ---------------------------------------------------------------------------
 
-# a split walks at most SPLIT_KEYS keys, unless that takes more than
-# SPLITS_PER_SM splits per SM (then that many splits per row).  On the
-# H100 (PERF.md §6) 1024 keys beat 512 and 768 at S 32768 and tie at
-# S 524288; 2 or 4 splits per SM were slower at S 524288.
+# a split walks at most SPLIT_KEYS keys, unless that takes more than one
+# split per SM (then one split per SM).  On the H100 (PERF.md §6) 1024
+# keys beat 512 at S 32768 and tie at S 524288.
 SPLIT_KEYS = 1024
-SPLITS_PER_SM = 1
 
 
 def decode_splits(s_max: int, sm_count: int) -> tuple:
     """(n_split, span) of kernel 6's grid for a cache of `s_max` positions
     on a card with `sm_count` SMs: from the shape alone, never from the
     lengths, so a row's sum order is fixed for a given cache shape."""
-    n = max(1, min(SPLITS_PER_SM * sm_count, -(-s_max // SPLIT_KEYS)))
+    n = max(1, min(sm_count, -(-s_max // SPLIT_KEYS)))
     span = -(-s_max // n)
     return -(-s_max // span), span
 
@@ -233,7 +231,6 @@ def decode_splits(s_max: int, sm_count: int) -> tuple:
 def decode_geometry(d: int, g: int, kv_dtype: torch.dtype) -> dict:
     """Kernel 6's block geometry at head width `d`, group size `g` and cache
     dtype `kv_dtype`, as the compiled library reports it (for the logs)."""
-    import ctypes
     out = (ctypes.c_int * 5)()
     err = build.library().fp8rl_decode_geometry(d, g, DTYPE_CODE[kv_dtype], out)
     if err != 0:

@@ -152,13 +152,12 @@ def test_decode_wrapper_picks_the_reference_tile(s):
 def test_decode_splits_come_from_the_shape():
     """Kernel 6's split count and span depend on S and the SM count only;
     the spans cover S, none is empty, and a span exceeds SPLIT_KEYS only
-    when there are SPLITS_PER_SM splits per SM."""
+    when there is one split per SM."""
     for s in (1, 13, 1057, 16385, 32768, 524288, 524289):
         for sms in (1, 8, 132):
             n, span = tattn.decode_splits(s, sms)
-            cap = tattn.SPLITS_PER_SM * sms
-            assert 1 <= n <= cap and (n - 1) * span < s <= n * span
-            assert span <= tattn.SPLIT_KEYS or n == cap
+            assert 1 <= n <= sms and (n - 1) * span < s <= n * span
+            assert span <= tattn.SPLIT_KEYS or n == sms
     assert tattn.decode_splits(524288, 132) == (132, 3972)
     assert tattn.decode_splits(32768, 132) == (32, 1024)
     assert tattn.decode_splits(1057, 132) == (2, 529)

@@ -6,27 +6,23 @@
         --run parent=.chip_scratch/parent --run change=. \\
         --order parent,change,change,parent --ptxas
 
-Each run is a checkout root (`LABEL=PATH`), optionally with the block
-geometry constants of its `csrc/fp8_decode.cu` rewritten
-(`LABEL=PATH:kDecStages=6,kDecWarps=8`) or its split constants
-(`SPLIT_KEYS=1024`, `SPLITS_PER_SM=2`, set on the Python side): a run
-with rewritten CUDA constants is a copy of
-PATH's `src/` under `.chip_scratch/variants/LABEL/`, which builds its own
-kernel library.  The runs go in `--order`, each in its own process, so
-two trees are compared on one card in turns.
+Each run is a checkout root (`LABEL=PATH`), optionally with `constexpr
+int` constants of its `csrc/fp8_decode.cu` rewritten
+(`LABEL=PATH:kDecStages=6,kDecWarps=8`) or its `SPLIT_KEYS` set
+(`LABEL=PATH:SPLIT_KEYS=512`): a run with rewritten CUDA constants is a
+copy of PATH's `src/` under `.chip_scratch/variants/LABEL/`, which builds
+its own kernel library.  The runs go in `--order`, each in its own
+process, so two trees are compared on one card in turns.
 
 At each of kernel 6's phase-6 shapes (B 8, S 1057 with 7a-like ragged
 lengths; B 8, S 32768 all live; B 1, S 524288 at length 524284, one
 layer of the LONG_500K cell; KVH 8, G 4, D 128, an e4m3 cache from a
-seed) a run holds the kernel to its plain version (within 1e-2 and
-1e-2 x max|plain|, at q and q x 4, as `chip_smoke.py` does) and prints
-one `ROW {json}` line: `ms` (CUDA events around 20 back-to-back calls),
-`device_ms` (CUDA events around 20 calls queued behind a spin kernel,
-so the host's time between launches is hidden), `profiler_ms` (the
-profiler's kernel durations per call, a cross-check), the SDPA yardstick's
-`library_ms` / `library_device_ms` on a pre-dequantized bf16 copy, and the
-byte bound.  `--ptxas` first prints `nvcc -Xptxas -v`'s registers and
-spills for the kernel 6 instantiations of each run's source.
+seed) a run holds the run's kernel to its plain version and times it
+with this checkout's `chip_smoke.py` (`contiguous_case`, `hold_decode`,
+`decode_row`: the same hold, yardstick and bound as phase 6) and prints
+one `ROW {json}` line.  `--ptxas` first prints `nvcc -Xptxas -v`'s
+registers and spills for the kernel 6 instantiations of each run's
+source.
 """
 from __future__ import annotations
 
@@ -37,145 +33,48 @@ import re
 import shutil
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM
-BF16_TC_FLOPS = 989e12
-TOL = 1e-2
-SPIN_HZ = 2.0e9                    # at most the SM clock: a spin lasts at least this
 SHAPES = ((8, 1057), (8, 32768), (1, 524288))
 
 
-# constants of `repro_torch.kernels.fp8_kv_attention` a run may set
-PY_CONSTS = ("SPLIT_KEYS", "SPLITS_PER_SM")
-
-
-def worker(src: str, py_sets: dict) -> None:
+def worker(src: str, split_keys: int | None) -> None:
     sys.path.insert(0, src)
+    sys.path.insert(1, str(ROOT))
     import numpy as np
     import torch
-    import torch.nn.functional as F
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core.precision import E4M3
+    import chip_smoke as cs
     from repro_torch.kernels import build
     from repro_torch.kernels import fp8_kv_attention as fa
 
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
-    for name, value in py_sets.items():
-        setattr(fa, name, int(value))
+    if split_keys:
+        fa.SPLIT_KEYS = split_keys
     dev = torch.device("cuda", 0)
     build.library()
     gen = torch.Generator(device=dev).manual_seed(0)
     rng = np.random.default_rng(0)
-
-    def events_ms(fn, reps=20):
-        for _ in range(3):
-            fn()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
-
-    def device_ms(fn, reps=20):
-        """CUDA events around `reps` calls enqueued behind a spin kernel,
-        so the host's time between launches is hidden (chip_smoke.py's
-        `device_time_ms`)."""
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        spin_s = 1e-3
-        while True:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(int(spin_s * SPIN_HZ))
-            t0 = time.perf_counter()
-            start.record()
-            for _ in range(reps):
-                fn()
-            end.record()
-            enqueue_s = time.perf_counter() - t0
-            torch.cuda.synchronize()
-            if enqueue_s < spin_s / 2:
-                return start.elapsed_time(end) / reps
-            spin_s = 4 * enqueue_s
-
-    def profiler_ms(fn, reps=20):
-        """The profiler's kernel durations per call (a cross-check)."""
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA)
-        return us / 1e3 / reps
-
-    kvh, g, d = 8, 4, 128
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for b, s_len in SHAPES:
         if s_len == 1057:
             lens = rng.integers(512 + 32, 1024 + 33, size=b)
         else:
             lens = np.full(b, s_len if b > 1 else s_len - 4)
-        lengths = torch.as_tensor(lens, dtype=torch.int32, device=dev)
-        k = torch.randn((b, s_len, kvh, d), generator=gen, device=dev)
-        ks = k.abs().amax() / 448
-        kq = (k / ks).clamp(-448, 448).to(E4M3)
-        del k
-        v = torch.randn((b, s_len, kvh, d), generator=gen, device=dev)
-        vs = v.abs().amax() / 448
-        vq = (v / vs).clamp(-448, 448).to(E4M3)
-        del v
-        ks, vs = ks.float(), vs.float()
-        q = torch.randn((b, kvh, g, d), generator=gen, device=dev).to(torch.bfloat16)
-        errs = []
-        for q_scale in (1.0, 4.0):
-            qs = (q.float() * q_scale).to(torch.bfloat16)
-            out_k = fa.fp8_decode_attention(qs, kq, vq, ks, vs, lengths).float()
-            out_p = fa.fp8_decode_attention_ref(qs, kq, vq, ks, vs, lengths).float()
-            err, top = (out_k - out_p).abs().max().item(), out_p.abs().max().item()
-            ok = torch.allclose(out_k, out_p, rtol=TOL, atol=TOL) and err <= TOL * top
-            errs.append(err)
-            if not ok:
-                sys.exit(f"B {b} S {s_len} q x {q_scale}: kernel 6 disagrees with its plain "
-                         f"version ({err:.3e}, max|plain| {top:.3e})")
-            del out_k, out_p
-
-        def kernel():
-            return fa.fp8_decode_attention(q, kq, vq, ks, vs, lengths)
-        kb = (kq.float() * ks).to(torch.bfloat16).permute(0, 2, 1, 3).contiguous()
-        vb = (vq.float() * vs).to(torch.bfloat16).permute(0, 2, 1, 3).contiguous()
-        mask = (torch.arange(s_len, device=dev)[None, :]
-                < lengths.long()[:, None])[:, None, None, :]
-        qb = q.reshape(b, kvh * g, 1, d)
-
-        def sdpa():
-            return F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask, enable_gqa=True)
-        ctx = int(lengths.long().sum())
-        nbytes = 2 * ctx * kvh * d + 2 * 2 * q.numel() + 4 * b
-        bound = max(nbytes / HBM_BYTES_PER_S, 4 * ctx * kvh * g * d / BF16_TC_FLOPS) * 1e3
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        row = dict(b=b, s_max=s_len, context=ctx, splits=list(fa.decode_splits(s_len, sms)),
-                   ms=events_ms(kernel), device_ms=device_ms(kernel),
-                   profiler_ms=profiler_ms(kernel),
-                   library_ms=events_ms(sdpa), library_device_ms=device_ms(sdpa),
-                   bound_ms=bound, max_abs_err=max(errs))
+        args = cs.contiguous_case(dev, gen, b, s_len, lens)
+        results = {"decode": {}}
+        cs.hold_decode(args, f"B {b} S {s_len}", results)
+        row = dict(b=b, s_max=s_len, splits=list(fa.decode_splits(s_len, sms)),
+                   max_abs_err=results["decode"]["max_abs_err"], **cs.decode_row(args))
         print("ROW " + json.dumps(row), flush=True)
-        del kq, vq, kb, vb, mask
+        del args
         torch.cuda.empty_cache()
 
 
-def variant(label: str, path: Path, sets: dict) -> Path:
+def variant(label: str, path: Path, consts: dict) -> Path:
     """`path` itself, or a copy of its `src/` with constants rewritten."""
-    consts = {k: v for k, v in sets.items() if k not in PY_CONSTS}
     if not consts:
         return path
     dst = ROOT / ".chip_scratch" / "variants" / label
@@ -230,33 +129,33 @@ def main() -> int:
     ap.add_argument("--order", help="comma-separated labels (default: each run once)")
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
-    ap.add_argument("--py-sets", default="{}", help=argparse.SUPPRESS)
+    ap.add_argument("--split-keys", type=int, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        worker(args.worker, json.loads(args.py_sets))
+        worker(args.worker, args.split_keys)
         return 0
     runs = {}
     for spec in args.run or [f"this={ROOT}"]:
         label, rest = spec.split("=", 1)
         path, _, sets = rest.partition(":")
         sets = dict(kv.split("=") for kv in sets.split(",") if kv)
-        tree = variant(label, (ROOT / path).resolve(), sets)
-        runs[label] = (tree, {k: v for k, v in sets.items() if k in PY_CONSTS})
+        split_keys = sets.pop("SPLIT_KEYS", None)
+        runs[label] = (variant(label, (ROOT / path).resolve(), sets), split_keys)
     order = args.order.split(",") if args.order else list(runs)
     if args.ptxas:
         ptxas({tree: label for label, (tree, _) in reversed(runs.items())})
     failed = []
     for label in order:
-        tree, py_sets = runs[label]
-        cmd = [sys.executable, __file__, "--worker", str(tree / "src"),
-               "--py-sets", json.dumps(py_sets)]
+        tree, split_keys = runs[label]
+        cmd = [sys.executable, __file__, "--worker", str(tree / "src")]
+        if split_keys:
+            cmd += ["--split-keys", split_keys]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         for line in proc.stdout.splitlines():
             if line.startswith("ROW "):
                 row = json.loads(line[4:])
                 print(f"{label}: B {row['b']} S {row['s_max']}: ms {row['ms']:.4f}, device ms "
-                      f"{row['device_ms']:.4f} (profiler {row['profiler_ms']:.4f}), "
-                      f"SDPA {row['library_ms']:.4f} / "
+                      f"{row['device_ms']:.4f}, SDPA {row['library_ms']:.4f} / "
                       f"{row['library_device_ms']:.4f}, bound {row['bound_ms']:.4f}, "
                       f"splits {row['splits']}, err {row['max_abs_err']:.2e}", flush=True)
                 print(f"JSON {label} " + json.dumps(row), flush=True)
