@@ -12,7 +12,9 @@ the order 1-5, 7, 6:
 3. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes: the quantizers bit-equal (FP32 scales; UE8M0
    mismatching tiles are counted and printed), fp8_gemm within one bf16
-   rounding (rtol 2**-7), paged decode, chunked prefill and contiguous
+   rounding (rtol 2**-7) at qwen3-8b's four (K, N) and M 1, 8, 32, 128,
+   1024, its rows bit-equal across M and batches, paged decode, chunked
+   prefill and contiguous
    decode within 1e-2 (the CPU tests' band) plus the stale-entry proofs
    (NaN / 448 poison in stale table entries and past each length) and
    exact zeros for idle slots and rows and dead chunk rows;
@@ -45,6 +47,10 @@ the order 1-5, 7, 6:
    between launches included) and `device_ms` from CUDA events around
    calls queued behind a spin kernel (the kernels alone, back to back),
    for the kernel and its library call;
+   fp8_gemm at the four (K, N) and M 1, 8, 32, 128, 1024, each call on
+   the next of the 36 layers' weights (cold in L2), beside two other
+   functions (`torch._scaled_mm` with per-tensor scales, cuBLAS bf16),
+   and the device time of the sync's K-major weight copy;
    kernel 6's ring geometry on one line;
    kernel 5 at the engine's chunk (C 128 at 640 tokens; the kernels line
    keeps this row), the verify chunk (C 5), the first chunk (128 tokens)
@@ -119,6 +125,13 @@ KERNEL_SOURCES = {
     "decode": ("src/repro_torch/csrc/fp8_decode.cu",
                "src/repro/kernels/fp8_kv_attention.py:169"),
 }
+# kernel 3 at the four (K, N) of qwen3-8b's linears (wv is wk's, wo wq's,
+# wu wg's), keyed by the leaf timed on the rollout weights, and at the M
+# the paths run: LONG_500K, decode, GRPO decode, the engine's chunk, the
+# `generate` prefill
+GEMM_SHAPES = {("attn", "wq"): (4096, 4096), ("attn", "wk"): (4096, 1024),
+               ("mlp", "wg"): (4096, 12288), ("mlp", "wd"): (12288, 4096)}
+GEMM_MS = (1, 8, 32, 128, 1024)
 # phase 7: kernel 6 at 7a's shape, and the chunked-attention prefill of 7b
 CONTIG_SHAPE = ("smoke_prefill", 1056, 8, "prefill")
 CONTIG_STEPS = 32
@@ -255,27 +268,66 @@ def compare_quantizers(dev, gen, results):
         results[name]["max_abs_err"] = 0.0
 
 
-def compare_gemm(dev, gen, results):
+def hold_gemm(a, w, a_s, w_s, tag):
+    """Kernel 3 against its plain version on the same tensors, within one
+    bf16 rounding (rtol 2**-7, atol 1e-5 x max|plain|); returns the
+    largest |kernel - plain|."""
     import torch
     from repro_torch.kernels import fp8_gemm as fg
+    yk = fg.fp8_gemm(a, w, a_s, w_s).float()
+    yp = fg.fp8_gemm_ref(a, w, a_s, w_s).float()
+    torch.cuda.synchronize()
+    err = (yk - yp).abs().max().item()
+    scale = yp.abs().max().item()
+    ok = bool(torch.isfinite(yk).all()) and torch.allclose(yk, yp, rtol=2 ** -7,
+                                                           atol=1e-5 * scale)
+    log(f"{tag}: max|kernel-plain| {err:.3e} (max|plain| {scale:.3f}) {'ok' if ok else 'FAIL'}")
+    check(ok, f"{tag}: kernel 3 disagrees with its plain version")
+    return err
+
+
+def hold_gemm_rows(a, w, a_s, w_s, tag):
+    """The invariant of kernel 3: a row's bits never depend on M or on
+    which rows share the call.  The rows of one call over all of `a` are
+    recomputed at M 1, 8, 40 and 128 (leading and interior rows) and in a
+    permuted batch; every one must be bit-equal."""
+    import torch
+    from repro_torch.kernels import fp8_gemm as fg
+    m = a.shape[0]
+    full = fg.fp8_gemm(a, w, a_s, w_s).view(torch.int16)
+    subsets = [torch.arange(lo, lo + rows, device=a.device)
+               for rows in (1, 8, 40, 128) for lo in (0, m // 2 - rows // 2) if lo + rows <= m]
+    subsets.append(torch.randperm(m, device=a.device))
+    for rows in subsets:
+        part = fg.fp8_gemm(a[rows].contiguous(), w, a_s[rows].contiguous(), w_s)
+        check(torch.equal(part.view(torch.int16), full[rows]),
+              f"{tag}: rows at M {len(rows)} differ from the same rows at M {m}")
+    log(f"{tag}: rows of M {m} bit-equal at M 1, 8, 40, 128 and in a permuted batch")
+
+
+def gemm_weight(dev, gen, k, n, layers=1):
+    """A seeded (layers, K, N) weight stack in the layout the sync makes
+    (`ops.quantize_weight`)."""
+    import torch
+    from repro_torch.kernels import ops
+    w = torch.empty((layers, k, n), dtype=torch.bfloat16, device=dev)
+    w.normal_(generator=gen)
+    w *= k ** -0.5
+    return ops.quantize_weight(w)
+
+
+def compare_gemm(dev, gen, results):
+    import torch
     from repro_torch.kernels import fp8_quant as fq
     worst = 0.0
-    for m in (8, 1024):
-        for k, n in ((4096, 1024), (4096, 4096), (4096, 12288), (12288, 4096)):
-            x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
-            w = (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5).to(torch.bfloat16)
-            a, a_s = fq.quantize_activation_kernel(x)
-            wq, w_s = fq.quantize_weight_kernel(w)
-            yk = fg.fp8_gemm(a, wq, a_s, w_s).float()
-            yp = fg.fp8_gemm_ref(a, wq, a_s, w_s).float()
-            torch.cuda.synchronize()
-            err = (yk - yp).abs().max().item()
-            scale = yp.abs().max().item()
-            ok = torch.allclose(yk, yp, rtol=2 ** -7, atol=1e-5 * scale)
-            log(f"fp8_gemm M={m} K={k} N={n}: max|kernel-plain| {err:.3e} "
-                f"(max|plain| {scale:.3f}) {'ok' if ok else 'FAIL'}")
-            check(ok, f"fp8_gemm M={m} K={k} N={n} disagrees with its plain version")
-            worst = max(worst, err)
+    for k, n in GEMM_SHAPES.values():
+        wqt = gemm_weight(dev, gen, k, n).layer(0)
+        x = torch.randn((max(GEMM_MS), k), generator=gen, device=dev).to(torch.bfloat16)
+        a, a_s = fq.quantize_activation_kernel(x)
+        for m in GEMM_MS:
+            worst = max(worst, hold_gemm(a[:m], wqt.data, a_s[:m], wqt.scales,
+                                         f"fp8_gemm M={m} K={k} N={n}"))
+        hold_gemm_rows(a, wqt.data, a_s, wqt.scales, f"fp8_gemm K={k} N={n}")
     results["fp8_gemm"]["max_abs_err"] = worst
 
 
@@ -1282,36 +1334,85 @@ def decode_row(args, reps=20, plain_reps=5):
     return row
 
 
-def library_gemm(a, wq, a_s, w_s, reference):
-    """torch's blockwise-scaled fp8 GEMM (1x128 x 128x128 scales) as the
-    yardstick, in the first scale layout this build accepts; None where
-    it runs none of them or computes another function."""
+def gemm_row(stack, m, gen, reps=20):
+    """Kernel 3's phase-6 row for a (L, K, N) weight stack at M rows, its
+    plain version's, and the bound.  Each call reads the next layer's
+    weight, as a step does, so no call finds its weight in the 50 MB L2.
+    Beside them, marked as another function: `torch._scaled_mm` with
+    per-tensor fp8 scales on the same bytes, and cuBLAS's bf16 GEMM on a
+    bf16 stack of the same shape (both rotating the same way)."""
+    import itertools
+
     import torch
-    import torch.nn.functional as F
-    b = wq.t().contiguous().t()          # column-major W, as cuBLAS wants it
-    for sa, sb in ((a_s.t().contiguous().t(), w_s.t().contiguous().t()),
-                   (a_s.t().contiguous().t(), w_s), (a_s, w_s),
-                   (a_s, w_s.t().contiguous().t())):
-        def call(sa=sa, sb=sb):
-            return F.scaled_mm(a, b, sa, F.ScalingType.BlockWise1x128, sb,
-                               F.ScalingType.BlockWise128x128,
-                               output_dtype=torch.bfloat16)
-        try:
-            out = call().float()
-        except RuntimeError as exc:        # this layout or build unsupported
-            log(f"library fp8 GEMM: layout refused ({str(exc)[:160]})")
-            continue
-        if torch.allclose(out, reference, rtol=2 ** -6, atol=1e-3):
-            return call
-        log("library fp8 GEMM: computes another function here; not used")
-        return None
-    return None
+    from repro_torch.kernels import fp8_gemm as fg
+    from repro_torch.kernels import fp8_quant as fq
+    layers, k, n = stack.data.shape
+    dev = stack.data.device
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    a, a_s = fq.quantize_activation_kernel(x)
+    ws = itertools.cycle([stack.layer(r) for r in range(layers)])
+
+    def kernel():
+        w = next(ws)
+        return fg.fp8_gemm(a, w.data, a_s, w.scales)
+
+    def plain():
+        w = next(ws)
+        return fg.fp8_gemm_ref(a, w.data, a_s, w.scales)
+    row = timed_row(kernel, plain, reps=reps, plain_reps=3, plain_warmup=1)
+    nbytes = m * k + k * n + m * (k // 128) * 4 + (k // 128) * (n // 128) * 4 + m * n * 2
+    row["bound_ms"], row["bound_by"] = bound(nbytes, 2 * m * n * k, FP8_TC_FLOPS)
+    one = torch.ones((), dtype=torch.float32, device=dev)
+
+    def scaled_mm():
+        return torch._scaled_mm(a, next(ws).data, one, one, out_dtype=torch.bfloat16)
+    try:
+        scaled_mm()
+        row["scaled_mm_device_ms"] = device_time_ms(scaled_mm, reps=reps)
+    except RuntimeError as exc:          # this layout or build unsupported
+        row["scaled_mm_device_ms"] = None
+        log(f"torch._scaled_mm refused M {m} K {k} N {n}: {str(exc)[:160]}")
+    wb = torch.empty((layers, k, n), dtype=torch.bfloat16, device=dev)
+    wb.normal_(generator=gen)
+    bs = itertools.cycle(range(layers))
+    row["bf16_mm_device_ms"] = device_time_ms(lambda: torch.mm(x, wb[next(bs)]), reps=reps)
+    del wb
+    row["library"] = None
+    row["another_function"] = ("torch._scaled_mm, per-tensor scales, same fp8 bytes; "
+                               "torch.mm bf16 (cuBLAS) on a bf16 stack")
+    log(f"fp8_gemm M {m} K {k} N {n}: device {row['device_ms']:.4f} ms (bound "
+        f"{row['bound_ms']:.4f}, {row['bound_by']}), ms {row['ms']:.4f}, plain "
+        f"{row['plain_ms']:.3f}; another function: _scaled_mm per-tensor "
+        f"{row['scaled_mm_device_ms']}, bf16 mm {row['bf16_mm_device_ms']:.4f}")
+    return row
+
+
+def sync_layout_ms(roll, reps=3):
+    """Device time of the K-major copy that `ops.quantize_weight` adds to
+    the weight sync, summed over the rollout's quantized leaves."""
+    import torch
+    from repro_torch.core.quant import QuantizedTensor
+    from repro_torch.kernels import ops
+    total_ms, nbytes = 0.0, 0
+    for leaf in roll["blocks"]["s0"].values():
+        for qt in leaf.values():
+            if not isinstance(qt, QuantizedTensor):
+                continue
+            layers, k, n = qt.data.shape
+            q = torch.empty((layers, -(-k // 128) * 128, -(-n // 128) * 128),
+                            dtype=qt.data.dtype, device=qt.data.device)
+            total_ms += device_time_ms(lambda q=q: ops.k_major(q), reps=reps, warmup=1)
+            nbytes += 2 * q.numel()
+            del q
+    log(f"weight sync: the K-major layout copy takes {total_ms:.3f} ms of device time "
+        f"({nbytes / 1e9:.2f} GB read and written; bound "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms)")
+    return total_ms
 
 
 def time_kernels(dev, gen, results, cfg, roll, traj, contig_lengths, extra):
     import torch
     from repro_torch.core.precision import E4M3
-    from repro_torch.kernels import fp8_gemm as fg
     from repro_torch.kernels import fp8_kv_attention as fa
     from repro_torch.kernels import fp8_quant as fq
     d, f = cfg.d_model, cfg.d_ff
@@ -1338,22 +1439,17 @@ def time_kernels(dev, gen, results, cfg, roll, traj, contig_lengths, extra):
     extra.append(dict(kernel="quant_weight", shape=[cfg.n_layers, d, f], **row))
     results["quant_weight"].update(row)
 
-    # fp8_gemm on the real rollout weights: decode (M=8) and prefill (M=1024)
-    mlp = roll["blocks"]["s0"]["mlp"]
-    for m, name, wqt in ((8, "wg", mlp["wg"].layer(0)), (8, "wd", mlp["wd"].layer(0)),
-                         (1024, "wg", mlp["wg"].layer(0))):
-        k, n = wqt.data.shape
-        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
-        a, a_s = fq.quantize_activation_kernel(x)
-        wq, w_s = wqt.data.contiguous(), wqt.scales.contiguous()
-        lib = library_gemm(a, wq, a_s, w_s, fg.fp8_gemm_ref(a, wq, a_s, w_s).float())
-        row = timed_row(lambda: fg.fp8_gemm(a, wq, a_s, w_s),
-                        lambda: fg.fp8_gemm_ref(a, wq, a_s, w_s), library=lib, plain_reps=5)
-        nbytes = m * k + k * n + m * (k // 128) * 4 + (k // 128) * (n // 128) * 4 + m * n * 2
-        row["bound_ms"], row["bound_by"] = bound(nbytes, 2 * m * n * k, FP8_TC_FLOPS)
-        extra.append(dict(kernel="fp8_gemm", shape=[m, k, n], weight=name, **row))
-        if (m, name) == (8, "wg"):
-            results["fp8_gemm"].update(row)
+    # fp8_gemm on the real rollout weights, each call on the next layer's
+    # (cold in L2), at the four (K, N) and the paths' M; the layout copy
+    # that the sync adds for it
+    for (block, name), (k, n) in GEMM_SHAPES.items():
+        stack = roll["blocks"]["s0"][block][name]
+        for m in GEMM_MS:
+            row = gemm_row(stack, m, gen)
+            extra.append(dict(kernel="fp8_gemm", shape=[m, k, n], weight=name, **row))
+            if (m, name) == (8, "wg"):
+                results["fp8_gemm"].update(row)
+    sync_layout_ms(roll)
 
     # paged decode at the greedy run's final context lengths
     lengths = (traj.prompt_lengths + traj.response_lengths).to(torch.int32)

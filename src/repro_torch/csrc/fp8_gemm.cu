@@ -4,7 +4,7 @@
 // :42): out (M, N) bf16 = sum over 128-wide K slabs kb of
 // (A_kb @ W_kb) * (a_s[m, kb] * w_s[kb, n / 128]), accumulated in f32 in
 // that order.  A (M, K) e4m3 holds 1x128-tile-scaled activations, W (K, N)
-// e4m3 holds 128x128-block-scaled weights (the reference's (K, N) layout).
+// e4m3 holds 128x128-block-scaled weights, stored K-major.
 //
 // What bounds it on the H100: at decode (M = 8) the weight bytes — the
 // GEMM is a weight stream at ~2 flop per byte, far below the ~590 fp8
@@ -13,9 +13,9 @@
 // 128-thread block, one K step per 128-wide scale slab, fp8 tensor-core
 // products (mma.sync m16n8k32 e4m3, f32 accumulate) for each slab kept in a
 // separate f32 partial that is scaled once and added to the accumulator,
-// exactly as the reference does.  The weight tile is transposed into
-// shared memory on the way in (mma wants B K-major).  No TMA, no wgmma, no
-// pipelining, no split-K: those are for the PR that makes it fast.
+// exactly as the reference does.  The
+// weight comes K-major from the sync (mma wants B K-major).  No TMA, no
+// wgmma, no pipelining, no split-K: those are for the PR that makes it fast.
 // Rows past M are masked in the kernel (decode's M = 8 needs no padded
 // copy); K and N must be multiples of 128 (the wrapper pads).
 #include "fp8_common.cuh"
@@ -39,9 +39,9 @@ __device__ __forceinline__ void mma_e4m3(float (&d)[4], const uint32_t (&a)[4],
 __global__ void __launch_bounds__(kThreads) fp8_gemm_kernel(
     const uint8_t* __restrict__ A, const uint8_t* __restrict__ W,
     const float* __restrict__ a_s, const float* __restrict__ w_s,
-    __nv_bfloat16* __restrict__ out, int64_t m, int64_t n, int64_t k) {
+    __nv_bfloat16* __restrict__ out, int64_t m, int64_t n, int64_t k, int64_t ldw) {
   __shared__ __align__(16) uint8_t As[BM][kStride];
-  __shared__ __align__(16) uint8_t Bs[BN][kStride];  // Bs[n][k]: W tile transposed
+  __shared__ __align__(16) uint8_t Bs[BN][kStride];  // Bs[n][k]: the K-major W tile
   const int tid = threadIdx.x, warp = tid / 32, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;  // mma fragment coordinates
   const int64_t m0 = static_cast<int64_t>(blockIdx.y) * BM;
@@ -67,14 +67,12 @@ __global__ void __launch_bounds__(kThreads) fp8_gemm_kernel(
         v = *reinterpret_cast<const uint4*>(A + (m0 + row) * k + kb * BK + c16 * 16);
       *reinterpret_cast<uint4*>(&As[row][c16 * 16]) = v;
     }
-    // W slab: 128 k-rows x 64 n-cols = 512 16-B chunks, stored transposed
+    // W slab: 64 n-rows x 128 k-bytes of the K-major weight = 512 16-B chunks
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int idx = tid + i * kThreads, krow = idx / 4, c16 = idx % 4;
-      const uint4 v = *reinterpret_cast<const uint4*>(W + (kb * BK + krow) * n + n0 + c16 * 16);
-      const uint8_t* bytes = reinterpret_cast<const uint8_t*>(&v);
-#pragma unroll
-      for (int j = 0; j < 16; ++j) Bs[c16 * 16 + j][krow] = bytes[j];
+      const int idx = tid + i * kThreads, row = idx / 8, c16 = idx % 8;
+      *reinterpret_cast<uint4*>(&Bs[row][c16 * 16]) =
+          *reinterpret_cast<const uint4*>(W + (n0 + row) * ldw + kb * BK + c16 * 16);
     }
     __syncthreads();
 
@@ -149,16 +147,18 @@ __global__ void __launch_bounds__(kThreads) fp8_gemm_kernel(
 
 using namespace fp8rl;
 
-// a (M, K) e4m3, w (K, N) e4m3, a_s (M, K/128) f32, w_s (K/128, N/128) f32
-// -> out (M, N) bf16; K % 128 == 0 and N % 128 == 0
+// a (M, K) e4m3, w (K, N) e4m3 K-major (element (k, n) at w[n * ldw + k]),
+// a_s (M, K/128) f32, w_s (K/128, N/128) f32 -> out (M, N) bf16;
+// K % 128 == 0, N % 128 == 0, ldw >= K and ldw % 16 == 0
 extern "C" int fp8rl_gemm(const void* a, const void* w, const void* a_s, const void* w_s,
-                          void* out, int64_t m, int64_t n, int64_t k, void* stream) {
+                          void* out, int64_t m, int64_t n, int64_t k, int64_t ldw,
+                          void* stream) {
   if (m > 0) {
     const dim3 grid(static_cast<unsigned>(n / BN), static_cast<unsigned>((m + BM - 1) / BM));
     fp8_gemm_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(w),
         static_cast<const float*>(a_s), static_cast<const float*>(w_s),
-        static_cast<__nv_bfloat16*>(out), m, n, k);
+        static_cast<__nv_bfloat16*>(out), m, n, k, ldw);
   }
   return static_cast<int>(cudaGetLastError());
 }

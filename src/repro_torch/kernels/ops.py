@@ -61,17 +61,41 @@ def quantize_activation(x: torch.Tensor, fp8_dtype=E4M3,
     return QuantizedTensor(q, s, (1,) * (len(shape) - 1) + (128,))
 
 
+def k_major(q: torch.Tensor) -> torch.Tensor:
+    """(..., K, N) fp8 -> the same values stored K-major: a contiguous
+    (..., N, K) copy (a layout copy, through the raw bytes)."""
+    return q.view(torch.uint8).transpose(-1, -2).contiguous().view(q.dtype)
+
+
 def quantize_weight(w: torch.Tensor, fp8_dtype=E4M3,
                     scale_format: ScaleFormat = ScaleFormat.FP32
                     ) -> QuantizedTensor:
     """Static weight quantization in 128x128 blocks over the last two dims
-    (kernel 2); layer-stacked (L, K, N) weights take one launch."""
+    (kernel 2); layer-stacked (L, K, N) weights take one launch.
+
+    The payload is then copied once into K-major storage, (..., N_pad,
+    K_pad) contiguous with K and N padded to 128 multiples (zeros), the
+    layout kernel 3 streams; `data` is its (..., K, N) transposed view.
+    Values and scales are the reference's."""
     *lead, k, n = w.shape
     wp = _pad_to(w, (128, 128)).contiguous()
     fn = _route(w, _quant.quantize_weight_kernel, _quant.quantize_weight_ref)
     q, s = fn(wp, fp8_dtype, scale_format)
-    return QuantizedTensor(q[..., :k, :n], s,
-                           (1,) * len(lead) + (128, 128))
+    data = k_major(q).transpose(-1, -2)[..., :k, :n]
+    return QuantizedTensor(data, s, (1,) * len(lead) + (128, 128))
+
+
+def _gemm_weight(w: torch.Tensor) -> torch.Tensor:
+    """The (K_pad, N_pad) operand of kernel 3 for a (K, N) weight, without
+    a copy where `w` is a view of `quantize_weight`'s padded K-major
+    storage (every weight the sync makes); any other layout is padded,
+    which copies it (the CUDA kernel then refuses a row-major result)."""
+    k, n = w.shape
+    kp, np_ = -(-k // 128) * 128, -(-n // 128) * 128
+    if (w.stride() == (1, kp) and w.storage_offset() + np_ * kp
+            <= w.untyped_storage().nbytes() // w.element_size()):
+        return w.as_strided((kp, np_), (1, kp))
+    return _pad_to(w, (128, 128))
 
 
 def fp8_matmul(x_q: QuantizedTensor, w_q: QuantizedTensor,
@@ -79,8 +103,10 @@ def fp8_matmul(x_q: QuantizedTensor, w_q: QuantizedTensor,
     """y = dequant(x_q) @ dequant(w_q) by the blockwise GEMM (kernel 3).
 
     x_q: activations in 1x128 tiles, any leading rank.  w_q: (K, N)
-    weights in 128x128 blocks.  K and N are padded to 128 multiples; M
-    needs no padding (the kernel masks its edge rows).
+    weights in 128x128 blocks, K-major as `quantize_weight` stores them
+    (the kernel reads that storage in place, padding included).  K is
+    padded to a 128 multiple in the activations; M needs no padding (the
+    kernel masks its edge rows).
     """
     xshape = x_q.data.shape
     k = xshape[-1]
@@ -88,7 +114,7 @@ def fp8_matmul(x_q: QuantizedTensor, w_q: QuantizedTensor,
     assert k == kw, (xshape, w_q.data.shape)
     a = _pad_to(x_q.data.reshape(-1, k), (1, 128)).contiguous()
     a_s = x_q.scales.reshape(a.shape[0], -1).contiguous()
-    w = _pad_to(w_q.data, (128, 128)).contiguous()
+    w = _gemm_weight(w_q.data)
     w_s = w_q.scales.contiguous()
     fn = _route(x_q.data, _gemm.fp8_gemm, _gemm.fp8_gemm_ref)
     y = fn(a, w, a_s, w_s, out_dtype)

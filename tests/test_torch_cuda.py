@@ -27,7 +27,10 @@ split and bit-equal repeats, the inputs it refuses, and a serve step
 past the cache that raises on the host.  `_dot` on the card: one bf16
 GEMM with f32 sums, no widened operand.  Tolerances are those of the CPU
 tests: quantizers bit-equal, GEMM within one bf16 rounding (rtol 2**-7),
-attention within 1e-2.
+attention within 1e-2.  Kernel 3: every qwen3-8b (K, N) at M 1-1024
+against its plain version, rows bit-equal across M and batches, a
+row-major weight refused, and the sync's K-major storage handed to the
+launch without a copy at a padded shape.
 """
 import pytest
 
@@ -100,6 +103,73 @@ def test_fp8_matmul_wrapper_on_card(cuda, xshape, n):
     assert y.shape == yp.shape and y.dtype == torch.bfloat16
     assert torch.allclose(y.float(), yp.float(), rtol=2 ** -7,
                           atol=1e-5 * yp.float().abs().max().item())
+
+
+# kernel 3 at the four (K, N) of qwen3-8b's linears and the M the paths
+# run (LONG_500K 1, decode 8, GRPO decode 32, spec verify up to 40, the
+# engine's chunk 128, prefill 1024; 9 is one past a decode)
+QWEN3_GEMMS = [(4096, 4096), (4096, 1024), (4096, 12288), (12288, 4096)]
+
+
+def _gemm_operands(dev, k, n, m, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5).to(torch.bfloat16)
+    a, a_s = fq.quantize_activation_kernel(x)
+    return a, a_s, ops.quantize_weight(w)
+
+
+@pytest.mark.parametrize("m", [1, 8, 9, 32, 40, 128, 1024])
+@pytest.mark.parametrize("k,n", QWEN3_GEMMS)
+def test_gemm_kernel_at_qwen3_shapes_on_card(cuda, k, n, m):
+    a, a_s, w_q = _gemm_operands(cuda, k, n, m, k + n + m)
+    y = ops._gemm.fp8_gemm(a, w_q.data, a_s, w_q.scales)
+    yp = ops._gemm.fp8_gemm_ref(a, w_q.data, a_s, w_q.scales).float()
+    torch.cuda.synchronize()
+    assert y.shape == (m, n) and y.dtype == torch.bfloat16
+    assert torch.allclose(y.float(), yp, rtol=2 ** -7, atol=1e-5 * yp.abs().max().item())
+
+
+@pytest.mark.parametrize("k,n", QWEN3_GEMMS)
+def test_gemm_rows_independent_of_m_on_card(cuda, k, n):
+    """A row's bits never depend on M or on which rows share the call: the
+    rows of an M-1024 call equal the same rows computed at M 1, 8, 40 and
+    128, and inside a permuted batch."""
+    a, a_s, w_q = _gemm_operands(cuda, k, n, 1024, k * n)
+    gemm = ops._gemm.fp8_gemm
+    full = gemm(a, w_q.data, a_s, w_q.scales).view(torch.int16)
+    gen = torch.Generator(device=cuda).manual_seed(k + n)
+    for rows in ([0], [1023], list(range(8)), list(range(500, 540)),
+                 list(range(896, 1024)), torch.randperm(1024, generator=gen, device=cuda)):
+        rows = torch.as_tensor(rows, device=cuda)
+        part = gemm(a[rows].contiguous(), w_q.data, a_s[rows].contiguous(), w_q.scales)
+        assert torch.equal(part.view(torch.int16), full[rows]), len(rows)
+
+
+def test_gemm_refuses_a_row_major_weight(cuda):
+    a, a_s, w_q = _gemm_operands(cuda, 256, 128, 8, 3)
+    with pytest.raises(ValueError, match="K-major"):
+        ops._gemm.fp8_gemm(a, w_q.data.contiguous(), a_s, w_q.scales)
+
+
+def test_fp8_matmul_hands_the_kernel_the_sync_storage(cuda, monkeypatch):
+    """At a padded shape, (9, 200) x (200, 130), the launch gets the
+    weight's own storage pointer: no per-call copy."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((9, 200), generator=gen, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((200, 130), generator=gen, device=cuda) * 0.07).to(torch.bfloat16)
+    x_q, w_q = ops.quantize_activation(x), ops.quantize_weight(w)
+    seen = []
+    launch = build.launch
+
+    def spy(kernel, entry, device, *args):
+        if kernel == "fp8_gemm":
+            seen.append(args[1])
+        return launch(kernel, entry, device, *args)
+    monkeypatch.setattr(build, "launch", spy)
+    y = ops.fp8_matmul(x_q, w_q)
+    torch.cuda.synchronize()
+    assert seen == [w_q.data.data_ptr()] and y.shape == (9, 130)
 
 
 @pytest.mark.parametrize("kv", ["fp8", "bf16"])
