@@ -1,145 +1,243 @@
 // Blockwise-scaled FP8 GEMM (kernel 3 of the port).
 //
 // Replaces `fp8_gemm` (repro/kernels/fp8_gemm.py:72, body `_fp8_gemm_kernel`
-// :42): out (M, N) bf16 = sum over 128-wide K slabs kb of
-// (A_kb @ W_kb) * (a_s[m, kb] * w_s[kb, n / 128]), accumulated in f32 in
-// that order.  A (M, K) e4m3 holds 1x128-tile-scaled activations, W (K, N)
-// e4m3 holds 128x128-block-scaled weights, stored K-major.
+// :42): out (M, N) bf16 = sum over 128-wide K slabs kb, in slab order, of
+// (A_kb @ W_kb) * (a_s[m, kb] * w_s[kb, n / 128]), accumulated in f32.  A
+// (M, K) e4m3 holds 1x128-tile-scaled activations, W (K, N) e4m3 holds
+// 128x128-block-scaled weights, stored K-major by the weight sync (row n
+// of the storage is W[:, n], `ldw` bytes apart).
 //
-// What bounds it on the H100: at decode (M = 8) the weight bytes — the
-// GEMM is a weight stream at ~2 flop per byte, far below the ~590 fp8
-// flop/byte ridge; at prefill (M = 1024) the tensor-core rate.  This first
-// version is simple and exact in structure: a 64x64 output tile per
-// 128-thread block, one K step per 128-wide scale slab, fp8 tensor-core
-// products (mma.sync m16n8k32 e4m3, f32 accumulate) for each slab kept in a
-// separate f32 partial that is scaled once and added to the accumulator,
-// exactly as the reference does.  The
-// weight comes K-major from the sync (mma wants B K-major).  No TMA, no
-// wgmma, no pipelining, no split-K: those are for the PR that makes it fast.
-// Rows past M are masked in the kernel (decode's M = 8 needs no padded
-// copy); K and N must be multiples of 128 (the wrapper pads).
-#include "fp8_common.cuh"
+// What bounds it on the H100: at decode (M 1-40) the weight bytes — a
+// weight stream at ~2M flop per byte, far below the ~590 fp8 flop/byte
+// ridge; at prefill (M 1024) the tensor cores.  The design:
+//   * swap-AB: the tensor cores compute out^T.  W's n-rows are the 16-row
+//     side of `mma.sync.m16n8k32` e4m3 (f32 accumulate) and the
+//     activations' m-rows its 8-wide side, so an M-8 call wastes no
+//     tensor rows (a 64-row activation tile wasted 87-98% at M <= 8);
+//   * K-major weights: a fragment's four k-bytes are one 32-bit word, so
+//     tiles go from device memory to shared memory by 16-byte `cp.async`
+//     and into fragments by `ldmatrix`, with no transpose;
+//   * a ring of `kStages` slabs in flight per block (W tile, activation
+//     tile, and the slab's scales, each stage one cp.async group), so a
+//     block keeps loading while it multiplies;
+//   * narrow weight tiles at small M (16 n-rows a block), so every
+//     qwen3-8b shape but (4096, 1024) launches >= 256 blocks without
+//     split-K, and one activation tile of up to 128 rows at large M.
+// One block body serves every M; the three tile shapes differ only in how
+// many 16x8 output fragments a warp and a block hold.  Each output
+// element's arithmetic is the same in all of them: four k32 `mma` steps
+// from zero per slab into a fresh f32 partial, then acc = acc + partial *
+// (a_s * w_s) with unfused __fmul_rn / __fadd_rn, slab by slab, rounded to
+// bf16 once.  So a row's bits never depend on M, on the tile shape or on
+// which rows share the call.  Rows past M are zero-filled in shared
+// memory and never stored; K and N must be multiples of 128 (the weight
+// sync pads them).
+#include "fp8_mma.cuh"
 
 namespace fp8rl {
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 128;
-constexpr int kThreads = 128;
-constexpr int kStride = BK + 16;  // smem row bytes: 16-B aligned, no bank conflicts
+constexpr int BK = 128;          // one K slab per scale
+constexpr int kRow = BK + 16;    // shared row bytes: 16-B aligned, ldmatrix conflict-free
+// ring depth of each tile shape (stages of one K slab each)
+constexpr int kSmallStages = 8;
+constexpr int kMediumStages = 6;
+constexpr int kLargeStages = 4;
 
-__device__ __forceinline__ void mma_e4m3(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
+__device__ __forceinline__ void mma_e4m3(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__global__ void __launch_bounds__(kThreads) fp8_gemm_kernel(
+// 4 bytes global -> shared; zero-filled (the source is not read) when
+// !valid
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+
+// kWN x kWM warps; each warp holds kNT 16-row weight fragments by kMT
+// 8-row activation fragments of the output
+template <int kWN_, int kWM_, int kNT_, int kMT_, int kStages_>
+struct Tile {
+  static constexpr int kWN = kWN_, kWM = kWM_, kNT = kNT_, kMT = kMT_, kStages = kStages_;
+  static constexpr int kThreads = 32 * kWN * kWM;
+  static constexpr int BN = kWN * kNT * 16, BM = kWM * kMT * 8;
+  static constexpr int kWBytes = BN * kRow, kABytes = BM * kRow;
+  // a stage: W tile, activation tile, a_s of the tile's rows, then w_s
+  static constexpr int kStageBytes = kWBytes + kABytes + BM * 4 + 16;
+  static constexpr int kOutRow = BN + 8;  // bf16 staging row of the store
+  static constexpr int kSmem = kStages * kStageBytes > BM * kOutRow * 2
+                                   ? kStages * kStageBytes : BM * kOutRow * 2;
+  static_assert(BN <= 128 && 128 % BN == 0, "a block's columns share one w_s column");
+  static_assert(kStages >= 2, "a ring needs two stages");
+};
+
+using SmallTile = Tile<1, 1, 1, 1, kSmallStages>;    // M <= 8: 16 x 8, one warp
+using MediumTile = Tile<2, 1, 1, 8, kMediumStages>;  // M <= 64: 32 x 64, two warps
+using LargeTile = Tile<2, 4, 4, 4, kLargeStages>;    // 128 x 128, eight warps
+
+// issue the cp.async copies of slab kb into stage `st` (one group)
+template <typename T>
+__device__ __forceinline__ void load_slab(uint8_t* st, const uint8_t* __restrict__ A,
+                                          const uint8_t* __restrict__ W,
+                                          const float* __restrict__ a_s,
+                                          const float* __restrict__ w_s, int64_t m0,
+                                          int64_t n0, int64_t m, int64_t n, int64_t k,
+                                          int64_t ldw, int64_t kb, int tid) {
+  static_assert(T::BN * 8 % T::kThreads == 0 && T::BM * 8 % T::kThreads == 0,
+                "whole 16-byte chunks per thread");
+#pragma unroll
+  for (int it = 0; it < T::BN * 8 / T::kThreads; ++it) {
+    const int i = tid + it * T::kThreads, r = i >> 3, c = i & 7;
+    cp_async16(st + r * kRow + c * 16, W + (n0 + r) * ldw + kb * BK + c * 16, true);
+  }
+#pragma unroll
+  for (int it = 0; it < T::BM * 8 / T::kThreads; ++it) {
+    const int i = tid + it * T::kThreads, r = i >> 3, c = i & 7;
+    const bool valid = m0 + r < m;
+    cp_async16(st + T::kWBytes + r * kRow + c * 16,
+               valid ? A + (m0 + r) * k + kb * BK + c * 16 : A, valid);
+  }
+  float* scales = reinterpret_cast<float*>(st + T::kWBytes + T::kABytes);
+  for (int r = tid; r <= T::BM; r += T::kThreads) {
+    if (r < T::BM) {
+      const bool valid = m0 + r < m;
+      cp_async4(scales + r, valid ? a_s + (m0 + r) * (k / BK) + kb : a_s, valid);
+    } else {
+      cp_async4(scales + r, w_s + kb * (n / 128) + n0 / 128, true);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(T::kThreads) fp8_gemm_kernel(
     const uint8_t* __restrict__ A, const uint8_t* __restrict__ W,
     const float* __restrict__ a_s, const float* __restrict__ w_s,
     __nv_bfloat16* __restrict__ out, int64_t m, int64_t n, int64_t k, int64_t ldw) {
-  __shared__ __align__(16) uint8_t As[BM][kStride];
-  __shared__ __align__(16) uint8_t Bs[BN][kStride];  // Bs[n][k]: the K-major W tile
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid & 31;
+  extern __shared__ __align__(16) uint8_t smem[];
+  constexpr int kNT = T::kNT, kMT = T::kMT, S = T::kStages;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;  // mma fragment coordinates
-  const int64_t m0 = static_cast<int64_t>(blockIdx.y) * BM;
-  const int64_t n0 = static_cast<int64_t>(blockIdx.x) * BN;
-  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;  // this warp's 32x32
-  const int64_t nkb = k / BK, nnb = n / 128;
+  const int wn = warp % T::kWN, wm = warp / T::kWN;
+  const int64_t n0 = static_cast<int64_t>(blockIdx.x) * T::BN;
+  const int64_t m0 = static_cast<int64_t>(blockIdx.y) * T::BM;
+  const int64_t nkb = k / BK;
+  // ldmatrix row addresses of this lane: W (A operand) x4 = rows 0-15 by
+  // k bytes 0-31 of a k32 step; activations (B operand) x4 = rows 0-7 by
+  // k bytes 0-63 (two k32 steps)
+  const int w_off = ((wn * kNT) * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kRow
+                    + (lane >> 4) * 16;
+  const int a_off = T::kWBytes + ((wm * kMT) * 8 + (lane & 7)) * kRow + (lane >> 3) * 16;
 
-  float acc[2][4][4];
+  float acc[kNT][kMT][4];
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int i = 0; i < kNT; ++i)
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
+    for (int j = 0; j < kMT; ++j)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[mi][ni][c] = 0.0f;
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < nkb)
+      load_slab<T>(smem + s * T::kStageBytes, A, W, a_s, w_s, m0, n0, m, n, k, ldw, s, tid);
+    cp_async_commit();
+  }
 
   for (int64_t kb = 0; kb < nkb; ++kb) {
-    // A slab: 64 rows x 128 B = 512 16-B chunks, 4 per thread; rows >= M are 0
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int idx = tid + i * kThreads, row = idx / 8, c16 = idx % 8;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (m0 + row < m)
-        v = *reinterpret_cast<const uint4*>(A + (m0 + row) * k + kb * BK + c16 * 16);
-      *reinterpret_cast<uint4*>(&As[row][c16 * 16]) = v;
-    }
-    // W slab: 64 n-rows x 128 k-bytes of the K-major weight = 512 16-B chunks
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int idx = tid + i * kThreads, row = idx / 8, c16 = idx % 8;
-      *reinterpret_cast<uint4*>(&Bs[row][c16 * 16]) =
-          *reinterpret_cast<const uint4*>(W + (n0 + row) * ldw + kb * BK + c16 * 16);
-    }
-    __syncthreads();
+    cp_async_wait<S - 2>();  // slab kb has landed (this thread's copies)
+    __syncthreads();         // ... everyone's; and slab kb - 1's stage is free
+    const int64_t next = kb + S - 1;
+    if (next < nkb)
+      load_slab<T>(smem + (next % S) * T::kStageBytes, A, W, a_s, w_s, m0, n0, m, n, k, ldw,
+                   next, tid);
+    cp_async_commit();
 
-    float part[2][4][4];
+    const uint8_t* st = smem + (kb % S) * T::kStageBytes;
+    float part[kNT][kMT][4];
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
+    for (int i = 0; i < kNT; ++i)
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
+      for (int j = 0; j < kMT; ++j)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) part[mi][ni][c] = 0.0f;
-
+        for (int c = 0; c < 4; ++c) part[i][j][c] = 0.0f;
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      uint32_t af[2][4], bf[4][2];
+    for (int kh = 0; kh < 2; ++kh) {  // k bytes [64 kh, 64 kh + 64)
+      uint32_t bf[kMT][4];
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int r = wm + mi * 16 + g;
-        af[mi][0] = *reinterpret_cast<const uint32_t*>(&As[r][kk + t * 4]);
-        af[mi][1] = *reinterpret_cast<const uint32_t*>(&As[r + 8][kk + t * 4]);
-        af[mi][2] = *reinterpret_cast<const uint32_t*>(&As[r][kk + 16 + t * 4]);
-        af[mi][3] = *reinterpret_cast<const uint32_t*>(&As[r + 8][kk + 16 + t * 4]);
-      }
+      for (int j = 0; j < kMT; ++j) ldsm_x4(bf[j], st + a_off + j * 8 * kRow + kh * 64);
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int c = wn + ni * 8 + g;
-        bf[ni][0] = *reinterpret_cast<const uint32_t*>(&Bs[c][kk + t * 4]);
-        bf[ni][1] = *reinterpret_cast<const uint32_t*>(&Bs[c][kk + 16 + t * 4]);
-      }
+      for (int ks = 0; ks < 2; ++ks) {
+        uint32_t af[kNT][4];
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
+        for (int i = 0; i < kNT; ++i)
+          ldsm_x4(af[i], st + w_off + i * 16 * kRow + kh * 64 + ks * 32);
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_e4m3(part[mi][ni], af[mi], bf[ni]);
-    }
-
-    // acc += partial * (a_s * w_s), unfused, in the reference's order
-    const float ws = w_s[kb * nnb + n0 / 128];
+        for (int i = 0; i < kNT; ++i)
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const int64_t r0 = m0 + wm + mi * 16 + g, r1 = r0 + 8;
-      const float s0 = r0 < m ? __fmul_rn(a_s[r0 * nkb + kb], ws) : 0.0f;
-      const float s1 = r1 < m ? __fmul_rn(a_s[r1 * nkb + kb], ws) : 0.0f;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        acc[mi][ni][0] = __fadd_rn(acc[mi][ni][0], __fmul_rn(part[mi][ni][0], s0));
-        acc[mi][ni][1] = __fadd_rn(acc[mi][ni][1], __fmul_rn(part[mi][ni][1], s0));
-        acc[mi][ni][2] = __fadd_rn(acc[mi][ni][2], __fmul_rn(part[mi][ni][2], s1));
-        acc[mi][ni][3] = __fadd_rn(acc[mi][ni][3], __fmul_rn(part[mi][ni][3], s1));
+          for (int j = 0; j < kMT; ++j)
+            mma_e4m3(part[i][j], af[i], bf[j][2 * ks], bf[j][2 * ks + 1]);
       }
     }
-    __syncthreads();  // the next slab overwrites As/Bs
-  }
 
-  // accumulator fragment: c0,c1 at (g, 2t..2t+1), c2,c3 at (g+8, 2t..2t+1)
+    // acc += partial * (a_s * w_s), unfused, in the reference's order;
+    // fragment c0, c1 at (n g, m 2t, 2t + 1), c2, c3 at (n g + 8, same m)
+    const float* scales = reinterpret_cast<const float*>(st + T::kWBytes + T::kABytes);
+    const float ws = scales[T::BM];
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
+    for (int j = 0; j < kMT; ++j) {
+      const int c = (wm * kMT + j) * 8 + 2 * t;
+      const float s0 = __fmul_rn(scales[c], ws), s1 = __fmul_rn(scales[c + 1], ws);
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int64_t r0 = m0 + wm + mi * 16 + g;
-      const int64_t col = n0 + wn + ni * 8 + t * 2;
-      if (r0 < m)
-        *reinterpret_cast<__nv_bfloat162*>(out + r0 * n + col) =
-            __floats2bfloat162_rn(acc[mi][ni][0], acc[mi][ni][1]);
-      if (r0 + 8 < m)
-        *reinterpret_cast<__nv_bfloat162*>(out + (r0 + 8) * n + col) =
-            __floats2bfloat162_rn(acc[mi][ni][2], acc[mi][ni][3]);
+      for (int i = 0; i < kNT; ++i) {
+        acc[i][j][0] = __fadd_rn(acc[i][j][0], __fmul_rn(part[i][j][0], s0));
+        acc[i][j][1] = __fadd_rn(acc[i][j][1], __fmul_rn(part[i][j][1], s1));
+        acc[i][j][2] = __fadd_rn(acc[i][j][2], __fmul_rn(part[i][j][2], s0));
+        acc[i][j][3] = __fadd_rn(acc[i][j][3], __fmul_rn(part[i][j][3], s1));
+      }
     }
   }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: stage the bf16 tile for 16-byte stores
+
+  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(smem);  // [BM][kOutRow]
+#pragma unroll
+  for (int i = 0; i < kNT; ++i) {
+#pragma unroll
+    for (int j = 0; j < kMT; ++j) {
+      const int nl = (wn * kNT + i) * 16 + g, ml = (wm * kMT + j) * 8 + 2 * t;
+      tile[ml * T::kOutRow + nl] = __float2bfloat16_rn(acc[i][j][0]);
+      tile[(ml + 1) * T::kOutRow + nl] = __float2bfloat16_rn(acc[i][j][1]);
+      tile[ml * T::kOutRow + nl + 8] = __float2bfloat16_rn(acc[i][j][2]);
+      tile[(ml + 1) * T::kOutRow + nl + 8] = __float2bfloat16_rn(acc[i][j][3]);
+    }
+  }
+  __syncthreads();
+  constexpr int kChunks = T::BN / 8;  // 16-byte chunks of an output row
+  for (int i = tid; i < T::BM * kChunks; i += T::kThreads) {
+    const int r = i / kChunks, c = i % kChunks;
+    if (m0 + r < m)
+      *reinterpret_cast<uint4*>(out + (m0 + r) * n + n0 + c * 8) =
+          *reinterpret_cast<const uint4*>(tile + r * T::kOutRow + c * 8);
+  }
+}
+
+template <typename T>
+int launch_gemm(const void* a, const void* w, const void* a_s, const void* w_s, void* out,
+                int64_t m, int64_t n, int64_t k, int64_t ldw, cudaStream_t stream) {
+  const int err = set_smem(fp8_gemm_kernel<T>, T::kSmem);
+  if (err) return err;
+  const dim3 grid(static_cast<unsigned>(n / T::BN), static_cast<unsigned>((m + T::BM - 1) / T::BM));
+  fp8_gemm_kernel<T><<<grid, T::kThreads, T::kSmem, stream>>>(
+      static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(w),
+      static_cast<const float*>(a_s), static_cast<const float*>(w_s),
+      static_cast<__nv_bfloat16*>(out), m, n, k, ldw);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -149,16 +247,14 @@ using namespace fp8rl;
 
 // a (M, K) e4m3, w (K, N) e4m3 K-major (element (k, n) at w[n * ldw + k]),
 // a_s (M, K/128) f32, w_s (K/128, N/128) f32 -> out (M, N) bf16;
-// K % 128 == 0, N % 128 == 0, ldw >= K and ldw % 16 == 0
+// K % 128 == 0, N % 128 == 0, ldw >= K and ldw % 16 == 0.  The tile shape
+// follows M; every shape computes each element alike.
 extern "C" int fp8rl_gemm(const void* a, const void* w, const void* a_s, const void* w_s,
                           void* out, int64_t m, int64_t n, int64_t k, int64_t ldw,
                           void* stream) {
-  if (m > 0) {
-    const dim3 grid(static_cast<unsigned>(n / BN), static_cast<unsigned>((m + BM - 1) / BM));
-    fp8_gemm_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(w),
-        static_cast<const float*>(a_s), static_cast<const float*>(w_s),
-        static_cast<__nv_bfloat16*>(out), m, n, k, ldw);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (m <= 0) return static_cast<int>(cudaGetLastError());
+  if (m <= SmallTile::BM) return launch_gemm<SmallTile>(a, w, a_s, w_s, out, m, n, k, ldw, s);
+  if (m <= MediumTile::BM) return launch_gemm<MediumTile>(a, w, a_s, w_s, out, m, n, k, ldw, s);
+  return launch_gemm<LargeTile>(a, w, a_s, w_s, out, m, n, k, ldw, s);
 }
