@@ -10,7 +10,8 @@ the order 1-5, 7, 6:
 1. the card's name and power limit (nvidia-smi);
 2. build the six CUDA kernels from `src/repro_torch/csrc` (nvcc, sm_90a);
 3. hold each kernel against its plain PyTorch version on the card at the
-   main paths' shapes: the quantizers bit-equal (FP32 scales; UE8M0
+   main paths' shapes: the quantizers bit-equal (FP32 scales, kernel 2
+   row-major and K-major; UE8M0
    mismatching tiles are counted and printed), fp8_gemm within one bf16
    rounding (rtol 2**-7) at qwen3-8b's four (K, N) and M 1, 8, 32, 128,
    1024, its rows bit-equal across M and batches, paged decode, chunked
@@ -50,7 +51,7 @@ the order 1-5, 7, 6:
    fp8_gemm at the four (K, N) and M 1, 8, 32, 128, 1024, each call on
    the next of the 36 layers' weights (cold in L2), beside two other
    functions (`torch._scaled_mm` with per-tensor scales, cuBLAS bf16),
-   and the device time of the sync's K-major weight copy;
+   and what kernel 2's K-major store adds to the sync;
    kernel 6's ring geometry on one line;
    kernel 5 at the engine's chunk (C 128 at 640 tokens; the kernels line
    keeps this row), the verify chunk (C 5), the first chunk (128 tokens)
@@ -260,6 +261,14 @@ def compare_quantizers(dev, gen, results):
             bad_q, bad_s = mismatches(qk, qp), int((sk != sp).sum())
             log(f"{name} {shape}: payload mismatches {bad_q}, scale mismatches {bad_s}")
             check(bad_q == 0 and bad_s == 0, f"{name} {shape} not bit-equal")
+            if name == "quant_weight":      # the sync's K-major store
+                qk, sk = kernel(x, E4M3, ScaleFormat.FP32, k_major=True)
+                qp, sp = plain(x, E4M3, ScaleFormat.FP32, k_major=True)
+                torch.cuda.synchronize()
+                bad_q, bad_s = mismatches(qk, qp), int((sk != sp).sum())
+                log(f"{name} {shape} K-major: payload mismatches {bad_q}, scale mismatches "
+                    f"{bad_s}")
+                check(bad_q == 0 and bad_s == 0, f"{name} {shape} K-major not bit-equal")
             qk, sk = kernel(x, E4M3, ScaleFormat.UE8M0)
             qp, sp = plain(x, E4M3, ScaleFormat.UE8M0)
             torch.cuda.synchronize()
@@ -1387,27 +1396,28 @@ def gemm_row(stack, m, gen, reps=20):
     return row
 
 
-def sync_layout_ms(roll, reps=3):
-    """Device time of the K-major copy that `ops.quantize_weight` adds to
-    the weight sync, summed over the rollout's quantized leaves."""
+def sync_layout_ms(roll, gen, reps=3):
+    """What the K-major payload costs the weight sync: kernel 2's device
+    time with its K-major store against its row-major one, over the
+    shapes of the rollout's quantized leaves (seeded bf16 weights)."""
     import torch
     from repro_torch.core.quant import QuantizedTensor
-    from repro_torch.kernels import ops
-    total_ms, nbytes = 0.0, 0
+    from repro_torch.kernels import fp8_quant as fq
+    row_ms = kmajor_ms = 0.0
     for leaf in roll["blocks"]["s0"].values():
         for qt in leaf.values():
             if not isinstance(qt, QuantizedTensor):
                 continue
-            layers, k, n = qt.data.shape
-            q = torch.empty((layers, -(-k // 128) * 128, -(-n // 128) * 128),
-                            dtype=qt.data.dtype, device=qt.data.device)
-            total_ms += device_time_ms(lambda q=q: ops.k_major(q), reps=reps, warmup=1)
-            nbytes += 2 * q.numel()
-            del q
-    log(f"weight sync: the K-major layout copy takes {total_ms:.3f} ms of device time "
-        f"({nbytes / 1e9:.2f} GB read and written; bound "
-        f"{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms)")
-    return total_ms
+            w = torch.empty(qt.data.shape, dtype=torch.bfloat16, device=qt.data.device)
+            w.normal_(generator=gen)
+            row_ms += device_time_ms(lambda: fq.quantize_weight_kernel(w), reps=reps, warmup=1)
+            kmajor_ms += device_time_ms(lambda: fq.quantize_weight_kernel(w, k_major=True),
+                                        reps=reps, warmup=1)
+            del w
+    log(f"weight sync: kernel 2 over the rollout's leaves {kmajor_ms:.3f} ms of device time "
+        f"writing K-major, {row_ms:.3f} ms row-major: the layout adds "
+        f"{kmajor_ms - row_ms:.3f} ms")
+    return kmajor_ms - row_ms
 
 
 def time_kernels(dev, gen, results, cfg, roll, traj, contig_lengths, extra):
@@ -1449,7 +1459,7 @@ def time_kernels(dev, gen, results, cfg, roll, traj, contig_lengths, extra):
             extra.append(dict(kernel="fp8_gemm", shape=[m, k, n], weight=name, **row))
             if (m, name) == (8, "wg"):
                 results["fp8_gemm"].update(row)
-    sync_layout_ms(roll)
+    sync_layout_ms(roll, gen)
 
     # paged decode at the greedy run's final context lengths
     lengths = (traj.prompt_lengths + traj.response_lengths).to(torch.int32)

@@ -17,36 +17,46 @@
 //   * K-major weights: a fragment's four k-bytes are one 32-bit word, so
 //     tiles go from device memory to shared memory by 16-byte `cp.async`
 //     and into fragments by `ldmatrix`, with no transpose;
-//   * a ring of `kStages` slabs in flight per block (W tile, activation
-//     tile, and the slab's scales, each stage one cp.async group), so a
-//     block keeps loading while it multiplies;
-//   * narrow weight tiles at small M (16 n-rows a block), so every
+//   * a ring of stages in flight per block, each one cp.async group of
+//     kU K slabs (W tile, activation tile and the slabs' scales), so a
+//     block keeps loading while it multiplies; a warp runs the kU slabs'
+//     independent mma chains together, which a one-slab stage left
+//     latency-bound (~0.5 us a slab, whatever N);
+//   * narrow weight tiles up to M 64 (16 n-rows a block), so every
 //     qwen3-8b shape but (4096, 1024) launches >= 256 blocks without
-//     split-K, and one activation tile of up to 128 rows at large M.
-// One block body serves every M; the three tile shapes differ only in how
-// many 16x8 output fragments a warp and a block hold.  Each output
-// element's arithmetic is the same in all of them: four k32 `mma` steps
-// from zero per slab into a fresh f32 partial, then acc = acc + partial *
-// (a_s * w_s) with unfused __fmul_rn / __fadd_rn, slab by slab, rounded to
-// bf16 once.  So a row's bits never depend on M, on the tile shape or on
-// which rows share the call.  Rows past M are zero-filled in shared
-// memory and never stored; K and N must be multiples of 128 (the weight
-// sync pads them).
+//     split-K; 64 x 128 tiles at the engine's chunk (M <= 128) and
+//     128 x 128 above, where the tensor cores bound it.
+// One block body serves every M; the five tile shapes differ only in how
+// many 16x8 output fragments a warp and a block hold and in their rings.
+// Each output element's arithmetic is the same in all of them: four k32
+// `mma` steps from zero per slab into a fresh f32 partial, then acc = acc
+// + partial * (a_s * w_s) with unfused __fmul_rn / __fadd_rn, slab by
+// slab, rounded to bf16 once.  So a row's bits never depend on M, on the
+// tile shape or on which rows share the call.  Rows past M are
+// zero-filled in shared memory and never stored; K and N must be
+// multiples of 128 (the weight sync pads them).
 #include "fp8_mma.cuh"
 
 namespace fp8rl {
 namespace {
 
-constexpr int BK = 128;          // one K slab per scale
-constexpr int kRow = BK + 16;    // shared row bytes: 16-B aligned, ldmatrix conflict-free
-// ring depth of each tile shape (stages of one K slab each)
-constexpr int kSmallStages = 8;
-constexpr int kMediumStages = 6;
+constexpr int BK = 128;  // one K slab per scale
+// ring geometry of each tile shape: K slabs a stage holds, stages
+constexpr int kSmallSlabs = 4;  // M <= 8
+constexpr int kSmallStages = 4;
+constexpr int kMidSlabs = 4;    // M <= 32
+constexpr int kMidStages = 4;
+constexpr int kWideSlabs = 2;   // M <= 64
+constexpr int kWideStages = 4;
+constexpr int kChunkSlabs = 1;  // M <= 128
+constexpr int kChunkStages = 4;
+constexpr int kLargeSlabs = 1;  // M > 128
 constexpr int kLargeStages = 4;
 
+// d += a b (not volatile: the compiler may interleave independent chains)
 __device__ __forceinline__ void mma_e4m3(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
-  asm volatile(
+  asm(
       "mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
@@ -61,55 +71,70 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid
 }
 
 // kWN x kWM warps; each warp holds kNT 16-row weight fragments by kMT
-// 8-row activation fragments of the output
-template <int kWN_, int kWM_, int kNT_, int kMT_, int kStages_>
+// 8-row activation fragments of the output; a stage holds kU K slabs
+template <int kWN_, int kWM_, int kNT_, int kMT_, int kU_, int kStages_>
 struct Tile {
-  static constexpr int kWN = kWN_, kWM = kWM_, kNT = kNT_, kMT = kMT_, kStages = kStages_;
+  static constexpr int kWN = kWN_, kWM = kWM_, kNT = kNT_, kMT = kMT_, kU = kU_;
+  static constexpr int kStages = kStages_;
   static constexpr int kThreads = 32 * kWN * kWM;
   static constexpr int BN = kWN * kNT * 16, BM = kWM * kMT * 8;
+  // shared row bytes: 16-B aligned; 4 mod 32 words, so the 8 rows of an
+  // ldmatrix phase hit 32 distinct banks
+  static constexpr int kRow = kU * BK + 16;
   static constexpr int kWBytes = BN * kRow, kABytes = BM * kRow;
-  // a stage: W tile, activation tile, a_s of the tile's rows, then w_s
-  static constexpr int kStageBytes = kWBytes + kABytes + BM * 4 + 16;
+  // a stage: W tile, activation tile, a_s [slab][row], then w_s [slab]
+  static constexpr int kStageBytes = kWBytes + kABytes + (BM + 4) * kU * 4;
   static constexpr int kOutRow = BN + 8;  // bf16 staging row of the store
   static constexpr int kSmem = kStages * kStageBytes > BM * kOutRow * 2
                                    ? kStages * kStageBytes : BM * kOutRow * 2;
   static_assert(BN <= 128 && 128 % BN == 0, "a block's columns share one w_s column");
-  static_assert(kStages >= 2, "a ring needs two stages");
+  static_assert(kStages >= 2 && kU <= 4, "a ring of two stages or more, <= 4 slabs each");
+  static_assert(BN * 8 * kU % kThreads == 0 && BM * 8 * kU % kThreads == 0,
+                "whole 16-byte chunks per thread");
 };
 
-using SmallTile = Tile<1, 1, 1, 1, kSmallStages>;    // M <= 8: 16 x 8, one warp
-using MediumTile = Tile<2, 1, 1, 8, kMediumStages>;  // M <= 64: 32 x 64, two warps
-using LargeTile = Tile<2, 4, 4, 4, kLargeStages>;    // 128 x 128, eight warps
+using SmallTile = Tile<1, 1, 1, 1, kSmallSlabs, kSmallStages>;  // 16 x 8, one warp
+using MidTile = Tile<1, 2, 1, 2, kMidSlabs, kMidStages>;        // 16 x 32, two warps
+using WideTile = Tile<1, 4, 1, 2, kWideSlabs, kWideStages>;     // 16 x 64, four warps
+using ChunkTile = Tile<4, 2, 1, 8, kChunkSlabs, kChunkStages>;  // 64 x 128, eight warps
+using LargeTile = Tile<2, 4, 4, 4, kLargeSlabs, kLargeStages>;  // 128 x 128, eight warps
 
-// issue the cp.async copies of slab kb into stage `st` (one group)
+// issue the cp.async copies of stage q (slabs q kU .. q kU + kU - 1 that
+// exist) into `st`: one group
 template <typename T>
-__device__ __forceinline__ void load_slab(uint8_t* st, const uint8_t* __restrict__ A,
-                                          const uint8_t* __restrict__ W,
-                                          const float* __restrict__ a_s,
-                                          const float* __restrict__ w_s, int64_t m0,
-                                          int64_t n0, int64_t m, int64_t n, int64_t k,
-                                          int64_t ldw, int64_t kb, int tid) {
-  static_assert(T::BN * 8 % T::kThreads == 0 && T::BM * 8 % T::kThreads == 0,
-                "whole 16-byte chunks per thread");
+__device__ __forceinline__ void load_stage(uint8_t* st, const uint8_t* __restrict__ A,
+                                           const uint8_t* __restrict__ W,
+                                           const float* __restrict__ a_s,
+                                           const float* __restrict__ w_s, int64_t m0,
+                                           int64_t n0, int64_t m, int64_t n, int64_t k,
+                                           int64_t ldw, int64_t q, int tid) {
+  constexpr int kChunks = 8 * T::kU;  // 16-byte chunks of a row in a stage
+  const int64_t k0 = q * T::kU * BK, nkb = k / BK;
 #pragma unroll
-  for (int it = 0; it < T::BN * 8 / T::kThreads; ++it) {
-    const int i = tid + it * T::kThreads, r = i >> 3, c = i & 7;
-    cp_async16(st + r * kRow + c * 16, W + (n0 + r) * ldw + kb * BK + c * 16, true);
+  for (int it = 0; it < T::BN * kChunks / T::kThreads; ++it) {
+    const int i = tid + it * T::kThreads, r = i / kChunks, c = i % kChunks;
+    const bool valid = k0 + c * 16 < k;
+    cp_async16(st + r * T::kRow + c * 16, valid ? W + (n0 + r) * ldw + k0 + c * 16 : W,
+               valid);
   }
 #pragma unroll
-  for (int it = 0; it < T::BM * 8 / T::kThreads; ++it) {
-    const int i = tid + it * T::kThreads, r = i >> 3, c = i & 7;
-    const bool valid = m0 + r < m;
-    cp_async16(st + T::kWBytes + r * kRow + c * 16,
-               valid ? A + (m0 + r) * k + kb * BK + c * 16 : A, valid);
+  for (int it = 0; it < T::BM * kChunks / T::kThreads; ++it) {
+    const int i = tid + it * T::kThreads, r = i / kChunks, c = i % kChunks;
+    const bool valid = m0 + r < m && k0 + c * 16 < k;
+    cp_async16(st + T::kWBytes + r * T::kRow + c * 16,
+               valid ? A + (m0 + r) * k + k0 + c * 16 : A, valid);
   }
   float* scales = reinterpret_cast<float*>(st + T::kWBytes + T::kABytes);
-  for (int r = tid; r <= T::BM; r += T::kThreads) {
+  for (int i = tid; i < (T::BM + 1) * T::kU; i += T::kThreads) {
+    const int u = i / (T::BM + 1), r = i % (T::BM + 1);
+    const int64_t kb = q * T::kU + u;
     if (r < T::BM) {
-      const bool valid = m0 + r < m;
-      cp_async4(scales + r, valid ? a_s + (m0 + r) * (k / BK) + kb : a_s, valid);
+      const bool valid = m0 + r < m && kb < nkb;
+      cp_async4(scales + u * T::BM + r, valid ? a_s + (m0 + r) * nkb + kb : a_s, valid);
     } else {
-      cp_async4(scales + r, w_s + kb * (n / 128) + n0 / 128, true);
+      const bool valid = kb < nkb;
+      cp_async4(scales + T::kU * T::BM + u, valid ? w_s + kb * (n / 128) + n0 / 128 : w_s,
+                valid);
     }
   }
 }
@@ -120,19 +145,20 @@ __global__ void __launch_bounds__(T::kThreads) fp8_gemm_kernel(
     const float* __restrict__ a_s, const float* __restrict__ w_s,
     __nv_bfloat16* __restrict__ out, int64_t m, int64_t n, int64_t k, int64_t ldw) {
   extern __shared__ __align__(16) uint8_t smem[];
-  constexpr int kNT = T::kNT, kMT = T::kMT, S = T::kStages;
+  constexpr int kNT = T::kNT, kMT = T::kMT, kU = T::kU, S = T::kStages;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;  // mma fragment coordinates
   const int wn = warp % T::kWN, wm = warp / T::kWN;
   const int64_t n0 = static_cast<int64_t>(blockIdx.x) * T::BN;
   const int64_t m0 = static_cast<int64_t>(blockIdx.y) * T::BM;
-  const int64_t nkb = k / BK;
+  const int64_t nkb = k / BK, nst = (nkb + kU - 1) / kU;
   // ldmatrix row addresses of this lane: W (A operand) x4 = rows 0-15 by
   // k bytes 0-31 of a k32 step; activations (B operand) x4 = rows 0-7 by
   // k bytes 0-63 (two k32 steps)
-  const int w_off = ((wn * kNT) * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kRow
+  const int w_off = ((wn * kNT) * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * T::kRow
                     + (lane >> 4) * 16;
-  const int a_off = T::kWBytes + ((wm * kMT) * 8 + (lane & 7)) * kRow + (lane >> 3) * 16;
+  const int a_off =
+      T::kWBytes + ((wm * kMT) * 8 + (lane & 7)) * T::kRow + (lane >> 3) * 16;
 
   float acc[kNT][kMT][4];
 #pragma unroll
@@ -144,61 +170,74 @@ __global__ void __launch_bounds__(T::kThreads) fp8_gemm_kernel(
 
 #pragma unroll
   for (int s = 0; s < S - 1; ++s) {
-    if (s < nkb)
-      load_slab<T>(smem + s * T::kStageBytes, A, W, a_s, w_s, m0, n0, m, n, k, ldw, s, tid);
+    if (s < nst)
+      load_stage<T>(smem + s * T::kStageBytes, A, W, a_s, w_s, m0, n0, m, n, k, ldw, s, tid);
     cp_async_commit();
   }
 
-  for (int64_t kb = 0; kb < nkb; ++kb) {
-    cp_async_wait<S - 2>();  // slab kb has landed (this thread's copies)
-    __syncthreads();         // ... everyone's; and slab kb - 1's stage is free
-    const int64_t next = kb + S - 1;
-    if (next < nkb)
-      load_slab<T>(smem + (next % S) * T::kStageBytes, A, W, a_s, w_s, m0, n0, m, n, k, ldw,
-                   next, tid);
+  for (int64_t q = 0; q < nst; ++q) {
+    cp_async_wait<S - 2>();  // stage q has landed (this thread's copies)
+    __syncthreads();         // ... everyone's; and stage q - 1's buffer is free
+    const int64_t next = q + S - 1;
+    if (next < nst)
+      load_stage<T>(smem + (next % S) * T::kStageBytes, A, W, a_s, w_s, m0, n0, m, n, k,
+                    ldw, next, tid);
     cp_async_commit();
 
-    const uint8_t* st = smem + (kb % S) * T::kStageBytes;
-    float part[kNT][kMT][4];
+    // each slab's product into a fresh f32 partial: four k32 steps from
+    // zero (the kU slabs of a stage are independent chains)
+    const uint8_t* st = smem + (q % S) * T::kStageBytes;
+    float part[kU][kNT][kMT][4];
 #pragma unroll
-    for (int i = 0; i < kNT; ++i)
+    for (int u = 0; u < kU; ++u)
 #pragma unroll
-      for (int j = 0; j < kMT; ++j)
+      for (int i = 0; i < kNT; ++i)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) part[i][j][c] = 0.0f;
+        for (int j = 0; j < kMT; ++j)
 #pragma unroll
-    for (int kh = 0; kh < 2; ++kh) {  // k bytes [64 kh, 64 kh + 64)
-      uint32_t bf[kMT][4];
+          for (int c = 0; c < 4; ++c) part[u][i][j][c] = 0.0f;
 #pragma unroll
-      for (int j = 0; j < kMT; ++j) ldsm_x4(bf[j], st + a_off + j * 8 * kRow + kh * 64);
+    for (int kh = 0; kh < 2; ++kh) {  // k bytes [64 kh, 64 kh + 64) of each slab
 #pragma unroll
-      for (int ks = 0; ks < 2; ++ks) {
-        uint32_t af[kNT][4];
+      for (int u = 0; u < kU; ++u) {
+        uint32_t bf[kMT][4];
 #pragma unroll
-        for (int i = 0; i < kNT; ++i)
-          ldsm_x4(af[i], st + w_off + i * 16 * kRow + kh * 64 + ks * 32);
+        for (int j = 0; j < kMT; ++j)
+          ldsm_x4(bf[j], st + a_off + j * 8 * T::kRow + u * BK + kh * 64);
 #pragma unroll
-        for (int i = 0; i < kNT; ++i)
+        for (int ks = 0; ks < 2; ++ks) {
+          uint32_t af[kNT][4];
 #pragma unroll
-          for (int j = 0; j < kMT; ++j)
-            mma_e4m3(part[i][j], af[i], bf[j][2 * ks], bf[j][2 * ks + 1]);
+          for (int i = 0; i < kNT; ++i)
+            ldsm_x4(af[i], st + w_off + i * 16 * T::kRow + u * BK + kh * 64 + ks * 32);
+#pragma unroll
+          for (int i = 0; i < kNT; ++i)
+#pragma unroll
+            for (int j = 0; j < kMT; ++j)
+              mma_e4m3(part[u][i][j], af[i], bf[j][2 * ks], bf[j][2 * ks + 1]);
+        }
       }
     }
 
-    // acc += partial * (a_s * w_s), unfused, in the reference's order;
-    // fragment c0, c1 at (n g, m 2t, 2t + 1), c2, c3 at (n g + 8, same m)
+    // acc += partial * (a_s * w_s), unfused, slab by slab in the
+    // reference's order; fragment c0, c1 at (n g, m 2t, 2t + 1), c2, c3 at
+    // (n g + 8, same m)
     const float* scales = reinterpret_cast<const float*>(st + T::kWBytes + T::kABytes);
-    const float ws = scales[T::BM];
 #pragma unroll
-    for (int j = 0; j < kMT; ++j) {
-      const int c = (wm * kMT + j) * 8 + 2 * t;
-      const float s0 = __fmul_rn(scales[c], ws), s1 = __fmul_rn(scales[c + 1], ws);
+    for (int u = 0; u < kU; ++u) {
+      if (q * kU + u >= nkb) break;  // the last stage may hold fewer slabs
+      const float ws = scales[kU * T::BM + u];
 #pragma unroll
-      for (int i = 0; i < kNT; ++i) {
-        acc[i][j][0] = __fadd_rn(acc[i][j][0], __fmul_rn(part[i][j][0], s0));
-        acc[i][j][1] = __fadd_rn(acc[i][j][1], __fmul_rn(part[i][j][1], s1));
-        acc[i][j][2] = __fadd_rn(acc[i][j][2], __fmul_rn(part[i][j][2], s0));
-        acc[i][j][3] = __fadd_rn(acc[i][j][3], __fmul_rn(part[i][j][3], s1));
+      for (int j = 0; j < kMT; ++j) {
+        const int c = u * T::BM + (wm * kMT + j) * 8 + 2 * t;
+        const float s0 = __fmul_rn(scales[c], ws), s1 = __fmul_rn(scales[c + 1], ws);
+#pragma unroll
+        for (int i = 0; i < kNT; ++i) {
+          acc[i][j][0] = __fadd_rn(acc[i][j][0], __fmul_rn(part[u][i][j][0], s0));
+          acc[i][j][1] = __fadd_rn(acc[i][j][1], __fmul_rn(part[u][i][j][1], s1));
+          acc[i][j][2] = __fadd_rn(acc[i][j][2], __fmul_rn(part[u][i][j][2], s0));
+          acc[i][j][3] = __fadd_rn(acc[i][j][3], __fmul_rn(part[u][i][j][3], s1));
+        }
       }
     }
   }
@@ -255,6 +294,8 @@ extern "C" int fp8rl_gemm(const void* a, const void* w, const void* a_s, const v
   const auto s = static_cast<cudaStream_t>(stream);
   if (m <= 0) return static_cast<int>(cudaGetLastError());
   if (m <= SmallTile::BM) return launch_gemm<SmallTile>(a, w, a_s, w_s, out, m, n, k, ldw, s);
-  if (m <= MediumTile::BM) return launch_gemm<MediumTile>(a, w, a_s, w_s, out, m, n, k, ldw, s);
+  if (m <= MidTile::BM) return launch_gemm<MidTile>(a, w, a_s, w_s, out, m, n, k, ldw, s);
+  if (m <= WideTile::BM) return launch_gemm<WideTile>(a, w, a_s, w_s, out, m, n, k, ldw, s);
+  if (m <= ChunkTile::BM) return launch_gemm<ChunkTile>(a, w, a_s, w_s, out, m, n, k, ldw, s);
   return launch_gemm<LargeTile>(a, w, a_s, w_s, out, m, n, k, ldw, s);
 }

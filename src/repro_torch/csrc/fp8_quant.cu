@@ -41,6 +41,7 @@ __global__ void quant_act_kernel(const T* __restrict__ x, uint8_t* __restrict__ 
 
 // One 256-thread block per 128x128 tile of one layer slice (grid z).
 // Warp w holds rows w, w+8, ..., w+120; lane i columns 4i..4i+3.
+// Writes q (L, K, N) row-major.
 template <typename T, int kFmt>
 __global__ void __launch_bounds__(256) quant_weight_kernel(
     const T* __restrict__ w, uint8_t* __restrict__ q, float* __restrict__ s,
@@ -83,6 +84,63 @@ __global__ void __launch_bounds__(256) quant_weight_kernel(
   if (threadIdx.x == 0) s[(layer * kb + blockIdx.y) * nb + blockIdx.x] = scale;
 }
 
+// The same function with the payload written K-major, q (L, N, K): the
+// layout kernel 3 streams.  Warp w holds rows w, w+8, ..., w+120; lane i
+// columns i, i+32, i+64, i+96 (64-byte coalesced reads).  The fp8 bytes
+// go through a shared tile [column][row] (rows 132 bytes apart: the byte
+// stores of a warp and the word reads of a row hit 32 distinct banks)
+// and leave as 16-byte K-major rows.
+template <typename T, int kFmt>
+__global__ void __launch_bounds__(256) quant_weight_kmajor_kernel(
+    const T* __restrict__ w, uint8_t* __restrict__ q, float* __restrict__ s,
+    int64_t kdim, int64_t n, int pow2) {
+  constexpr int kTRow = 132;
+  __shared__ __align__(16) uint8_t tile[128 * kTRow];
+  __shared__ float red[8];
+  const int64_t nb = n / 128, kb = kdim / 128;
+  const int64_t layer = blockIdx.z;
+  const T* wl = w + layer * kdim * n;
+  uint8_t* ql = q + layer * kdim * n;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const int64_t col0 = static_cast<int64_t>(blockIdx.x) * 128;
+  const int64_t krow0 = static_cast<int64_t>(blockIdx.y) * 128;
+  float v[16][4];
+  float amax = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[i][j] = to_f32(wl[(krow0 + warp + 8 * i) * n + col0 + lane + 32 * j]);
+      amax = fmaxf(amax, fabsf(v[i][j]));
+    }
+  }
+  amax = warp_max(amax);
+  if (lane == 0) red[warp] = amax;
+  __syncthreads();
+  if (warp == 0) {
+    float a = lane < 8 ? red[lane] : 0.0f;
+    a = warp_max(a);
+    if (lane == 0) red[0] = a;
+  }
+  __syncthreads();
+  const float scale = amax_to_scale<kFmt>(red[0], pow2 != 0);
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      tile[(lane + 32 * j) * kTRow + warp + 8 * i] =
+          static_cast<uint8_t>(quantize_one<kFmt>(v[i][j], scale));
+  __syncthreads();
+#pragma unroll
+  for (int it = 0; it < 4; ++it) {  // 128 columns x 8 chunks of 16 bytes
+    const int idx = threadIdx.x + it * 256, c = idx >> 3, chunk = idx & 7;
+    const uint32_t* src = reinterpret_cast<const uint32_t*>(tile + c * kTRow + chunk * 16);
+    *reinterpret_cast<uint4*>(ql + (col0 + c) * kdim + krow0 + chunk * 16) =
+        make_uint4(src[0], src[1], src[2], src[3]);
+  }
+  if (threadIdx.x == 0) s[(layer * kb + blockIdx.y) * nb + blockIdx.x] = scale;
+}
+
 template <typename T>
 void launch_act(const void* x, void* q, void* s, int64_t m, int64_t k, int out_dtype,
                 int pow2, cudaStream_t stream) {
@@ -97,17 +155,23 @@ void launch_act(const void* x, void* q, void* s, int64_t m, int64_t k, int out_d
         static_cast<const T*>(x), static_cast<uint8_t*>(q), static_cast<float*>(s), m, k, pow2);
 }
 
-template <typename T>
-void launch_weight(const void* w, void* q, void* s, int64_t layers, int64_t kdim, int64_t n,
-                   int out_dtype, int pow2, cudaStream_t stream) {
+template <typename T, int kFmt>
+void launch_weight_fmt(const void* w, void* q, void* s, int64_t layers, int64_t kdim,
+                       int64_t n, int pow2, int kmajor, cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>(n / 128), static_cast<unsigned>(kdim / 128),
                   static_cast<unsigned>(layers));
+  auto kernel = kmajor ? quant_weight_kmajor_kernel<T, kFmt> : quant_weight_kernel<T, kFmt>;
+  kernel<<<grid, 256, 0, stream>>>(static_cast<const T*>(w), static_cast<uint8_t*>(q),
+                                   static_cast<float*>(s), kdim, n, pow2);
+}
+
+template <typename T>
+void launch_weight(const void* w, void* q, void* s, int64_t layers, int64_t kdim, int64_t n,
+                   int out_dtype, int pow2, int kmajor, cudaStream_t stream) {
   if (out_dtype == kE4M3)
-    quant_weight_kernel<T, kE4M3><<<grid, 256, 0, stream>>>(
-        static_cast<const T*>(w), static_cast<uint8_t*>(q), static_cast<float*>(s), kdim, n, pow2);
+    launch_weight_fmt<T, kE4M3>(w, q, s, layers, kdim, n, pow2, kmajor, stream);
   else
-    quant_weight_kernel<T, kE5M2><<<grid, 256, 0, stream>>>(
-        static_cast<const T*>(w), static_cast<uint8_t*>(q), static_cast<float*>(s), kdim, n, pow2);
+    launch_weight_fmt<T, kE5M2>(w, q, s, layers, kdim, n, pow2, kmajor, stream);
 }
 
 }  // namespace
@@ -128,15 +192,15 @@ extern "C" int fp8rl_quant_act(const void* x, void* q, void* s, int64_t m, int64
   return static_cast<int>(cudaGetLastError());
 }
 
-// w (L, K, N) f32|bf16 with K, N % 128 == 0 -> q (L, K, N) fp8,
-// s (L, K/128, N/128) f32
+// w (L, K, N) f32|bf16 with K, N % 128 == 0 -> q fp8, (L, K, N) row-major
+// or, with kmajor, (L, N, K); s (L, K/128, N/128) f32
 extern "C" int fp8rl_quant_weight(const void* w, void* q, void* s, int64_t layers, int64_t kdim,
-                                  int64_t n, int in_dtype, int out_dtype, int pow2,
+                                  int64_t n, int in_dtype, int out_dtype, int pow2, int kmajor,
                                   void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (in_dtype == kBF16)
-    launch_weight<__nv_bfloat16>(w, q, s, layers, kdim, n, out_dtype, pow2, st);
+    launch_weight<__nv_bfloat16>(w, q, s, layers, kdim, n, out_dtype, pow2, kmajor, st);
   else
-    launch_weight<float>(w, q, s, layers, kdim, n, out_dtype, pow2, st);
+    launch_weight<float>(w, q, s, layers, kdim, n, out_dtype, pow2, kmajor, st);
   return static_cast<int>(cudaGetLastError());
 }

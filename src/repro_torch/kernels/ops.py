@@ -61,28 +61,22 @@ def quantize_activation(x: torch.Tensor, fp8_dtype=E4M3,
     return QuantizedTensor(q, s, (1,) * (len(shape) - 1) + (128,))
 
 
-def k_major(q: torch.Tensor) -> torch.Tensor:
-    """(..., K, N) fp8 -> the same values stored K-major: a contiguous
-    (..., N, K) copy (a layout copy, through the raw bytes)."""
-    return q.view(torch.uint8).transpose(-1, -2).contiguous().view(q.dtype)
-
-
 def quantize_weight(w: torch.Tensor, fp8_dtype=E4M3,
                     scale_format: ScaleFormat = ScaleFormat.FP32
                     ) -> QuantizedTensor:
     """Static weight quantization in 128x128 blocks over the last two dims
     (kernel 2); layer-stacked (L, K, N) weights take one launch.
 
-    The payload is then copied once into K-major storage, (..., N_pad,
-    K_pad) contiguous with K and N padded to 128 multiples (zeros), the
-    layout kernel 3 streams; `data` is its (..., K, N) transposed view.
-    Values and scales are the reference's."""
+    The payload is stored K-major, (..., N_pad, K_pad) contiguous with K
+    and N padded to 128 multiples (zeros): the layout kernel 3 streams.
+    `data` is its (..., K, N) transposed view; values and scales are the
+    reference's."""
     *lead, k, n = w.shape
     wp = _pad_to(w, (128, 128)).contiguous()
     fn = _route(w, _quant.quantize_weight_kernel, _quant.quantize_weight_ref)
-    q, s = fn(wp, fp8_dtype, scale_format)
-    data = k_major(q).transpose(-1, -2)[..., :k, :n]
-    return QuantizedTensor(data, s, (1,) * len(lead) + (128, 128))
+    q, s = fn(wp, fp8_dtype, scale_format, k_major=True)
+    return QuantizedTensor(q.transpose(-1, -2)[..., :k, :n], s,
+                           (1,) * len(lead) + (128, 128))
 
 
 def _gemm_weight(w: torch.Tensor) -> torch.Tensor:
