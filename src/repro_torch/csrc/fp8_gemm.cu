@@ -41,11 +41,15 @@ namespace fp8rl {
 namespace {
 
 constexpr int BK = 128;  // one K slab per scale
-// ring geometry of each tile shape: K slabs a stage holds, stages
-constexpr int kSmallSlabs = 4;  // M <= 8
+// ring geometry of each tile shape: K slabs a stage holds, stages, and
+// at small M the warps that issue the copies (one or two of them
+// multiply)
+constexpr int kSmallSlabs = 2;  // M <= 8
 constexpr int kSmallStages = 4;
-constexpr int kMidSlabs = 4;    // M <= 32
+constexpr int kSmallWarps = 4;
+constexpr int kMidSlabs = 2;    // M <= 32
 constexpr int kMidStages = 4;
+constexpr int kMidWarps = 4;
 constexpr int kWideSlabs = 2;   // M <= 64
 constexpr int kWideStages = 4;
 constexpr int kChunkSlabs = 1;  // M <= 128
@@ -53,10 +57,9 @@ constexpr int kChunkStages = 4;
 constexpr int kLargeSlabs = 1;  // M > 128
 constexpr int kLargeStages = 4;
 
-// d += a b (not volatile: the compiler may interleave independent chains)
 __device__ __forceinline__ void mma_e4m3(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
-  asm(
+  asm volatile(
       "mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
@@ -70,13 +73,16 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid
                :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0) : "memory");
 }
 
-// kWN x kWM warps; each warp holds kNT 16-row weight fragments by kMT
-// 8-row activation fragments of the output; a stage holds kU K slabs
-template <int kWN_, int kWM_, int kNT_, int kMT_, int kU_, int kStages_>
+// kWN x kWM warps multiply, each holding kNT 16-row weight fragments by
+// kMT 8-row activation fragments of the output; kWarps warps in all issue
+// the copies (a warp keeps only so many copies in flight, so one warp
+// alone streamed ~5 GB/s); a stage holds kU K slabs
+template <int kWN_, int kWM_, int kNT_, int kMT_, int kU_, int kStages_, int kWarps_ = 0>
 struct Tile {
   static constexpr int kWN = kWN_, kWM = kWM_, kNT = kNT_, kMT = kMT_, kU = kU_;
   static constexpr int kStages = kStages_;
-  static constexpr int kThreads = 32 * kWN * kWM;
+  static constexpr int kMmaWarps = kWN * kWM;
+  static constexpr int kThreads = 32 * (kWarps_ > kMmaWarps ? kWarps_ : kMmaWarps);
   static constexpr int BN = kWN * kNT * 16, BM = kWM * kMT * 8;
   // shared row bytes: 16-B aligned; 4 mod 32 words, so the 8 rows of an
   // ldmatrix phase hit 32 distinct banks
@@ -93,11 +99,12 @@ struct Tile {
                 "whole 16-byte chunks per thread");
 };
 
-using SmallTile = Tile<1, 1, 1, 1, kSmallSlabs, kSmallStages>;  // 16 x 8, one warp
-using MidTile = Tile<1, 2, 1, 2, kMidSlabs, kMidStages>;        // 16 x 32, two warps
-using WideTile = Tile<1, 4, 1, 2, kWideSlabs, kWideStages>;     // 16 x 64, four warps
-using ChunkTile = Tile<4, 2, 1, 8, kChunkSlabs, kChunkStages>;  // 64 x 128, eight warps
-using LargeTile = Tile<2, 4, 4, 4, kLargeSlabs, kLargeStages>;  // 128 x 128, eight warps
+// n x m outputs a block, warps that multiply
+using SmallTile = Tile<1, 1, 1, 1, kSmallSlabs, kSmallStages, kSmallWarps>;  // 16 x 8, one
+using MidTile = Tile<1, 2, 1, 2, kMidSlabs, kMidStages, kMidWarps>;          // 16 x 32, two
+using WideTile = Tile<1, 4, 1, 2, kWideSlabs, kWideStages>;                  // 16 x 64, four
+using ChunkTile = Tile<2, 4, 1, 4, kChunkSlabs, kChunkStages>;               // 32 x 128, eight
+using LargeTile = Tile<2, 4, 4, 4, kLargeSlabs, kLargeStages>;               // 128 x 128, eight
 
 // issue the cp.async copies of stage q (slabs q kU .. q kU + kU - 1 that
 // exist) into `st`: one group
@@ -184,6 +191,7 @@ __global__ void __launch_bounds__(T::kThreads) fp8_gemm_kernel(
                     ldw, next, tid);
     cp_async_commit();
 
+    if (warp >= T::kMmaWarps) continue;  // a copy-only warp
     // each slab's product into a fresh f32 partial: four k32 steps from
     // zero (the kU slabs of a stage are independent chains)
     const uint8_t* st = smem + (q % S) * T::kStageBytes;
@@ -245,15 +253,17 @@ __global__ void __launch_bounds__(T::kThreads) fp8_gemm_kernel(
   __syncthreads();  // the ring is free: stage the bf16 tile for 16-byte stores
 
   __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(smem);  // [BM][kOutRow]
+  if (warp < T::kMmaWarps) {
 #pragma unroll
-  for (int i = 0; i < kNT; ++i) {
+    for (int i = 0; i < kNT; ++i) {
 #pragma unroll
-    for (int j = 0; j < kMT; ++j) {
-      const int nl = (wn * kNT + i) * 16 + g, ml = (wm * kMT + j) * 8 + 2 * t;
-      tile[ml * T::kOutRow + nl] = __float2bfloat16_rn(acc[i][j][0]);
-      tile[(ml + 1) * T::kOutRow + nl] = __float2bfloat16_rn(acc[i][j][1]);
-      tile[ml * T::kOutRow + nl + 8] = __float2bfloat16_rn(acc[i][j][2]);
-      tile[(ml + 1) * T::kOutRow + nl + 8] = __float2bfloat16_rn(acc[i][j][3]);
+      for (int j = 0; j < kMT; ++j) {
+        const int nl = (wn * kNT + i) * 16 + g, ml = (wm * kMT + j) * 8 + 2 * t;
+        tile[ml * T::kOutRow + nl] = __float2bfloat16_rn(acc[i][j][0]);
+        tile[(ml + 1) * T::kOutRow + nl] = __float2bfloat16_rn(acc[i][j][1]);
+        tile[ml * T::kOutRow + nl + 8] = __float2bfloat16_rn(acc[i][j][2]);
+        tile[(ml + 1) * T::kOutRow + nl + 8] = __float2bfloat16_rn(acc[i][j][3]);
+      }
     }
   }
   __syncthreads();
