@@ -19,12 +19,14 @@
 //     and into fragments by `ldmatrix`, with no transpose;
 //   * a ring of stages in flight per block, each one cp.async group of
 //     kU K slabs (W tile, activation tile and the slabs' scales), so a
-//     block keeps loading while it multiplies; a warp runs the kU slabs'
-//     independent mma chains together, which a one-slab stage left
-//     latency-bound (~0.5 us a slab, whatever N);
+//     block keeps loading while it multiplies;
+//   * up to M 64 the slabs of a stage are split between warp groups,
+//     which write their scaled partials to shared memory for group 0 to
+//     add in slab order: a warp that walked every slab itself was
+//     latency-bound at ~0.4 us a slab, hot in L2 or cold, whatever N;
 //   * narrow weight tiles up to M 64 (16 n-rows a block), so every
 //     qwen3-8b shape but (4096, 1024) launches >= 256 blocks without
-//     split-K; 64 x 128 tiles at the engine's chunk (M <= 128) and
+//     split-K; 32 x 128 tiles at the engine's chunk (M <= 128) and
 //     128 x 128 above, where the tensor cores bound it.
 // One block body serves every M; the five tile shapes differ only in how
 // many 16x8 output fragments a warp and a block hold and in their rings.
@@ -42,16 +44,16 @@ namespace {
 
 constexpr int BK = 128;  // one K slab per scale
 // ring geometry of each tile shape: K slabs a stage holds, stages, and
-// at small M the warps that issue the copies (one or two of them
-// multiply)
-constexpr int kSmallSlabs = 2;  // M <= 8
+// the warp groups that split a stage's slabs between them
+constexpr int kSmallSlabs = 4;  // M <= 8
 constexpr int kSmallStages = 4;
-constexpr int kSmallWarps = 4;
-constexpr int kMidSlabs = 2;    // M <= 32
-constexpr int kMidStages = 4;
-constexpr int kMidWarps = 4;
+constexpr int kSmallSplit = 4;
+constexpr int kMidSlabs = 4;    // M <= 32
+constexpr int kMidStages = 3;
+constexpr int kMidSplit = 4;
 constexpr int kWideSlabs = 2;   // M <= 64
 constexpr int kWideStages = 4;
+constexpr int kWideSplit = 2;
 constexpr int kChunkSlabs = 1;  // M <= 128
 constexpr int kChunkStages = 4;
 constexpr int kLargeSlabs = 1;  // M > 128
@@ -73,16 +75,20 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid
                :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0) : "memory");
 }
 
-// kWN x kWM warps multiply, each holding kNT 16-row weight fragments by
-// kMT 8-row activation fragments of the output; kWarps warps in all issue
-// the copies (a warp keeps only so many copies in flight, so one warp
-// alone streamed ~5 GB/s); a stage holds kU K slabs
-template <int kWN_, int kWM_, int kNT_, int kMT_, int kU_, int kStages_, int kWarps_ = 0>
+// A group of kWN x kWM warps covers the block's output, each warp kNT
+// 16-row weight fragments by kMT 8-row activation fragments; a stage
+// holds kU K slabs, split between kSplit such groups (group g multiplies
+// slabs g, g + kSplit, ...).  With kSplit > 1 each group writes its
+// slabs' scaled partials to shared memory and group 0 adds them in slab
+// order: the same roundings as one group adding its own, with the
+// slabs' mma chains run by several warps at once (one warp a slab was
+// latency-bound at ~0.4 us a slab, hot or cold, whatever N).
+template <int kWN_, int kWM_, int kNT_, int kMT_, int kU_, int kStages_, int kSplit_ = 1>
 struct Tile {
   static constexpr int kWN = kWN_, kWM = kWM_, kNT = kNT_, kMT = kMT_, kU = kU_;
-  static constexpr int kStages = kStages_;
-  static constexpr int kMmaWarps = kWN * kWM;
-  static constexpr int kThreads = 32 * (kWarps_ > kMmaWarps ? kWarps_ : kMmaWarps);
+  static constexpr int kStages = kStages_, kSplit = kSplit_;
+  static constexpr int kGroupWarps = kWN * kWM;
+  static constexpr int kThreads = 32 * kGroupWarps * kSplit;
   static constexpr int BN = kWN * kNT * 16, BM = kWM * kMT * 8;
   // shared row bytes: 16-B aligned; 4 mod 32 words, so the 8 rows of an
   // ldmatrix phase hit 32 distinct banks
@@ -90,21 +96,26 @@ struct Tile {
   static constexpr int kWBytes = BN * kRow, kABytes = BM * kRow;
   // a stage: W tile, activation tile, a_s [slab][row], then w_s [slab]
   static constexpr int kStageBytes = kWBytes + kABytes + (BM + 4) * kU * 4;
+  // after the ring, with kSplit > 1: the scaled partials of a stage,
+  // [slab][warp of the group][fragment value][lane]
+  static constexpr int kFrag = kNT * kMT * 4;
+  static constexpr int kTermBytes = kSplit > 1 ? kU * kGroupWarps * kFrag * 32 * 4 : 0;
   static constexpr int kOutRow = BN + 8;  // bf16 staging row of the store
-  static constexpr int kSmem = kStages * kStageBytes > BM * kOutRow * 2
-                                   ? kStages * kStageBytes : BM * kOutRow * 2;
+  static constexpr int kRing = kStages * kStageBytes + kTermBytes;
+  static constexpr int kSmem = kRing > BM * kOutRow * 2 ? kRing : BM * kOutRow * 2;
   static_assert(BN <= 128 && 128 % BN == 0, "a block's columns share one w_s column");
-  static_assert(kStages >= 2 && kU <= 4, "a ring of two stages or more, <= 4 slabs each");
+  static_assert(kStages >= 2 && kU <= 4 && kU % kSplit == 0,
+                "a ring of two stages or more, <= 4 slabs each, split evenly");
   static_assert(BN * 8 * kU % kThreads == 0 && BM * 8 * kU % kThreads == 0,
                 "whole 16-byte chunks per thread");
 };
 
-// n x m outputs a block, warps that multiply
-using SmallTile = Tile<1, 1, 1, 1, kSmallSlabs, kSmallStages, kSmallWarps>;  // 16 x 8, one
-using MidTile = Tile<1, 2, 1, 2, kMidSlabs, kMidStages, kMidWarps>;          // 16 x 32, two
-using WideTile = Tile<1, 4, 1, 2, kWideSlabs, kWideStages>;                  // 16 x 64, four
-using ChunkTile = Tile<2, 4, 1, 4, kChunkSlabs, kChunkStages>;               // 32 x 128, eight
-using LargeTile = Tile<2, 4, 4, 4, kLargeSlabs, kLargeStages>;               // 128 x 128, eight
+// n x m outputs a block
+using SmallTile = Tile<1, 1, 1, 1, kSmallSlabs, kSmallStages, kSmallSplit>;  // 16 x 8
+using MidTile = Tile<1, 1, 1, 4, kMidSlabs, kMidStages, kMidSplit>;          // 16 x 32
+using WideTile = Tile<1, 2, 1, 4, kWideSlabs, kWideStages, kWideSplit>;      // 16 x 64
+using ChunkTile = Tile<2, 4, 1, 4, kChunkSlabs, kChunkStages>;               // 32 x 128
+using LargeTile = Tile<2, 4, 4, 4, kLargeSlabs, kLargeStages>;               // 128 x 128
 
 // issue the cp.async copies of stage q (slabs q kU .. q kU + kU - 1 that
 // exist) into `st`: one group
@@ -153,9 +164,11 @@ __global__ void __launch_bounds__(T::kThreads) fp8_gemm_kernel(
     __nv_bfloat16* __restrict__ out, int64_t m, int64_t n, int64_t k, int64_t ldw) {
   extern __shared__ __align__(16) uint8_t smem[];
   constexpr int kNT = T::kNT, kMT = T::kMT, kU = T::kU, S = T::kStages;
+  constexpr int kSplit = T::kSplit, kUG = kU / kSplit;  // slabs per group and stage
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;  // mma fragment coordinates
-  const int wn = warp % T::kWN, wm = warp / T::kWN;
+  const int grp = warp / T::kGroupWarps, gw = warp % T::kGroupWarps;
+  const int wn = gw % T::kWN, wm = gw / T::kWN;
   const int64_t n0 = static_cast<int64_t>(blockIdx.x) * T::BN;
   const int64_t m0 = static_cast<int64_t>(blockIdx.y) * T::BM;
   const int64_t nkb = k / BK, nst = (nkb + kU - 1) / kU;
@@ -166,6 +179,7 @@ __global__ void __launch_bounds__(T::kThreads) fp8_gemm_kernel(
                     + (lane >> 4) * 16;
   const int a_off =
       T::kWBytes + ((wm * kMT) * 8 + (lane & 7)) * T::kRow + (lane >> 3) * 16;
+  float* terms = reinterpret_cast<float*>(smem + S * T::kStageBytes);
 
   float acc[kNT][kMT][4];
 #pragma unroll
@@ -184,45 +198,44 @@ __global__ void __launch_bounds__(T::kThreads) fp8_gemm_kernel(
 
   for (int64_t q = 0; q < nst; ++q) {
     cp_async_wait<S - 2>();  // stage q has landed (this thread's copies)
-    __syncthreads();         // ... everyone's; and stage q - 1's buffer is free
+    __syncthreads();         // ... everyone's; stage q - 1's buffers are free
     const int64_t next = q + S - 1;
     if (next < nst)
       load_stage<T>(smem + (next % S) * T::kStageBytes, A, W, a_s, w_s, m0, n0, m, n, k,
                     ldw, next, tid);
     cp_async_commit();
 
-    if (warp >= T::kMmaWarps) continue;  // a copy-only warp
-    // each slab's product into a fresh f32 partial: four k32 steps from
-    // zero (the kU slabs of a stage are independent chains)
+    // each of this group's slabs into a fresh f32 partial: four k32 steps
+    // from zero (independent chains)
     const uint8_t* st = smem + (q % S) * T::kStageBytes;
-    float part[kU][kNT][kMT][4];
+    float part[kUG][kNT][kMT][4];
 #pragma unroll
-    for (int u = 0; u < kU; ++u)
+    for (int p = 0; p < kUG; ++p)
 #pragma unroll
       for (int i = 0; i < kNT; ++i)
 #pragma unroll
         for (int j = 0; j < kMT; ++j)
 #pragma unroll
-          for (int c = 0; c < 4; ++c) part[u][i][j][c] = 0.0f;
+          for (int c = 0; c < 4; ++c) part[p][i][j][c] = 0.0f;
 #pragma unroll
     for (int kh = 0; kh < 2; ++kh) {  // k bytes [64 kh, 64 kh + 64) of each slab
 #pragma unroll
-      for (int u = 0; u < kU; ++u) {
+      for (int p = 0; p < kUG; ++p) {
+        const int ub = (grp + kSplit * p) * BK + kh * 64;
         uint32_t bf[kMT][4];
 #pragma unroll
-        for (int j = 0; j < kMT; ++j)
-          ldsm_x4(bf[j], st + a_off + j * 8 * T::kRow + u * BK + kh * 64);
+        for (int j = 0; j < kMT; ++j) ldsm_x4(bf[j], st + a_off + j * 8 * T::kRow + ub);
 #pragma unroll
         for (int ks = 0; ks < 2; ++ks) {
           uint32_t af[kNT][4];
 #pragma unroll
           for (int i = 0; i < kNT; ++i)
-            ldsm_x4(af[i], st + w_off + i * 16 * T::kRow + u * BK + kh * 64 + ks * 32);
+            ldsm_x4(af[i], st + w_off + i * 16 * T::kRow + ub + ks * 32);
 #pragma unroll
           for (int i = 0; i < kNT; ++i)
 #pragma unroll
             for (int j = 0; j < kMT; ++j)
-              mma_e4m3(part[u][i][j], af[i], bf[j][2 * ks], bf[j][2 * ks + 1]);
+              mma_e4m3(part[p][i][j], af[i], bf[j][2 * ks], bf[j][2 * ks + 1]);
         }
       }
     }
@@ -232,19 +245,41 @@ __global__ void __launch_bounds__(T::kThreads) fp8_gemm_kernel(
     // (n g + 8, same m)
     const float* scales = reinterpret_cast<const float*>(st + T::kWBytes + T::kABytes);
 #pragma unroll
-    for (int u = 0; u < kU; ++u) {
+    for (int p = 0; p < kUG; ++p) {
+      const int u = grp + kSplit * p;
       if (q * kU + u >= nkb) break;  // the last stage may hold fewer slabs
       const float ws = scales[kU * T::BM + u];
+      float* tu = terms + ((u * T::kGroupWarps + gw) * T::kFrag) * 32 + lane;
 #pragma unroll
       for (int j = 0; j < kMT; ++j) {
         const int c = u * T::BM + (wm * kMT + j) * 8 + 2 * t;
-        const float s0 = __fmul_rn(scales[c], ws), s1 = __fmul_rn(scales[c + 1], ws);
+        const float sc[2] = {__fmul_rn(scales[c], ws), __fmul_rn(scales[c + 1], ws)};
 #pragma unroll
-        for (int i = 0; i < kNT; ++i) {
-          acc[i][j][0] = __fadd_rn(acc[i][j][0], __fmul_rn(part[u][i][j][0], s0));
-          acc[i][j][1] = __fadd_rn(acc[i][j][1], __fmul_rn(part[u][i][j][1], s1));
-          acc[i][j][2] = __fadd_rn(acc[i][j][2], __fmul_rn(part[u][i][j][2], s0));
-          acc[i][j][3] = __fadd_rn(acc[i][j][3], __fmul_rn(part[u][i][j][3], s1));
+        for (int i = 0; i < kNT; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float term = __fmul_rn(part[p][i][j][e], sc[e & 1]);
+            if (kSplit == 1)
+              acc[i][j][e] = __fadd_rn(acc[i][j][e], term);
+            else
+              tu[((i * kMT + j) * 4 + e) * 32] = term;
+          }
+      }
+    }
+    if (kSplit > 1) {
+      __syncthreads();  // every group's terms of stage q are in
+      if (grp == 0) {
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          if (q * kU + u >= nkb) break;
+          const float* tu = terms + ((u * T::kGroupWarps + gw) * T::kFrag) * 32 + lane;
+#pragma unroll
+          for (int i = 0; i < kNT; ++i)
+#pragma unroll
+            for (int j = 0; j < kMT; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                acc[i][j][e] = __fadd_rn(acc[i][j][e], tu[((i * kMT + j) * 4 + e) * 32]);
         }
       }
     }
@@ -253,7 +288,7 @@ __global__ void __launch_bounds__(T::kThreads) fp8_gemm_kernel(
   __syncthreads();  // the ring is free: stage the bf16 tile for 16-byte stores
 
   __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(smem);  // [BM][kOutRow]
-  if (warp < T::kMmaWarps) {
+  if (grp == 0) {
 #pragma unroll
     for (int i = 0; i < kNT; ++i) {
 #pragma unroll
