@@ -56,8 +56,14 @@ constexpr int kWideStages = 4;
 constexpr int kWideSplit = 2;
 constexpr int kChunkSlabs = 1;  // M <= 128
 constexpr int kChunkStages = 4;
+constexpr int kChunkSplit = 1;
 constexpr int kLargeSlabs = 1;  // M > 128
 constexpr int kLargeStages = 4;
+// the large tile's warp grid (n x m) and fragments per warp (n x m)
+constexpr int kLargeWN = 2;
+constexpr int kLargeWM = 4;
+constexpr int kLargeNT = 4;
+constexpr int kLargeMT = 4;
 
 __device__ __forceinline__ void mma_e4m3(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
@@ -104,8 +110,8 @@ struct Tile {
   static constexpr int kRing = kStages * kStageBytes + kTermBytes;
   static constexpr int kSmem = kRing > BM * kOutRow * 2 ? kRing : BM * kOutRow * 2;
   static_assert(BN <= 128 && 128 % BN == 0, "a block's columns share one w_s column");
-  static_assert(kStages >= 2 && kU <= 4 && kU % kSplit == 0,
-                "a ring of two stages or more, <= 4 slabs each, split evenly");
+  static_assert(kStages >= 2 && kU <= 8 && kU % kSplit == 0,
+                "a ring of two stages or more, <= 8 slabs each, split evenly");
   static_assert(BN * 8 * kU % kThreads == 0 && BM * 8 * kU % kThreads == 0,
                 "whole 16-byte chunks per thread");
 };
@@ -114,8 +120,9 @@ struct Tile {
 using SmallTile = Tile<1, 1, 1, 1, kSmallSlabs, kSmallStages, kSmallSplit>;  // 16 x 8
 using MidTile = Tile<1, 1, 1, 4, kMidSlabs, kMidStages, kMidSplit>;          // 16 x 32
 using WideTile = Tile<1, 2, 1, 4, kWideSlabs, kWideStages, kWideSplit>;      // 16 x 64
-using ChunkTile = Tile<2, 4, 1, 4, kChunkSlabs, kChunkStages>;               // 32 x 128
-using LargeTile = Tile<2, 4, 4, 4, kLargeSlabs, kLargeStages>;               // 128 x 128
+using ChunkTile = Tile<2, 4, 1, 4, kChunkSlabs, kChunkStages, kChunkSplit>;  // 32 x 128
+using LargeTile = Tile<kLargeWN, kLargeWM, kLargeNT, kLargeMT, kLargeSlabs,
+                       kLargeStages>;                                        // 128 x 128
 
 // issue the cp.async copies of stage q (slabs q kU .. q kU + kU - 1 that
 // exist) into `st`: one group
@@ -167,7 +174,10 @@ __global__ void __launch_bounds__(T::kThreads) fp8_gemm_kernel(
   constexpr int kSplit = T::kSplit, kUG = kU / kSplit;  // slabs per group and stage
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;  // mma fragment coordinates
-  const int grp = warp / T::kGroupWarps, gw = warp % T::kGroupWarps;
+  // this warp's group and its place in it (compile-time 0 and warp when
+  // one group does all)
+  const int grp = kSplit == 1 ? 0 : warp / T::kGroupWarps;
+  const int gw = kSplit == 1 ? warp : warp % T::kGroupWarps;
   const int wn = gw % T::kWN, wm = gw / T::kWN;
   const int64_t n0 = static_cast<int64_t>(blockIdx.x) * T::BN;
   const int64_t m0 = static_cast<int64_t>(blockIdx.y) * T::BM;
