@@ -45,9 +45,9 @@ namespace {
 constexpr int BK = 128;  // one K slab per scale
 // ring geometry of each tile shape: K slabs a stage holds, stages, and
 // the warp groups that split a stage's slabs between them
-constexpr int kSmallSlabs = 4;  // M <= 8
-constexpr int kSmallStages = 4;
-constexpr int kSmallSplit = 4;
+constexpr int kSmallSlabs = 8;  // M <= 8
+constexpr int kSmallStages = 3;
+constexpr int kSmallSplit = 8;
 constexpr int kMidSlabs = 4;    // M <= 32
 constexpr int kMidStages = 3;
 constexpr int kMidSplit = 4;
@@ -138,14 +138,14 @@ __device__ __forceinline__ void load_stage(uint8_t* st, const uint8_t* __restric
 #pragma unroll
   for (int it = 0; it < T::BN * kChunks / T::kThreads; ++it) {
     const int i = tid + it * T::kThreads, r = i / kChunks, c = i % kChunks;
-    const bool valid = k0 + c * 16 < k;
+    const bool valid = T::kU == 1 || k0 + c * 16 < k;  // a last stage may be short
     cp_async16(st + r * T::kRow + c * 16, valid ? W + (n0 + r) * ldw + k0 + c * 16 : W,
                valid);
   }
 #pragma unroll
   for (int it = 0; it < T::BM * kChunks / T::kThreads; ++it) {
     const int i = tid + it * T::kThreads, r = i / kChunks, c = i % kChunks;
-    const bool valid = m0 + r < m && k0 + c * 16 < k;
+    const bool valid = m0 + r < m && (T::kU == 1 || k0 + c * 16 < k);
     cp_async16(st + T::kWBytes + r * T::kRow + c * 16,
                valid ? A + (m0 + r) * k + k0 + c * 16 : A, valid);
   }
@@ -257,7 +257,7 @@ __global__ void __launch_bounds__(T::kThreads) fp8_gemm_kernel(
 #pragma unroll
     for (int p = 0; p < kUG; ++p) {
       const int u = grp + kSplit * p;
-      if (q * kU + u >= nkb) break;  // the last stage may hold fewer slabs
+      if (kU > 1 && q * kU + u >= nkb) break;  // the last stage may hold fewer slabs
       const float ws = scales[kU * T::BM + u];
       float* tu = terms + ((u * T::kGroupWarps + gw) * T::kFrag) * 32 + lane;
 #pragma unroll
