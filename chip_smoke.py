@@ -1386,7 +1386,6 @@ def gemm_row(stack, m, gen, reps=20):
     bs = itertools.cycle(range(layers))
     row["bf16_mm_device_ms"] = device_time_ms(lambda: torch.mm(x, wb[next(bs)]), reps=reps)
     del wb
-    row["library"] = None
     row["another_function"] = ("torch._scaled_mm, per-tensor scales, same fp8 bytes; "
                                "torch.mm bf16 (cuBLAS) on a bf16 stack")
     log(f"fp8_gemm M {m} K {k} N {n}: device {row['device_ms']:.4f} ms (bound "
@@ -1417,7 +1416,6 @@ def sync_layout_ms(roll, gen, reps=3):
     log(f"weight sync: kernel 2 over the rollout's leaves {kmajor_ms:.3f} ms of device time "
         f"writing K-major, {row_ms:.3f} ms row-major: the layout adds "
         f"{kmajor_ms - row_ms:.3f} ms")
-    return kmajor_ms - row_ms
 
 
 def time_kernels(dev, gen, results, cfg, roll, traj, contig_lengths, extra):

@@ -22,7 +22,7 @@
 //     block keeps loading while it multiplies;
 //   * up to M 64 the slabs of a stage are split between warp groups,
 //     which write their scaled partials to shared memory for group 0 to
-//     add in slab order: a warp that walked every slab itself was
+//     add in slab order: a warp walking every slab itself is
 //     latency-bound at ~0.4 us a slab, hot in L2 or cold, whatever N;
 //   * narrow weight tiles up to M 64 (16 n-rows a block), so every
 //     qwen3-8b shape but (4096, 1024) launches >= 256 blocks without
@@ -87,8 +87,8 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid
 // slabs g, g + kSplit, ...).  With kSplit > 1 each group writes its
 // slabs' scaled partials to shared memory and group 0 adds them in slab
 // order: the same roundings as one group adding its own, with the
-// slabs' mma chains run by several warps at once (one warp a slab was
-// latency-bound at ~0.4 us a slab, hot or cold, whatever N).
+// slabs' mma chains run by several warps at once (a warp walking every
+// slab itself is latency-bound at ~0.4 us a slab, hot in L2 or cold).
 template <int kWN_, int kWM_, int kNT_, int kMT_, int kU_, int kStages_, int kSplit_ = 1>
 struct Tile {
   static constexpr int kWN = kWN_, kWM = kWM_, kNT = kNT_, kMT = kMT_, kU = kU_;

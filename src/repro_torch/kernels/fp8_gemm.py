@@ -6,7 +6,7 @@ the DeepGEMM analogue) and of its oracle `repro.kernels.ref.fp8_gemm_ref`:
     out (M, N) = sum_kb (A_kb @ W_kb) * (a_s[:, kb] * w_s[kb, n // 128])
 
 with A (M, K) e4m3 in 1x128 tiles, W (K, N) e4m3 in 128x128 blocks
-(stored K-major since the weight sync makes it so), each
+(stored K-major, as the weight sync writes it), each
 128-wide K slab's partial product taken in f32 and accumulated in f32.
 It runs in every W8A8 linear.  On the H100 it is bound by the weight
 bytes at decode (M = 8) and by the tensor cores at prefill (M = 1024);
