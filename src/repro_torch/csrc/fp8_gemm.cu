@@ -24,10 +24,10 @@
 //     which write their scaled partials to shared memory for group 0 to
 //     add in slab order: a warp walking every slab itself is
 //     latency-bound at ~0.4 us a slab, hot in L2 or cold, whatever N;
-//   * narrow weight tiles up to M 64 (16 n-rows a block), so every
-//     qwen3-8b shape but (4096, 1024) launches >= 256 blocks without
-//     split-K; 32 x 128 tiles at the engine's chunk (M <= 128) and
-//     128 x 128 above, where the tensor cores bound it.
+//   * narrow weight tiles up to M 64 (16 or 32 n-rows a block), so
+//     every qwen3-8b shape but (4096, 1024) launches >= 128 blocks
+//     without split-K; 32 x 128 tiles at the engine's chunk (M <= 128)
+//     and 128 x 128 above, where the tensor cores bound it.
 // One block body serves every M; the five tile shapes differ only in how
 // many 16x8 output fragments a warp and a block hold and in their rings.
 // Each output element's arithmetic is the same in all of them: four k32
@@ -49,8 +49,9 @@ constexpr int kSmallSlabs = 8;  // M <= 8
 constexpr int kSmallStages = 3;
 constexpr int kSmallSplit = 8;
 constexpr int kMidSlabs = 4;    // M <= 32
-constexpr int kMidStages = 3;
+constexpr int kMidStages = 2;
 constexpr int kMidSplit = 4;
+constexpr int kMidWN = 2;       // warps across the weight's rows, 16 each
 constexpr int kWideSlabs = 2;   // M <= 64
 constexpr int kWideStages = 4;
 constexpr int kWideSplit = 2;
@@ -118,7 +119,7 @@ struct Tile {
 
 // n x m outputs a block
 using SmallTile = Tile<1, 1, 1, 1, kSmallSlabs, kSmallStages, kSmallSplit>;  // 16 x 8
-using MidTile = Tile<1, 1, 1, 4, kMidSlabs, kMidStages, kMidSplit>;          // 16 x 32
+using MidTile = Tile<kMidWN, 1, 1, 4, kMidSlabs, kMidStages, kMidSplit>;     // 32 x 32
 using WideTile = Tile<1, 2, 1, 4, kWideSlabs, kWideStages, kWideSplit>;      // 16 x 64
 using ChunkTile = Tile<2, 4, 1, 4, kChunkSlabs, kChunkStages, kChunkSplit>;  // 32 x 128
 using LargeTile = Tile<kLargeWN, kLargeWM, kLargeNT, kLargeMT, kLargeSlabs,
