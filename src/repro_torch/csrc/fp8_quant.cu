@@ -8,7 +8,8 @@
 // arithmetic per element (abs, max, divide, clip, cvt) is far below the
 // card's rate.  So the design reads every element exactly once into
 // registers, reduces the amax there (warp shuffles, one shared-memory step
-// for the weight block) and writes the payload packed four bytes at a time.
+// for the weight block) and writes the payload packed four bytes at a time
+// (act) or, through a shared tile, as 16-byte K-major rows (weight).
 #include "fp8_common.cuh"
 
 namespace fp8rl {
@@ -40,58 +41,13 @@ __global__ void quant_act_kernel(const T* __restrict__ x, uint8_t* __restrict__ 
 }
 
 // One 256-thread block per 128x128 tile of one layer slice (grid z).
-// Warp w holds rows w, w+8, ..., w+120; lane i columns 4i..4i+3.
-// Writes q (L, K, N) row-major.
+// Writes q K-major, (L, N, K): the layout kernel 3 streams.  Warp w holds
+// rows w, w+8, ..., w+120; lane i columns i, i+32, i+64, i+96 (64-byte
+// coalesced reads).  The fp8 bytes go through a shared tile [column][row]
+// (rows 132 bytes apart: the byte stores of a warp and the word reads of
+// a row hit 32 distinct banks) and leave as 16-byte K-major rows.
 template <typename T, int kFmt>
 __global__ void __launch_bounds__(256) quant_weight_kernel(
-    const T* __restrict__ w, uint8_t* __restrict__ q, float* __restrict__ s,
-    int64_t kdim, int64_t n, int pow2) {
-  const int64_t nb = n / 128, kb = kdim / 128;
-  const int64_t layer = blockIdx.z;
-  const T* wl = w + layer * kdim * n;
-  uint8_t* ql = q + layer * kdim * n;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-  const int64_t col = static_cast<int64_t>(blockIdx.x) * 128 + lane * 4;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * 128 + warp;
-  float v[16][4];
-  float amax = 0.0f;
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      v[i][j] = to_f32(wl[(row0 + 8 * i) * n + col + j]);
-      amax = fmaxf(amax, fabsf(v[i][j]));
-    }
-  }
-  __shared__ float red[8];
-  amax = warp_max(amax);
-  if (lane == 0) red[warp] = amax;
-  __syncthreads();
-  if (warp == 0) {
-    float a = lane < 8 ? red[lane] : 0.0f;
-    a = warp_max(a);
-    if (lane == 0) red[0] = a;
-  }
-  __syncthreads();
-  const float scale = amax_to_scale<kFmt>(red[0], pow2 != 0);
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    uint32_t packed = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) packed |= quantize_one<kFmt>(v[i][j], scale) << (8 * j);
-    *reinterpret_cast<uint32_t*>(ql + (row0 + 8 * i) * n + col) = packed;
-  }
-  if (threadIdx.x == 0) s[(layer * kb + blockIdx.y) * nb + blockIdx.x] = scale;
-}
-
-// The same function with the payload written K-major, q (L, N, K): the
-// layout kernel 3 streams.  Warp w holds rows w, w+8, ..., w+120; lane i
-// columns i, i+32, i+64, i+96 (64-byte coalesced reads).  The fp8 bytes
-// go through a shared tile [column][row] (rows 132 bytes apart: the byte
-// stores of a warp and the word reads of a row hit 32 distinct banks)
-// and leave as 16-byte K-major rows.
-template <typename T, int kFmt>
-__global__ void __launch_bounds__(256) quant_weight_kmajor_kernel(
     const T* __restrict__ w, uint8_t* __restrict__ q, float* __restrict__ s,
     int64_t kdim, int64_t n, int pow2) {
   constexpr int kTRow = 132;
@@ -157,21 +113,20 @@ void launch_act(const void* x, void* q, void* s, int64_t m, int64_t k, int out_d
 
 template <typename T, int kFmt>
 void launch_weight_fmt(const void* w, void* q, void* s, int64_t layers, int64_t kdim,
-                       int64_t n, int pow2, int kmajor, cudaStream_t stream) {
+                       int64_t n, int pow2, cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>(n / 128), static_cast<unsigned>(kdim / 128),
                   static_cast<unsigned>(layers));
-  auto kernel = kmajor ? quant_weight_kmajor_kernel<T, kFmt> : quant_weight_kernel<T, kFmt>;
-  kernel<<<grid, 256, 0, stream>>>(static_cast<const T*>(w), static_cast<uint8_t*>(q),
-                                   static_cast<float*>(s), kdim, n, pow2);
+  quant_weight_kernel<T, kFmt><<<grid, 256, 0, stream>>>(
+      static_cast<const T*>(w), static_cast<uint8_t*>(q), static_cast<float*>(s), kdim, n, pow2);
 }
 
 template <typename T>
 void launch_weight(const void* w, void* q, void* s, int64_t layers, int64_t kdim, int64_t n,
-                   int out_dtype, int pow2, int kmajor, cudaStream_t stream) {
+                   int out_dtype, int pow2, cudaStream_t stream) {
   if (out_dtype == kE4M3)
-    launch_weight_fmt<T, kE4M3>(w, q, s, layers, kdim, n, pow2, kmajor, stream);
+    launch_weight_fmt<T, kE4M3>(w, q, s, layers, kdim, n, pow2, stream);
   else
-    launch_weight_fmt<T, kE5M2>(w, q, s, layers, kdim, n, pow2, kmajor, stream);
+    launch_weight_fmt<T, kE5M2>(w, q, s, layers, kdim, n, pow2, stream);
 }
 
 }  // namespace
@@ -192,15 +147,15 @@ extern "C" int fp8rl_quant_act(const void* x, void* q, void* s, int64_t m, int64
   return static_cast<int>(cudaGetLastError());
 }
 
-// w (L, K, N) f32|bf16 with K, N % 128 == 0 -> q fp8, (L, K, N) row-major
-// or, with kmajor, (L, N, K); s (L, K/128, N/128) f32
+// w (L, K, N) f32|bf16 with K, N % 128 == 0 -> q fp8 stored K-major,
+// (L, N, K); s (L, K/128, N/128) f32
 extern "C" int fp8rl_quant_weight(const void* w, void* q, void* s, int64_t layers, int64_t kdim,
-                                  int64_t n, int in_dtype, int out_dtype, int pow2, int kmajor,
+                                  int64_t n, int in_dtype, int out_dtype, int pow2,
                                   void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (in_dtype == kBF16)
-    launch_weight<__nv_bfloat16>(w, q, s, layers, kdim, n, out_dtype, pow2, kmajor, st);
+    launch_weight<__nv_bfloat16>(w, q, s, layers, kdim, n, out_dtype, pow2, st);
   else
-    launch_weight<float>(w, q, s, layers, kdim, n, out_dtype, pow2, kmajor, st);
+    launch_weight<float>(w, q, s, layers, kdim, n, out_dtype, pow2, st);
   return static_cast<int>(cudaGetLastError());
 }

@@ -36,7 +36,7 @@ _P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
 # C signatures: every pointer and the trailing stream are c_void_p
 SIGNATURES = {
     "fp8rl_quant_act": [_P, _P, _P, _I64, _I64, _I32, _I32, _I32, _P],
-    "fp8rl_quant_weight": [_P, _P, _P, _I64, _I64, _I64, _I32, _I32, _I32, _I32, _P],
+    "fp8rl_quant_weight": [_P, _P, _P, _I64, _I64, _I64, _I32, _I32, _I32, _P],
     "fp8rl_gemm": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
     "fp8rl_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32,
                            _I32, _I32, _I32, _I32, _F32, _P],

@@ -11,7 +11,7 @@ Port of `repro.kernels.fp8_quant` (the TPU kernels) and of its oracles
   (repro/kernels/fp8_quant.py:90): 128x128 blocks -> q (K, N) fp8 and
   scales (K/128, N/128).  It runs over every linear weight at every weight
   sync; the CUDA kernel takes layer-stacked (L, K, N) weights in one launch
-  and, for the sync, writes q K-major, (N, K): the layout kernel 3 reads.
+  and stores q K-major, (N, K): the layout kernel 3 reads.
 
 Both are bound by bytes on the H100 (one read of the source, one write of
 the payload); `csrc/fp8_quant.cu` says how the design follows from that.
@@ -53,21 +53,16 @@ def quantize_activation_ref(x: torch.Tensor, fp8_dtype=E4M3,
 
 
 def quantize_weight_ref(w: torch.Tensor, fp8_dtype=E4M3,
-                        scale_format: ScaleFormat = ScaleFormat.FP32,
-                        k_major: bool = False):
+                        scale_format: ScaleFormat = ScaleFormat.FP32):
     """Plain version of kernel 2: w (..., K, N), K and N % 128 == 0 ->
-    (q, scales (..., K/128, N/128)); q is (..., K, N), or with `k_major`
-    the same values stored (..., N, K)."""
+    (q (..., K, N) row-major, scales (..., K/128, N/128))."""
     *lead, k, n = w.shape
     kb, nb = k // 128, n // 128
     wf = w.float().reshape(-1, kb, 128, nb, 128)
     scale = _scale(wf.abs().amax(dim=(2, 4)), fp8_dtype, scale_format)
     fmax = FP8_MAX[fp8_dtype]
     q = torch.clamp(wf / scale[:, :, None, :, None], -fmax, fmax)
-    q = q.to(fp8_dtype).reshape(*lead, k, n)
-    if k_major:    # a layout copy, through the raw bytes
-        q = q.view(torch.uint8).transpose(-1, -2).contiguous().view(fp8_dtype)
-    return q, scale.reshape(*lead, kb, nb)
+    return q.to(fp8_dtype).reshape(*lead, k, n), scale.reshape(*lead, kb, nb)
 
 
 def _check(x: torch.Tensor, fp8_dtype) -> None:
@@ -96,11 +91,11 @@ def quantize_activation_kernel(x: torch.Tensor, fp8_dtype=E4M3,
 
 
 def quantize_weight_kernel(w: torch.Tensor, fp8_dtype=E4M3,
-                           scale_format: ScaleFormat = ScaleFormat.FP32,
-                           k_major: bool = False):
+                           scale_format: ScaleFormat = ScaleFormat.FP32):
     """Kernel 2 on the card: w (K, N) or stacked (L, K, N) bf16/f32 CUDA,
-    K and N % 128 == 0; one launch for all L slices.  With `k_major` the
-    payload is written (..., N, K): kernel 3's layout."""
+    K and N % 128 == 0; one launch for all L slices.  The payload is
+    stored (..., N, K), kernel 3's layout; q is its (..., K, N) transposed
+    view, so its values are the plain version's."""
     _check(w, fp8_dtype)
     *lead, k, n = w.shape
     if k % 128 or n % 128:
@@ -108,13 +103,12 @@ def quantize_weight_kernel(w: torch.Tensor, fp8_dtype=E4M3,
     layers = 1
     for d in lead:
         layers *= d
-    q = torch.empty((*lead, n, k) if k_major else w.shape, dtype=fp8_dtype,
-                    device=w.device)
+    q = torch.empty((*lead, n, k), dtype=fp8_dtype, device=w.device)
     s = torch.empty((*lead, k // 128, n // 128), dtype=torch.float32,
                     device=w.device)
     if layers:
         build.launch("quant_weight", "fp8rl_quant_weight", w.device,
                      w.data_ptr(), q.data_ptr(), s.data_ptr(), layers, k, n,
                      DTYPE_CODE[w.dtype], DTYPE_CODE[fp8_dtype],
-                     int(scale_format == ScaleFormat.UE8M0), int(k_major))
-    return q, s
+                     int(scale_format == ScaleFormat.UE8M0))
+    return q.transpose(-1, -2), s

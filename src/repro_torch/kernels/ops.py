@@ -74,9 +74,11 @@ def quantize_weight(w: torch.Tensor, fp8_dtype=E4M3,
     *lead, k, n = w.shape
     wp = _pad_to(w, (128, 128)).contiguous()
     fn = _route(w, _quant.quantize_weight_kernel, _quant.quantize_weight_ref)
-    q, s = fn(wp, fp8_dtype, scale_format, k_major=True)
-    return QuantizedTensor(q.transpose(-1, -2)[..., :k, :n], s,
-                           (1,) * len(lead) + (128, 128))
+    q, s = fn(wp, fp8_dtype, scale_format)
+    if not q.is_cuda:   # the plain version is row-major: copy the raw bytes
+        q = q.view(torch.uint8).transpose(-1, -2).contiguous().view(q.dtype)
+        q = q.transpose(-1, -2)
+    return QuantizedTensor(q[..., :k, :n], s, (1,) * len(lead) + (128, 128))
 
 
 def _gemm_weight(w: torch.Tensor) -> torch.Tensor:
