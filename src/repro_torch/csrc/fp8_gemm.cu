@@ -26,9 +26,11 @@
 //     latency-bound at ~0.4 us a slab, hot in L2 or cold, whatever N;
 //   * narrow weight tiles up to M 64 (16 or 32 n-rows a block), so
 //     every qwen3-8b shape but (4096, 1024) launches >= 128 blocks
-//     without split-K; 32 x 128 tiles at the engine's chunk (M <= 128)
-//     and 128 x 128 above, where the tensor cores bound it.
-// One block body serves every M; the five tile shapes differ only in how
+//     without split-K; M 33-64 (the engine's spec verify) runs the
+//     32 x 32 tile over two row blocks, which beat a 16 x 64 tile and
+//     the 32 x 128 one at M 40; 32 x 128 tiles at the engine's chunk
+//     (M <= 128) and 128 x 128 above, where the tensor cores bound it.
+// One block body serves every M; the four tile shapes differ only in how
 // many 16x8 output fragments a warp and a block hold and in their rings.
 // Each output element's arithmetic is the same in all of them: four k32
 // `mma` steps from zero per slab into a fresh f32 partial, then acc = acc
@@ -48,13 +50,10 @@ constexpr int BK = 128;  // one K slab per scale
 constexpr int kSmallSlabs = 8;  // M <= 8
 constexpr int kSmallStages = 3;
 constexpr int kSmallSplit = 8;
-constexpr int kMidSlabs = 4;    // M <= 32
+constexpr int kMidSlabs = 4;    // M <= 64 (two row blocks past M 32)
 constexpr int kMidStages = 2;
 constexpr int kMidSplit = 4;
 constexpr int kMidWN = 2;       // warps across the weight's rows, 16 each
-constexpr int kWideSlabs = 2;   // M <= 64
-constexpr int kWideStages = 4;
-constexpr int kWideSplit = 2;
 constexpr int kChunkSlabs = 1;  // M <= 128
 constexpr int kChunkStages = 4;
 constexpr int kChunkSplit = 1;
@@ -120,7 +119,6 @@ struct Tile {
 // n x m outputs a block
 using SmallTile = Tile<1, 1, 1, 1, kSmallSlabs, kSmallStages, kSmallSplit>;  // 16 x 8
 using MidTile = Tile<kMidWN, 1, 1, 4, kMidSlabs, kMidStages, kMidSplit>;     // 32 x 32
-using WideTile = Tile<1, 2, 1, 4, kWideSlabs, kWideStages, kWideSplit>;      // 16 x 64
 using ChunkTile = Tile<2, 4, 1, 4, kChunkSlabs, kChunkStages, kChunkSplit>;  // 32 x 128
 using LargeTile = Tile<kLargeWN, kLargeWM, kLargeNT, kLargeMT, kLargeSlabs,
                        kLargeStages>;                                        // 128 x 128
@@ -350,8 +348,7 @@ extern "C" int fp8rl_gemm(const void* a, const void* w, const void* a_s, const v
   const auto s = static_cast<cudaStream_t>(stream);
   if (m <= 0) return static_cast<int>(cudaGetLastError());
   if (m <= SmallTile::BM) return launch_gemm<SmallTile>(a, w, a_s, w_s, out, m, n, k, ldw, s);
-  if (m <= MidTile::BM) return launch_gemm<MidTile>(a, w, a_s, w_s, out, m, n, k, ldw, s);
-  if (m <= WideTile::BM) return launch_gemm<WideTile>(a, w, a_s, w_s, out, m, n, k, ldw, s);
+  if (m <= 2 * MidTile::BM) return launch_gemm<MidTile>(a, w, a_s, w_s, out, m, n, k, ldw, s);
   if (m <= ChunkTile::BM) return launch_gemm<ChunkTile>(a, w, a_s, w_s, out, m, n, k, ldw, s);
   return launch_gemm<LargeTile>(a, w, a_s, w_s, out, m, n, k, ldw, s);
 }
