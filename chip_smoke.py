@@ -128,11 +128,11 @@ KERNEL_SOURCES = {
 }
 # kernel 3 at the four (K, N) of qwen3-8b's linears (wv is wk's, wo wq's,
 # wu wg's), keyed by the leaf timed on the rollout weights, and at the M
-# the paths run: LONG_500K, decode, GRPO decode, the engine's chunk, the
-# `generate` prefill
+# the paths run: LONG_500K, decode, GRPO decode, the engine's spec verify
+# (k 4, up to 8 slots), its chunk, the `generate` prefill
 GEMM_SHAPES = {("attn", "wq"): (4096, 4096), ("attn", "wk"): (4096, 1024),
                ("mlp", "wg"): (4096, 12288), ("mlp", "wd"): (12288, 4096)}
-GEMM_MS = (1, 8, 32, 128, 1024)
+GEMM_MS = (1, 8, 32, 40, 128, 1024)
 # phase 7: kernel 6 at 7a's shape, and the chunked-attention prefill of 7b
 CONTIG_SHAPE = ("smoke_prefill", 1056, 8, "prefill")
 CONTIG_STEPS = 32
@@ -248,9 +248,11 @@ def compare_quantizers(dev, gen, results):
     def mismatches(a, b):
         return int((a.view(torch.uint8) != b.view(torch.uint8)).sum())
 
+    # kernel 2 also at the stacked (L, K, N) of the sync's wg and wu
+    # leaves; its payload is the (..., K, N) view of K-major storage
     for name, shapes, kernel, plain, std in (
-            ("quant_weight", [(4096, 12288), (12288, 4096)], fq.quantize_weight_kernel,
-             fq.quantize_weight_ref, 0.02),
+            ("quant_weight", [(4096, 12288), (12288, 4096), (36, 4096, 12288)],
+             fq.quantize_weight_kernel, fq.quantize_weight_ref, 0.02),
             ("quant_act", [(8, 4096), (1024, 4096), (8, 12288)],
              fq.quantize_activation_kernel, fq.quantize_activation_ref, 3.0)):
         for shape in shapes:
@@ -261,14 +263,6 @@ def compare_quantizers(dev, gen, results):
             bad_q, bad_s = mismatches(qk, qp), int((sk != sp).sum())
             log(f"{name} {shape}: payload mismatches {bad_q}, scale mismatches {bad_s}")
             check(bad_q == 0 and bad_s == 0, f"{name} {shape} not bit-equal")
-            if name == "quant_weight":      # the sync's K-major store
-                qk, sk = kernel(x, E4M3, ScaleFormat.FP32, k_major=True)
-                qp, sp = plain(x, E4M3, ScaleFormat.FP32, k_major=True)
-                torch.cuda.synchronize()
-                bad_q, bad_s = mismatches(qk, qp), int((sk != sp).sum())
-                log(f"{name} {shape} K-major: payload mismatches {bad_q}, scale mismatches "
-                    f"{bad_s}")
-                check(bad_q == 0 and bad_s == 0, f"{name} {shape} K-major not bit-equal")
             qk, sk = kernel(x, E4M3, ScaleFormat.UE8M0)
             qp, sp = plain(x, E4M3, ScaleFormat.UE8M0)
             torch.cuda.synchronize()
@@ -1395,32 +1389,26 @@ def gemm_row(stack, m, gen, reps=20):
     return row
 
 
-def sync_layout_ms(roll, gen, reps=3):
-    """What the K-major payload costs the weight sync: kernel 2's device
-    time with its K-major store against its row-major one, over the
-    shapes of the rollout's quantized leaves (seeded bf16 weights)."""
+def sync_quant_ms(shapes, gen, reps=3):
+    """Kernel 2's device time over a weight sync's stacked leaves, each a
+    seeded bf16 (L, K, N) weight of `shapes` quantized by
+    `ops.quantize_weight` as the sync calls it (in this tree, into the
+    K-major storage kernel 3 streams)."""
     import torch
-    from repro_torch.core.quant import QuantizedTensor
-    from repro_torch.kernels import fp8_quant as fq
-    row_ms = kmajor_ms = 0.0
-    for leaf in roll["blocks"]["s0"].values():
-        for qt in leaf.values():
-            if not isinstance(qt, QuantizedTensor):
-                continue
-            w = torch.empty(qt.data.shape, dtype=torch.bfloat16, device=qt.data.device)
-            w.normal_(generator=gen)
-            row_ms += device_time_ms(lambda: fq.quantize_weight_kernel(w), reps=reps, warmup=1)
-            kmajor_ms += device_time_ms(lambda: fq.quantize_weight_kernel(w, k_major=True),
-                                        reps=reps, warmup=1)
-            del w
-    log(f"weight sync: kernel 2 over the rollout's leaves {kmajor_ms:.3f} ms of device time "
-        f"writing K-major, {row_ms:.3f} ms row-major: the layout adds "
-        f"{kmajor_ms - row_ms:.3f} ms")
+    from repro_torch.kernels import ops
+    total = 0.0
+    for shape in shapes:
+        w = torch.empty(shape, dtype=torch.bfloat16, device="cuda")
+        w.normal_(generator=gen)
+        total += device_time_ms(lambda: ops.quantize_weight(w), reps=reps, warmup=1)
+        del w
+    return total
 
 
 def time_kernels(dev, gen, results, cfg, roll, traj, contig_lengths, extra):
     import torch
     from repro_torch.core.precision import E4M3
+    from repro_torch.core.quant import QuantizedTensor
     from repro_torch.kernels import fp8_kv_attention as fa
     from repro_torch.kernels import fp8_quant as fq
     d, f = cfg.d_model, cfg.d_ff
@@ -1436,7 +1424,8 @@ def time_kernels(dev, gen, results, cfg, roll, traj, contig_lengths, extra):
         if m == 8:
             results["quant_act"].update(row)
 
-    # quant_weight on the largest stacked leaf the sync quantizes
+    # quant_weight on the largest stacked leaf the sync quantizes (its
+    # K-major store moves the bytes of a row-major one)
     w = torch.empty((cfg.n_layers, d, f), dtype=torch.bfloat16, device=dev)
     w.normal_(generator=gen)
     row = timed_row(lambda: fq.quantize_weight_kernel(w), lambda: fq.quantize_weight_ref(w),
@@ -1448,8 +1437,7 @@ def time_kernels(dev, gen, results, cfg, roll, traj, contig_lengths, extra):
     results["quant_weight"].update(row)
 
     # fp8_gemm on the real rollout weights, each call on the next layer's
-    # (cold in L2), at the four (K, N) and the paths' M; the layout copy
-    # that the sync adds for it
+    # (cold in L2), at the four (K, N) and the paths' M
     for (block, name), (k, n) in GEMM_SHAPES.items():
         stack = roll["blocks"]["s0"][block][name]
         for m in GEMM_MS:
@@ -1457,7 +1445,10 @@ def time_kernels(dev, gen, results, cfg, roll, traj, contig_lengths, extra):
             extra.append(dict(kernel="fp8_gemm", shape=[m, k, n], weight=name, **row))
             if (m, name) == (8, "wg"):
                 results["fp8_gemm"].update(row)
-    sync_layout_ms(roll, gen)
+    leaves = [qt.data.shape for leaf in roll["blocks"]["s0"].values()
+              for qt in leaf.values() if isinstance(qt, QuantizedTensor)]
+    log(f"weight sync: kernel 2 over the rollout's {len(leaves)} quantized leaves "
+        f"{sync_quant_ms(leaves, gen):.3f} ms of device time (K-major store)")
 
     # paged decode at the greedy run's final context lengths
     lengths = (traj.prompt_lengths + traj.response_lengths).to(torch.int32)

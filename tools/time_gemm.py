@@ -4,41 +4,45 @@
     python3 tools/time_gemm.py                          # this checkout
     python3 tools/time_gemm.py \\
         --run parent=.chip_scratch/parent --run change=. \\
-        --order parent,change,change,parent --ptxas
+        --order parent,change,change,parent --ptxas [--shapes wg,wd]
 
-Each run is a checkout root (`LABEL=PATH`), optionally with `constexpr
-int` constants of its `csrc/fp8_gemm.cu` rewritten
-(`LABEL=PATH:kSmallStages=12`): such a run is a copy of PATH's `src/`
-under `.chip_scratch/variants/LABEL/`, which builds its own kernel
-library.  The runs go in `--order`, each in its own process, so two trees
-are compared on one card in turns.
+Runs, turns, `NAME=VALUE` rewrites of `csrc/fp8_gemm.cu`'s `constexpr
+int` constants (`LABEL=PATH:kSmallStages=4`) and `--ptxas`: see
+`tools/ab_driver.py`.
 
-At each of the four (K, N) of qwen3-8b's linears a run makes a seeded
-36-layer weight stack with the run's own `ops.quantize_weight` (so each
-tree gets the layout its sync makes), and at each M of `chip_smoke.py`'s
-`GEMM_MS` holds the run's kernel to its plain version and times it with
-this checkout's `chip_smoke.py` (`gemm_weight`, `hold_gemm`, `gemm_row`:
-the same hold, cold-weight rotation, yardstick and bound as phase 6),
-printing one `ROW {json}` line.  `--ptxas` first prints `nvcc -Xptxas
--v`'s registers, shared memory and spills for each run's kernel 3.
+At each of the four (K, N) of qwen3-8b's linears (`--shapes` picks
+leaves of `chip_smoke.GEMM_SHAPES`: wq, wk, wg, wd) a turn makes a
+seeded 36-layer weight stack with the run's own `ops.quantize_weight`
+(so each tree gets the layout its sync makes), and at each M of
+`chip_smoke.py`'s `GEMM_MS` holds the run's kernel to its plain version
+and times it with this checkout's `chip_smoke.py` (`gemm_weight`,
+`hold_gemm`, `gemm_row`: the same hold, cold-weight rotation, yardstick
+and bound as phase 6).  Then it times the run's weight-sync quantizer
+(kernel 2 through `ops.quantize_weight`, `chip_smoke.sync_quant_ms`)
+over the seven stacked leaves of a qwen3-8b sync, so a parent turn gives
+the cost of the layout the parent's sync wrote.
 """
 from __future__ import annotations
 
 import argparse
 import json
-import os
-import re
-import shutil
-import subprocess
 import sys
 from pathlib import Path
 
+import ab_driver
+
 ROOT = Path(__file__).resolve().parents[1]
 LAYERS = 36
-SOURCE = Path("src") / "repro_torch" / "csrc" / "fp8_gemm.cu"
+# a sync's quantized leaves of each timed shape: wo shares wq's, wv wk's,
+# wu wg's
+SYNC_LEAVES = {"wq": 2, "wk": 2, "wg": 2, "wd": 1}
 
 
-def worker(src: str, shapes: list[str] | None) -> None:
+def worker(src: str, settings: dict, argv: list[str]) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--shapes")
+    shapes = ap.parse_args(argv).shapes
+    shapes = shapes.split(",") if shapes else None
     sys.path.insert(0, src)
     sys.path.insert(1, str(ROOT))
     import torch
@@ -67,100 +71,22 @@ def worker(src: str, shapes: list[str] | None) -> None:
             print("ROW " + json.dumps(row), flush=True)
         del stack, first
         torch.cuda.empty_cache()
+    leaves = [(LAYERS, k, n) for (_, name), (k, n) in cs.GEMM_SHAPES.items()
+              for _ in range(SYNC_LEAVES[name])]
+    print("ROW " + json.dumps(dict(sync_leaves=len(leaves),
+                                   sync_quant_device_ms=cs.sync_quant_ms(leaves, gen))),
+          flush=True)
 
 
-def variant(label: str, path: Path, consts: dict) -> Path:
-    """`path` itself, or a copy of its `src/` with constants rewritten."""
-    if not consts:
-        return path
-    dst = ROOT / ".chip_scratch" / "variants" / label
-    shutil.rmtree(dst, ignore_errors=True)
-    shutil.copytree(path / "src", dst / "src",
-                    ignore=shutil.ignore_patterns("__pycache__"))
-    cu = dst / SOURCE
-    text = cu.read_text()
-    for name, value in consts.items():
-        text, n = re.subn(rf"(constexpr int {name} = )\d+;", rf"\g<1>{value};", text)
-        if n != 1:
-            sys.exit(f"{label}: no `constexpr int {name}` in {cu}")
-    cu.write_text(text)
-    return dst
-
-
-def ptxas(trees: dict) -> None:
-    """`nvcc -Xptxas -v` of each tree's kernel 3 source, all at once: one
-    line per kernel with its registers, shared memory and spills."""
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
-    procs = {}
-    for tree, label in trees.items():
-        csrc = tree / SOURCE.parent
-        procs[label] = subprocess.Popen(
-            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-             "-Xptxas", "-v", "-I", str(csrc), "-c", str(tree / SOURCE), "-o", os.devnull],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    for label, proc in procs.items():
-        out, _ = proc.communicate()
-        kernel, spills = None, ""
-        for line in out.splitlines():
-            m = re.search(r"Compiling entry function '(\S+)'", line)
-            if m:
-                kernel = m.group(1)
-                if os.path.exists(filt):
-                    kernel = subprocess.run([filt, kernel], capture_output=True,
-                                            text=True).stdout.strip()
-            elif "spill" in line:
-                spills = line.split(":", 1)[-1].strip()
-            elif "registers" in line:
-                print(f"PTXAS {label} {kernel}: {line.split(':', 1)[-1].strip()}; {spills}",
-                      flush=True)
-        if proc.returncode != 0:
-            print(f"PTXAS {label}: nvcc failed\n{out[-3000:]}", flush=True)
-
-
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--run", action="append", default=[],
-                    help="LABEL=PATH[:NAME=VALUE,...] (default: this checkout)")
-    ap.add_argument("--order", help="comma-separated labels (default: each run once)")
-    ap.add_argument("--shapes", help="comma-separated leaves of chip_smoke.GEMM_SHAPES "
-                    "(wq, wk, wg, wd; default: all)")
-    ap.add_argument("--ptxas", action="store_true")
-    ap.add_argument("--worker", help=argparse.SUPPRESS)
-    args = ap.parse_args()
-    shapes = args.shapes.split(",") if args.shapes else None
-    if args.worker:
-        worker(args.worker, shapes)
-        return 0
-    runs = {}
-    for spec in args.run or [f"this={ROOT}"]:
-        label, rest = spec.split("=", 1)
-        path, _, sets = rest.partition(":")
-        sets = dict(kv.split("=") for kv in sets.split(",") if kv)
-        runs[label] = variant(label, (ROOT / path).resolve(), sets)
-    order = args.order.split(",") if args.order else list(runs)
-    if args.ptxas:
-        ptxas({tree: label for label, tree in reversed(runs.items())})
-    failed = []
-    for label in order:
-        cmd = [sys.executable, __file__, "--worker", str(runs[label] / "src")]
-        if shapes:
-            cmd += ["--shapes", ",".join(shapes)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        for line in proc.stdout.splitlines():
-            if line.startswith("ROW "):
-                row = json.loads(line[4:])
-                print(f"{label}: M {row['m']} K {row['k']} N {row['n']}: device ms "
-                      f"{row['device_ms']:.4f}, ms {row['ms']:.4f}, bound {row['bound_ms']:.4f}"
-                      f", _scaled_mm {row['scaled_mm_device_ms']}, bf16 mm "
-                      f"{row['bf16_mm_device_ms']:.4f}, err {row['max_abs_err']:.2e}",
-                      flush=True)
-                print(f"JSON {label} " + json.dumps(row), flush=True)
-        if proc.returncode != 0:
-            print(f"{label}: failed (rc {proc.returncode})\n{proc.stderr[-4000:]}", flush=True)
-            failed.append(label)
-    return 1 if failed else 0
+def summary(row: dict) -> str:
+    if "sync_leaves" in row:
+        return (f"weight sync: kernel 2 over {row['sync_leaves']} stacked leaves, device ms "
+                f"{row['sync_quant_device_ms']:.3f}")
+    return (f"M {row['m']} K {row['k']} N {row['n']}: device ms {row['device_ms']:.4f}, "
+            f"ms {row['ms']:.4f}, bound {row['bound_ms']:.4f}, _scaled_mm "
+            f"{row['scaled_mm_device_ms']}, bf16 mm {row['bf16_mm_device_ms']:.4f}, "
+            f"err {row['max_abs_err']:.2e}")
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(ab_driver.main(__file__, "fp8_gemm.cu", worker, summary))
