@@ -10,9 +10,10 @@ the order 1-5, 7, 6:
 1. the card's name and power limit (nvidia-smi);
 2. build the six CUDA kernels from `src/repro_torch/csrc` (nvcc, sm_90a);
 3. hold each kernel against its plain PyTorch version on the card at the
-   main paths' shapes: the quantizers bit-equal (FP32 scales, kernel 2
-   row-major and K-major; UE8M0
-   mismatching tiles are counted and printed), fp8_gemm within one bf16
+   main paths' shapes: the quantizers bit-equal (kernel 1 at M 1-16384
+   and K 4096 or 12288, and with f32 input, E5M2 and UE8M0 at one shape
+   each; kernel 2 K-major with FP32 scales, its UE8M0 mismatching tiles
+   counted and printed), fp8_gemm within one bf16
    rounding (rtol 2**-7) at qwen3-8b's four (K, N) and M 1, 8, 32, 128,
    1024, its rows bit-equal across M and batches, paged decode, chunked
    prefill and contiguous
@@ -24,10 +25,13 @@ the order 1-5, 7, 6:
    `generate` with 8 ragged prompts (64-128 tokens), 32 new tokens, page
    size 16 — greedy, then temperature 1 with GRPO groups of 4 over shared
    prefix blocks.  Launch counts are zeroed just before and read just
-   after; every kernel of the path must have launched.  Outputs are
+   after; every kernel of the path must have launched, and on every path
+   kernel 1 exactly 4 times for 7 of kernel 3 (one quantization per
+   distinct linear input).  Outputs are
    checked (finite, in range); one decode step's and one prefill chunk's
    logits through the kernels are held against the plain versions on the
-   same CUDA tensors; one decode step is profiled; then one greedy
+   same CUDA tensors; one decode step is profiled (kernel 1's share of
+   it logged); then one greedy
    `generate` under BF16_ROLLOUT on the same prompts (the paper's
    baseline: tokens/s and decode ms/step beside the FP8 run's);
 5. the serving path on the same synced weights: `ServingEngine` with
@@ -48,6 +52,9 @@ the order 1-5, 7, 6:
    between launches included) and `device_ms` from CUDA events around
    calls queued behind a spin kernel (the kernels alone, back to back),
    for the kernel and its library call;
+   quant_act at (8, 4096), (1024, 4096) and (16384, 4096), with the host
+   microseconds of one `ops.quantize_activation` call, and kernel 1 +
+   kernel 3 as a linear calls them (M 8, the four (K, N), cold weights);
    fp8_gemm at the four (K, N) and M 1, 8, 32, 128, 1024, each call on
    the next of the 36 layers' weights (cold in L2), beside two other
    functions (`torch._scaled_mm` with per-tensor scales, cuBLAS bf16),
@@ -133,6 +140,23 @@ KERNEL_SOURCES = {
 GEMM_SHAPES = {("attn", "wq"): (4096, 4096), ("attn", "wk"): (4096, 1024),
                ("mlp", "wg"): (4096, 12288), ("mlp", "wd"): (12288, 4096)}
 GEMM_MS = (1, 8, 32, 40, 128, 1024)
+# kernel 1 held bit-equal to its plain version: M 1-16384 at K 4096 (the
+# paths' decode, verify, chunk and prefill rows; 3 and 129 are ragged),
+# M 8 at K 12288 (wd's input), and f32 input, E5M2 and UE8M0 at one shape
+# each: ((M, K), input dtype, fp8 dtype, scale format)
+QUANT_ACT_HOLDS = ([((m, 4096), "bfloat16", "E4M3", "FP32") for m in (1, 3, 8, 40, 129, 1024,
+                                                                    16384)]
+                   + [((8, 12288), "bfloat16", "E4M3", "FP32"),
+                      ((129, 4096), "float32", "E4M3", "FP32"),
+                      ((40, 4096), "bfloat16", "E5M2", "FP32"),
+                      ((1024, 4096), "bfloat16", "E4M3", "UE8M0")])
+# phase 6: kernel 1's timed shapes (decode, `generate`'s prefill, 7b's
+# 16K prefill) and the M of the kernel 1 + kernel 3 pair rows
+QUANT_ACT_MS = (8, 1024, 16384)
+PAIR_M = 8
+# a dense layer's 7 quantized linears take 4 distinct inputs (q/k/v,
+# wo, gate/up, wd): kernel 1 launches 4 times for every 7 of kernel 3
+QUANT_PER_GEMM = (4, 7)
 # phase 7: kernel 6 at 7a's shape, and the chunked-attention prefill of 7b
 CONTIG_SHAPE = ("smoke_prefill", 1056, 8, "prefill")
 CONTIG_STEPS = 32
@@ -252,9 +276,7 @@ def compare_quantizers(dev, gen, results):
     # leaves; its payload is the (..., K, N) view of K-major storage
     for name, shapes, kernel, plain, std in (
             ("quant_weight", [(4096, 12288), (12288, 4096), (36, 4096, 12288)],
-             fq.quantize_weight_kernel, fq.quantize_weight_ref, 0.02),
-            ("quant_act", [(8, 4096), (1024, 4096), (8, 12288)],
-             fq.quantize_activation_kernel, fq.quantize_activation_ref, 3.0)):
+             fq.quantize_weight_kernel, fq.quantize_weight_ref, 0.02),):
         for shape in shapes:
             x = (torch.randn(shape, generator=gen, device=dev) * std).to(torch.bfloat16)
             qk, sk = kernel(x, E4M3, ScaleFormat.FP32)
@@ -269,6 +291,26 @@ def compare_quantizers(dev, gen, results):
             log(f"{name} {shape} UE8M0: mismatching scale tiles {int((sk != sp).sum())} "
                 f"of {sk.numel()}, payload bytes {mismatches(qk, qp)}")
         results[name]["max_abs_err"] = 0.0
+    from repro_torch.core import precision
+    for (m, k), dtype, fp8, fmt in QUANT_ACT_HOLDS:
+        x = (torch.randn((m, k), generator=gen, device=dev) * 3.0).to(getattr(torch, dtype))
+        hold_quant_act(x, getattr(precision, fp8), ScaleFormat[fmt])
+    results["quant_act"]["max_abs_err"] = 0.0
+
+
+def hold_quant_act(x, fp8, fmt):
+    """Kernel 1 against its plain version on the same tensor: 0
+    mismatching payload bytes and scales."""
+    import torch
+    from repro_torch.kernels import fp8_quant as fq
+    qk, sk = fq.quantize_activation_kernel(x, fp8, fmt)
+    qp, sp = fq.quantize_activation_ref(x, fp8, fmt)
+    torch.cuda.synchronize()
+    bad_q = int((qk.view(torch.uint8) != qp.view(torch.uint8)).sum())
+    bad_s = int((sk.view(torch.int32) != sp.view(torch.int32)).sum())
+    tag = f"quant_act {tuple(x.shape)} {x.dtype} -> {fp8} {fmt.name}"
+    log(f"{tag}: payload mismatches {bad_q}, scale mismatches {bad_s}")
+    check(bad_q == 0 and bad_s == 0, f"{tag} not bit-equal")
 
 
 def hold_gemm(a, w, a_s, w_s, tag):
@@ -640,9 +682,12 @@ def profile_decode_step(model, roll, prec, prompts, lengths, dev, tag=""):
             "(the profiler saw no CUDA events)")
         return {f"{tag}decode_step_wall_ms": wall_ms}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    quant_ms = sum(ms for name, ms in by_name.items() if "quant_act" in name)
     out = {f"{tag}decode_step_wall_ms": wall_ms, f"{tag}decode_step_device_busy_ms": busy_ms,
            f"{tag}decode_step_device_kernels": n_kernels,
-           f"{tag}decode_step_device_busy_share": busy_ms / wall_ms}
+           f"{tag}decode_step_device_busy_share": busy_ms / wall_ms,
+           f"{tag}decode_step_quant_act_ms": quant_ms,
+           f"{tag}decode_step_quant_act_share_of_busy": quant_ms / busy_ms}
     log(f"{tag}decode step profile: " + json.dumps(out) + "; top kernels (ms): "
         + json.dumps([[name[:60], round(ms, 3)] for name, ms in top]))
     return out
@@ -698,6 +743,7 @@ def main_path(dev, results, cfg):
     for name in ("quant_act", "quant_weight", "fp8_gemm", "paged_decode"):
         check(launches[name] > 0, f"kernel {name} was not launched on the main path")
         results[name]["launches"] = launches[name]
+    check_quant_per_gemm(launches, "the rollout path")
 
     steps = per_run[0]["paged_decode"] // cfg.n_layers
     check_trajectory(t_greedy, 8, 32, cfg.vocab_size, "greedy")
@@ -906,6 +952,7 @@ def engine_path(dev, results, cfg, roll):
     log(f"serving-path launches (roomy + tight runs): {launches}")
     for name in ("quant_act", "fp8_gemm", "paged_decode", "paged_prefill"):
         check(launches[name] > 0, f"kernel {name} was not launched on the serving path")
+    check_quant_per_gemm(launches, "the serving path")
     results["paged_prefill"]["launches"] = launches["paged_prefill"]
     stats["serving_path_launches"] = launches
     check(roomy.preemptions == 0 and tight.preemptions >= 1,
@@ -1010,13 +1057,23 @@ def _sync_ms(fn, *args):
 
 def _path_launches(tag, need):
     """Read the counts of the run just driven; every kernel in `need` must
-    have launched."""
+    have launched, and kernel 1 once per distinct linear input."""
     from repro_torch.kernels import build
     launches = dict(build.LAUNCHES)
     log(f"{tag} launches: {launches}")
     for name in need:
         check(launches[name] > 0, f"kernel {name} was not launched on {tag}")
+    check_quant_per_gemm(launches, tag)
     return launches
+
+
+def check_quant_per_gemm(launches, tag):
+    """Kernel 1 launches exactly QUANT_PER_GEMM of kernel 3's: one
+    quantization per distinct activation, never one per linear."""
+    q, g = QUANT_PER_GEMM
+    check(launches["quant_act"] * g == launches["fp8_gemm"] * q,
+          f"{tag}: kernel 1 launched {launches['quant_act']} times for "
+          f"{launches['fp8_gemm']} of kernel 3, not {q}/{g} of them")
 
 
 def _top2_gap(logits):
@@ -1389,6 +1446,77 @@ def gemm_row(stack, m, gen, reps=20):
     return row
 
 
+def host_us(fn, reps=200, warmup=20):
+    """Host microseconds per call of `fn`, enqueue alone: the host clock
+    around `reps` calls that do not wait for the card."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def quant_row(m, k, gen, dev, reps=20):
+    """Kernel 1's phase-6 row at a (M, K) bf16 activation: its times, its
+    plain version's, the bound, and `host_us`, the host time of one call
+    of `ops.quantize_activation` (the wrapper the linears call)."""
+    import torch
+    from repro_torch.kernels import fp8_quant as fq
+    from repro_torch.kernels import ops
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    row = timed_row(lambda: fq.quantize_activation_kernel(x),
+                    lambda: fq.quantize_activation_ref(x), reps=reps,
+                    plain_reps=3 if m > 1024 else 20)
+    row["bound_ms"], row["bound_by"] = bound(m * k * 3 + m * k // 128 * 4, 6 * m * k, F32_FLOPS)
+    row["host_us"] = host_us(lambda: ops.quantize_activation(x))
+    log(f"quant_act ({m}, {k}): device {row['device_ms']:.4f} ms (bound {row['bound_ms']:.4f}, "
+        f"{row['bound_by']}), ms {row['ms']:.4f}, plain {row['plain_ms']:.3f}, host "
+        f"{row['host_us']:.1f} us a wrapper call")
+    return row
+
+
+def pair_row(stack, m, gen, reps=20):
+    """Kernel 1 then kernel 3 on its output, as a linear calls them, at M
+    rows of a (L, K, N) weight stack, each pair on the next layer's weight
+    (cold in L2): `device_ms` (queued behind the spin) and `ms`, each
+    kernel alone in the same rotation, and the bound of the pair's
+    function x -> y (x, W and w_s read once, y written once; the fp8
+    activation between the two is not counted)."""
+    import itertools
+
+    import torch
+    from repro_torch.kernels import fp8_gemm as fg
+    from repro_torch.kernels import fp8_quant as fq
+    layers, k, n = stack.data.shape
+    x = torch.randn((m, k), generator=gen, device=stack.data.device).to(torch.bfloat16)
+    ws = itertools.cycle([stack.layer(r) for r in range(layers)])
+    a, a_s = fq.quantize_activation_kernel(x)
+
+    def pair():
+        w = next(ws)
+        q, q_s = fq.quantize_activation_kernel(x)
+        return fg.fp8_gemm(q, w.data, q_s, w.scales)
+
+    def gemm():
+        w = next(ws)
+        return fg.fp8_gemm(a, w.data, a_s, w.scales)
+    row = dict(ms=cuda_time_ms(pair, reps=reps), device_ms=device_time_ms(pair, reps=reps),
+               quant_act_device_ms=device_time_ms(lambda: fq.quantize_activation_kernel(x),
+                                                  reps=reps),
+               fp8_gemm_device_ms=device_time_ms(gemm, reps=reps))
+    nbytes = m * k * 2 + k * n + (k // 128) * (n // 128) * 4 + m * n * 2
+    row["bound_ms"], row["bound_by"] = bound(nbytes, 2 * m * n * k, FP8_TC_FLOPS)
+    log(f"quant_act + fp8_gemm M {m} K {k} N {n}: device {row['device_ms']:.4f} ms (alone "
+        f"{row['quant_act_device_ms']:.4f} + {row['fp8_gemm_device_ms']:.4f}; bound "
+        f"{row['bound_ms']:.4f}, {row['bound_by']}), ms {row['ms']:.4f}")
+    return row
+
+
 def sync_quant_ms(shapes, gen, reps=3):
     """Kernel 2's device time over a weight sync's stacked leaves, each a
     seeded bf16 (L, K, N) weight of `shapes` quantized by
@@ -1413,13 +1541,9 @@ def time_kernels(dev, gen, results, cfg, roll, traj, contig_lengths, extra):
     from repro_torch.kernels import fp8_quant as fq
     d, f = cfg.d_model, cfg.d_ff
 
-    # quant_act at the decode shape (8, d_model) and the prefill shape
-    for m in (8, 1024):
-        x = torch.randn((m, d), generator=gen, device=dev).to(torch.bfloat16)
-        row = timed_row(lambda: fq.quantize_activation_kernel(x),
-                        lambda: fq.quantize_activation_ref(x))
-        row["bound_ms"], row["bound_by"] = bound(m * d * 3 + m * d // 128 * 4,
-                                                 6 * m * d, F32_FLOPS)
+    # quant_act at the decode shape (8, d_model) and the prefill shapes
+    for m in QUANT_ACT_MS:
+        row = quant_row(m, d, gen, dev)
         extra.append(dict(kernel="quant_act", shape=[m, d], **row))
         if m == 8:
             results["quant_act"].update(row)
@@ -1445,6 +1569,11 @@ def time_kernels(dev, gen, results, cfg, roll, traj, contig_lengths, extra):
             extra.append(dict(kernel="fp8_gemm", shape=[m, k, n], weight=name, **row))
             if (m, name) == (8, "wg"):
                 results["fp8_gemm"].update(row)
+    # kernel 1 + kernel 3 as a linear calls them, at M 8 and the four (K, N)
+    for (block, name), (k, n) in GEMM_SHAPES.items():
+        row = pair_row(roll["blocks"]["s0"][block][name], PAIR_M, gen)
+        extra.append(dict(kernel="quant_act+fp8_gemm", shape=[PAIR_M, k, n], weight=name,
+                          **row))
     leaves = [qt.data.shape for leaf in roll["blocks"]["s0"].values()
               for qt in leaf.values() if isinstance(qt, QuantizedTensor)]
     log(f"weight sync: kernel 2 over the rollout's {len(leaves)} quantized leaves "

@@ -56,3 +56,17 @@ def linear(x: torch.Tensor, w, *, precision: Optional[PrecisionConfig] = None,
             "fp8_dot (end-to-end FP8 training) is not ported yet: "
             "ROADMAP queue 1, training slice")
     return _dot(x, w.to(x.dtype))
+
+
+def linears(x: torch.Tensor, ws, *, precision: Optional[PrecisionConfig] = None
+            ) -> list:
+    """`linear(x, w)` for each of `ws`, with one activation quantization
+    (kernel 1) for all of them when every weight is a `QuantizedTensor`
+    (the rollout path after sync): the same function on the same tensor,
+    so the outputs are bit-identical to separate calls.  Otherwise (bf16
+    weights, `BF16_ROLLOUT`, excluded layers) each goes through `linear`."""
+    if all(isinstance(w, QuantizedTensor) for w in ws):
+        fmt = precision.scale_format if precision else ScaleFormat.FP32
+        x_q = ops.quantize_activation(x, scale_format=fmt)
+        return [ops.fp8_matmul(x_q, w, out_dtype=x.dtype) for w in ws]
+    return [linear(x, w, precision=precision) for w in ws]

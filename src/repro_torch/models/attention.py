@@ -41,7 +41,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core.fp8_linear import linear
+from repro_torch.core.fp8_linear import linear, linears
 from repro_torch.core.precision import E4M3, PrecisionConfig
 from repro_torch.core.quant import (
     calibrate_scale,
@@ -174,9 +174,11 @@ def _project_qkv(x, params, cfg, precision):
     """q (B,S,H,D), k/v (B,S,KVH,D) in x.dtype (pre-RoPE)."""
     b, s, _ = x.shape
     h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = linear(x, params["wq"], precision=precision).reshape(b, s, h, dh)
-    k = linear(x, params["wk"], precision=precision).reshape(b, s, kvh, dh)
-    v = linear(x, params["wv"], precision=precision).reshape(b, s, kvh, dh)
+    # one quantization of x for the three projections
+    q, k, v = linears(x, (params["wq"], params["wk"], params["wv"]), precision=precision)
+    q = q.reshape(b, s, h, dh)
+    k = k.reshape(b, s, kvh, dh)
+    v = v.reshape(b, s, kvh, dh)
     if cfg.qk_norm and "q_norm_scale" in params:
         q = rms_norm(q, params["q_norm_scale"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm_scale"], cfg.norm_eps)

@@ -5,7 +5,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.fp8_linear import linear
+from repro_torch.core.fp8_linear import linear, linears
 from repro_torch.core.precision import PrecisionConfig
 
 
@@ -22,9 +22,9 @@ _ACT = {"silu": _silu}
 def mlp_forward(x: torch.Tensor, params: dict, cfg,
                 precision: Optional[PrecisionConfig] = None) -> torch.Tensor:
     act = _ACT[cfg.act]
-    g = linear(x, params["wg"], precision=precision)
-    if cfg.mlp_gated:
-        h = act(g) * linear(x, params["wu"], precision=precision)
+    if cfg.mlp_gated:   # gate and up share one quantization of x
+        g, u = linears(x, (params["wg"], params["wu"]), precision=precision)
+        h = act(g) * u
     else:
-        h = act(g)
+        h = act(linear(x, params["wg"], precision=precision))
     return linear(h, params["wd"], precision=precision)

@@ -30,7 +30,11 @@ tests: quantizers bit-equal, GEMM within one bf16 rounding (rtol 2**-7),
 attention within 1e-2.  Kernel 3: every qwen3-8b (K, N) at M 1-1024
 against its plain version, rows bit-equal across M and batches, a
 row-major weight refused, and the sync's K-major storage handed to the
-launch without a copy at a padded shape.
+launch without a copy at a padded shape.  Kernel 1: bit-equal at the
+paths' rows (M 1-16384) and odd tile counts, with f32 input, E5M2 and
+UE8M0; kernel 1 then kernel 3 on one rewritten buffer 200 times, bit-equal
+to the synchronized pair; a CUDA graph of kernel 1 and three kernel 3
+calls replays bit-equal to eager.
 """
 import pytest
 
@@ -103,6 +107,108 @@ def test_fp8_matmul_wrapper_on_card(cuda, xshape, n):
     assert y.shape == yp.shape and y.dtype == torch.bfloat16
     assert torch.allclose(y.float(), yp.float(), rtol=2 ** -7,
                           atol=1e-5 * yp.float().abs().max().item())
+
+
+# kernel 1 at the paths' rows (decode 1-8, spec verify 40, chunk 129,
+# prefill 1024 and 16384) at K 4096, wd's input at K 12288, and odd tile
+# counts (a bf16 warp holds two 1x128 tiles; the last may be alone)
+@pytest.mark.parametrize("m,k", [(1, 4096), (3, 4096), (8, 4096), (40, 4096), (129, 4096),
+                                 (1024, 4096), (16384, 4096), (8, 12288), (1, 128),
+                                 (3, 384)])
+def test_quant_act_kernel_bit_equal_on_card(cuda, m, k):
+    gen = torch.Generator(device=cuda).manual_seed(m * 7 + k)
+    x = (torch.randn((m, k), generator=gen, device=cuda) * 3).to(torch.bfloat16)
+    x[0, :128] = 0                        # an all-zero tile: the 1e-12 floor
+    qk, sk = fq.quantize_activation_kernel(x)
+    qp, sp = fq.quantize_activation_ref(x)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(qk), _bits(qp))
+    assert torch.equal(sk.view(torch.int32), sp.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype,fp8,fmt", [(torch.float32, E4M3, ScaleFormat.FP32),
+                                           (torch.bfloat16, E5M2, ScaleFormat.FP32),
+                                           (torch.bfloat16, E4M3, ScaleFormat.UE8M0)])
+def test_quant_act_kernel_formats_on_card(cuda, dtype, fp8, fmt):
+    """f32 input (4 values a lane, one tile a warp), E5M2, UE8M0 scales."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x = (torch.randn((129, 4096), generator=gen, device=cuda) * 50).to(dtype)
+    qk, sk = fq.quantize_activation_kernel(x, fp8, fmt)
+    qp, sp = fq.quantize_activation_ref(x, fp8, fmt)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(qk), _bits(qp))
+    assert torch.equal(sk.view(torch.int32), sp.view(torch.int32))
+
+
+def test_quant_act_kernel_writes_into_out_on_card(cuda):
+    x = torch.randn((8, 256), device=cuda).to(torch.bfloat16)
+    q = torch.empty((8, 256), dtype=E4M3, device=cuda)
+    s = torch.empty((8, 2), dtype=torch.float32, device=cuda)
+    qk, sk = fq.quantize_activation_kernel(x, out=(q, s))
+    qp, sp = fq.quantize_activation_ref(x)
+    assert qk is q and sk is s
+    assert torch.equal(_bits(q), _bits(qp)) and torch.equal(s, sp)
+    with pytest.raises(ValueError, match="out must be"):
+        fq.quantize_activation_kernel(x, out=(q[:4], s))
+
+
+def test_quant_then_gemm_race_on_card(cuda):
+    """Kernel 1 rewrites one activation buffer from new data each
+    iteration and kernel 3 consumes it at once (its programmatic
+    dependent: the GEMM's prologue streams W before it waits for kernel
+    1): 200 iterations, each output bit-equal to the same pair with a
+    synchronize between the two."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    m, k, n = 8, 4096, 1024
+    xs = torch.randn((200, m, k), generator=gen, device=cuda).to(torch.bfloat16)
+    w_q = ops.quantize_weight((torch.randn((k, n), generator=gen, device=cuda)
+                               * k ** -0.5).to(torch.bfloat16))
+    q = torch.empty((m, k), dtype=E4M3, device=cuda)
+    s = torch.empty((m, k // 128), dtype=torch.float32, device=cuda)
+    torch.cuda.synchronize()
+    outs = []
+    for x in xs:
+        fq.quantize_activation_kernel(x, out=(q, s))
+        outs.append(ops._gemm.fp8_gemm(q, w_q.data, s, w_q.scales))
+    torch.cuda.synchronize()
+    for i, x in enumerate(xs):
+        fq.quantize_activation_kernel(x, out=(q, s))
+        torch.cuda.synchronize()
+        ref = ops._gemm.fp8_gemm(q, w_q.data, s, w_q.scales)
+        torch.cuda.synchronize()
+        assert torch.equal(outs[i].view(torch.int16), ref.view(torch.int16)), i
+
+
+def test_graph_replay_of_quant_and_gemms_on_card(cuda):
+    """A `torch.cuda.CUDAGraph` of kernel 1 and three kernel 3 calls on its
+    output (q, k, v at qwen3-8b's widths) replays bit-equal to eager, on
+    the captured input and on new data copied into it."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    x = torch.randn((8, 4096), generator=gen, device=cuda).to(torch.bfloat16)
+    ws = [ops.quantize_weight((torch.randn((4096, n), generator=gen, device=cuda)
+                               * 4096 ** -0.5).to(torch.bfloat16)) for n in (4096, 1024, 1024)]
+
+    def step():
+        a, a_s = fq.quantize_activation_kernel(x)
+        return [ops._gemm.fp8_gemm(a, w.data, a_s, w.scales) for w in ws]
+    eager = [y.clone() for y in step()]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = step()
+    graph.replay()
+    torch.cuda.synchronize()
+    for y, e in zip(outs, eager):
+        assert torch.equal(y.view(torch.int16), e.view(torch.int16))
+    x.copy_(torch.randn((8, 4096), generator=gen, device=cuda).to(torch.bfloat16))
+    graph.replay()
+    torch.cuda.synchronize()
+    for y, e in zip(outs, step()):
+        assert torch.equal(y.view(torch.int16), e.view(torch.int16))
 
 
 # kernel 3 at the four (K, N) of qwen3-8b's linears and the M the paths
