@@ -1446,19 +1446,24 @@ def gemm_row(stack, m, gen, reps=20):
     return row
 
 
-def host_us(fn, reps=200, warmup=20):
+def host_us(fn, reps=50, batches=9, warmup=20):
     """Host microseconds per call of `fn`, enqueue alone: the host clock
-    around `reps` calls that do not wait for the card."""
+    around `reps` calls that do not wait for the card, the median of
+    `batches` such runs (the host's clock varies run to run)."""
+    import statistics
+
     import torch
     for _ in range(warmup):
         fn()
+    runs = []
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        runs.append((time.perf_counter() - t0) / reps * 1e6)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    us = (time.perf_counter() - t0) / reps * 1e6
-    torch.cuda.synchronize()
-    return us
+    return statistics.median(runs)
 
 
 def quant_row(m, k, gen, dev, reps=20):

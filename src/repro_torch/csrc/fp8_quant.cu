@@ -7,37 +7,118 @@
 // plus a scale per 128 elements (act) or 128x128 elements (weight); the
 // arithmetic per element (abs, max, divide, clip, cvt) is far below the
 // card's rate.  So the design reads every element exactly once into
-// registers, reduces the amax there (warp shuffles, one shared-memory step
-// for the weight block) and writes the payload packed four bytes at a time
-// (act) or, through a shared tile, as 16-byte K-major rows (weight).
+// registers, reduces the amax there (shuffles, one shared-memory step for
+// the weight block) and writes the payload packed (act) or, through a
+// shared tile, as 16-byte K-major rows (weight).
+//
+// Kernel 1 at decode (8 x 4096 values, 98 KB) costs its launch, not its
+// bytes, and runs once per distinct linear input (`core.fp8_linear.
+// linears`); at prefill (M 1024-16384) it streams: 16-byte loads, several
+// tiles' loads in flight per lane before any arithmetic, a grid of a few
+// blocks per SM that walks the tiles.
 #include "fp8_common.cuh"
 
 namespace fp8rl {
 namespace {
 
-// One warp per (row, 128-column tile); lane i holds columns 4i..4i+3.
-template <typename T, int kFmt>
-__global__ void quant_act_kernel(const T* __restrict__ x, uint8_t* __restrict__ q,
-                                 float* __restrict__ s, int64_t m, int64_t k, int pow2) {
-  const int64_t nkb = k / 128;
-  const int64_t tile = static_cast<int64_t>(blockIdx.x) * (blockDim.x / 32) + threadIdx.x / 32;
-  if (tile >= m * nkb) return;  // whole warps leave together
-  const int lane = threadIdx.x & 31;
-  const int64_t base = (tile / nkb) * k + (tile % nkb) * 128 + lane * 4;
-  float v[4];
-  float amax = 0.0f;
+// Kernel 1's geometry: tiles whose 16-byte loads a lane issues before any
+// arithmetic, threads a block, and the blocks per SM the grid is held to
+// (the grid walks the tiles when they outnumber it).
+constexpr int kQuantUnroll = 4;
+constexpr int kQuantThreads = 256;
+constexpr int kQuantBlocksPerSm = 4;
+
+// 16 bytes a lane: 8 bf16 or 4 f32 values, so a 1x128 tile is 16 lanes
+// (a warp holds two tiles) or 32 lanes (one)
+template <typename T>
+struct ActVec {
+  static constexpr int kVals = 16 / sizeof(T);
+  static constexpr int kLanes = 128 / kVals;        // lanes a tile
+  static constexpr int kTiles = 32 / kLanes;        // tiles a warp
+};
+
+// the values of one 16-byte load, exactly (bf16 -> f32 is a shift)
+template <typename T>
+__device__ __forceinline__ void unpack16(const uint4& r, float (&v)[ActVec<T>::kVals]) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    v[i] = to_f32(x[base + i]);
-    amax = fmaxf(amax, fabsf(v[i]));
+    if constexpr (sizeof(T) == 2) {
+      v[2 * i] = __uint_as_float(w[i] << 16);
+      v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    } else {
+      v[i] = __uint_as_float(w[i]);
+    }
   }
-  amax = warp_max(amax);
-  const float scale = amax_to_scale<kFmt>(amax, pow2 != 0);
-  uint32_t packed = 0;
+}
+
+__device__ __forceinline__ int64_t warp_index() {
+  return static_cast<int64_t>(blockIdx.x) * (kQuantThreads / 32) + threadIdx.x / 32;
+}
+
+// x (M, K) contiguous is `tiles` 1x128 tiles back to back (K % 128 == 0):
+// tile t is x[128 t, 128 t + 128) and its scale s[t].  A warp's slot is
+// kTiles adjacent tiles; the grid's warps walk the slots, each first
+// issuing the loads of kQuantUnroll slots (a grid's width apart), then
+// quantizing them: amax by shuffles inside the tile's lane group, scale
+// and payload by `amax_to_scale` / `quantize_one`, the payload stored
+// packed (8 bytes a lane from bf16, 4 from f32).
+template <typename T, int kFmt>
+__global__ void __launch_bounds__(kQuantThreads) quant_act_kernel(
+    const T* __restrict__ x, uint8_t* __restrict__ q, float* __restrict__ s, int64_t tiles,
+    int pow2) {
+  using V = ActVec<T>;
+  const int lane = threadIdx.x & 31;
+  const int sub = lane / V::kLanes, part = lane % V::kLanes;  // tile of the slot, 16 B of it
+  const int64_t slots = (tiles + V::kTiles - 1) / V::kTiles;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * (kQuantThreads / 32);
+  for (int64_t base = warp_index(); base < slots; base += warps * kQuantUnroll) {
+    uint4 raw[kQuantUnroll];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) packed |= quantize_one<kFmt>(v[i], scale) << (8 * i);
-  *reinterpret_cast<uint32_t*>(q + base) = packed;
-  if (lane == 0) s[tile] = scale;  // scales (M, K/128): index row*nkb + kb
+    for (int u = 0; u < kQuantUnroll; ++u) {
+      const int64_t t = (base + u * warps) * V::kTiles + sub;
+      raw[u] = make_uint4(0u, 0u, 0u, 0u);
+      if (t < tiles) raw[u] = __ldg(reinterpret_cast<const uint4*>(x + t * 128) + part);
+    }
+#pragma unroll
+    for (int u = 0; u < kQuantUnroll; ++u) {
+      if (base + u * warps >= slots) break;  // whole warps leave together
+      const int64_t t = (base + u * warps) * V::kTiles + sub;
+      float v[V::kVals];
+      unpack16<T>(raw[u], v);
+      float amax = 0.0f;
+#pragma unroll
+      for (int i = 0; i < V::kVals; ++i) amax = fmaxf(amax, fabsf(v[i]));
+#pragma unroll
+      for (int off = V::kLanes / 2; off > 0; off >>= 1)
+        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+      const float scale = amax_to_scale<kFmt>(amax, pow2 != 0);
+      if (t >= tiles) continue;  // the lone last tile's other half-warp
+      uint32_t packed[V::kVals / 4];
+#pragma unroll
+      for (int w = 0; w < V::kVals / 4; ++w) {
+        packed[w] = 0;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) packed[w] |= quantize_one<kFmt>(v[4 * w + i], scale) << (8 * i);
+      }
+      uint8_t* dst = q + t * 128 + part * V::kVals;
+      if constexpr (V::kVals == 8)
+        *reinterpret_cast<uint2*>(dst) = make_uint2(packed[0], packed[1]);
+      else
+        *reinterpret_cast<uint32_t*>(dst) = packed[0];
+      if (part == 0) s[t] = scale;  // scales (M, K/128): index row*nkb + kb
+    }
+  }
+}
+
+// the SM count of the current device (read once per device)
+inline int sm_count() {
+  static int counts[64] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return 132;
+  if (counts[dev] == 0) cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
+  return counts[dev];
 }
 
 // One 256-thread block per 128x128 tile of one layer slice (grid z).
@@ -100,15 +181,21 @@ __global__ void __launch_bounds__(256) quant_weight_kernel(
 template <typename T>
 void launch_act(const void* x, void* q, void* s, int64_t m, int64_t k, int out_dtype,
                 int pow2, cudaStream_t stream) {
+  using V = ActVec<T>;
   const int64_t tiles = m * (k / 128);
-  const int warps = 8;
-  const unsigned grid = static_cast<unsigned>((tiles + warps - 1) / warps);
+  const int64_t slots = (tiles + V::kTiles - 1) / V::kTiles;
+  constexpr int kWarps = kQuantThreads / 32;
+  const int64_t cap = static_cast<int64_t>(kQuantBlocksPerSm) * sm_count();
+  const int64_t want = (slots + kWarps - 1) / kWarps;
+  const unsigned grid = static_cast<unsigned>(want < cap ? want : cap);
   if (out_dtype == kE4M3)
-    quant_act_kernel<T, kE4M3><<<grid, warps * 32, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<uint8_t*>(q), static_cast<float*>(s), m, k, pow2);
+    quant_act_kernel<T, kE4M3><<<grid, kQuantThreads, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<uint8_t*>(q), static_cast<float*>(s), tiles,
+        pow2);
   else
-    quant_act_kernel<T, kE5M2><<<grid, warps * 32, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<uint8_t*>(q), static_cast<float*>(s), m, k, pow2);
+    quant_act_kernel<T, kE5M2><<<grid, kQuantThreads, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<uint8_t*>(q), static_cast<float*>(s), tiles,
+        pow2);
 }
 
 template <typename T, int kFmt>

@@ -53,6 +53,8 @@ def quantize_activation(x: torch.Tensor, fp8_dtype=E4M3,
     shape = x.shape
     k = shape[-1]
     x2 = _pad_to(x.reshape(-1, k), (1, 128)).contiguous()
+    if x2.data_ptr() % 16:      # kernel 1 loads 16-byte vectors
+        x2 = x2.clone()
     fn = _route(x, _quant.quantize_activation_kernel,
                 _quant.quantize_activation_ref)
     q, s = fn(x2, fp8_dtype, scale_format)

@@ -140,6 +140,21 @@ def test_quant_act_kernel_formats_on_card(cuda, dtype, fp8, fmt):
     assert torch.equal(sk.view(torch.int32), sp.view(torch.int32))
 
 
+def test_quant_act_misaligned_input_on_card(cuda):
+    """Kernel 1 loads 16-byte vectors: the kernel wrapper refuses an x
+    that is not 16-byte aligned, and `ops.quantize_activation` copies one
+    first (the same bits as the plain version)."""
+    base = torch.randn((8 * 256 + 1,), device=cuda).to(torch.bfloat16)
+    x = base[1:].view(8, 256)
+    assert x.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fq.quantize_activation_kernel(x)
+    xq = ops.quantize_activation(x)
+    qp, sp = fq.quantize_activation_ref(x)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(xq.data), _bits(qp)) and torch.equal(xq.scales, sp)
+
+
 def test_quant_act_kernel_writes_into_out_on_card(cuda):
     x = torch.randn((8, 256), device=cuda).to(torch.bfloat16)
     q = torch.empty((8, 256), dtype=E4M3, device=cuda)
