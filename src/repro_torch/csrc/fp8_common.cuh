@@ -55,6 +55,20 @@ __device__ __forceinline__ uint32_t quantize_one(float x, float scale) {
       __nv_cvt_float_to_fp8(q, __NV_SATFINITE, Fp8Format<kFmt>::kInterp));
 }
 
+// Programmatic dependent launch (Hopper).  A kernel launched with
+// cudaLaunchAttributeProgrammaticStreamSerialization may start while the
+// kernel before it in the stream still runs: `grid_dependency_wait`
+// blocks until that kernel has completed and its writes are visible, and
+// `launch_dependents` lets the next such kernel start early.  Both are
+// no-ops in a kernel launched without the attribute.
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));

@@ -124,14 +124,14 @@ using LargeTile = Tile<kLargeWN, kLargeWM, kLargeNT, kLargeMT, kLargeSlabs,
                        kLargeStages>;                                        // 128 x 128
 
 // issue the cp.async copies of stage q (slabs q kU .. q kU + kU - 1 that
-// exist) into `st`: one group
+// exist) into `st`, in two halves: the weight's (W tile and w_s), which
+// may run before the grid-dependency wait, and the activation's (A tile
+// and a_s), which may not.  A stage's group is committed after both.
 template <typename T>
-__device__ __forceinline__ void load_stage(uint8_t* st, const uint8_t* __restrict__ A,
-                                           const uint8_t* __restrict__ W,
-                                           const float* __restrict__ a_s,
-                                           const float* __restrict__ w_s, int64_t m0,
-                                           int64_t n0, int64_t m, int64_t n, int64_t k,
-                                           int64_t ldw, int64_t q, int tid) {
+__device__ __forceinline__ void load_stage_w(uint8_t* st, const uint8_t* __restrict__ W,
+                                             const float* __restrict__ w_s, int64_t n0,
+                                             int64_t n, int64_t k, int64_t ldw, int64_t q,
+                                             int tid) {
   constexpr int kChunks = 8 * T::kU;  // 16-byte chunks of a row in a stage
   const int64_t k0 = q * T::kU * BK, nkb = k / BK;
 #pragma unroll
@@ -141,6 +141,21 @@ __device__ __forceinline__ void load_stage(uint8_t* st, const uint8_t* __restric
     cp_async16(st + r * T::kRow + c * 16, valid ? W + (n0 + r) * ldw + k0 + c * 16 : W,
                valid);
   }
+  float* scales = reinterpret_cast<float*>(st + T::kWBytes + T::kABytes);
+  for (int u = tid; u < T::kU; u += T::kThreads) {
+    const int64_t kb = q * T::kU + u;
+    const bool valid = kb < nkb;
+    cp_async4(scales + T::kU * T::BM + u, valid ? w_s + kb * (n / 128) + n0 / 128 : w_s,
+              valid);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void load_stage_a(uint8_t* st, const uint8_t* __restrict__ A,
+                                             const float* __restrict__ a_s, int64_t m0,
+                                             int64_t m, int64_t k, int64_t q, int tid) {
+  constexpr int kChunks = 8 * T::kU;
+  const int64_t k0 = q * T::kU * BK, nkb = k / BK;
 #pragma unroll
   for (int it = 0; it < T::BM * kChunks / T::kThreads; ++it) {
     const int i = tid + it * T::kThreads, r = i / kChunks, c = i % kChunks;
@@ -149,17 +164,11 @@ __device__ __forceinline__ void load_stage(uint8_t* st, const uint8_t* __restric
                valid ? A + (m0 + r) * k + k0 + c * 16 : A, valid);
   }
   float* scales = reinterpret_cast<float*>(st + T::kWBytes + T::kABytes);
-  for (int i = tid; i < (T::BM + 1) * T::kU; i += T::kThreads) {
-    const int u = i / (T::BM + 1), r = i % (T::BM + 1);
+  for (int i = tid; i < T::BM * T::kU; i += T::kThreads) {
+    const int u = i / T::BM, r = i % T::BM;
     const int64_t kb = q * T::kU + u;
-    if (r < T::BM) {
-      const bool valid = m0 + r < m && kb < nkb;
-      cp_async4(scales + u * T::BM + r, valid ? a_s + (m0 + r) * nkb + kb : a_s, valid);
-    } else {
-      const bool valid = kb < nkb;
-      cp_async4(scales + T::kU * T::BM + u, valid ? w_s + kb * (n / 128) + n0 / 128 : w_s,
-                valid);
-    }
+    const bool valid = m0 + r < m && kb < nkb;
+    cp_async4(scales + u * T::BM + r, valid ? a_s + (m0 + r) * nkb + kb : a_s, valid);
   }
 }
 
@@ -198,20 +207,33 @@ __global__ void __launch_bounds__(T::kThreads) fp8_gemm_kernel(
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.0f;
 
+  // The prologue streams the weight half of the first stages before the
+  // grid-dependency wait (under a programmatic dependent launch the kernel
+  // before this one, kernel 1 or the previous GEMM, may still run): before
+  // the wait it reads only W and w_s, which only the weight sync writes,
+  // and writes nothing.  Then the activation halves; stage s's group
+  // (group 0 also holds the later weight halves) is committed after its.
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s)
+    if (s < nst) load_stage_w<T>(smem + s * T::kStageBytes, W, w_s, n0, n, k, ldw, s, tid);
+  grid_dependency_wait();
 #pragma unroll
   for (int s = 0; s < S - 1; ++s) {
-    if (s < nst)
-      load_stage<T>(smem + s * T::kStageBytes, A, W, a_s, w_s, m0, n0, m, n, k, ldw, s, tid);
+    if (s < nst) load_stage_a<T>(smem + s * T::kStageBytes, A, a_s, m0, m, k, s, tid);
     cp_async_commit();
   }
+  if (nst <= S - 1) launch_dependents();  // every stage issued: the next GEMM may start
 
   for (int64_t q = 0; q < nst; ++q) {
     cp_async_wait<S - 2>();  // stage q has landed (this thread's copies)
     __syncthreads();         // ... everyone's; stage q - 1's buffers are free
     const int64_t next = q + S - 1;
-    if (next < nst)
-      load_stage<T>(smem + (next % S) * T::kStageBytes, A, W, a_s, w_s, m0, n0, m, n, k,
-                    ldw, next, tid);
+    if (next < nst) {
+      uint8_t* st = smem + (next % S) * T::kStageBytes;
+      load_stage_w<T>(st, W, w_s, n0, n, k, ldw, next, tid);
+      load_stage_a<T>(st, A, a_s, m0, m, k, next, tid);
+      if (next == nst - 1) launch_dependents();
+    }
     cp_async_commit();
 
     // each of this group's slabs into a fresh f32 partial: four k32 steps
@@ -322,15 +344,26 @@ __global__ void __launch_bounds__(T::kThreads) fp8_gemm_kernel(
 
 template <typename T>
 int launch_gemm(const void* a, const void* w, const void* a_s, const void* w_s, void* out,
-                int64_t m, int64_t n, int64_t k, int64_t ldw, cudaStream_t stream) {
+                int64_t m, int64_t n, int64_t k, int64_t ldw, int pdl, cudaStream_t stream) {
   const int err = set_smem(fp8_gemm_kernel<T>, T::kSmem);
   if (err) return err;
-  const dim3 grid(static_cast<unsigned>(n / T::BN), static_cast<unsigned>((m + T::BM - 1) / T::BM));
-  fp8_gemm_kernel<T><<<grid, T::kThreads, T::kSmem, stream>>>(
-      static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(w),
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(n / T::BN),
+                     static_cast<unsigned>((m + T::BM - 1) / T::BM));
+  cfg.blockDim = dim3(T::kThreads);
+  cfg.dynamicSmemBytes = T::kSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  const cudaError_t launched = cudaLaunchKernelEx(
+      &cfg, fp8_gemm_kernel<T>, static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(w),
       static_cast<const float*>(a_s), static_cast<const float*>(w_s),
       static_cast<__nv_bfloat16*>(out), m, n, k, ldw);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(launched != cudaSuccess ? launched : last);
 }
 
 }  // namespace
@@ -341,14 +374,19 @@ using namespace fp8rl;
 // a (M, K) e4m3, w (K, N) e4m3 K-major (element (k, n) at w[n * ldw + k]),
 // a_s (M, K/128) f32, w_s (K/128, N/128) f32 -> out (M, N) bf16;
 // K % 128 == 0, N % 128 == 0, ldw >= K and ldw % 16 == 0.  The tile shape
-// follows M; every shape computes each element alike.
+// follows M; every shape computes each element alike.  pdl != 0 launches
+// it as a programmatic dependent of the kernel before it in the stream,
+// which must not write W or w_s.
 extern "C" int fp8rl_gemm(const void* a, const void* w, const void* a_s, const void* w_s,
-                          void* out, int64_t m, int64_t n, int64_t k, int64_t ldw,
+                          void* out, int64_t m, int64_t n, int64_t k, int64_t ldw, int pdl,
                           void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   if (m <= 0) return static_cast<int>(cudaGetLastError());
-  if (m <= SmallTile::BM) return launch_gemm<SmallTile>(a, w, a_s, w_s, out, m, n, k, ldw, s);
-  if (m <= 2 * MidTile::BM) return launch_gemm<MidTile>(a, w, a_s, w_s, out, m, n, k, ldw, s);
-  if (m <= ChunkTile::BM) return launch_gemm<ChunkTile>(a, w, a_s, w_s, out, m, n, k, ldw, s);
-  return launch_gemm<LargeTile>(a, w, a_s, w_s, out, m, n, k, ldw, s);
+  if (m <= SmallTile::BM)
+    return launch_gemm<SmallTile>(a, w, a_s, w_s, out, m, n, k, ldw, pdl, s);
+  if (m <= 2 * MidTile::BM)
+    return launch_gemm<MidTile>(a, w, a_s, w_s, out, m, n, k, ldw, pdl, s);
+  if (m <= ChunkTile::BM)
+    return launch_gemm<ChunkTile>(a, w, a_s, w_s, out, m, n, k, ldw, pdl, s);
+  return launch_gemm<LargeTile>(a, w, a_s, w_s, out, m, n, k, ldw, pdl, s);
 }

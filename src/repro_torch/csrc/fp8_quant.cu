@@ -15,7 +15,9 @@
 // bytes, and runs once per distinct linear input (`core.fp8_linear.
 // linears`); at prefill (M 1024-16384) it streams: 16-byte loads, several
 // tiles' loads in flight per lane before any arithmetic, a grid of a few
-// blocks per SM that walks the tiles.
+// blocks per SM that walks the tiles.  Each block lets the GEMM behind it
+// launch at once (`launch_dependents`): kernel 3 streams its weights
+// while this kernel runs and waits for it only to read the activation.
 #include "fp8_common.cuh"
 
 namespace fp8rl {
@@ -68,6 +70,7 @@ __global__ void __launch_bounds__(kQuantThreads) quant_act_kernel(
     const T* __restrict__ x, uint8_t* __restrict__ q, float* __restrict__ s, int64_t tiles,
     int pow2) {
   using V = ActVec<T>;
+  launch_dependents();  // kernel 3 may start streaming its weights now
   const int lane = threadIdx.x & 31;
   const int sub = lane / V::kLanes, part = lane % V::kLanes;  // tile of the slot, 16 B of it
   const int64_t slots = (tiles + V::kTiles - 1) / V::kTiles;

@@ -37,7 +37,7 @@ _P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
 SIGNATURES = {
     "fp8rl_quant_act": [_P, _P, _P, _I64, _I64, _I32, _I32, _I32, _P],
     "fp8rl_quant_weight": [_P, _P, _P, _I64, _I64, _I64, _I32, _I32, _I32, _P],
-    "fp8rl_gemm": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
+    "fp8rl_gemm": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32, _P],
     "fp8rl_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32,
                            _I32, _I32, _I32, _I32, _F32, _P],
     "fp8rl_paged_prefill": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32,
@@ -50,6 +50,11 @@ SIGNATURES = {
 # launches per kernel since the last reset (chip_smoke.py reads these)
 LAUNCHES = {"quant_act": 0, "quant_weight": 0, "fp8_gemm": 0,
             "paged_decode": 0, "paged_prefill": 0, "decode": 0}
+
+# the kernel of the last launch (in stream order, on one stream): kernel
+# 3 launches as a programmatic dependent only behind kernels that never
+# write its weights
+LAST_LAUNCH = None
 
 _LIB = None
 
@@ -134,4 +139,6 @@ def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
         err = getattr(lib, entry)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+    global LAST_LAUNCH
+    LAST_LAUNCH = kernel
     LAUNCHES[kernel] += 1

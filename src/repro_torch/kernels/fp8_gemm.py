@@ -22,6 +22,12 @@ from repro_torch.core.precision import E4M3
 from repro_torch.kernels import build
 
 BK = 128   # one K step per scale slab
+# kernel 3 launches as a programmatic dependent (its weight stream starts
+# before the kernel ahead of it ends) when the port's last launch was one
+# of these: they never write W or w_s, which the GEMM reads before its
+# grid-dependency wait.  Kernel 2, the sync, writes them: a GEMM right
+# behind it waits for it whole.
+PDL_AFTER = ("quant_act", "fp8_gemm")
 
 
 def fp8_gemm_ref(a, w, a_scales, w_scales, out_dtype=torch.bfloat16):
@@ -76,5 +82,5 @@ def fp8_gemm(a: torch.Tensor, w: torch.Tensor, a_scales: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
     build.launch("fp8_gemm", "fp8rl_gemm", a.device, a.data_ptr(),
                  w.data_ptr(), a_scales.data_ptr(), w_scales.data_ptr(),
-                 out.data_ptr(), m, n, k, ldw)
+                 out.data_ptr(), m, n, k, ldw, int(build.LAST_LAUNCH in PDL_AFTER))
     return out
