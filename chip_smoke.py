@@ -1489,14 +1489,16 @@ def pair_row(stack, m, gen, reps=20):
     """Kernel 1 then kernel 3 on its output, as a linear calls them, at M
     rows of a (L, K, N) weight stack, each pair on the next layer's weight
     (cold in L2): `device_ms` (queued behind the spin) and `ms`, each
-    kernel alone in the same rotation, and the bound of the pair's
-    function x -> y (x, W and w_s read once, y written once; the fp8
-    activation between the two is not counted)."""
+    kernel alone in the same rotation, the bound of the pair's function
+    x -> y (x, W and w_s read once, y written once; the fp8 activation
+    between the two is not counted), and `host_us`, the host time of one
+    `ops.quantize_activation` + `ops.fp8_matmul` (a W8A8 linear)."""
     import itertools
 
     import torch
     from repro_torch.kernels import fp8_gemm as fg
     from repro_torch.kernels import fp8_quant as fq
+    from repro_torch.kernels import ops
     layers, k, n = stack.data.shape
     x = torch.randn((m, k), generator=gen, device=stack.data.device).to(torch.bfloat16)
     ws = itertools.cycle([stack.layer(r) for r in range(layers)])
@@ -1513,12 +1515,14 @@ def pair_row(stack, m, gen, reps=20):
     row = dict(ms=cuda_time_ms(pair, reps=reps), device_ms=device_time_ms(pair, reps=reps),
                quant_act_device_ms=device_time_ms(lambda: fq.quantize_activation_kernel(x),
                                                   reps=reps),
-               fp8_gemm_device_ms=device_time_ms(gemm, reps=reps))
+               fp8_gemm_device_ms=device_time_ms(gemm, reps=reps),
+               host_us=host_us(lambda: ops.fp8_matmul(ops.quantize_activation(x), next(ws))))
     nbytes = m * k * 2 + k * n + (k // 128) * (n // 128) * 4 + m * n * 2
     row["bound_ms"], row["bound_by"] = bound(nbytes, 2 * m * n * k, FP8_TC_FLOPS)
     log(f"quant_act + fp8_gemm M {m} K {k} N {n}: device {row['device_ms']:.4f} ms (alone "
         f"{row['quant_act_device_ms']:.4f} + {row['fp8_gemm_device_ms']:.4f}; bound "
-        f"{row['bound_ms']:.4f}, {row['bound_by']}), ms {row['ms']:.4f}")
+        f"{row['bound_ms']:.4f}, {row['bound_by']}), ms {row['ms']:.4f}, host "
+        f"{row['host_us']:.1f} us a linear")
     return row
 
 

@@ -132,11 +132,16 @@ def library() -> ctypes.CDLL:
 
 def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
     """Call C entry `entry` on `device`'s current stream; raise on a
-    launch error; count one launch of `kernel`."""
-    lib = library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, entry)(*args, stream)
+    launch error; count one launch of `kernel`.  The device is entered
+    only when it is not the current one (a launch is host-bound at decode:
+    entering costs more than the rest of it)."""
+    fn = getattr(_LIB or library(), entry)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
     global LAST_LAUNCH

@@ -76,7 +76,7 @@ def summary(row: dict) -> str:
                 f"{row['host_us']:.1f}")
     return (f"pair M {row['m']} K {row['k']} N {row['n']}: device ms {row['device_ms']:.4f} "
             f"(alone {row['quant_act_device_ms']:.4f} + {row['fp8_gemm_device_ms']:.4f}), "
-            f"ms {row['ms']:.4f}, bound {row['bound_ms']:.4f}")
+            f"ms {row['ms']:.4f}, bound {row['bound_ms']:.4f}, host us {row['host_us']:.1f}")
 
 
 if __name__ == "__main__":
