@@ -5,7 +5,7 @@ on the card, for A/B runs.
     python3 tools/time_quant.py                         # this checkout
     python3 tools/time_quant.py \\
         --run parent=.chip_scratch/parent --run change=. \\
-        --order parent,change,change,parent --ptxas [--pairs wq,wk]
+        --order parent,change,change,parent --ptxas [--pairs wq,wk] [--step]
 
 Runs, turns, `NAME=VALUE` rewrites of `csrc/fp8_quant.cu`'s `constexpr
 int` constants (`LABEL=PATH:kQuantUnroll=2`) and `--ptxas`: see
@@ -18,8 +18,12 @@ host microseconds of one `ops.quantize_activation` call), and the pair
 kernel 1 + kernel 3 at M `chip_smoke.PAIR_M` over a seeded 36-layer
 weight stack of each of qwen3-8b's four (K, N) (`--pairs` picks leaves of
 `chip_smoke.GEMM_SHAPES`), made by the run's own `ops.quantize_weight`.
+With `--step`, one `generate` decode step of full-width qwen3-8b
+(random weights from a seed, synced by the run's own code) is profiled
+too: its wall and device-busy ms, kernels, and kernel 1's device ms.
 Every hold and time is this checkout's `chip_smoke.py` helper
-(`hold_quant_act`, `quant_row`, `pair_row`): one yardstick for every run.
+(`hold_quant_act`, `quant_row`, `pair_row`, `profile_decode_step`): one
+yardstick for every run.
 """
 from __future__ import annotations
 
@@ -32,13 +36,15 @@ import ab_driver
 
 ROOT = Path(__file__).resolve().parents[1]
 LAYERS = 36
+STEPS = 16          # `--step`: decode steps whose wall median is reported
 
 
 def worker(src: str, settings: dict, argv: list[str]) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--pairs")
-    pairs = ap.parse_args(argv).pairs
-    pairs = pairs.split(",") if pairs else None
+    ap.add_argument("--step", action="store_true")
+    args = ap.parse_args(argv)
+    pairs = args.pairs.split(",") if args.pairs else None
     sys.path.insert(0, src)
     sys.path.insert(1, str(ROOT))
     import torch
@@ -67,9 +73,47 @@ def worker(src: str, settings: dict, argv: list[str]) -> None:
         print("ROW " + json.dumps(row), flush=True)
         del stack
         torch.cuda.empty_cache()
+    if args.step:
+        print("ROW " + json.dumps(dict(kernel="step", **decode_step(cs, dev))), flush=True)
+
+
+def decode_step(cs, dev) -> dict:
+    """One `generate` decode step of full qwen3-8b under `PrecisionConfig()`
+    (8 ragged prompts of 64-128 tokens, `chip_smoke.profile_decode_step`):
+    wall ms, device busy ms, kernels, and kernel 1's device ms in it; and
+    the median wall ms of STEPS - 1 more steps (the first is a warm-up)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import PrecisionConfig
+    from repro_torch.models import Transformer
+    from repro_torch.rl import sync_policy_weights
+    cfg, prec = get_config("qwen3-8b"), PrecisionConfig()
+    model = Transformer(cfg, dev)
+    roll, _ = sync_policy_weights(model.init_params(cs.SEED), prec)
+    torch.cuda.empty_cache()
+    prompts, lengths = cs.make_prompts(np.random.default_rng(cs.SEED))
+    row = cs.profile_decode_step(model, roll, prec, prompts, lengths, dev)
+    cache = model.init_cache(len(prompts), prompts.shape[1] + STEPS + 1, prec, page_size=16)
+    logits, cache = model.prefill(roll, {"tokens": torch.from_numpy(prompts).to(dev),
+                                         "lengths": torch.from_numpy(lengths).to(dev)},
+                                  cache, prec)
+    walls = []
+    for _ in range(STEPS):
+        (logits, cache), ms = cs._sync_ms(model.decode_step, roll, logits.argmax(-1), cache, prec)
+        walls.append(ms)
+    row["decode_step_wall_ms_median"] = float(np.median(walls[1:]))
+    return row
 
 
 def summary(row: dict) -> str:
+    if row["kernel"] == "step":
+        return (f"decode step: wall ms {row['decode_step_wall_ms_median']:.1f} (median of "
+                f"{STEPS - 1}), device busy ms "
+                f"{row['decode_step_device_busy_ms']:.3f}, kernels "
+                f"{row['decode_step_device_kernels']}, kernel 1 device ms "
+                f"{row['decode_step_quant_act_ms']:.3f}")
     if row["kernel"] == "quant_act":
         return (f"quant_act ({row['m']}, {row['k']}): device ms {row['device_ms']:.4f}, ms "
                 f"{row['ms']:.4f}, bound {row['bound_ms']:.4f}, host us "
