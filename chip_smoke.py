@@ -683,10 +683,12 @@ def profile_decode_step(model, roll, prec, prompts, lengths, dev, tag=""):
         return {f"{tag}decode_step_wall_ms": wall_ms}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     quant_ms = sum(ms for name, ms in by_name.items() if "quant_act" in name)
+    gemm_ms = sum(ms for name, ms in by_name.items() if "fp8_gemm" in name)
     out = {f"{tag}decode_step_wall_ms": wall_ms, f"{tag}decode_step_device_busy_ms": busy_ms,
            f"{tag}decode_step_device_kernels": n_kernels,
            f"{tag}decode_step_device_busy_share": busy_ms / wall_ms,
            f"{tag}decode_step_quant_act_ms": quant_ms,
+           f"{tag}decode_step_fp8_gemm_ms": gemm_ms,
            f"{tag}decode_step_quant_act_share_of_busy": quant_ms / busy_ms}
     log(f"{tag}decode step profile: " + json.dumps(out) + "; top kernels (ms): "
         + json.dumps([[name[:60], round(ms, 3)] for name, ms in top]))
@@ -1489,7 +1491,10 @@ def pair_row(stack, m, gen, reps=20):
     """Kernel 1 then kernel 3 on its output, as a linear calls them, at M
     rows of a (L, K, N) weight stack, each pair on the next layer's weight
     (cold in L2): `device_ms` (queued behind the spin) and `ms`, each
-    kernel alone in the same rotation, the bound of the pair's function
+    kernel alone in the same rotation (kernel 3 back to back, where one
+    GEMM may overlap the next, and `fp8_gemm_apart_device_ms`, each GEMM
+    behind a one-element torch kernel, whose own time is
+    `spacer_device_ms`), the bound of the pair's function
     x -> y (x, W and w_s read once, y written once; the fp8 activation
     between the two is not counted), and `host_us`, the host time of one
     `ops.quantize_activation` + `ops.fp8_matmul` (a W8A8 linear)."""
@@ -1512,15 +1517,23 @@ def pair_row(stack, m, gen, reps=20):
     def gemm():
         w = next(ws)
         return fg.fp8_gemm(a, w.data, a_s, w.scales)
+    tiny = torch.zeros(1, device=x.device)
+
+    def gemm_apart():              # a torch kernel between two GEMMs: no overlap
+        tiny.add_(1)
+        return gemm()
     row = dict(ms=cuda_time_ms(pair, reps=reps), device_ms=device_time_ms(pair, reps=reps),
                quant_act_device_ms=device_time_ms(lambda: fq.quantize_activation_kernel(x),
                                                   reps=reps),
                fp8_gemm_device_ms=device_time_ms(gemm, reps=reps),
+               fp8_gemm_apart_device_ms=device_time_ms(gemm_apart, reps=reps),
+               spacer_device_ms=device_time_ms(lambda: tiny.add_(1), reps=reps),
                host_us=host_us(lambda: ops.fp8_matmul(ops.quantize_activation(x), next(ws))))
     nbytes = m * k * 2 + k * n + (k // 128) * (n // 128) * 4 + m * n * 2
     row["bound_ms"], row["bound_by"] = bound(nbytes, 2 * m * n * k, FP8_TC_FLOPS)
     log(f"quant_act + fp8_gemm M {m} K {k} N {n}: device {row['device_ms']:.4f} ms (alone "
-        f"{row['quant_act_device_ms']:.4f} + {row['fp8_gemm_device_ms']:.4f}; bound "
+        f"{row['quant_act_device_ms']:.4f} + {row['fp8_gemm_device_ms']:.4f}, kernel 3 behind "
+        f"a spacer {row['fp8_gemm_apart_device_ms']:.4f} - {row['spacer_device_ms']:.4f}; bound "
         f"{row['bound_ms']:.4f}, {row['bound_by']}), ms {row['ms']:.4f}, host "
         f"{row['host_us']:.1f} us a linear")
     return row

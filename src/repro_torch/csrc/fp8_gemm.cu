@@ -29,7 +29,11 @@
 //     without split-K; M 33-64 (the engine's spec verify) runs the
 //     32 x 32 tile over two row blocks, which beat a 16 x 64 tile and
 //     the 32 x 128 one at M 40; 32 x 128 tiles at the engine's chunk
-//     (M <= 128) and 128 x 128 above, where the tensor cores bound it.
+//     (M <= 128) and 128 x 128 above, where the tensor cores bound it;
+//   * a programmatic dependent launch behind kernel 1 or the previous
+//     GEMM (q, k, v; gate, up): the first stage's weights stream before
+//     `griddepcontrol.wait`, and each block lets the next GEMM launch
+//     once its last stage is issued.
 // One block body serves every M; the four tile shapes differ only in how
 // many 16x8 output fragments a warp and a block hold and in their rings.
 // Each output element's arithmetic is the same in all of them: four k32
@@ -207,19 +211,23 @@ __global__ void __launch_bounds__(T::kThreads) fp8_gemm_kernel(
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.0f;
 
-  // The prologue streams the weight half of the first stages before the
-  // grid-dependency wait (under a programmatic dependent launch the kernel
-  // before this one, kernel 1 or the previous GEMM, may still run): before
-  // the wait it reads only W and w_s, which only the weight sync writes,
-  // and writes nothing.  Then the activation halves; stage s's group
-  // (group 0 also holds the later weight halves) is committed after its.
-#pragma unroll
-  for (int s = 0; s < S - 1; ++s)
-    if (s < nst) load_stage_w<T>(smem + s * T::kStageBytes, W, w_s, n0, n, k, ldw, s, tid);
+  // Under a programmatic dependent launch the kernel before this one
+  // (kernel 1 or the previous GEMM) may still run: the first stage's
+  // weight half streams before the grid-dependency wait (until it the
+  // kernel reads only W and w_s, which only the weight sync writes, and
+  // writes nothing); the activation halves and the later stages follow
+  // it.  Each stage stays one cp.async group (weight + activation): with
+  // the second stage's weights also ahead of the wait, group 0 held both
+  // stages and the first refill waited for them (+0.16-0.2 ms of kernel 3
+  // a decode step).
+  if (nst > 0) load_stage_w<T>(smem, W, w_s, n0, n, k, ldw, 0, tid);
   grid_dependency_wait();
 #pragma unroll
   for (int s = 0; s < S - 1; ++s) {
-    if (s < nst) load_stage_a<T>(smem + s * T::kStageBytes, A, a_s, m0, m, k, s, tid);
+    if (s < nst) {
+      if (s > 0) load_stage_w<T>(smem + s * T::kStageBytes, W, w_s, n0, n, k, ldw, s, tid);
+      load_stage_a<T>(smem + s * T::kStageBytes, A, a_s, m0, m, k, s, tid);
+    }
     cp_async_commit();
   }
   if (nst <= S - 1) launch_dependents();  // every stage issued: the next GEMM may start

@@ -113,13 +113,16 @@ def summary(row: dict) -> str:
                 f"{STEPS - 1}), device busy ms "
                 f"{row['decode_step_device_busy_ms']:.3f}, kernels "
                 f"{row['decode_step_device_kernels']}, kernel 1 device ms "
-                f"{row['decode_step_quant_act_ms']:.3f}")
+                f"{row['decode_step_quant_act_ms']:.3f}, kernel 3 device ms "
+                f"{row['decode_step_fp8_gemm_ms']:.3f}")
     if row["kernel"] == "quant_act":
         return (f"quant_act ({row['m']}, {row['k']}): device ms {row['device_ms']:.4f}, ms "
                 f"{row['ms']:.4f}, bound {row['bound_ms']:.4f}, host us "
                 f"{row['host_us']:.1f}")
     return (f"pair M {row['m']} K {row['k']} N {row['n']}: device ms {row['device_ms']:.4f} "
-            f"(alone {row['quant_act_device_ms']:.4f} + {row['fp8_gemm_device_ms']:.4f}), "
+            f"(alone {row['quant_act_device_ms']:.4f} + {row['fp8_gemm_device_ms']:.4f}; "
+            f"kernel 3 behind a spacer {row['fp8_gemm_apart_device_ms']:.4f} - "
+            f"{row['spacer_device_ms']:.4f}), "
             f"ms {row['ms']:.4f}, bound {row['bound_ms']:.4f}, host us {row['host_us']:.1f}")
 
 
