@@ -144,12 +144,10 @@ GEMM_MS = (1, 8, 32, 40, 128, 1024)
 # paths' decode, verify, chunk and prefill rows; 3 and 129 are ragged),
 # M 8 at K 12288 (wd's input), and f32 input, E5M2 and UE8M0 at one shape
 # each: ((M, K), input dtype, fp8 dtype, scale format)
-QUANT_ACT_HOLDS = ([((m, 4096), "bfloat16", "E4M3", "FP32") for m in (1, 3, 8, 40, 129, 1024,
-                                                                    16384)]
-                   + [((8, 12288), "bfloat16", "E4M3", "FP32"),
-                      ((129, 4096), "float32", "E4M3", "FP32"),
-                      ((40, 4096), "bfloat16", "E5M2", "FP32"),
-                      ((1024, 4096), "bfloat16", "E4M3", "UE8M0")])
+QUANT_ACT_HOLDS = (
+    [((m, 4096), "bfloat16", "E4M3", "FP32") for m in (1, 3, 8, 40, 129, 1024, 16384)]
+    + [((8, 12288), "bfloat16", "E4M3", "FP32"), ((129, 4096), "float32", "E4M3", "FP32"),
+       ((40, 4096), "bfloat16", "E5M2", "FP32"), ((1024, 4096), "bfloat16", "E4M3", "UE8M0")])
 # phase 6: kernel 1's timed shapes (decode, `generate`'s prefill, 7b's
 # 16K prefill) and the M of the kernel 1 + kernel 3 pair rows
 QUANT_ACT_MS = (8, 1024, 16384)
@@ -266,6 +264,7 @@ def bound(nbytes, flops, peak_flops):
 
 def compare_quantizers(dev, gen, results):
     import torch
+    from repro_torch.core import precision
     from repro_torch.core.precision import E4M3, ScaleFormat
     from repro_torch.kernels import fp8_quant as fq
 
@@ -274,24 +273,20 @@ def compare_quantizers(dev, gen, results):
 
     # kernel 2 also at the stacked (L, K, N) of the sync's wg and wu
     # leaves; its payload is the (..., K, N) view of K-major storage
-    for name, shapes, kernel, plain, std in (
-            ("quant_weight", [(4096, 12288), (12288, 4096), (36, 4096, 12288)],
-             fq.quantize_weight_kernel, fq.quantize_weight_ref, 0.02),):
-        for shape in shapes:
-            x = (torch.randn(shape, generator=gen, device=dev) * std).to(torch.bfloat16)
-            qk, sk = kernel(x, E4M3, ScaleFormat.FP32)
-            qp, sp = plain(x, E4M3, ScaleFormat.FP32)
-            torch.cuda.synchronize()
-            bad_q, bad_s = mismatches(qk, qp), int((sk != sp).sum())
-            log(f"{name} {shape}: payload mismatches {bad_q}, scale mismatches {bad_s}")
-            check(bad_q == 0 and bad_s == 0, f"{name} {shape} not bit-equal")
-            qk, sk = kernel(x, E4M3, ScaleFormat.UE8M0)
-            qp, sp = plain(x, E4M3, ScaleFormat.UE8M0)
-            torch.cuda.synchronize()
-            log(f"{name} {shape} UE8M0: mismatching scale tiles {int((sk != sp).sum())} "
-                f"of {sk.numel()}, payload bytes {mismatches(qk, qp)}")
-        results[name]["max_abs_err"] = 0.0
-    from repro_torch.core import precision
+    for shape in [(4096, 12288), (12288, 4096), (36, 4096, 12288)]:
+        w = (torch.randn(shape, generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+        qk, sk = fq.quantize_weight_kernel(w, E4M3, ScaleFormat.FP32)
+        qp, sp = fq.quantize_weight_ref(w, E4M3, ScaleFormat.FP32)
+        torch.cuda.synchronize()
+        bad_q, bad_s = mismatches(qk, qp), int((sk != sp).sum())
+        log(f"quant_weight {shape}: payload mismatches {bad_q}, scale mismatches {bad_s}")
+        check(bad_q == 0 and bad_s == 0, f"quant_weight {shape} not bit-equal")
+        qk, sk = fq.quantize_weight_kernel(w, E4M3, ScaleFormat.UE8M0)
+        qp, sp = fq.quantize_weight_ref(w, E4M3, ScaleFormat.UE8M0)
+        torch.cuda.synchronize()
+        log(f"quant_weight {shape} UE8M0: mismatching scale tiles {int((sk != sp).sum())} "
+            f"of {sk.numel()}, payload bytes {mismatches(qk, qp)}")
+    results["quant_weight"]["max_abs_err"] = 0.0
     for (m, k), dtype, fp8, fmt in QUANT_ACT_HOLDS:
         x = (torch.randn((m, k), generator=gen, device=dev) * 3.0).to(getattr(torch, dtype))
         hold_quant_act(x, getattr(precision, fp8), ScaleFormat[fmt])

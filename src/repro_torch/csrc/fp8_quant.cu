@@ -54,10 +54,6 @@ __device__ __forceinline__ void unpack16(const uint4& r, float (&v)[ActVec<T>::k
   }
 }
 
-__device__ __forceinline__ int64_t warp_index() {
-  return static_cast<int64_t>(blockIdx.x) * (kQuantThreads / 32) + threadIdx.x / 32;
-}
-
 // x (M, K) contiguous is `tiles` 1x128 tiles back to back (K % 128 == 0):
 // tile t is x[128 t, 128 t + 128) and its scale s[t].  A warp's slot is
 // kTiles adjacent tiles; the grid's warps walk the slots, each first
@@ -75,7 +71,8 @@ __global__ void __launch_bounds__(kQuantThreads) quant_act_kernel(
   const int sub = lane / V::kLanes, part = lane % V::kLanes;  // tile of the slot, 16 B of it
   const int64_t slots = (tiles + V::kTiles - 1) / V::kTiles;
   const int64_t warps = static_cast<int64_t>(gridDim.x) * (kQuantThreads / 32);
-  for (int64_t base = warp_index(); base < slots; base += warps * kQuantUnroll) {
+  const int64_t warp = static_cast<int64_t>(blockIdx.x) * (kQuantThreads / 32) + threadIdx.x / 32;
+  for (int64_t base = warp; base < slots; base += warps * kQuantUnroll) {
     uint4 raw[kQuantUnroll];
 #pragma unroll
     for (int u = 0; u < kQuantUnroll; ++u) {
@@ -117,11 +114,11 @@ __global__ void __launch_bounds__(kQuantThreads) quant_act_kernel(
 // the SM count of the current device (read once per device)
 inline int sm_count() {
   static int counts[64] = {0};
-  int dev = 0;
+  int dev = 0, uncached = 0;
   cudaGetDevice(&dev);
-  if (dev < 0 || dev >= 64) return 132;
-  if (counts[dev] == 0) cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
-  return counts[dev];
+  int& count = dev < 64 ? counts[dev] : uncached;
+  if (count == 0) cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+  return count;
 }
 
 // One 256-thread block per 128x128 tile of one layer slice (grid z).

@@ -136,8 +136,9 @@ def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
     only when it is not the current one (a launch is host-bound at decode:
     entering costs more than the rest of it)."""
     fn = getattr(_LIB or library(), entry)
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    if index == torch.cuda.current_device():
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
         err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     else:
         with torch.cuda.device(index):

@@ -75,27 +75,17 @@ def _check(x: torch.Tensor, fp8_dtype) -> None:
 
 
 def quantize_activation_kernel(x: torch.Tensor, fp8_dtype=E4M3,
-                               scale_format: ScaleFormat = ScaleFormat.FP32, out=None):
-    """Kernel 1 on the card: x (M, K) bf16/f32 CUDA, K % 128 == 0.  `out`,
-    if given, is the (q, scales) pair to write into: contiguous (M, K)
-    `fp8_dtype` and (M, K/128) f32 on x's device."""
+                               scale_format: ScaleFormat = ScaleFormat.FP32):
+    """Kernel 1 on the card: x (M, K) bf16/f32 CUDA, K % 128 == 0, 16-byte
+    aligned (the kernel loads 16-byte vectors)."""
     _check(x, fp8_dtype)
     m, k = x.shape
     if k % 128:
         raise ValueError(f"K={k} must be a multiple of 128 (pad first)")
     if x.data_ptr() % 16:
         raise ValueError("kernel 1 reads x in 16-byte vectors: x must be 16-byte aligned")
-    if out is None:
-        q = torch.empty((m, k), dtype=fp8_dtype, device=x.device)
-        s = torch.empty((m, k // 128), dtype=torch.float32, device=x.device)
-    else:
-        q, s = out
-        if (q.shape != (m, k) or q.dtype != fp8_dtype or s.shape != (m, k // 128)
-                or s.dtype != torch.float32 or q.device != x.device or s.device != x.device
-                or not (q.is_contiguous() and s.is_contiguous()) or q.data_ptr() % 8
-                or s.data_ptr() % 4):
-            raise ValueError("out must be contiguous (M, K) fp8 and (M, K/128) f32 "
-                             "tensors on x's device, 8- and 4-byte aligned")
+    q = torch.empty((m, k), dtype=fp8_dtype, device=x.device)
+    s = torch.empty((m, k // 128), dtype=torch.float32, device=x.device)
     build.launch("quant_act", "fp8rl_quant_act", x.device,
                  x.data_ptr(), q.data_ptr(), s.data_ptr(), m, k,
                  DTYPE_CODE[x.dtype], DTYPE_CODE[fp8_dtype],
