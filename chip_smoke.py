@@ -5,7 +5,7 @@
 
 Needs one CUDA card, nvcc and the checkout's `src/`; imports nothing of
 JAX or of the JAX package.  Phases (any failure exits non-zero), run in
-the order 1-5, 7, 6:
+the order 1-5, 7, 6, 8:
 
 1. the card's name and power limit (nvidia-smi);
 2. build the six CUDA kernels from `src/repro_torch/csrc` (nvcc, sm_90a);
@@ -82,6 +82,21 @@ the order 1-5, 7, 6:
       linears and the lm_head GEMM beside its byte bound); kernel 6 vs its
       plain version on one layer; peak memory beside the bf16 cache's
       77.3 GB.
+
+8. the RL trainer (`rl.RLTrainer`) on full-width, full-depth qwen3-8b
+   over the main path's bf16 weights (drawn again from seed 0), under
+   `PrecisionConfig()` with TIS at C 2, B 8 prompts x 4 samples, 32 new
+   tokens, AdamW with fp8 moments: 3 `train_step`s (launch counts zeroed
+   before and read after: kernels 1-4, kernel 1 4/7 of kernel 3, kernel 2
+   7 per sync; finite metrics), then the same prompts rolled out under
+   `PrecisionConfig()` and `BF16_ROLLOUT` and scored by the policy
+   (mismatch KL, TIS weight mean and ESS), then one update with
+   advantages drawn per GRPO group on the last step's trajectory: finite
+   stats, grad_norm > 0, every leaf's moment non-zero, every leaf but the
+   norm scales changed (lr 3e-4 is under half a bf16 ulp of 1.0), a
+   re-sync's fp8 payloads changed in all 7 quantized leaves, the batch's
+   loss before and after; peak memory under 80 GB.  Printed: sync,
+   rollout, scoring + backward and optimizer ms, step wall, tokens/s.
 
 The line before the last is the `kernels` JSON object; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
@@ -175,6 +190,11 @@ PEAKED_Q = 4.0
 # can flip a top-2 gap over twice that (rounded up): there the two paths
 # must pick the same token
 DECISIVE_GAP = 0.7
+# phase 8: the RL trainer's train steps; a dense layer's 7 quantized leaves
+# take one kernel-2 launch each per weight sync
+TRAIN_STEPS = 3
+SYNC_LEAVES = 7
+CARD_BYTES = 80e9
 
 
 def check(cond, msg):
@@ -1350,6 +1370,176 @@ def contiguous_path(dev, gen, results, cfg, roll, extra):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the RL trainer (rl.RLTrainer) on full qwen3-8b
+# ---------------------------------------------------------------------------
+
+def _finite_metrics(m, tag):
+    import math
+    bad = [k for k, v in m.items()
+           if not all(math.isfinite(x) for x in (v if isinstance(v, list) else [v]))]
+    check(not bad, f"{tag}: metrics not finite: {bad}")
+
+
+def _sync_fingerprint(params, prec):
+    """Per quantized leaf of a weight sync: layer 0's fp8 payload bytes and
+    the sum of every payload byte (the sync's 9 GB live only inside)."""
+    import torch
+    from repro_torch.core.quant import QuantizedTensor
+    from repro_torch.rl import sync_policy_weights
+    roll, _ = sync_policy_weights(params, prec)
+    out = {}
+    for slot, tree in roll["blocks"].items():
+        for part, leaves in tree.items():
+            for name, leaf in leaves.items():
+                if isinstance(leaf, QuantizedTensor):
+                    data = leaf.data.view(torch.uint8)
+                    out[f"{slot}/{part}/{name}"] = (data[0].clone(),
+                                                    int(data.sum(dtype=torch.int64)))
+    del roll
+    return out
+
+
+def _leaf_items(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaf_items(v, f"{prefix}/{k}" if prefix else k)
+    else:
+        yield prefix, tree
+
+
+def train_path(dev, cfg):
+    """Phase 8: `RLTrainer` on full-width, full-depth qwen3-8b over the
+    main path's bf16 weights, drawn again from the same seed (held through
+    phases 5-7 they would count in 7c's LONG_500K peak) — TRAIN_STEPS
+    train steps, FP8 against BF16 rollout mismatch on the same prompts,
+    then one update with nonzero advantages on the last step's
+    trajectory."""
+    import numpy as np
+    import torch
+    from repro_torch.core.precision import BF16_ROLLOUT, PrecisionConfig
+    from repro_torch.data import PromptPipeline
+    from repro_torch.kernels import build
+    from repro_torch.models import Transformer
+    from repro_torch.optim import AdamWConfig, state_bytes
+    from repro_torch.rl import RLConfig, RLTrainer
+    from repro_torch.rl.rewards import batch_rewards
+    from repro_torch.rl.trainer import stats_to_host
+
+    prec = PrecisionConfig()
+    rl = RLConfig(precision=prec, prompt_batch=8, n_per_prompt=4, max_prompt_len=12,
+                  max_new_tokens=32, temperature=1.0,
+                  optimizer=AdamWConfig(lr=3e-4, b2=0.98, grad_clip=1.0, fp8_moments=True))
+    stats = {}
+    fresh_peak("train", stats)
+    trainer = RLTrainer(cfg, rl, params=Transformer(cfg, dev).init_params(SEED), device=dev)
+    stats["opt_state_gb"] = state_bytes(trainer.opt_state) / 1e9
+    build.reset_launch_counts()
+    # --- the trainer path: TRAIN_STEPS train steps --------------------------
+    rows = [trainer.train_step() for _ in range(TRAIN_STEPS)]
+    launches = _path_launches("trainer path", ("quant_act", "quant_weight", "fp8_gemm",
+                                               "paged_decode"))
+    # ----------------------------------------------------------------------
+    check(launches["quant_weight"] == SYNC_LEAVES * TRAIN_STEPS,
+          f"trainer path: kernel 2 launched {launches['quant_weight']} times for "
+          f"{TRAIN_STEPS} syncs of {SYNC_LEAVES} leaves")
+    keys = ("step", "loss", "grad_norm", "reward_mean", "response_len_mean", "mismatch_kl",
+            "corr_weight_mean", "corr_weight_ess", "sync_ms", "rollout_s", "score_backward_ms",
+            "optimizer_ms", "step_s", "rollout_tokens_per_s")
+    for m in rows:
+        _finite_metrics(m, f"train step {m['step']}")
+        log("train step: " + json.dumps({k: m[k] for k in keys}))
+    stats["train_launches"] = launches
+    stats["train_steps"] = [{k: m[k] for k in keys} for m in rows]
+
+    adv = np.repeat(np.random.default_rng(SEED).normal(size=rl.prompt_batch), rl.n_per_prompt)
+    advantages = torch.tensor(adv, dtype=torch.float32, device=dev)
+
+    # FP8 against BF16 rollout: the same prompts and generator seed, each
+    # trajectory scored by the policy the train steps left, with the same
+    # advantages (one per group)
+    prompts = PromptPipeline(rl.prompt_batch, rl.max_prompt_len, seed=SEED + 3).next_batch()
+    problems = [p for p in prompts.problems for _ in range(rl.n_per_prompt)]
+    for name, p in (("fp8", prec), ("bf16", BF16_ROLLOUT)):
+        trainer.generator.manual_seed(SEED)
+        traj, _, roll_s = trainer.rollout(prompts, p)
+        rewards = batch_rewards(problems, traj.response_tokens.cpu().numpy(),
+                                traj.response_lengths.cpu().numpy())
+        ub = trainer.make_update_batch(traj, rewards)
+        ub["advantages"], ub["mask"] = advantages, ub["response_mask"]
+        st = stats_to_host(trainer.batch_loss(trainer.params, ub)[1])
+        _finite_metrics(st, f"{name} rollout stats")
+        stats[f"{name}_rollout"] = dict(
+            tokens=float(traj.response_mask.sum()),
+            tokens_per_s=float(traj.response_mask.sum()) / roll_s,
+            **{k: st[k] for k in ("mismatch_kl", "mismatch_kl_k1", "corr_weight_mean",
+                                  "corr_weight_ess", "is_weight_max")})
+    log("same prompts, FP8 vs BF16 rollout scored by the bf16 policy: fp8 "
+        + json.dumps(stats["fp8_rollout"]) + "; bf16 " + json.dumps(stats["bf16_rollout"]))
+
+    # one update with nonzero advantages on the last trajectory (with random
+    # weights every reward ties at 0 and the DAPO mask zeroes the loss)
+    batch = dict(trainer.last_update_batch)
+    batch["advantages"], batch["mask"] = advantages, batch["response_mask"]
+    before_sync = _sync_fingerprint(trainer.params, prec)
+    # layer 0 of each stacked leaf, the others whole
+    def probe(k, v):
+        return v[0] if k.startswith("blocks") else v
+    before = {k: probe(k, v).clone() for k, v in _leaf_items(trainer.params)}
+    timings = {}
+    _, opt_state, upd = trainer.update_fn(trainer.params, trainer.opt_state, batch, timings)
+    upd = stats_to_host(upd)
+    _finite_metrics(upd, "nonzero-advantage update")
+    check(upd["grad_norm"] > 0, f"grad_norm {upd['grad_norm']}")
+    after_loss = float(trainer.batch_loss(trainer.params, batch)[0])
+    moved, still = [], []
+    for k, v in _leaf_items(trainer.params):
+        m = opt_state.m
+        for part in k.split("/"):
+            m = m[part]
+        check(bool(m.data.view(torch.uint8).any()), f"{k}: no gradient reached its moment")
+        (still if torch.equal(before[k], probe(k, v)) else moved).append(k)
+    # lr x |update| <= 3e-4 is under half a bf16 ulp of the norm scales' 1.0
+    check(all(k.endswith("norm_scale") for k in still), f"params unchanged: {still}")
+    after_sync = _sync_fingerprint(trainer.params, prec)
+    same = [k for k in before_sync if torch.equal(before_sync[k][0], after_sync[k][0])
+            and before_sync[k][1] == after_sync[k][1]]
+    check(not same and len(before_sync) == SYNC_LEAVES,
+          f"re-sync after the update left the payloads of {same} unchanged")
+    stats["update"] = dict(loss_before=upd["loss"], loss_after=after_loss, **timings,
+                           **{k: upd[k] for k in ("grad_norm", "clip_scale", "mismatch_kl",
+                                                  "corr_weight_mean", "corr_weight_ess")},
+                           params_moved=len(moved), params_unchanged=still)
+    log("nonzero-advantage update: " + json.dumps(stats["update"]))
+    del before, before_sync, after_sync
+    stats["update_profile"] = profile_update(trainer, batch, rl.optimizer, timings)
+
+    stats["train_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    check(stats["train_peak_gb"] * 1e9 < CARD_BYTES,
+          f"trainer peak {stats['train_peak_gb']:.1f} GB is not under 80 GB")
+    log("trainer path: " + json.dumps(stats))
+    return stats
+
+
+def profile_update(trainer, batch, opt_cfg, timings):
+    """Device busy ms of the update's two halves under torch.profiler —
+    the scoring pass + backward, then one more AdamW step on its
+    gradients — beside their wall ms from `timings` (the same update,
+    unprofiled).  The params move once more: run it last."""
+    from repro_torch.optim import update as opt_update
+    out = {}
+    (loss, _, grads), busy, n, by_name = _profile(
+        lambda: trainer.loss_and_grads(trainer.params, batch))
+    out["score_backward"] = dict(wall_ms=timings["score_backward_ms"], busy_ms=busy,
+                                 kernels=n, gemm_ms=sum(ms for k, ms in by_name.items()
+                                                        if "gemm" in k.lower()))
+    _, busy, n, _ = _profile(lambda: opt_update(trainer.params, grads, trainer.opt_state,
+                                                opt_cfg))
+    out["optimizer"] = dict(wall_ms=timings["optimizer_ms"], busy_ms=busy, kernels=n)
+    log("update profile: " + json.dumps(out))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 6: times at the main paths' shapes
 # ---------------------------------------------------------------------------
 
@@ -1735,6 +1925,8 @@ def main() -> int:
     torch.cuda.synchronize()
     time_kernels(dev, gen, results, cfg, roll, traj, contig_lengths, extra)
     log("kernel_timings " + json.dumps(extra))
+    del model, roll, traj
+    train_path(dev, cfg)
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, "
         f"wall {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -16,13 +16,18 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: `device` if given, else CUDA.
+    """The device an entry point runs on: `device` if given (a bare "cuda"
+    becomes the current CUDA device, so devices compare equal to those of
+    the tensors made on them), else the current CUDA device.
 
     Raises when no device is given and CUDA is absent, so a run meant for
     the card can never fall back to the CPU unnoticed.
     """
     if device is not None:
-        return torch.device(device)
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            return torch.device("cuda", torch.cuda.current_device())
+        return device
     if not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run the port's "

@@ -6,8 +6,9 @@ tiles) by kernel 1 and multiplied by kernel 3 (`kernels.ops`).  Unlike the
 reference's CPU default (a QDQ matmul of dequantized bf16 operands), the
 port never materialises dequantized operands: its GEMM takes the fp8
 payloads and applies the block scales to each slab's f32 partial, which is
-what the reference's TPU kernel computes.  `fp8_dot`, the end-to-end FP8
-training path, comes with the training slice.
+what the reference's TPU kernel computes.  The bf16 `_dot` is also the
+trainer's linear and differentiates on the card.  `fp8_dot`, the
+end-to-end FP8 training path, is not ported yet (ROADMAP queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -20,16 +21,43 @@ from repro_torch.core.quant import QuantizedTensor, dequantize
 from repro_torch.kernels import ops
 
 
+class _MmF32(torch.autograd.Function):
+    """x2 (M, K) @ w (K, N) as one GEMM of the operands as they are, with
+    f32 sums and an f32 result (`aten::mm.dtype`, CUDA and meta).  That op
+    has no derivative of its own; the backward is the same GEMM twice,
+    dx = g @ w^T and dw = x^T @ g, on operands in the forward's dtype, f32
+    sums, each rounded once to its operand's dtype.  `g` arrives as f32
+    widened from x.dtype (the gradient of `_dot`'s final cast), so casting
+    it back is exact."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return torch.mm(x2, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g = g.to(x2.dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.mm(g, w.t(), out_dtype=torch.float32).to(x2.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.mm(x2.t(), g, out_dtype=torch.float32).to(w.dtype)
+        return dx, dw
+
+
 def _dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w with f32 accumulation, output in x.dtype (the reference's
     `preferred_element_type=f32` dot).
 
-    On the card the operands go into one GEMM as they are, which sums in
-    f32 and writes f32 (`aten::mm.dtype`, CUDA only), rounded to x.dtype
-    once: no widened copy of w and no reduced-precision split-K sum.  On
-    the CPU the operands are widened to f32, as before."""
-    if x.is_cuda:
-        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+    On the card (and on "meta", which stands in for it) the operands go
+    into one GEMM as they are, which sums in f32 and writes f32
+    (`_MmF32`), rounded to x.dtype once: no widened copy of w and no
+    reduced-precision split-K sum; its backward is the same kind of GEMM.
+    On the CPU the operands are widened to f32, as before."""
+    if x.is_cuda or x.is_meta:
+        out = _MmF32.apply(x.reshape(-1, x.shape[-1]), w)
         return out.to(x.dtype).reshape(*x.shape[:-1], w.shape[-1])
     return torch.matmul(x.float(), w.float()).to(x.dtype)
 
@@ -54,7 +82,7 @@ def linear(x: torch.Tensor, w, *, precision: Optional[PrecisionConfig] = None,
     if precision is not None and precision.fp8_training and quantized:
         raise NotImplementedError(
             "fp8_dot (end-to-end FP8 training) is not ported yet: "
-            "ROADMAP queue 1, training slice")
+            "ROADMAP queue 1 item 4")
     return _dot(x, w.to(x.dtype))
 
 

@@ -92,3 +92,6 @@ BF16_ROLLOUT = PrecisionConfig(
 FP8_LINEAR_ROLLOUT = PrecisionConfig(kv_cache_dtype="bf16", calculate_kv_scales=False)
 FP8_KV_ONLY_ROLLOUT = PrecisionConfig(quantize_linears=False)
 FULL_FP8_ROLLOUT = PrecisionConfig(quantize_attention=True)
+# end-to-end FP8 (fp8_dot training + quantized attention): the port raises
+# for both halves until ROADMAP queue 1 item 4
+E2E_FP8 = PrecisionConfig(quantize_attention=True, fp8_training=True)

@@ -1,5 +1,5 @@
-"""Toy token space and prompt recipes (port of `repro.data.tasks`, the
-parts the rollout and serving slices need)."""
+"""Toy token space, prompt recipes and the rule-based verifier (port of
+`repro.data.tasks`; the enc-dec `random_frames` is not ported)."""
 from __future__ import annotations
 
 import dataclasses
@@ -43,3 +43,42 @@ def sample_problem(rng: np.random.Generator, max_operand: int = 99) -> Problem:
     val = a + b if op == "+" else a - b
     text = f"{a}{op}{b}="
     return Problem(prompt_ids=[BOS] + encode(text), answer=str(val))
+
+
+def decode_ids(ids) -> str:
+    """Token ids -> text; specials other than `<ans>` are dropped and EOS
+    ends the text."""
+    out = []
+    for i in ids:
+        i = int(i)
+        if i < len(VOCAB) and i >= len(_SPECIALS):
+            out.append(VOCAB[i])
+        elif i == ANS:
+            out.append("<ans>")
+        elif i == EOS:
+            break
+    return "".join(out)
+
+
+def reward_fn(problem: Problem, response_ids) -> float:
+    """Rule-based verifiable reward (paper's reward model analogue):
+    response must contain `<ans>` followed by exactly the right digits and
+    then EOS.  Partial credit 0.1 for a well-formed but wrong answer."""
+    ids = [int(i) for i in response_ids]
+    if ANS not in ids:
+        return 0.0
+    start = ids.index(ANS) + 1
+    try:
+        end = ids.index(EOS, start)
+    except ValueError:
+        return 0.0
+    text = decode_ids(ids[start:end]) if end > start else ""
+    expected = problem.answer
+    if text == expected:
+        return 1.0
+    return 0.1 if text.lstrip("-").isdigit() else 0.0
+
+
+def solution_ids(problem: Problem) -> List[int]:
+    """Gold completion (for sanity baselines / SFT warmstart)."""
+    return [ANS] + encode(problem.answer) + [EOS]

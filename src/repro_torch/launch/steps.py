@@ -15,8 +15,9 @@ before any launch (the reference's XLA scatter drops it silently).
 `input_specs`, `cache_specs` and `param_specs` are the counterpart of the
 reference's `ShapeDtypeStruct` stand-ins: tensors on the "meta" device,
 with shapes and dtypes and no storage.  The port runs the dense text
-decoder only, so there are no frontend specs; `make_train_step` and
-`make_opt_specs` come with the training slice.
+decoder only, so there are no frontend specs.  `make_train_step` and
+`make_opt_specs` (the TRAIN_4K cell's step) are not ported yet; the RL
+trainer's update is `rl.RLTrainer.update_fn` (ROADMAP queue 1).
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
 """Models of the port (port of `repro.models`): the dense decoder."""
-from repro_torch.models.transformer import Transformer
+from repro_torch.models.transformer import Transformer, forward_train, token_logprobs
 
-__all__ = ["Transformer"]
+__all__ = ["Transformer", "forward_train", "token_logprobs"]

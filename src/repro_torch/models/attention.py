@@ -1,5 +1,5 @@
 """GQA attention over a quantizable KV cache (port of
-`repro.models.attention`, the rollout and serving paths).
+`repro.models.attention`, the rollout, serving and training paths).
 
 Two cache layouts, as in the reference.  The default `KVCache` is one
 contiguous (B, S_max, KVH, D) region per layer: prefill writes [0, S),
@@ -23,7 +23,9 @@ fp8_paged_decode_attention` for a pool, kernel 6 `ops.
 fp8_decode_attention` for a contiguous cache), or the reference's jnp
 paths — for a pool a contiguous copy of the live leading blocks, for a
 contiguous cache the full S_max region, dequantized by
-`dequantize_per_tensor`, through `_sdpa`.  The pool gather is sized by
+`dequantize_per_tensor`, through `_sdpa`.  `attention_forward` is the
+cache-free full-sequence attention of the trainer's scoring pass.  The
+pool gather is sized by
 `_live_blocks` from host-side lengths, so it needs no device sync.
 Caches are updated in place (eager PyTorch needs no functional copy);
 a decode write at or past S_max raises (`IndexError` here; the steps of
@@ -259,6 +261,33 @@ def _sdpa_chunked(q, k, v, *, lengths=None, kv_chunk: int = 1024):
         m = m_new
     out = acc / torch.clamp_min(l, 1e-30)
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h * dh).to(q.dtype)
+
+
+def causal_mask(s: int, device=None) -> torch.Tensor:
+    return torch.ones((s, s), dtype=torch.bool, device=device).tril()
+
+
+def attention_forward(x, params, cfg, precision: Optional[PrecisionConfig] = None,
+                      *, positions=None, mask=None, causal: bool = True,
+                      lengths=None):
+    """Full-sequence attention with no cache (training / scoring): q, k, v
+    from x, RoPE at `positions` (0..S-1 when None), then the naive `_sdpa`
+    under `mask` (B, S, S) — causal when None — or, under
+    `attention_impl("chunked")` and causal, `_sdpa_chunked` masked by
+    `lengths`.  Differentiable: every op is autograd's."""
+    s = x.shape[1]
+    q, k, v = _project_qkv(x, params, cfg, precision)
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    if _impl() == "chunked" and causal:
+        out = _sdpa_chunked(q, k, v, lengths=lengths)
+    else:
+        if mask is None and causal:
+            mask = causal_mask(s, x.device)[None]
+        out = _sdpa(q, k, v, mask)
+    return linear(out, params["wo"], precision=precision)
 
 
 def _quantize_kv(k, v, cache, precision: PrecisionConfig,

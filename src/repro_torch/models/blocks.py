@@ -69,17 +69,24 @@ def _mlp(x, slot_params, cfg, precision):
 
 
 def apply_slot_full(x, slot_params, spec: SlotSpec, cfg, precision, *,
-                    kv_cache, positions=None, lengths, block_tables=None,
-                    chunk_start=None, use_kernel: bool = False,
+                    kv_cache=None, positions=None, lengths=None, mask=None,
+                    block_tables=None, chunk_start=None,
+                    use_kernel: bool = False,
                     live_blocks: Optional[int] = None):
-    """Prefill branch of the reference's `apply_slot_full`: attention over
-    the prompt, writing the cache (a contiguous `KVCache`, or a pool
-    through `block_tables`) — or, with `chunk_start`, over one chunk of it
-    at [chunk_start, chunk_start + C) of a pool (`use_kernel` and
-    `live_blocks` as in `attention_prefill_chunk`) — then the MLP."""
+    """Full-sequence branch of the reference's `apply_slot_full`, then the
+    MLP.  Without `kv_cache` (training / scoring): cache-free attention
+    under `mask` (`attention.attention_forward`).  With a cache: prefill
+    attention over the prompt, writing the cache (a contiguous `KVCache`,
+    or a pool through `block_tables`) — or, with `chunk_start`, over one
+    chunk of it at [chunk_start, chunk_start + C) of a pool (`use_kernel`
+    and `live_blocks` as in `attention_prefill_chunk`)."""
     p = slot_params["attn"]
     xn = rms_norm(x, p["norm_scale"], cfg.norm_eps)
-    if chunk_start is not None:
+    if kv_cache is None:
+        h = attn_mod.attention_forward(xn, p, cfg, precision,
+                                       positions=positions, mask=mask,
+                                       lengths=lengths)
+    elif chunk_start is not None:
         h = attn_mod.attention_prefill_chunk(
             xn, p, cfg, kv_cache, precision, start=chunk_start,
             lengths=lengths, block_tables=block_tables,

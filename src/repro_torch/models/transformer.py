@@ -12,8 +12,9 @@ per layer, decode through kernel 6); with `page_size` it is a paged pool
 (kernel 4).  `prefill_chunk` and the `use_kernel` switch of
 `decode_step` serve the continuous-batching engine (`repro_torch.
 serving`).  On the "meta" device the model builds shapes only
-(`launch.steps` specs).  `forward_train`/`token_logprobs` come with the
-training slice.
+(`launch.steps` specs).  `forward_train` / `token_logprobs` are the
+trainer's differentiable teacher-forced pass (no cache, each layer
+recomputed in the backward as the reference's `jax.checkpoint` does).
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.core.fp8_linear import linear
@@ -272,3 +274,74 @@ class Transformer(nn.Module):
         if contiguous:
             cache["max_length"] += 1
         return self._unembed(params, x[:, 0], precision), cache
+
+
+# ---------------------------------------------------------------------------
+# training / scoring forward
+# ---------------------------------------------------------------------------
+
+def _unbind_layers(tree, repeats: int) -> list:
+    """The R per-layer trees of a stacked param tree.  A stacked leaf is
+    unbound once, so the backward stacks the layers' gradients in one op
+    (indexing it per layer would build a full-size zero gradient per
+    layer and add them up)."""
+    if isinstance(tree, dict):
+        per_key = {k: _unbind_layers(v, repeats) for k, v in tree.items()}
+        return [{k: v[r] for k, v in per_key.items()} for r in range(repeats)]
+    if isinstance(tree, QuantizedTensor):
+        return [tree.layer(r) for r in range(repeats)]
+    return list(tree.unbind(0))
+
+
+def _train_mask(t: int, lengths, device) -> torch.Tensor:
+    """(1, T, T) causal, or (B, T, T) with keys past `lengths` masked."""
+    mask = attn_mod.causal_mask(t, device)[None]
+    if lengths is not None:
+        valid = torch.arange(t, device=device)[None] < lengths.to(device)[:, None]
+        mask = mask & valid[:, None, :]
+    return mask
+
+
+def forward_train(params: dict, inputs: dict, cfg,
+                  precision: Optional[PrecisionConfig] = None, *,
+                  remat: bool = True):
+    """Full teacher-forced forward over `inputs["tokens"]` (B, T), keys
+    masked causally and past `inputs["lengths"]` when given.  Returns
+    (logits (B, T, V) f32, aux); aux has the reference's keys ("moe" is
+    empty: the port's models are dense).  Runs on the params' device.
+    With `remat` and autograd recording, each layer runs under
+    `torch.utils.checkpoint` and is recomputed in the backward."""
+    if precision is not None:
+        _check_precision(precision)
+    model = Transformer(cfg, params["emb"].device)
+    dev = model.device
+    tokens = inputs["tokens"].to(dev).long()
+    lengths = inputs.get("lengths")
+    t = tokens.shape[1]
+    mask = _train_mask(t, lengths, dev)
+    positions = torch.arange(t, device=dev)[None, :]
+
+    def body(h, slot_params):
+        for j, spec in enumerate(model.pattern):
+            h = blocks_mod.apply_slot_full(
+                h, slot_params[f"s{j}"], spec, cfg, precision,
+                positions=positions, mask=mask, lengths=lengths)
+        return h
+
+    x = params["emb"][tokens]
+    remat = remat and torch.is_grad_enabled()
+    for slot_params in _unbind_layers(params["blocks"], model.repeats):
+        x = checkpoint(body, x, slot_params, use_reentrant=False) if remat \
+            else body(x, slot_params)
+    return model._unembed(params, x, precision), {"moe": {}}
+
+
+def token_logprobs(params: dict, inputs: dict, cfg,
+                   precision: Optional[PrecisionConfig] = None, **kw):
+    """log p(token_t | tokens_<t) for t >= 1, (B, T-1) f32 — the
+    trainer-side scoring pass behind the TIS ratios and the mismatch KL
+    (paper §2.1.3).  Returns (logprobs, aux)."""
+    logits, aux = forward_train(params, inputs, cfg, precision, **kw)
+    tokens = inputs["tokens"].to(logits.device).long()
+    logp = torch.log_softmax(logits[:, :-1], dim=-1)
+    return torch.gather(logp, -1, tokens[:, 1:, None])[..., 0], aux

@@ -9,9 +9,9 @@ steps, and returns per-token rollout logprobs (the pi^FP8 side of TIS).
 GRPO group sampling (`num_samples_per_prompt` > 1) prefills each prompt
 once and forks per-sample block tables over the shared KV blocks,
 copying the partially filled boundary block before the first divergent
-append (copy-on-write), as the reference does.  The scoring helpers
-(`packed_sequences`, `gather_response_logps`) come with the training
-slice.
+append (copy-on-write), as the reference does.  The scoring helpers (`packed_sequences`,
+`gather_response_logps`) align a trajectory with the trainer's
+teacher-forced pass.
 """
 from __future__ import annotations
 
@@ -190,3 +190,36 @@ def _collect_kv_scales(cache: dict) -> dict:
     return {name: {"k_scale": slot["kv"].k_scale.clone(),
                    "v_scale": slot["kv"].v_scale.clone()}
             for name, slot in cache["slots"].items() if "kv" in slot}
+
+
+# ---------------------------------------------------------------------------
+# scoring-side alignment helpers
+# ---------------------------------------------------------------------------
+
+def packed_sequences(traj: Trajectory) -> torch.Tensor:
+    """(B, P+G): prompt[:L_i] immediately followed by the response — the
+    teacher-forced scoring input (no PAD gap for short prompts)."""
+    b, p = traj.prompt_tokens.shape
+    g = traj.response_tokens.shape[1]
+    dev = traj.prompt_tokens.device
+    pos = torch.arange(p + g, device=dev)[None, :]
+    lens = traj.prompt_lengths[:, None].long()
+    prompt_part = torch.gather(
+        traj.prompt_tokens, 1, torch.clamp(pos, 0, p - 1).expand(b, p + g))
+    resp_idx = torch.clamp(pos - lens, 0, g - 1)
+    resp_part = torch.gather(traj.response_tokens, 1, resp_idx)
+    return torch.where(pos < lens, prompt_part, resp_part)
+
+
+def gather_response_logps(score_logps: torch.Tensor, traj: Trajectory
+                          ) -> torch.Tensor:
+    """Align scoring-model logprobs (B, T-1) with rollout response tokens.
+
+    The response token k of row i sits at packed position L_i + k and is
+    predicted at logprob index L_i + k - 1.  Returns (B, G) masked like
+    `traj.response_mask`."""
+    g = traj.response_mask.shape[1]
+    dev = score_logps.device
+    idx = traj.prompt_lengths[:, None].long() + torch.arange(g, device=dev)[None, :] - 1
+    idx = torch.clamp(idx, 0, score_logps.shape[1] - 1)
+    return torch.gather(score_logps, 1, idx) * traj.response_mask

@@ -34,7 +34,10 @@ launch without a copy at a padded shape.  Kernel 1: bit-equal at the
 paths' rows (M 1-16384) and odd tile counts, with f32 input, E5M2 and
 UE8M0; kernel 1 then kernel 3 on one rewritten buffer 200 times, bit-equal
 to the synchronized pair; a CUDA graph of kernel 1 and three kernel 3
-calls replays bit-equal to eager.
+calls replays bit-equal to eager.  The trainer: `_dot`'s backward within
+one bf16 rounding of the f32 products, one reduced-size update on the
+card against the same update on the CPU, and the optimizer's temporaries
+held to one chunk of a stacked leaf.
 """
 import pytest
 
@@ -586,6 +589,113 @@ def test_dot_on_card_is_one_bf16_gemm(cuda):
     assert torch.allclose(out.float(), ref, rtol=2 ** -7, atol=1e-2)
     x3 = x.reshape(2, 8, 4096)
     assert torch.equal(fp8_linear._dot(x3, w).reshape(16, 8192), out)
+
+
+def test_dot_backward_on_card(cuda):
+    """`_dot`'s backward on the card: dx = g @ w^T and dw = x^T @ g, each
+    within one bf16 rounding of the f32 products; the forward stays the
+    one bf16 GEMM with f32 sums, bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn((24, 4096), generator=gen, device=cuda).to(torch.bfloat16)
+    w = torch.randn((4096, 2048), generator=gen, device=cuda).to(torch.bfloat16)
+    g = torch.randn((2, 12, 2048), generator=gen, device=cuda).to(torch.bfloat16)
+    xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    out = fp8_linear._dot(xr.reshape(2, 12, 4096), wr)
+    assert torch.equal(out.reshape(24, 2048),
+                       torch.mm(x, w, out_dtype=torch.float32).to(torch.bfloat16))
+    out.backward(g)
+    g2 = g.reshape(24, 2048).float()
+    assert xr.grad.dtype == wr.grad.dtype == torch.bfloat16
+    assert torch.allclose(xr.grad.float(), g2 @ w.float().t(), rtol=2 ** -7, atol=1e-2)
+    assert torch.allclose(wr.grad.float(), x.float().t() @ g2, rtol=2 ** -7, atol=1e-2)
+
+
+def _train_setup():
+    from repro_torch.configs import get_config
+    from repro_torch.data import tasks
+    from repro_torch.models import token_logprobs
+    from repro_torch.rl import rollout as ro
+    cfg = get_config("qwen3-8b").reduced(vocab_size=tasks.VOCAB_SIZE, n_layers=2,
+                                         d_model=128)
+    params = Transformer(cfg, "cpu").init_params(0)
+    gen = torch.Generator().manual_seed(8)
+    b, p, g = 8, 8, 6
+    lens = torch.randint(3, p + 1, (b,), generator=gen, dtype=torch.int32)
+    rlen = torch.randint(1, g + 1, (b,), generator=gen, dtype=torch.int32)
+    mask = (torch.arange(g)[None] < rlen[:, None]).float()
+    traj = ro.Trajectory(torch.randint(4, 19, (b, p), generator=gen, dtype=torch.int32), lens,
+                         torch.randint(2, 19, (b, g), generator=gen, dtype=torch.int32),
+                         mask, torch.zeros((b, g)), rlen, None, None)
+    packed = ro.packed_sequences(traj)
+    lp = ro.gather_response_logps(token_logprobs(params, {"tokens": packed}, cfg)[0], traj)
+    batch = {"packed_tokens": packed, "prompt_lengths": lens, "response_mask": mask,
+             "mask": mask, "rollout_logps": (lp + 0.3 * torch.randn(lp.shape, generator=gen))
+             * mask, "advantages": torch.randn((b // 4,), generator=gen).repeat_interleave(4)}
+    return cfg, params, batch
+
+
+def test_update_on_card_matches_cpu(cuda):
+    """One reduced-size update (scoring, DAPO loss with TIS, backward, AdamW
+    with fp8 moments) on the card against the same update on the CPU, at
+    the CPU parity tests' tolerances (tests/test_torch_train.py)."""
+    from repro_torch.core.precision import PrecisionConfig
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.rl import trainer as tr
+    cfg, params, batch = _train_setup()
+    rl = tr.RLConfig(precision=PrecisionConfig(),
+                     optimizer=AdamWConfig(lr=3e-4, b2=0.98, fp8_moments=True))
+    runs = []
+    for dev in ("cpu", cuda):
+        t = tr.RLTrainer(cfg, rl, device=dev,
+                         params=tr._fill(params, (p.to(dev, copy=True) for p in tr._leaves(params))))
+        b = {k: v.to(dev) for k, v in batch.items()}
+        _, _, grads = t.loss_and_grads(t.params, b)
+        new, _, stats = t.update_fn(t.params, t.opt_state, b)
+        runs.append((grads, new, tr.stats_to_host(stats)))
+    (g_cpu, p_cpu, s_cpu), (g_gpu, p_gpu, s_gpu) = runs
+    for k in s_cpu:
+        assert abs(s_gpu[k] - s_cpu[k]) <= 5e-3 + 1e-2 * abs(s_cpu[k]), (k, s_gpu[k], s_cpu[k])
+    for a, b in zip(tr._leaves(g_cpu), tr._leaves(g_gpu)):
+        assert b.dtype == torch.bfloat16
+        err = (b.cpu().float() - a.float()).norm() / a.float().norm().clamp_min(1e-30)
+        assert err <= 3e-2, err
+    n_diff = n_all = 0
+    for a, b in zip(tr._leaves(p_cpu), tr._leaves(p_gpu)):
+        a, b = a.float(), b.cpu().float()
+        ulp = torch.exp2(torch.floor(torch.log2(a.abs().clamp_min(1e-30))) - 7)
+        assert bool(((a - b).abs() <= ulp + 2 * 3e-4 * 1.01).all())
+        n_diff += int((a != b).sum())
+        n_all += a.numel()
+    assert n_diff <= 1e-2 * n_all, (n_diff, n_all)
+
+
+def test_optimizer_peak_memory_is_one_chunk_on_card(cuda, monkeypatch):
+    """A stacked leaf of 4 chunks: the update's f32 temporaries stay at a
+    chunk's size (CHUNK_ELEMS elements, one layer of a full-width MLP leaf),
+    not the leaf's.  The whole-leaf update (CHUNK_ELEMS = the leaf) is the
+    yardstick."""
+    from repro_torch.optim import adamw
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    shape = (32, 2048, 4096)                    # 2**28 elements, 8 layers a chunk
+    p = (torch.randn(shape, generator=gen, device=cuda) * 0.02).to(torch.bfloat16)
+    g = (torch.randn(shape, generator=gen, device=cuda) * 1e-3).to(torch.bfloat16)
+    conf = adamw.AdamWConfig(lr=3e-4, fp8_moments=True)
+    chunk = adamw.CHUNK_ELEMS
+    extra = {}
+    for name, elems in (("chunked", chunk), ("whole", p.numel())):
+        monkeypatch.setattr(adamw, "CHUNK_ELEMS", elems)
+        state = adamw.init({"w": p}, conf)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        adamw.update({"w": p}, {"w": g}, state, conf)
+        torch.cuda.synchronize()
+        extra[name] = torch.cuda.max_memory_allocated() - base
+        del state
+    print(f"\noptimizer temporaries over a (32, 2048, 4096) leaf: {extra} bytes; "
+          f"one chunk of f32 is {4 * chunk}")
+    assert extra["chunked"] <= 16 * 4 * chunk
+    assert extra["whole"] >= 3 * extra["chunked"]
 
 
 def test_serve_step_past_the_cache_raises_on_card(cuda):
