@@ -1399,14 +1399,6 @@ def _sync_fingerprint(params, prec):
     return out
 
 
-def _leaf_items(tree, prefix=""):
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _leaf_items(v, f"{prefix}/{k}" if prefix else k)
-    else:
-        yield prefix, tree
-
-
 def train_path(dev, cfg):
     """Phase 8: `RLTrainer` on full-width, full-depth qwen3-8b over the
     main path's bf16 weights, drawn again from the same seed (held through
@@ -1416,6 +1408,7 @@ def train_path(dev, cfg):
     trajectory."""
     import numpy as np
     import torch
+    from repro_torch.checkpoint import flatten_tree
     from repro_torch.core.precision import BF16_ROLLOUT, PrecisionConfig
     from repro_torch.data import PromptPipeline
     from repro_torch.kernels import build
@@ -1484,7 +1477,7 @@ def train_path(dev, cfg):
     # layer 0 of each stacked leaf, the others whole
     def probe(k, v):
         return v[0] if k.startswith("blocks") else v
-    before = {k: probe(k, v).clone() for k, v in _leaf_items(trainer.params)}
+    before = {k: probe(k, v).clone() for k, v in flatten_tree(trainer.params)}
     timings = {}
     _, opt_state, upd = trainer.update_fn(trainer.params, trainer.opt_state, batch, timings)
     upd = stats_to_host(upd)
@@ -1492,7 +1485,7 @@ def train_path(dev, cfg):
     check(upd["grad_norm"] > 0, f"grad_norm {upd['grad_norm']}")
     after_loss = float(trainer.batch_loss(trainer.params, batch)[0])
     moved, still = [], []
-    for k, v in _leaf_items(trainer.params):
+    for k, v in flatten_tree(trainer.params):
         m = opt_state.m
         for part in k.split("/"):
             m = m[part]
@@ -1527,14 +1520,17 @@ def profile_update(trainer, batch, opt_cfg, timings):
     unprofiled).  The params move once more: run it last."""
     from repro_torch.optim import update as opt_update
     out = {}
-    (loss, _, grads), busy, n, by_name = _profile(
+    def top(by_name):
+        return [[k[:50], round(ms, 2)] for k, ms in sorted(by_name.items(),
+                                                           key=lambda kv: -kv[1])[:5]]
+    (_, _, grads), busy, n, by_name = _profile(
         lambda: trainer.loss_and_grads(trainer.params, batch))
     out["score_backward"] = dict(wall_ms=timings["score_backward_ms"], busy_ms=busy,
-                                 kernels=n, gemm_ms=sum(ms for k, ms in by_name.items()
-                                                        if "gemm" in k.lower()))
-    _, busy, n, _ = _profile(lambda: opt_update(trainer.params, grads, trainer.opt_state,
-                                                opt_cfg))
-    out["optimizer"] = dict(wall_ms=timings["optimizer_ms"], busy_ms=busy, kernels=n)
+                                 kernels=n, top_ms=top(by_name))
+    _, busy, n, by_name = _profile(lambda: opt_update(trainer.params, grads,
+                                                      trainer.opt_state, opt_cfg))
+    out["optimizer"] = dict(wall_ms=timings["optimizer_ms"], busy_ms=busy, kernels=n,
+                            top_ms=top(by_name))
     log("update profile: " + json.dumps(out))
     return out
 

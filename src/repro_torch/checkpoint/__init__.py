@@ -1,4 +1,4 @@
 """Checkpointing of the port (port of `repro.checkpoint`)."""
-from repro_torch.checkpoint.checkpointer import Checkpointer
+from repro_torch.checkpoint.checkpointer import Checkpointer, flatten_tree
 
-__all__ = ["Checkpointer"]
+__all__ = ["Checkpointer", "flatten_tree"]

@@ -47,8 +47,9 @@ def _items(tree):
     return None
 
 
-def _flatten(tree, prefix=""):
-    """[(path, tensor)] in a fixed order (containers' own order)."""
+def flatten_tree(tree, prefix=""):
+    """[(path, tensor)] of a tree of dicts, tuples and NamedTuples, in the
+    containers' own order; paths join keys with "/"."""
     items = _items(tree)
     if items is None:
         if not isinstance(tree, torch.Tensor):
@@ -57,7 +58,7 @@ def _flatten(tree, prefix=""):
         return [(prefix, tree)]
     out = []
     for k, child in items:
-        out.extend(_flatten(child, f"{prefix}/{k}" if prefix else str(k)))
+        out.extend(flatten_tree(child, f"{prefix}/{k}" if prefix else str(k)))
     return out
 
 
@@ -95,7 +96,7 @@ class Checkpointer:
         os.makedirs(tmp)
 
         arrays, meta_leaves = {}, []
-        for i, (path, t) in enumerate(_flatten(tree)):
+        for i, (path, t) in enumerate(flatten_tree(tree)):
             t = t.detach().cpu().contiguous()
             packed = None if t.dtype in _NUMPY_NATIVE else "u8"
             meta_leaves.append({"path": path, "dtype": str(t.dtype),
@@ -139,7 +140,7 @@ class Checkpointer:
         path = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
-        like_leaves = _flatten(like)
+        like_leaves = flatten_tree(like)
         metas = manifest["leaves"]
         if len(metas) != len(like_leaves):
             raise ValueError(f"checkpoint has {len(metas)} leaves, "

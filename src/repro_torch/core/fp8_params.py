@@ -62,10 +62,12 @@ def quantize_params(params: dict, precision: PrecisionConfig) -> dict:
     return _map_with_path(convert, params)
 
 
-def _leaves(tree):
+def tree_leaves(tree):
+    """The leaves of a nested-dict tree (params, grads, moments), in dict
+    order; a `QuantizedTensor` is one leaf."""
     if isinstance(tree, dict):
         for v in tree.values():
-            yield from _leaves(v)
+            yield from tree_leaves(v)
     else:
         yield tree
 
@@ -73,7 +75,7 @@ def _leaves(tree):
 def count_quantized(params: dict) -> dict:
     """How much of the model went fp8 (leaf and byte counts)."""
     n_q = n_raw = bytes_q = bytes_raw = 0
-    for leaf in _leaves(params):
+    for leaf in tree_leaves(params):
         if isinstance(leaf, QuantizedTensor):
             n_q += 1
             bytes_q += leaf.data.numel() + leaf.scales.numel() * 4

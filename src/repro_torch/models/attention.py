@@ -267,25 +267,19 @@ def causal_mask(s: int, device=None) -> torch.Tensor:
     return torch.ones((s, s), dtype=torch.bool, device=device).tril()
 
 
-def attention_forward(x, params, cfg, precision: Optional[PrecisionConfig] = None,
-                      *, positions=None, mask=None, causal: bool = True,
-                      lengths=None):
-    """Full-sequence attention with no cache (training / scoring): q, k, v
-    from x, RoPE at `positions` (0..S-1 when None), then the naive `_sdpa`
-    under `mask` (B, S, S) — causal when None — or, under
-    `attention_impl("chunked")` and causal, `_sdpa_chunked` masked by
-    `lengths`.  Differentiable: every op is autograd's."""
-    s = x.shape[1]
+def attention_forward(x, params, cfg, precision: Optional[PrecisionConfig], *,
+                      positions, mask, lengths=None):
+    """Full-sequence causal attention with no cache (training / scoring):
+    q, k, v from x, RoPE at `positions`, then the naive `_sdpa` under
+    `mask` (B or 1, S, S) — or, under `attention_impl("chunked")`,
+    `_sdpa_chunked` masked causally and by `lengths`.  Differentiable:
+    every op is autograd's."""
     q, k, v = _project_qkv(x, params, cfg, precision)
-    if positions is None:
-        positions = torch.arange(s, device=x.device)[None, :]
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    if _impl() == "chunked" and causal:
+    if _impl() == "chunked":
         out = _sdpa_chunked(q, k, v, lengths=lengths)
     else:
-        if mask is None and causal:
-            mask = causal_mask(s, x.device)[None]
         out = _sdpa(q, k, v, mask)
     return linear(out, params["wo"], precision=precision)
 

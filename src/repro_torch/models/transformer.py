@@ -303,14 +303,14 @@ def _train_mask(t: int, lengths, device) -> torch.Tensor:
 
 
 def forward_train(params: dict, inputs: dict, cfg,
-                  precision: Optional[PrecisionConfig] = None, *,
-                  remat: bool = True):
+                  precision: Optional[PrecisionConfig] = None):
     """Full teacher-forced forward over `inputs["tokens"]` (B, T), keys
     masked causally and past `inputs["lengths"]` when given.  Returns
     (logits (B, T, V) f32, aux); aux has the reference's keys ("moe" is
     empty: the port's models are dense).  Runs on the params' device.
-    With `remat` and autograd recording, each layer runs under
-    `torch.utils.checkpoint` and is recomputed in the backward."""
+    While autograd records, each layer runs under
+    `torch.utils.checkpoint` and is recomputed in the backward (the
+    reference's `jax.checkpoint`)."""
     if precision is not None:
         _check_precision(precision)
     model = Transformer(cfg, params["emb"].device)
@@ -329,7 +329,7 @@ def forward_train(params: dict, inputs: dict, cfg,
         return h
 
     x = params["emb"][tokens]
-    remat = remat and torch.is_grad_enabled()
+    remat = torch.is_grad_enabled()
     for slot_params in _unbind_layers(params["blocks"], model.repeats):
         x = checkpoint(body, x, slot_params, use_reentrant=False) if remat \
             else body(x, slot_params)
@@ -337,11 +337,11 @@ def forward_train(params: dict, inputs: dict, cfg,
 
 
 def token_logprobs(params: dict, inputs: dict, cfg,
-                   precision: Optional[PrecisionConfig] = None, **kw):
+                   precision: Optional[PrecisionConfig] = None):
     """log p(token_t | tokens_<t) for t >= 1, (B, T-1) f32 — the
     trainer-side scoring pass behind the TIS ratios and the mismatch KL
     (paper §2.1.3).  Returns (logprobs, aux)."""
-    logits, aux = forward_train(params, inputs, cfg, precision, **kw)
+    logits, aux = forward_train(params, inputs, cfg, precision)
     tokens = inputs["tokens"].to(logits.device).long()
     logp = torch.log_softmax(logits[:, :-1], dim=-1)
     return torch.gather(logp, -1, tokens[:, 1:, None])[..., 0], aux

@@ -25,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.fp8_params import tree_leaves
 from repro_torch.core.precision import E4M3, ScaleFormat
 from repro_torch.core.quant import (
     QuantizedTensor,
@@ -95,14 +96,6 @@ def _map(fn, *trees):
     return fn(*trees)
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def _chunk_ranges(p: torch.Tensor) -> list:
     """[start, stop) ranges along `p`'s leading axis, at most CHUNK_ELEMS
     elements each (one row at least); [None] (the whole leaf) below 2
@@ -128,7 +121,7 @@ def init(params: dict, config: AdamWConfig) -> AdamWState:
     def zero(p):
         return _zero_moment(p, config.fp8_moments)
 
-    dev = next(_leaves(params)).device
+    dev = next(tree_leaves(params)).device
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       m=_map(zero, params), v=_map(zero, params))
 
@@ -144,7 +137,7 @@ def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in f32 (leaf by leaf and
     chunk by chunk, so no leaf is widened whole)."""
     total = None
-    for g in _leaves(tree):
+    for g in tree_leaves(tree):
         for r in _chunk_ranges(g):
             sq = torch.sum(torch.square(_chunk(g, r).float()))
             total = sq if total is None else total + sq
@@ -212,7 +205,7 @@ def update(params: dict, grads: dict, state: AdamWState, config: AdamWConfig):
 
 def state_bytes(state: AdamWState) -> int:
     total = 0
-    for leaf in _leaves({"m": state.m, "v": state.v}):
+    for leaf in tree_leaves({"m": state.m, "v": state.v}):
         if isinstance(leaf, QuantizedTensor):
             total += leaf.data.numel() + 4 * leaf.scales.numel()
         else:

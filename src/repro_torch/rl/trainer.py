@@ -31,7 +31,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.checkpoint import Checkpointer
+from repro_torch.checkpoint import Checkpointer, flatten_tree
+from repro_torch.core.fp8_params import tree_leaves
 from repro_torch.core.precision import PrecisionConfig
 from repro_torch.data import PromptPipeline
 from repro_torch.models.transformer import Transformer, token_logprobs
@@ -98,29 +99,11 @@ def check_supported(rl: RLConfig) -> None:
             "rollout router replay (MoE) is not ported yet: ROADMAP queue 1 item 5")
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def _fill(like, it):
     """`like`'s dict structure with leaves taken in order from `it`."""
     if isinstance(like, dict):
         return {k: _fill(v, it) for k, v in like.items()}
     return next(it)
-
-
-def _copy_into(dst, src) -> None:
-    """Copy a restored tree (CPU tensors) into the live one, leaf by leaf."""
-    for d, s in zip(_leaves(dst), _leaves(src)):
-        if isinstance(d, tuple):          # QuantizedTensor
-            d.data.copy_(s.data)
-            d.scales.copy_(s.scales)
-        else:
-            d.copy_(s)
 
 
 def _clock(device) -> float:
@@ -189,7 +172,7 @@ class RLTrainer:
     def loss_and_grads(self, params, batch):
         """The DAPO loss of `batch` under `params`, its stats (the
         reference's keys) and the gradient tree (bf16, like the params)."""
-        leaves = list(_leaves(params))
+        leaves = list(tree_leaves(params))
         for p in leaves:
             p.requires_grad_(True)
         try:
@@ -350,13 +333,11 @@ class RLTrainer:
         take the checkpoint's values."""
         if self.ckpt is None or self.ckpt.latest_step() is None:
             return False
-        tree, extra, _ = self.ckpt.restore(self._ckpt_tree())
-        with torch.no_grad():
-            _copy_into(self.params, tree["params"])
-            _copy_into({"step": self.opt_state.step, "m": self.opt_state.m,
-                        "v": self.opt_state.v},
-                       {"step": tree["opt"].step, "m": tree["opt"].m,
-                        "v": tree["opt"].v})
+        like = self._ckpt_tree()
+        tree, extra, _ = self.ckpt.restore(like)
+        with torch.no_grad():     # the key's leaf in `like` is a scratch copy
+            for (_, dst), (_, src) in zip(flatten_tree(like), flatten_tree(tree)):
+                dst.copy_(src)
         self.generator.set_state(tree["key"])
         self.pipeline.load_state_dict(extra["pipeline"])
         self.step_idx = extra["step_idx"]

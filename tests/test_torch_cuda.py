@@ -638,6 +638,7 @@ def test_update_on_card_matches_cpu(cuda):
     """One reduced-size update (scoring, DAPO loss with TIS, backward, AdamW
     with fp8 moments) on the card against the same update on the CPU, at
     the CPU parity tests' tolerances (tests/test_torch_train.py)."""
+    from repro_torch.core.fp8_params import tree_leaves
     from repro_torch.core.precision import PrecisionConfig
     from repro_torch.optim import AdamWConfig
     from repro_torch.rl import trainer as tr
@@ -647,7 +648,8 @@ def test_update_on_card_matches_cpu(cuda):
     runs = []
     for dev in ("cpu", cuda):
         t = tr.RLTrainer(cfg, rl, device=dev,
-                         params=tr._fill(params, (p.to(dev, copy=True) for p in tr._leaves(params))))
+                         params=tr._fill(params, (p.to(dev, copy=True)
+                                                  for p in tree_leaves(params))))
         b = {k: v.to(dev) for k, v in batch.items()}
         _, _, grads = t.loss_and_grads(t.params, b)
         new, _, stats = t.update_fn(t.params, t.opt_state, b)
@@ -655,12 +657,12 @@ def test_update_on_card_matches_cpu(cuda):
     (g_cpu, p_cpu, s_cpu), (g_gpu, p_gpu, s_gpu) = runs
     for k in s_cpu:
         assert abs(s_gpu[k] - s_cpu[k]) <= 5e-3 + 1e-2 * abs(s_cpu[k]), (k, s_gpu[k], s_cpu[k])
-    for a, b in zip(tr._leaves(g_cpu), tr._leaves(g_gpu)):
+    for a, b in zip(tree_leaves(g_cpu), tree_leaves(g_gpu)):
         assert b.dtype == torch.bfloat16
         err = (b.cpu().float() - a.float()).norm() / a.float().norm().clamp_min(1e-30)
         assert err <= 3e-2, err
     n_diff = n_all = 0
-    for a, b in zip(tr._leaves(p_cpu), tr._leaves(p_gpu)):
+    for a, b in zip(tree_leaves(p_cpu), tree_leaves(p_gpu)):
         a, b = a.float(), b.cpu().float()
         ulp = torch.exp2(torch.floor(torch.log2(a.abs().clamp_min(1e-30))) - 7)
         assert bool(((a - b).abs() <= ulp + 2 * 3e-4 * 1.01).all())

@@ -41,6 +41,7 @@ from repro.models import init_params  # noqa: E402
 from repro.optim import adamw as ja  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.checkpoint import Checkpointer  # noqa: E402
+from repro_torch.core.fp8_params import tree_leaves  # noqa: E402
 from repro_torch.core.quant import QuantizedTensor  # noqa: E402
 from repro_torch.optim import adamw as ta  # noqa: E402
 
@@ -108,7 +109,7 @@ def test_update_matches_reference(setup, fp8):
         assert float(tstats["lr"]) == float(jstats["lr"])
         assert int(tstate.step) == int(jstate.step)
         n_diff = n_all = 0
-        for a, b in zip(jax.tree.leaves(jparams), ta._leaves(tparams)):
+        for a, b in zip(jax.tree.leaves(jparams), tree_leaves(tparams)):
             a, b = np.asarray(a).astype(np.float32), b.float().numpy()
             d = np.abs(a - b)
             assert np.all(d <= _ulp_bf16(a)), "a param differs by more than one bf16 ulp"
@@ -118,7 +119,7 @@ def test_update_matches_reference(setup, fp8):
         worst["params"] = max(worst["params"], n_diff)
         n_diff = n_all = 0
         for jm, tm in ((jstate.m, tstate.m), (jstate.v, tstate.v)):
-            for a, b in zip(jax.tree.leaves(jm, is_leaf=_is_qt), ta._leaves(tm)):
+            for a, b in zip(jax.tree.leaves(jm, is_leaf=_is_qt), tree_leaves(tm)):
                 if fp8:
                     np.testing.assert_allclose(b.scales.numpy(), np.asarray(a.scales),
                                                rtol=NORM_RTOL)
@@ -154,9 +155,9 @@ def test_chunked_update_equals_whole_leaf(setup, fp8, monkeypatch):
         runs.append((p, state))
     (pa, sa), (pb, sb) = runs
     assert len(ta._chunk_ranges(pa["blocks"]["s0"]["mlp"]["wg"])) == 2
-    for a, b in zip(ta._leaves(pa), ta._leaves(pb)):
+    for a, b in zip(tree_leaves(pa), tree_leaves(pb)):
         assert torch.equal(a.view(torch.int16), b.view(torch.int16))
-    for a, b in zip(ta._leaves({"m": sa.m, "v": sa.v}), ta._leaves({"m": sb.m, "v": sb.v})):
+    for a, b in zip(tree_leaves({"m": sa.m, "v": sa.v}), tree_leaves({"m": sb.m, "v": sb.v})):
         if fp8:
             assert torch.equal(a.data.view(torch.uint8), b.data.view(torch.uint8))
             assert torch.equal(a.scales, b.scales)
@@ -175,7 +176,7 @@ def test_init_and_state_bytes_match_reference(setup):
         jstate = ja.init(params, _config(ja, fp8))
         tstate = ta.init(tparams, _config(ta, fp8))
         assert ta.state_bytes(tstate) == ja.state_bytes(jstate)
-        for a, b in zip(jax.tree.leaves(jstate.m, is_leaf=_is_qt), ta._leaves(tstate.m)):
+        for a, b in zip(jax.tree.leaves(jstate.m, is_leaf=_is_qt), tree_leaves(tstate.m)):
             if fp8:
                 np.testing.assert_array_equal(b.data.view(torch.uint8).numpy(),
                                               np.asarray(a.data).view(np.uint8))
