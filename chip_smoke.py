@@ -5,7 +5,7 @@
 
 Needs one CUDA card, nvcc and the checkout's `src/`; imports nothing of
 JAX or of the JAX package.  Phases (any failure exits non-zero), run in
-the order 1-5, 7, 6, 8:
+the order 1-5, 7, 6, 8, 9:
 
 1. the card's name and power limit (nvidia-smi);
 2. build the six CUDA kernels from `src/repro_torch/csrc` (nvcc, sm_90a);
@@ -19,7 +19,9 @@ the order 1-5, 7, 6, 8:
    prefill and contiguous
    decode within 1e-2 (the CPU tests' band) plus the stale-entry proofs
    (NaN / 448 poison in stale table entries and past each length) and
-   exact zeros for idle slots and rows and dead chunk rows;
+   exact zeros for idle slots and rows and dead chunk rows; paged decode
+   and prefill also at the fleet's block size 4 (pages of 8 E4M3 or 4
+   bf16 tokens, 64 positions a slot, tables in random and in pool order);
 4. the rollout path on full-width, full-depth qwen3-8b with random
    weights from a seed: `sync_policy_weights(PrecisionConfig())`, then
    `generate` with 8 ragged prompts (64-128 tokens), 32 new tokens, page
@@ -98,6 +100,30 @@ the order 1-5, 7, 6, 8:
    loss before and after; peak memory under 80 GB.  Printed: sync,
    rollout, scoring + backward and optimizer ms, step wall, tokens/s.
 
+9. the serving fleet (`serving.ServingFrontend`) on full qwen3-8b, each
+   part after `gc.collect()` with its own peak:
+   a. phase 8's trainer with `rollout_backend="fleet"` (2 replicas of 8
+      slots, block size 4): 3 train steps (launch counts zeroed before
+      and read after: kernel 2 7 a push, kernel 1 4/7 of kernel 3),
+      versions 1-3 on the syncer and every replica, finite metrics with
+      the per-version rows, what stayed resident under one weight version
+      + the KV pools, one nonzero-advantage update on the versioned
+      batch, peak under 80 GB; printed beside phase 8 per step;
+   b. `launch.serve.run --replicas 2 --update-every 4 --prefill-chunk 128`
+      over the launcher's 16 prompts, greedy, its event log written under
+      `build/`: kernels 1-5 launched, kernel 2 7 a sync, every token's
+      version the one installed on its replica at its step, and a
+      request spanning versions;
+   c. the same prompts, no pushes, W8A8 linears over a bf16 cache:
+      fault-free, replica 0 crashing for good at its step 2, replica 1
+      crashing at its step 3 and rejoining at the fleet's version, and a
+      `StepTracer` on every replica: greedy completions bit-equal to the
+      fault-free fleet's, every token delivered once, failover replaying
+      tokens, the traced run's event sums equal to each step's
+      accounting; then fault-free and crash once more under
+      `PrecisionConfig()` (each replica calibrates its own KV scales),
+      logged, not held.
+
 The line before the last is the `kernels` JSON object; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
@@ -137,6 +163,14 @@ KV_BLOCK = 2 * ENGINE_BLOCK_SIZE
 ENGINE_MAX_NEW = 32
 ENGINE_MAX_SEQ = 640 + ENGINE_MAX_NEW
 TIGHT_BUDGET_TOKENS = 2000     # 4 swap-outs in this trace's schedule
+# the fleet's engines (phase 9, `RLConfig.fleet_block_size`, the
+# launcher's default): block size 4 in bf16-KV tokens, 64 positions a slot
+FLEET_BLOCK_SIZE = 4
+FLEET_MAX_SEQ = 64
+FLEET_MAX_NEW = 24
+# (start, lengths, C): the fleet's first chunks (short prompts in a
+# 128-wide chunk) and a forced-prefix replay starting past a block edge
+FLEET_PREFILL_CASES = (([0, 0, 0], [5, 7, 40], 128), ([8, 13], [21, 44], 16))
 KERNEL_SOURCES = {
     "quant_act": ("src/repro_torch/csrc/fp8_quant.cu", "src/repro/kernels/fp8_quant.py:55"),
     "quant_weight": ("src/repro_torch/csrc/fp8_quant.cu", "src/repro/kernels/fp8_quant.py:90"),
@@ -391,23 +425,43 @@ def compare_gemm(dev, gen, results):
     results["fp8_gemm"]["max_abs_err"] = worst
 
 
-def decode_case(dev, gen, b=8, kvh=8, g=4, d=128, bs=16, max_len=300, lengths=None):
+def _pool(dev, gen, nrows, bs, kvh, d, fp8):
+    """Random K/V pools of `nrows` rows, E4M3 with per-tensor scales or
+    bf16 with unit scales."""
+    import torch
+    from repro_torch.core.precision import E4M3
+    k = torch.randn((nrows, bs, kvh, d), generator=gen, device=dev)
+    v = torch.randn((nrows, bs, kvh, d), generator=gen, device=dev)
+    if not fp8:
+        one = torch.ones((), device=dev)
+        return k.to(torch.bfloat16), v.to(torch.bfloat16), one, one
+    ks, vs = k.abs().amax() / 448, v.abs().amax() / 448
+    return (k / ks).clamp(-448, 448).to(E4M3), (v / vs).clamp(-448, 448).to(E4M3), ks, vs
+
+
+def _tables(dev, gen, nrows, b, w, order):
+    """(b, w) table rows out of the first nrows - 1: a random permutation,
+    or ascending (each slot's blocks in pool order)."""
+    import torch
+    if order == "seq":
+        return torch.arange(b * w, device=dev).reshape(b, w)
+    return torch.randperm(nrows - 1, generator=gen, device=dev)[: b * w].reshape(b, w)
+
+
+def decode_case(dev, gen, b=8, kvh=8, g=4, d=128, bs=16, max_len=300, lengths=None,
+                fp8=True, order="perm"):
     """A paged pool with ragged live regions and the rest of every table
     pointing at one poison row (the last)."""
     import torch
-    from repro_torch.core.precision import E4M3
     w = -(-max_len // bs)
     nrows = b * w + 1
     poison = nrows - 1
-    k = torch.randn((nrows, bs, kvh, d), generator=gen, device=dev)
-    v = torch.randn((nrows, bs, kvh, d), generator=gen, device=dev)
-    ks, vs = k.abs().amax() / 448, v.abs().amax() / 448
-    kq, vq = (k / ks).clamp(-448, 448).to(E4M3), (v / vs).clamp(-448, 448).to(E4M3)
+    kq, vq, ks, vs = _pool(dev, gen, nrows, bs, kvh, d, fp8)
     q = torch.randn((b, kvh, g, d), generator=gen, device=dev).to(torch.bfloat16)
     if lengths is None:
         lengths = torch.randint(1, max_len + 1, (b,), generator=gen, device=dev)
     lengths = lengths.to(torch.int32)
-    tables = torch.randperm(nrows - 1, generator=gen, device=dev)[: b * w].reshape(b, w)
+    tables = _tables(dev, gen, nrows, b, w, order)
     live = ((lengths.long() + bs - 1) // bs).clamp(1, w)
     dead = torch.arange(w, device=dev)[None, :] >= live[:, None]
     tables = torch.where(dead, poison, tables).to(torch.int32)
@@ -441,31 +495,83 @@ def compare_decode(dev, gen, results):
 
 
 def prefill_case(dev, gen, start, lengths, c, kvh=8, g=4, d=128, bs=KV_BLOCK,
-                 w=-(-ENGINE_MAX_SEQ // KV_BLOCK), fp8=True):
+                 w=-(-ENGINE_MAX_SEQ // KV_BLOCK), fp8=True, order="perm"):
     """A chunk of C queries per slot over a paged pool whose table entries
     past each slot's live blocks point at one poison row (the last)."""
     import torch
-    from repro_torch.core.precision import E4M3
     b = len(start)
     nrows = b * w + 1
     poison = nrows - 1
-    k = torch.randn((nrows, bs, kvh, d), generator=gen, device=dev)
-    v = torch.randn((nrows, bs, kvh, d), generator=gen, device=dev)
-    if fp8:
-        ks, vs = k.abs().amax() / 448, v.abs().amax() / 448
-        kq, vq = (k / ks).clamp(-448, 448).to(E4M3), (v / vs).clamp(-448, 448).to(E4M3)
-    else:
-        ks = vs = torch.ones((), device=dev)
-        kq, vq = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    kq, vq, ks, vs = _pool(dev, gen, nrows, bs, kvh, d, fp8)
     q = torch.randn((b, c, kvh, g, d), generator=gen, device=dev).to(torch.bfloat16)
     start = torch.tensor(start, dtype=torch.int32, device=dev)
     lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
-    tables = torch.randperm(nrows - 1, generator=gen, device=dev)[: b * w].reshape(b, w)
+    tables = _tables(dev, gen, nrows, b, w, order)
     ctx = torch.minimum(start + c, lengths).long()
     live = ((ctx + bs - 1) // bs).clamp(1, w)
     dead = torch.arange(w, device=dev)[None, :] >= live[:, None]
     tables = torch.where(dead, poison, tables).to(torch.int32)
     return q, kq, vq, ks.float(), vs.float(), tables, start, lengths, poison
+
+
+def compare_fleet_block(dev, gen, results):
+    """Kernels 4 and 5 at the fleet's block size (`FLEET_BLOCK_SIZE` bf16-KV
+    tokens: pages of 8 tokens in an E4M3 pool, 4 in a bf16 one), table rows
+    in random and in pool order, at the fleet engines' table width
+    (`FLEET_MAX_SEQ`): within 1e-2 of the plain versions, stale entries
+    never read, idle slots and dead rows exact zeros."""
+    import torch
+    from repro_torch.kernels import fp8_kv_attention as fa
+    worst_d = worst_p = 0.0
+    for fp8 in (True, False):
+        bs = FLEET_BLOCK_SIZE * (2 if fp8 else 1)
+        w = -(-FLEET_MAX_SEQ // bs)
+        pool = "e4m3" if fp8 else "bf16"
+        for order in ("perm", "seq"):
+            q, kq, vq, ks, vs, tables, lengths, poison = decode_case(
+                dev, gen, bs=bs, max_len=FLEET_MAX_SEQ, fp8=fp8, order=order)
+            lengths[0] = 0                                   # an idle slot
+            out_k = fa.fp8_paged_decode_attention(q, kq, vq, ks, vs, tables, lengths)
+            out_p = fa.fp8_paged_decode_attention_ref(q, kq, vq, ks, vs, tables, lengths)
+            kn, vn = kq.clone(), vq.clone()
+            kn[poison] = 448.0
+            vn[poison] = 448.0
+            out_n = fa.fp8_paged_decode_attention(q, kn, vn, ks, vs, tables, lengths)
+            torch.cuda.synchronize()
+            err = (out_k.float() - out_p.float()).abs().max().item()
+            ok = torch.allclose(out_k.float(), out_p.float(), rtol=1e-2, atol=1e-2)
+            log(f"paged_decode {pool} BS={bs} W={w} tables {order} lengths "
+                f"{lengths.tolist()}: max|kernel-plain| {err:.3e} {'ok' if ok else 'FAIL'}")
+            check(ok, f"paged decode at block size {bs} disagrees with its plain version")
+            check(torch.equal(out_n.view(torch.int16), out_k.view(torch.int16)),
+                  f"a poisoned stale table entry reached paged decode at block size {bs}")
+            check(bool((out_k[0] == 0).all()), "an idle slot (length 0) is not exact zeros")
+            worst_d = max(worst_d, err)
+            for start, lens, c in FLEET_PREFILL_CASES:
+                q, kq, vq, ks, vs, tables, st, ln, poison = prefill_case(
+                    dev, gen, start, lens, c, bs=bs, w=w, fp8=fp8, order=order)
+                out_k = fa.fp8_paged_prefill_attention(q, kq, vq, ks, vs, tables, st, ln)
+                out_p = fa.fp8_paged_prefill_attention_ref(q, kq, vq, ks, vs, tables, st, ln)
+                kn, vn = kq.clone(), vq.clone()
+                kn[poison] = 448.0
+                vn[poison] = 448.0
+                out_n = fa.fp8_paged_prefill_attention(q, kn, vn, ks, vs, tables, st, ln)
+                torch.cuda.synchronize()
+                err = (out_k.float() - out_p.float()).abs().max().item()
+                ok = torch.allclose(out_k.float(), out_p.float(), rtol=1e-2, atol=1e-2)
+                dead = (st[:, None] + torch.arange(c, device=dev)[None, :]) >= ln[:, None]
+                log(f"paged_prefill {pool} BS={bs} W={w} C={c} tables {order} start "
+                    f"{start} lengths {lens}: max|kernel-plain| {err:.3e} "
+                    f"{'ok' if ok else 'FAIL'}")
+                check(ok, f"paged prefill at block size {bs} C={c} disagrees with its "
+                          "plain version")
+                check(torch.equal(out_n.view(torch.int16), out_k.view(torch.int16)),
+                      f"a poisoned stale table entry reached paged prefill at block size {bs}")
+                check(bool((out_k[dead] == 0).all()), "a row past `lengths` is not exact zeros")
+                worst_p = max(worst_p, err)
+    log("paged kernels at the fleet's block size: held, stale entries never read")
+    for name, worst in (("paged_decode", worst_d), ("paged_prefill", worst_p)):
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], worst)
 
 
 def contiguous_case(dev, gen, b, s_len, lengths, kvh=8, g=4, d=128, fp8=True):
@@ -1536,6 +1642,279 @@ def profile_update(trainer, batch, opt_cfg, timings):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the serving fleet (serving.ServingFrontend) on full qwen3-8b
+# ---------------------------------------------------------------------------
+
+def fleet_trainer(dev, cfg):
+    """9a: `RLTrainer` with phase 8's config and the fleet rollout backend
+    (2 replicas of 8 slots, block size 4): TRAIN_STEPS train steps at
+    weight versions 1..TRAIN_STEPS, then one update with advantages drawn
+    per GRPO group on the last step's (versioned) trajectory."""
+    import numpy as np
+    import torch
+    from repro_torch.core.fp8_params import count_quantized
+    from repro_torch.core.precision import PrecisionConfig
+    from repro_torch.kernels import build
+    from repro_torch.models import Transformer
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.rl import RLConfig, RLTrainer
+    from repro_torch.rl.trainer import stats_to_host
+
+    rl = RLConfig(precision=PrecisionConfig(), prompt_batch=8, n_per_prompt=4,
+                  max_prompt_len=12, max_new_tokens=32, temperature=1.0,
+                  optimizer=AdamWConfig(lr=3e-4, b2=0.98, grad_clip=1.0, fp8_moments=True),
+                  rollout_backend="fleet", fleet_replicas=2, fleet_max_slots=8,
+                  fleet_block_size=FLEET_BLOCK_SIZE)
+    stats = {}
+    fresh_peak("fleet_train", stats)
+    trainer = RLTrainer(cfg, rl, params=Transformer(cfg, dev).init_params(SEED), device=dev)
+    resident = torch.cuda.memory_allocated()
+    build.reset_launch_counts()
+    # --- the fleet trainer path: TRAIN_STEPS train steps --------------------
+    rows = [trainer.train_step() for _ in range(TRAIN_STEPS)]
+    launches = _path_launches("fleet trainer path", ("quant_act", "quant_weight", "fp8_gemm",
+                                                     "paged_decode"))
+    # ----------------------------------------------------------------------
+    check(launches["quant_weight"] == SYNC_LEAVES * TRAIN_STEPS,
+          f"fleet trainer path: kernel 2 launched {launches['quant_weight']} times for "
+          f"{TRAIN_STEPS} pushes of {SYNC_LEAVES} leaves")
+    fleet = trainer._fleet
+    check(trainer.syncer.version == TRAIN_STEPS
+          and [e.weight_version for e in fleet.engines] == [TRAIN_STEPS] * 2,
+          f"versions: syncer {trainer.syncer.version}, engines "
+          f"{[e.weight_version for e in fleet.engines]}")
+    # one live version: what the steps left resident beyond params and
+    # moments is one version's fp8 linears and the replicas' KV pools
+    version_gb = count_quantized(fleet._fleet_params)["quantized_bytes"] / 1e9
+    kv_gb = sum(t.numel() * t.element_size() for e in fleet.engines
+                for sd in e.cache["slots"].values() for t in (sd["kv"].k, sd["kv"].v)) / 1e9
+    grown_gb = (torch.cuda.memory_allocated() - resident) / 1e9
+    keys = ("step", "loss", "grad_norm", "reward_mean", "response_len_mean", "mismatch_kl",
+            "corr_weight_mean", "corr_weight_ess", "mismatch_kl_per_version",
+            "tokens_per_version", "sync_ms", "push_ms", "rollout_s", "score_backward_ms",
+            "optimizer_ms", "step_s", "rollout_tokens_per_s")
+    for m in rows:
+        _finite_metrics(m, f"fleet train step {m['step']}")
+        check(m["tokens_per_version"][0] > 0, "no token at the batch's version")
+        log("fleet train step: " + json.dumps({k: m[k] for k in keys}))
+    stats["launches"] = launches
+    stats["steps"] = [{k: m[k] for k in keys} for m in rows]
+    stats["resident_growth_gb"], stats["kv_pools_gb"] = grown_gb, kv_gb
+    stats["version_gb"] = version_gb
+    check(grown_gb < version_gb + kv_gb + 1.0,
+          f"{grown_gb:.2f} GB stayed resident after the steps: more than one weight "
+          f"version ({version_gb} GB) and the KV pools ({kv_gb:.2f} GB)")
+
+    adv = np.repeat(np.random.default_rng(SEED).normal(size=rl.prompt_batch), rl.n_per_prompt)
+    batch = dict(trainer.last_update_batch)
+    check("token_versions" in batch, "the fleet's update batch carries no token versions")
+    batch["advantages"] = torch.tensor(adv, dtype=torch.float32, device=dev)
+    batch["mask"] = batch["response_mask"]
+    timings = {}
+    _, _, upd = trainer.update_fn(trainer.params, trainer.opt_state, batch, timings)
+    upd = stats_to_host(upd)
+    _finite_metrics(upd, "fleet nonzero-advantage update")
+    check(upd["grad_norm"] > 0, f"grad_norm {upd['grad_norm']}")
+    stats["update"] = dict(**timings, **{k: upd[k] for k in (
+        "loss", "grad_norm", "mismatch_kl", "corr_weight_ess", "mismatch_kl_per_version")})
+    stats["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    check(stats["peak_gb"] * 1e9 < CARD_BYTES,
+          f"fleet trainer peak {stats['peak_gb']:.1f} GB is not under 80 GB")
+    log("fleet trainer path: " + json.dumps(stats))
+    del trainer, fleet
+    return stats
+
+
+def _token_versions(events):
+    """From a launcher's JSONL event rows: rid -> the weight version of
+    each token as the replica that produced it stamped its step, and
+    whether each equals the version last installed on that replica."""
+    installed, out, ok = {}, {}, True
+    for e in sorted(events, key=lambda e: (e["replica"], e["step"])):
+        if e["kind"] == "weights" and not e["staged"]:
+            installed[e["replica"]] = e["version"]
+        elif (e["kind"] == "prefill" and e["last"]) or e["kind"] == "decode":
+            for rid in ([e["rid"]] if e["kind"] == "prefill" else e["rids"]):
+                out.setdefault(rid, []).append(e["version"])
+            ok = ok and e["version"] == installed.get(e["replica"], 0)
+    return out, ok
+
+
+def fleet_serve(dev):
+    """9b: `launch.serve.run` as a user runs it: 2 replicas, a freshly
+    requantized weight version every 4 fleet steps, 128-token chunks,
+    greedy over the launcher's 16-prompt trace, the event log written."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+    stats = {}
+    fresh_peak("fleet_serve", stats)
+    events_path = ROOT / "build" / "chip_smoke_fleet_events.jsonl"
+    events_path.parent.mkdir(exist_ok=True)
+    build.reset_launch_counts()
+    # --- the launcher's fleet path --------------------------------------------
+    out = serve.run(["--replicas", "2", "--update-every", "4", "--prefill-chunk", "128",
+                     "--max-new", str(FLEET_MAX_NEW), "--events-out", str(events_path)])
+    launches = _path_launches("launch.serve fleet path", (
+        "quant_act", "quant_weight", "fp8_gemm", "paged_decode", "paged_prefill"))
+    # ----------------------------------------------------------------------
+    log("launch.serve fleet report: " + json.dumps(out))
+    check(out["completed"] == 16 and not out["stalled"], "fleet launcher run incomplete")
+    check(launches["quant_weight"] == SYNC_LEAVES * (1 + out["weight_version"]),
+          f"kernel 2 launched {launches['quant_weight']} times for "
+          f"{1 + out['weight_version']} syncs")
+    rows = [json.loads(line) for line in events_path.read_text().splitlines()]
+    versions, exact = _token_versions(rows)
+    check(exact, "a token's version is not the one installed on its replica at its step")
+    spans = sum(len(set(v)) >= 2 for v in versions.values())
+    check(spans >= 1, "no request spans two weight versions")
+    check(sorted({x for v in versions.values() for x in v}) == out["versions_seen"],
+          "the event log's versions are not the streamed ones")
+    stats.update(report=out, launches=launches, requests_spanning_versions=spans,
+                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log("fleet serve path: " + json.dumps(stats))
+    return stats
+
+
+def _fleet_run(roll, cfg, prec, dev, prompts, faults=None, trace=False):
+    """One greedy fleet run of 2 replicas over `prompts` to completion:
+    (rid -> completion, rid -> streamed deltas joined, frontend, per-replica
+    accounting, wall s)."""
+    import torch
+    from repro_torch.obs import StepTracer
+    from repro_torch.serving import ServingEngine, ServingFrontend
+    engines = [ServingEngine(
+        roll, cfg, prec, max_slots=8, max_seq_len=FLEET_MAX_SEQ, prefill_chunk=128,
+        block_size=FLEET_BLOCK_SIZE, seed=i, faults=faults, device=dev,
+        tracer=StepTracer(replica=i) if trace else None) for i in range(2)]
+    ledgers = [[] for _ in engines]
+    for eng, ledger in zip(engines, ledgers):
+        def step(step=eng.step, ledger=ledger):
+            decision = step()
+            ledger.append(decision.accounting())
+            return decision
+        eng.step = step
+    fe = ServingFrontend(engines, tracer=StepTracer(replica=-1)
+                         if faults is not None or trace else None)
+    for i, p in enumerate(prompts):
+        fe.submit(p, max_new=FLEET_MAX_NEW, rid=i)
+    streams = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while fe.has_work():
+        for o in fe.step():
+            streams.setdefault(o.rid, []).extend(o.new_token_ids)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    report = fe.run()
+    finals = {o.rid: list(o.output.token_ids) for o in report.outputs}
+    return finals, streams, fe, report, ledgers, wall
+
+
+def _reconcile(tracer, ledger, tag):
+    """Per step: the StepEvent is the decision's accounting and the step's
+    prefill / decode / swap events sum to it."""
+    steps = [e for e in tracer.events if e.kind == "step"]
+    check(len(steps) == len(ledger), f"{tag}: {len(steps)} step events, {len(ledger)} steps")
+    by_step = {}
+    for e in tracer.events:
+        by_step.setdefault(e.step, []).append(e)
+    for i, (se, acct) in enumerate(zip(steps, ledger)):
+        evs = by_step[i]
+        sums = dict(prefill_tokens=sum(e.cost_tokens for e in evs if e.kind == "prefill"),
+                    decode_tokens=sum(e.cost_tokens for e in evs if e.kind == "decode"),
+                    swap_tokens=sum(e.tokens_moved for e in evs if e.kind == "swap_out")
+                    + sum(e.restored_tokens for e in evs if e.kind == "admit"))
+        check({k: getattr(se, k) for k in acct} == acct, f"{tag}: step {i} event != accounting")
+        check(all(sums[k] == acct[k] for k in sums), f"{tag}: step {i} event sums {sums}")
+
+
+def fleet_chaos(dev, cfg):
+    """9c: the launcher's trace with no weight updates through 2 replicas
+    (W8A8 linears, bf16 KV: with an FP8 cache each replica calibrates its
+    own KV scales, so a replayed request would read other scales), four
+    ways: fault-free, replica 0 crashing for good at its step 2, replica 1
+    crashing at its step 3 and rejoining 2 fleet steps later, and under a
+    `StepTracer` on every replica.  Then the fault-free and crash runs once
+    more under `PrecisionConfig()`, logged, not held."""
+    import numpy as np
+    import torch
+    from repro_torch.core.precision import FP8_LINEAR_ROLLOUT, PrecisionConfig
+    from repro_torch.data import tasks
+    from repro_torch.kernels import build
+    from repro_torch.models import Transformer
+    from repro_torch.rl import sync_policy_weights
+    from repro_torch.serving import CrashFault, FaultInjector, FaultPlan
+    stats = {}
+    fresh_peak("fleet_chaos", stats)
+    params = Transformer(cfg, dev).init_params(SEED)
+    rng = np.random.default_rng(SEED)
+    prompts = [tasks.sample_problem(rng).prompt_ids for _ in range(16)]
+
+    def crash(**kw):
+        return FaultInjector(FaultPlan(crashes=(CrashFault(**kw),)))
+
+    for name, prec in (("fp8_linear", FP8_LINEAR_ROLLOUT), ("default", PrecisionConfig())):
+        roll, _ = sync_policy_weights(params, prec)
+        build.reset_launch_counts()
+        # --- the fleet path, fault-free -------------------------------------
+        base, base_streams, _, base_rep, _, wall = _fleet_run(roll, cfg, prec, dev, prompts)
+        launches = _path_launches(f"fleet path ({name})", (
+            "quant_act", "fp8_gemm", "paged_decode", "paged_prefill"))
+        # ------------------------------------------------------------------
+        permanent = _fleet_run(roll, cfg, prec, dev, prompts,
+                               faults=crash(replica=0, step=2, transient=False))
+        differ = sum(permanent[0][r] != base[r] for r in base)
+        run = dict(wall_s=wall, steps=base_rep.steps, clock_tokens=base_rep.clock_tokens,
+                   delivered_tokens=base_rep.delivered_tokens,
+                   tokens_per_s=base_rep.delivered_tokens / wall, launches=launches,
+                   crash=dict(redispatches=permanent[3].redispatches,
+                              replayed_tokens=permanent[3].replayed_tokens,
+                              completions_differing=differ, wall_s=permanent[5]))
+        stats[name] = run
+        log(f"fleet chaos ({name}): " + json.dumps(run))
+        if name == "default":
+            continue                          # measured, not held: see the docstring
+        check(len(base) == 16 and all(len(t) > 0 for t in base.values()), "fault-free fleet")
+        check(permanent[3].redispatches >= 1 and permanent[3].replayed_tokens > 0,
+              f"permanent crash: redispatches {permanent[3].redispatches}, replayed "
+              f"{permanent[3].replayed_tokens}")
+        transient = _fleet_run(roll, cfg, prec, dev, prompts,
+                               faults=crash(replica=1, step=3, transient=True, down_steps=2))
+        traced = _fleet_run(roll, cfg, prec, dev, prompts, trace=True)
+        for tag, (got, streams, fe, rep, _, _) in (("permanent crash", permanent),
+                                                   ("transient crash", transient),
+                                                   ("traced", traced),
+                                                   ("fault-free", (base, base_streams, None,
+                                                                   base_rep, None, None))):
+            check(got == base, f"{tag}: greedy completions differ from the fault-free "
+                               f"fleet's in {sum(got[r] != base[r] for r in base)} requests")
+            check(streams == got, f"{tag}: a streamed token was emitted twice or dropped")
+        fe, rep = transient[2], transient[3]
+        ups = [e for e in fe.tracer.events if e.kind == "replica_up"]
+        check(rep.healthy_replicas == 2 and [(e.replica, e.version) for e in ups]
+              == [(1, fe.weight_version)], f"transient replica did not rejoin: {ups}")
+        check(transient[3].redispatches >= 1, "the transient crash failed nothing over")
+        for i, (eng, ledger) in enumerate(zip(traced[2].engines, traced[4])):
+            _reconcile(eng.tracer, ledger, f"traced replica {i}")
+        run.update(transient=dict(redispatches=transient[3].redispatches,
+                                  replayed_tokens=transient[3].replayed_tokens),
+                   traced_wall_s=traced[5],
+                   events=sum(len(e.tracer.events) for e in traced[2].engines))
+        del permanent, transient, traced
+    stats["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log("fleet chaos path: " + json.dumps(stats))
+    return stats
+
+
+def fleet_path(dev, cfg):
+    """Phase 9: 9a the fleet trainer, 9b the live-updated launcher fleet,
+    9c chaos and the tracer."""
+    return dict(trainer=fleet_trainer(dev, cfg), serve=fleet_serve(dev),
+                chaos=fleet_chaos(dev, cfg))
+
+
+# ---------------------------------------------------------------------------
 # phase 6: times at the main paths' shapes
 # ---------------------------------------------------------------------------
 
@@ -1908,6 +2287,8 @@ def main() -> int:
     torch.cuda.synchronize()
     compare_prefill(dev, gen, results)
     torch.cuda.synchronize()
+    compare_fleet_block(dev, gen, results)
+    torch.cuda.synchronize()
     compare_contiguous_decode(dev, gen, results)
     torch.cuda.synchronize()
 
@@ -1922,7 +2303,13 @@ def main() -> int:
     time_kernels(dev, gen, results, cfg, roll, traj, contig_lengths, extra)
     log("kernel_timings " + json.dumps(extra))
     del model, roll, traj
-    train_path(dev, cfg)
+    train_stats = train_path(dev, cfg)
+    fleet = fleet_path(dev, cfg)
+    keys = ("sync_ms", "rollout_s", "score_backward_ms", "optimizer_ms", "step_s")
+    log("phase 8 (generate) against 9a (fleet), per step: " + json.dumps(
+        {"generate": [{k: r[k] for k in keys} for r in train_stats["train_steps"]],
+         "fleet": [{k: r[k] for k in keys + ("push_ms",)} for r in fleet["trainer"]["steps"]],
+         "peak_gb": [train_stats["train_peak_gb"], fleet["trainer"]["peak_gb"]]}))
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, "
         f"wall {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

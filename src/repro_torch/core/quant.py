@@ -167,3 +167,15 @@ def calibrate_scale(amax: torch.Tensor, fp8_dtype=E4M3,
                     margin: float = 1.0) -> torch.Tensor:
     """amax -> scale with a safety margin (KV calibration uses 1.05)."""
     return _amax_to_scale(amax * margin, fp8_dtype, scale_format)
+
+
+# ---------------------------------------------------------------------------
+# Quantization error metrics (used by tests and the weight-sync monitor).
+# ---------------------------------------------------------------------------
+
+def quantization_rel_error(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """||x - dequantize(qt)|| / (||x|| + eps), in f32 on `x`'s device (a
+    0-dim tensor)."""
+    xf = x.float()
+    err = torch.linalg.vector_norm(xf - dequantize(qt, torch.float32))
+    return err / (torch.linalg.vector_norm(xf) + _EPS)

@@ -1,17 +1,22 @@
 """Serving launcher: continuous batching with FP8 weights and an FP8 KV
-cache (port of `repro.launch.serve`, the single-engine path).
+cache (port of `repro.launch.serve`).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
         --device cpu --prefill-chunk 4 --requests 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
+        --device cpu --replicas 2 --update-every 4 --crash-replica 0
 
 Random weights from `--seed`, synced to the rollout precision, then one
-`ServingEngine` over the launcher's arithmetic-prompt trace; prints the
-JSON report.  Runs on CUDA unless `--device` says otherwise;
+`ServingEngine` over the launcher's arithmetic-prompt trace, or with
+`--replicas N` / `--update-every K` a `ServingFrontend` over N replicas
+that takes a freshly requantized weight version every K fleet steps (a
+nudge of every weight by 1e-3 stands in for the trainer's step); prints
+the JSON report.  `--trace-out` / `--events-out` put a `StepTracer` on
+every replica and write a Chrome trace / the JSONL event log;
+`--chaos-seed` or `--crash-replica` inject replica crashes that the
+front-end fails over.  Runs on CUDA unless `--device` says otherwise;
 `--kernel-config` defaults to `all`, so a run on the card goes through
-the paged decode and chunked-prefill kernels.  The fleet (`--replicas`,
-`--update-every`), tracing (`--trace-out`, `--events-out`, `--run-id`)
-and chaos flags of the reference come with the port's front-end and
-observability (ROADMAP queue 1).
+the paged decode and chunked-prefill kernels.
 """
 from __future__ import annotations
 
@@ -33,10 +38,15 @@ from repro_torch.core.precision import (
 )
 from repro_torch.data import tasks
 from repro_torch.models import Transformer
-from repro_torch.rl import sync_policy_weights
+from repro_torch.obs import JsonlSink, StepTracer, chrome_trace
+from repro_torch.rl import WeightSyncer, sync_policy_weights
 from repro_torch.serving import (
     EVICTION_POLICIES,
+    CrashFault,
+    FaultInjector,
+    FaultPlan,
     ServingEngine,
+    ServingFrontend,
     SpecConfig,
     StepBudget,
     kv_bytes_per_token,
@@ -96,15 +106,161 @@ def _parser() -> argparse.ArgumentParser:
                     help="shrink the KV budget after N engine steps")
     ap.add_argument("--shrink-frac", type=float, default=0.5,
                     help="fraction of the budget kept after --shrink-at")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="data-parallel engine replicas behind the "
+                         "streaming front-end (1 = the single-engine path)")
+    ap.add_argument("--update-every", type=int, default=None,
+                    help="hot-swap a fresh FP8 weight version into every "
+                         "replica each N front-end steps (in-flight "
+                         "requests keep running, their tokens carry the "
+                         "version live at each step)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Chrome trace-event JSON of the run "
+                         "(Perfetto / chrome://tracing; enables the step "
+                         "tracer)")
+    ap.add_argument("--events-out", default=None, metavar="PATH",
+                    help="write the raw typed event log as JSONL (one "
+                         "event per line; enables the step tracer)")
+    ap.add_argument("--run-id", default=None, metavar="ID",
+                    help="stamp this id on every --events-out row; launch "
+                         "the trainer (repro_torch.launch.train --run-id) "
+                         "with the SAME id to join its metrics to these "
+                         "serving steps")
+    ap.add_argument("--chaos-seed", type=int, default=None,
+                    help="fleet chaos: a deterministic random crash "
+                         "schedule from this seed (FaultPlan.random) in "
+                         "every replica; the front-end fails work over "
+                         "with exactly-once token delivery (needs "
+                         "--replicas >= 2)")
+    ap.add_argument("--crash-replica", type=int, default=None, metavar="I",
+                    help="fleet chaos: crash exactly replica I (instead of "
+                         "a --chaos-seed random schedule)")
+    ap.add_argument("--crash-step", type=int, default=2, metavar="N",
+                    help="engine-local step at which --crash-replica fires "
+                         "(0-based count of step() entries)")
+    ap.add_argument("--crash-transient", action="store_true",
+                    help="make the --crash-replica crash transient: the "
+                         "replica rejoins after --crash-down-steps once it "
+                         "reinstalls the fleet weight version")
+    ap.add_argument("--crash-down-steps", type=int, default=3,
+                    help="front-end steps a transient crash stays down")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the current CUDA device)")
     return ap
 
 
+def _check_args(ap, args):
+    """The reference's mutual-exclusion and range checks."""
+    if args.chaos_seed is not None and args.crash_replica is not None:
+        ap.error("--chaos-seed and --crash-replica are mutually "
+                 "exclusive (random schedule vs one explicit crash)")
+    if args.replicas < 1:
+        ap.error("--replicas must be >= 1")
+    chaos = args.chaos_seed is not None or args.crash_replica is not None
+    if chaos and args.replicas < 2:
+        ap.error("fault injection needs --replicas >= 2: a single-replica "
+                 "fleet has nowhere to fail work over to")
+    fleet = args.replicas > 1 or args.update_every is not None
+    if fleet and args.shrink_at is not None:
+        ap.error("--shrink-at applies to the single-engine path only")
+    if args.crash_replica is not None and \
+            not 0 <= args.crash_replica < args.replicas:
+        ap.error(f"--crash-replica {args.crash_replica} out of range "
+                 f"for --replicas {args.replicas}")
+
+
+def _faults(args):
+    """One shared injector: faults are keyed on each engine's
+    replica_index (assigned by the front-end), so every replica sees the
+    same plan and only its own entries fire."""
+    if args.crash_replica is not None:
+        return FaultInjector(FaultPlan(crashes=(
+            CrashFault(replica=args.crash_replica, step=args.crash_step,
+                       transient=args.crash_transient,
+                       down_steps=args.crash_down_steps),)))
+    if args.chaos_seed is not None:
+        # max_step=4: short launcher runs drain in a handful of steps, so
+        # schedule the crash early enough to actually fire
+        return FaultInjector(FaultPlan.random(
+            args.chaos_seed, replicas=args.replicas, max_step=4,
+            down_steps=args.crash_down_steps))
+    return None
+
+
+def _write_traces(args, tracers):
+    if args.events_out:
+        with JsonlSink(args.events_out, run_id=args.run_id) as sink:
+            for t in tracers:
+                for e in t.events:
+                    row = e.to_dict()
+                    row.setdefault("replica", t.replica)
+                    sink.write(row)
+    if args.trace_out:
+        rows = []
+        for t in tracers:
+            rows.extend(chrome_trace(t.events, replica=t.replica)["traceEvents"])
+        with open(args.trace_out, "w") as f:
+            json.dump({"traceEvents": rows}, f)
+
+
+def _nudge(params):
+    """The reference's stand-in for a gradient step: every weight times
+    (1 + 1e-3).  That is under half a bf16 ulp, so bf16 weights come back
+    unchanged (in the reference too): each push requantizes and mints a
+    version over the same weights."""
+    if isinstance(params, dict):
+        return {k: _nudge(v) for k, v in params.items()}
+    return params * (1.0 + 1e-3)
+
+
+def _serve_fleet(args, frontend, params, precision, faults) -> dict:
+    """Drive the fleet (with the weight pushes of --update-every), then
+    drain it; the fleet half of the JSON report."""
+    syncer = WeightSyncer(precision)
+    steps = 0
+    while frontend.has_work() and steps < 1000:
+        if args.update_every and steps and steps % args.update_every == 0:
+            # the RL reality: the trainer's policy moved, requantize and
+            # push
+            params = _nudge(params)
+            frontend.update_weights(syncer.push(params))
+        frontend.step()
+        steps += 1
+    report = frontend.run(max_steps=1000)      # drain + final accounting
+    out = {
+        "replicas": args.replicas,
+        "completed": len(report.outputs),
+        "steps": report.steps,
+        "clock_tokens": report.clock_tokens,
+        "emitted_tokens": report.emitted_tokens,
+        "tokens_per_clock": round(report.tokens_per_clock, 4),
+        "weight_version": report.weight_version,
+        "versions_seen": sorted({v for o in report.outputs
+                                 for v in o.output.versions}),
+        "stalled": report.stalled,
+        "kv_pressure": [round(p, 4) for p in report.kv_pressure],
+    }
+    if faults is not None:
+        out["chaos"] = {
+            "healthy_replicas": report.healthy_replicas,
+            "quarantined_replicas": report.quarantined_replicas,
+            "redispatches": report.redispatches,
+            "replayed_tokens": report.replayed_tokens,
+            "aborted": report.aborted,
+            "delivered_tokens": report.delivered_tokens,
+            "injected": dict(faults.injected),
+        }
+    if report.latency is not None:
+        out["latency"] = report.latency
+    return out
+
+
 def run(argv=None) -> dict:
     """Parse `argv`, serve the trace, return the report as a dict."""
-    args = _parser().parse_args(argv)
+    ap = _parser()
+    args = ap.parse_args(argv)
+    _check_args(ap, args)
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -115,32 +271,62 @@ def run(argv=None) -> dict:
     budget = None
     if args.budget_tokens:
         budget = args.budget_tokens * max(kv_bytes_per_token(cfg, precision), 1)
-    eng = ServingEngine(
-        rollout_params, cfg, precision, max_slots=args.slots, max_seq_len=64,
-        kv_budget_bytes=budget, seed=args.seed, block_size=args.block_size,
-        admission=args.admission, eviction=args.eviction,
-        host_kv_blocks=args.host_kv_blocks, prefill_chunk=args.prefill_chunk,
-        step_budget=(StepBudget(prefill_tokens=args.prefill_budget)
-                     if args.prefill_budget else None),
-        kernel_config=args.kernel_config,
-        spec=SpecConfig(num_draft_tokens=args.spec_k) if args.spec_k else None,
-        device=device)
+    fleet = args.replicas > 1 or args.update_every is not None
+    tracing = args.trace_out is not None or args.events_out is not None
+    tracers = []
+    faults = _faults(args)
+
+    def mk_engine(i: int) -> ServingEngine:
+        tracer = None
+        if tracing:
+            tracer = StepTracer(replica=i)
+            tracers.append(tracer)
+        return ServingEngine(
+            rollout_params, cfg, precision, tracer=tracer, faults=faults,
+            max_slots=args.slots, max_seq_len=64, kv_budget_bytes=budget,
+            seed=args.seed + i, block_size=args.block_size,
+            admission=args.admission, eviction=args.eviction,
+            host_kv_blocks=args.host_kv_blocks,
+            prefill_chunk=args.prefill_chunk,
+            step_budget=(StepBudget(prefill_tokens=args.prefill_budget)
+                         if args.prefill_budget else None),
+            kernel_config=args.kernel_config,
+            spec=SpecConfig(num_draft_tokens=args.spec_k) if args.spec_k else None,
+            device=device)
+
+    target = (ServingFrontend([mk_engine(i) for i in range(args.replicas)])
+              if fleet else mk_engine(0))
     rng = np.random.default_rng(args.seed)
     for i in range(args.requests):
-        eng.submit(tasks.sample_problem(rng).prompt_ids, max_new=args.max_new, rid=i)
+        target.submit(tasks.sample_problem(rng).prompt_ids, max_new=args.max_new, rid=i)
     t0 = time.perf_counter()
+    if fleet:
+        # only the replicas hold version 0 now, so an update frees it
+        del rollout_params
+        out = _serve_fleet(args, target, params, precision, faults)
+    else:
+        out = _serve_engine(args, target)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    wall_s = time.perf_counter() - t0
+    _write_traces(args, tracers)
+    out.update(device=str(device), kernel_config=args.kernel_config,
+               kv_bytes_per_token=kv_bytes_per_token(cfg, precision),
+               sync_ms=round(sync_stats.get("sync_ms", 0.0), 2),
+               serve_wall_s=round(wall_s, 3))
+    return out
+
+
+def _serve_engine(args, eng) -> dict:
+    """Run the single engine (with the --shrink-at budget cut); the
+    engine half of the JSON report."""
     if args.shrink_at is not None:
         full = eng.budget_tokens
         for _ in range(args.shrink_at):
             eng.step()
         eng.budget_tokens = int(full * args.shrink_frac)
     report = eng.run()
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    wall_s = time.perf_counter() - t0
-    return {
-        "device": str(device),
-        "kernel_config": args.kernel_config,
+    out = {
         "completed": len(report.completed),
         "steps": report.steps,
         "preemptions": report.preemptions,
@@ -156,11 +342,11 @@ def run(argv=None) -> dict:
         "spec_tokens_per_step": round(report.spec_tokens_per_step, 3),
         "stalled": report.stalled,
         "budget_tokens": report.budget_tokens,
-        "kv_bytes_per_token": kv_bytes_per_token(cfg, precision),
         "state_bytes_per_request": eng.state_bytes,
-        "sync_ms": round(sync_stats.get("sync_ms", 0.0), 2),
-        "serve_wall_s": round(wall_s, 3),
     }
+    if report.latency is not None:
+        out["latency"] = report.latency
+    return out
 
 
 def main(argv=None):

@@ -5,12 +5,14 @@
 
 Builds an `RLTrainer` (random weights from `--seed`) and runs `--steps`
 train steps, printing each step's metrics as one JSON line; a greedy
-evaluation runs at step 1 and every `--eval-every` steps.  Runs on CUDA
+evaluation runs at step 1 and every `--eval-every` steps.  With
+`--metrics-out PATH` every step's metrics are also streamed there as JSONL
+(`obs.JsonlSink`), stamped with `--run-id` when given.  Runs on CUDA
 unless `--device` says otherwise.  `--precision default` is the paper's
 recommended W8A8 + FP8 KV (`PrecisionConfig()`); the reference's default
 `fp8` (FULL_FP8_ROLLOUT) and `e2e-fp8` need quantized attention and
-`fp8_dot`, which the port does not have yet, and raise, as do `--rrr`,
-`--metrics-out` and `--run-id` (ROADMAP queue 1).
+`fp8_dot`, which the port does not have yet, and raise, as does `--rrr`
+(ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from repro_torch.core.precision import (
     RolloutCorrection,
 )
 from repro_torch.data import tasks
+from repro_torch.obs import JsonlSink
 from repro_torch.optim import AdamWConfig
 from repro_torch.rl import RLConfig, RLTrainer
 
@@ -91,27 +94,35 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the current CUDA device)")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
-                    help="not ported yet (needs obs.JsonlSink)")
+                    help="stream per-step metrics as JSONL (one step per "
+                         "line, written as each step completes — incl. "
+                         "mismatch-KL, per-version KL breakdowns and "
+                         "TIS/MIS weight ESS)")
     ap.add_argument("--run-id", default=None, metavar="ID",
-                    help="not ported yet (needs obs.JsonlSink)")
+                    help="stamp this id on every metrics row; launch the "
+                         "serving side (repro_torch.launch.serve --run-id) "
+                         "with the SAME id to join trainer steps to the "
+                         "serving steps that produced their rollout batches")
     args = ap.parse_args(argv)
-    if args.metrics_out or args.run_id:
-        raise NotImplementedError(
-            "--metrics-out and --run-id need obs.JsonlSink, not ported yet: "
-            "ROADMAP queue 1 item 6")
 
-    trainer = build_trainer(args)
-    if args.resume and trainer.restore_checkpoint():
-        print(f"resumed from step {trainer.step_idx}")
+    sink = JsonlSink(args.metrics_out, run_id=args.run_id) \
+        if args.metrics_out else None
+    try:
+        trainer = build_trainer(args, metrics_sink=sink)
+        if args.resume and trainer.restore_checkpoint():
+            print(f"resumed from step {trainer.step_idx}")
 
-    history = []
-    for _ in range(args.steps):
-        m = trainer.train_step()
-        history.append(m)
-        if m["step"] % args.eval_every == 0 or m["step"] == 1:
-            m["eval_accuracy"] = trainer.evaluate(n_problems=32)
-        print(json.dumps({k: round(v, 5) if isinstance(v, float) else v
-                          for k, v in m.items()}), flush=True)
+        history = []
+        for _ in range(args.steps):
+            m = trainer.train_step()
+            history.append(m)
+            if m["step"] % args.eval_every == 0 or m["step"] == 1:
+                m["eval_accuracy"] = trainer.evaluate(n_problems=32)
+            print(json.dumps({k: round(v, 5) if isinstance(v, float) else v
+                              for k, v in m.items()}), flush=True)
+    finally:
+        if sink is not None:
+            sink.close()
     return history
 
 

@@ -19,7 +19,12 @@ from repro_torch.rl.rollout import (
     packed_sequences,
 )
 from repro_torch.rl.trainer import RLConfig, RLTrainer
-from repro_torch.rl.weight_sync import sync_policy_weights
+from repro_torch.rl.weight_sync import (
+    VersionedWeights,
+    WeightSyncer,
+    sync_policy_weights,
+    weight_quant_error,
+)
 
 __all__ = [
     "correction_weights", "importance_weights", "tis_weights", "mis_mask",
@@ -27,5 +32,6 @@ __all__ = [
     "versioned_mismatch_stats", "group_advantages", "dynamic_sampling_mask",
     "LossConfig", "dapo_token_loss", "SamplerConfig", "Trajectory",
     "generate", "packed_sequences", "gather_response_logps", "RLConfig",
-    "RLTrainer", "sync_policy_weights",
+    "RLTrainer", "sync_policy_weights", "VersionedWeights", "WeightSyncer",
+    "weight_quant_error",
 ]

@@ -4,7 +4,12 @@
 Per step:
   1. weight sync  — quantize the BF16 policy into rollout params (kernel 2)
   2. rollout      — n responses per prompt through `generate` (kernels 1,
-                    3 and 4); the rollout params are freed right after it
+                    3 and 4); the rollout params are freed right after it.
+                    With `rollout_backend="fleet"` the sync is a versioned
+                    push (`WeightSyncer.push_to`) into N `ServingEngine`
+                    replicas behind a `ServingFrontend`, the rollout runs
+                    through them, every token carries the weight version
+                    that sampled it, and the loss applies versioned TIS/MIS
   3. reward       — the rule-based verifier (host)
   4. advantage    — group-relative (GRPO) + the DAPO dynamic-sampling mask
   5. update       — token-level DAPO loss with TIS/MIS correction: a
@@ -17,9 +22,12 @@ Per step:
 Sync and rollout run under `torch.no_grad()`; the update turns on
 `requires_grad` for the params' leaves only while it differentiates.
 Randomness comes from one `torch.Generator` on the trainer's device (the
-reference's `jax.random` key cannot be reproduced).  The fleet rollout
-backend, MoE aux loss, rollout router replay and FP8 training
-(`fp8_training`, `quantize_attention`) are not ported and raise.
+reference's `jax.random` key cannot be reproduced); each fleet replica
+samples from its own, seeded `seed + 100 + i`.  The fleet keeps the live
+weight version between steps (its quantized linears; the other leaves
+are the training params themselves).  MoE aux loss, rollout router
+replay and FP8 training (`fp8_training`, `quantize_attention`) are not
+ported and raise.
 """
 from __future__ import annotations
 
@@ -50,7 +58,13 @@ from repro_torch.rl.rollout import (
     generate,
     packed_sequences,
 )
-from repro_torch.rl.weight_sync import sync_policy_weights
+from repro_torch.rl.weight_sync import WeightSyncer, sync_policy_weights
+
+# Fixed one-hot width for the fleet's versioned TIS: with one weight push
+# per train step every batch sees one or two versions, so 4 slots is
+# generous headroom.  Versions are rebased to the batch's minimum before
+# entering the loss.
+_VERSION_SLOTS = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,9 +81,14 @@ class RLConfig:
     dynamic_sampling: bool = True
     overlong_shaping: bool = False
     calibration: str = "inference"       # "inference" | "trainer"
-    # "batch" = whole-batch `generate`; "fleet" (the live-updating serving
-    # fleet, with its replica and pool fields) is not ported
+    # rollout backend: "batch" = whole-batch `generate` (rl/rollout.py),
+    # "fleet" = the live-updating serving fleet (serving/frontend.py) —
+    # N engine replicas, per-token weight-version attribution, versioned
+    # TIS in the loss
     rollout_backend: str = "batch"
+    fleet_replicas: int = 2
+    fleet_max_slots: int = 8
+    fleet_block_size: int = 4
     ckpt_dir: Optional[str] = None
     ckpt_every: int = 50
     ckpt_keep: int = 2
@@ -81,12 +100,10 @@ class RLConfig:
 
 def check_supported(rl: RLConfig) -> None:
     """Raise for what the port's trainer does not run yet."""
-    if rl.rollout_backend == "fleet":
-        raise NotImplementedError(
-            "rollout_backend='fleet' needs serving/frontend, not ported yet: "
-            "ROADMAP queue 1 item 2")
-    if rl.rollout_backend != "batch":
+    if rl.rollout_backend not in ("batch", "fleet"):
         raise ValueError(f"rollout_backend {rl.rollout_backend!r}")
+    if rl.rollout_backend == "fleet" and rl.fleet_replicas < 1:
+        raise ValueError(f"fleet_replicas {rl.fleet_replicas} < 1")
     if rl.calibration not in ("inference", "trainer"):
         raise ValueError(f"calibration {rl.calibration!r}")
     prec = rl.precision
@@ -141,6 +158,10 @@ class RLTrainer:
             if rl.ckpt_dir else None
         self.kv_scales = None            # trainer-side calibration state
         self.last_update_batch = None    # the last step's update batch
+        self.versioned = rl.rollout_backend == "fleet"
+        if self.versioned:
+            self.syncer = WeightSyncer(self._rollout_precision())
+            self._fleet = None           # built at the first weight push
 
     # ------------------------------------------------------------------
     def _rollout_precision(self) -> PrecisionConfig:
@@ -162,6 +183,8 @@ class RLTrainer:
             precision=rl.precision,
             cfg=rl.loss,
             metrics_mask=batch["response_mask"],
+            token_versions=batch["token_versions"] if self.versioned else None,
+            num_versions=_VERSION_SLOTS if self.versioned else 1,
         )
 
     @torch.no_grad()
@@ -223,17 +246,118 @@ class RLTrainer:
             rollout_s = _clock(self.device) - t_roll
         return traj, sync_stats, rollout_s
 
-    def make_update_batch(self, traj: Trajectory, rewards: np.ndarray) -> dict:
+    # ------------------------------------------------------------------
+    # fleet rollout backend
+    # ------------------------------------------------------------------
+    def _build_fleet(self, rollout_params, version: int):
+        """N engine replicas behind one streaming front-end.  Built once,
+        at the first weight push; later pushes hot-swap in place."""
+        from repro_torch.serving import ServingEngine, ServingFrontend
+        rl = self.rl
+        engines = [
+            ServingEngine(
+                rollout_params, self.cfg, self._rollout_precision(),
+                max_slots=rl.fleet_max_slots,
+                max_seq_len=rl.max_prompt_len + rl.max_new_tokens,
+                temperature=rl.temperature,
+                seed=rl.seed + 100 + i,     # replicas sample independently
+                prompt_pad=max(16, rl.max_prompt_len),
+                block_size=rl.fleet_block_size,
+                want_logps=True,
+                weight_version=version,
+                device=self.device,
+            )
+            for i in range(rl.fleet_replicas)
+        ]
+        return ServingFrontend(engines)
+
+    def fleet_rollout(self, batch):
+        """Versioned push + GRPO group rollout through the fleet:
+        (trajectory, token versions rebased to the batch's minimum, sync
+        stats, rollout seconds).  The first push builds the fleet; later
+        ones go through `push_to`, which mints the version only once the
+        fleet accepts the install, so a failed sync never desyncs trainer
+        and fleet.  The stats' `push_ms` is the whole push: the sync, then
+        the install (or the fleet's construction)."""
+        with torch.no_grad():
+            t_push = _clock(self.device)
+            if self._fleet is None:
+                vw = self.syncer.push(self.params)
+                self._fleet = self._build_fleet(vw.params, vw.version)
+            else:
+                vw = self.syncer.push_to(self.params, self._fleet)
+            sync_stats = dict(vw.stats)
+            del vw                   # the fleet holds the live version
+            t_roll = _clock(self.device)
+            sync_stats["push_ms"] = (t_roll - t_push) * 1e3
+            traj, versions = self._fleet_rollout(batch)
+            rollout_s = _clock(self.device) - t_roll
+        return traj, versions, sync_stats, rollout_s
+
+    def _fleet_rollout(self, batch):
+        """GRPO group rollout through the fleet.  Submission order matches
+        the batch backend's layout: sample s of prompt i is row
+        i * n_per_prompt + s, so rewards/advantages group identically."""
+        rl = self.rl
+        g = rl.max_new_tokens
+        rids = []
+        lengths_np = np.asarray(batch.lengths)
+        tokens_np = np.asarray(batch.tokens)
+        for i in range(len(lengths_np)):
+            ids = tokens_np[i, : lengths_np[i]]
+            for _ in range(rl.n_per_prompt):
+                rids.append(self._fleet.submit(ids, max_new=g))
+        report = self._fleet.run(max_steps=100_000)
+        if report.stalled:
+            raise RuntimeError(
+                "fleet rollout stalled — replica KV pools too small for "
+                "the prompt batch (raise fleet_max_slots or shrink "
+                "prompt_batch)")
+        by_rid = {o.rid: o for o in report.outputs}
+        b = len(rids)
+        resp = np.full((b, g), self.sampler.pad_id, np.int32)
+        mask = np.zeros((b, g), np.float32)
+        logps = np.zeros((b, g), np.float32)
+        versions = np.zeros((b, g), np.int32)
+        rlens = np.zeros((b,), np.int32)
+        for r, rid in enumerate(rids):
+            out = by_rid[rid].output
+            n = len(out.token_ids)
+            resp[r, :n] = out.token_ids
+            mask[r, :n] = 1.0
+            logps[r, :n] = out.logps
+            versions[r, :n] = out.versions
+            rlens[r] = n
+        dev = self.device
+        traj = Trajectory(
+            prompt_tokens=torch.as_tensor(
+                np.repeat(tokens_np, rl.n_per_prompt, axis=0), device=dev),
+            prompt_lengths=torch.as_tensor(
+                np.repeat(lengths_np, rl.n_per_prompt), device=dev),
+            response_tokens=torch.as_tensor(resp, device=dev),
+            response_mask=torch.as_tensor(mask, device=dev),
+            rollout_logps=torch.as_tensor(logps, device=dev),
+            response_lengths=torch.as_tensor(rlens, device=dev),
+            routing=None, kv_scales=None)
+        # rebase absolute weight versions to the batch minimum so they fit
+        # the loss's one-hot width (_VERSION_SLOTS)
+        base = int(versions[mask > 0].min()) if mask.any() else 0
+        rel = np.where(mask > 0, versions - base, 0).astype(np.int32)
+        return traj, torch.as_tensor(rel, device=dev)
+
+    def make_update_batch(self, traj: Trajectory, rewards: np.ndarray,
+                          token_versions: Optional[torch.Tensor] = None) -> dict:
         """The update's inputs for a trajectory and its rewards: packed
         sequences, GRPO advantages, the loss mask (dynamic sampling on
-        when configured) and the raw response mask."""
+        when configured), the raw response mask and, for the fleet, each
+        token's weight version."""
         rl = self.rl
         rewards_t = torch.as_tensor(rewards, device=self.device)
         adv = group_advantages(rewards_t, rl.n_per_prompt)
         mask = traj.response_mask
         if rl.dynamic_sampling:
             mask = mask * dynamic_sampling_mask(rewards_t, rl.n_per_prompt)[:, None]
-        return {
+        batch = {
             "packed_tokens": packed_sequences(traj),
             "prompt_lengths": traj.prompt_lengths,
             "rollout_logps": traj.rollout_logps,
@@ -241,6 +365,9 @@ class RLTrainer:
             "mask": mask,
             "response_mask": traj.response_mask,
         }
+        if token_versions is not None:
+            batch["token_versions"] = token_versions
+        return batch
 
     def train_step(self) -> dict:
         rl, cfg = self.rl, self.cfg
@@ -250,9 +377,14 @@ class RLTrainer:
         batch = self.pipeline.next_batch()
         problems = [p for p in batch.problems for _ in range(rl.n_per_prompt)]
 
-        # 2-3. weight sync, then the GRPO group rollout (prefix shared over
-        # the shortest prompt's whole pages)
-        traj, sync_stats, rollout_s = self.rollout(batch, self._rollout_precision())
+        # 2-3. weight sync, then the GRPO group rollout: `generate` with the
+        # prefix shared over the shortest prompt's whole pages, or a
+        # versioned push into the fleet and a rollout through it
+        token_versions = None
+        if self.versioned:
+            traj, token_versions, sync_stats, rollout_s = self.fleet_rollout(batch)
+        else:
+            traj, sync_stats, rollout_s = self.rollout(batch, self._rollout_precision())
         gen_tokens = float(traj.response_mask.sum())
 
         # 4. rewards + advantages
@@ -262,7 +394,7 @@ class RLTrainer:
         if rl.overlong_shaping:
             rewards = rewards + overlong_penalty(
                 torch.as_tensor(rlen), rl.max_new_tokens).numpy().astype(np.float32)
-        update_batch = self.make_update_batch(traj, rewards)
+        update_batch = self.make_update_batch(traj, rewards, token_versions)
 
         # 5. update
         timings = {}
@@ -292,6 +424,8 @@ class RLTrainer:
             sync_ms=sync_stats.get("sync_ms", 0.0),
             **timings,
         )
+        if self.versioned:
+            metrics["push_ms"] = sync_stats["push_ms"]
         if self.metrics_sink is not None:
             self.metrics_sink.write(metrics)
 

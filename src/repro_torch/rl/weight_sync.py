@@ -5,18 +5,29 @@ handed to the rollout engine (paper §2.1.2, Fig 1).  Here that is
 `core.fp8_params.quantize_params` on the params' own device — kernel 2 on
 the card, one launch per stacked linear leaf.  The rollout params share
 every unquantized leaf (embedding, norms, lm_head) with the training
-params by reference.  The versioned `WeightSyncer` waits for the fleet
-slice.
+params by reference.
+
+For the live-updating fleet, `WeightSyncer` wraps the same transform in
+a monotonic version counter: each `push()` requantizes the current train
+params and returns a `VersionedWeights` the serving front-end installs
+into every replica at a step boundary (`ServingFrontend.update_weights`).
+Tokens generated after the install carry the new version — the per-token
+attribution that version-aware TIS/MIS correction keys on.  The
+reference's `rollout_shardings` (a GSPMD resharding of the quantized
+tree) has no meaning on one card and is left out.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Tuple
 
 import torch
 
-from repro_torch.core.fp8_params import count_quantized, quantize_params
+from repro_torch.core.fp8_params import _map_with_path, count_quantized, quantize_params
 from repro_torch.core.precision import PrecisionConfig
+from repro_torch.core.quant import QuantizedTensor, quantization_rel_error
+from repro_torch.serving.faults import WeightInstallError
 
 
 def _first_leaf(tree):
@@ -39,3 +50,96 @@ def sync_policy_weights(train_params: dict, precision: PrecisionConfig
     stats = dict(count_quantized(rollout_params))
     stats["sync_ms"] = (time.perf_counter() - t0) * 1e3
     return rollout_params, stats
+
+
+@dataclasses.dataclass(frozen=True)
+class VersionedWeights:
+    """One requantized weight snapshot, stamped with the monotonic
+    version the fleet will attribute its tokens to."""
+
+    params: object
+    version: int
+    stats: dict
+
+
+class WeightSyncer:
+    """Version-stamped weight sync for the live-updating fleet.
+
+    Owns the monotonic version counter.  The fleet starts at version 0
+    (the checkpoint the engines were built from); every push bumps it
+    and requantizes, so version k's tokens were sampled from the weights
+    of the k-th sync.  Versions never repeat or go backwards —
+    `ServingFrontend.update_weights` and `ServingEngine.install_weights`
+    both enforce monotonicity on their side too.
+
+    `push_to()` is the failure-aware spelling: the version is minted
+    only AFTER the fleet accepts the push.  A failed install is retried
+    with bounded exponential backoff (`install_retries`, `backoff_s`);
+    exhausting the budget raises with `self.version` untouched, so the
+    next successful push reuses the same number — the fleet never sees
+    a skipped or repeated version, and a half-failed push can never
+    leave the trainer's counter ahead of what the fleet runs.
+    """
+
+    def __init__(self, precision: PrecisionConfig, *, start_version: int = 0,
+                 install_retries: int = 2, backoff_s: float = 0.0):
+        self.precision = precision
+        self.version = start_version
+        self.install_retries = install_retries
+        self.backoff_s = backoff_s
+        self.push_failures = 0    # failed install attempts absorbed
+
+    def push(self, train_params) -> VersionedWeights:
+        """Requantize `train_params` and mint the next weight version.
+
+        Fire-and-forget spelling: the caller owns delivery.  Use
+        `push_to(fleet)` when a front-end should absorb install
+        failures without desyncing the version counter."""
+        params, stats = sync_policy_weights(train_params, self.precision)
+        self.version += 1
+        stats["weight_version"] = self.version
+        return VersionedWeights(params=params, version=self.version,
+                                stats=stats)
+
+    def push_to(self, train_params, fleet) -> VersionedWeights:
+        """Requantize and install onto `fleet` (anything with an
+        ``update_weights(params, version)``, e.g. `ServingFrontend`),
+        committing the version bump only on success."""
+        params, stats = sync_policy_weights(train_params, self.precision)
+        version = self.version + 1
+        last_exc = None
+        for attempt in range(1 + self.install_retries):
+            try:
+                fleet.update_weights(params, version)
+                break
+            except WeightInstallError as exc:
+                last_exc = exc
+                self.push_failures += 1
+                if self.backoff_s > 0:
+                    time.sleep(self.backoff_s * (2 ** attempt))
+        else:
+            raise WeightInstallError(
+                getattr(last_exc, "replica", -1), version) from last_exc
+        self.version = version
+        stats["weight_version"] = self.version
+        return VersionedWeights(params=params, version=self.version,
+                                stats=stats)
+
+
+def weight_quant_error(train_params: dict, rollout_params: dict,
+                       top_n: int = 5) -> dict:
+    """Per-leaf relative quantization error (monitoring): the `top_n`
+    worst leaves by "/"-joined path, and the mean over quantized leaves."""
+    errs = {}
+
+    def visit(path, roll_leaf):
+        if isinstance(roll_leaf, QuantizedTensor):
+            train_leaf = train_params
+            for k in path.split("/"):
+                train_leaf = train_leaf[k]
+            errs[path] = float(quantization_rel_error(train_leaf, roll_leaf))
+
+    _map_with_path(visit, rollout_params)
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:top_n]
+    return {"worst": worst,
+            "mean_rel_err": sum(errs.values()) / max(len(errs), 1)}

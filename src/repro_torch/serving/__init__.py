@@ -1,5 +1,5 @@
-"""Continuous-batching serving of the port (port of `repro.serving`, the
-single-engine half: the fleet front-end and its outputs come later)."""
+"""Continuous-batching serving of the port (port of `repro.serving`): the
+engine, and the streaming fleet front-end over N engine replicas."""
 from repro_torch.kernels.config import KernelConfig
 from repro_torch.serving.block_manager import BlockManager, NoFreeBlocksError
 from repro_torch.serving.engine import (
@@ -21,19 +21,32 @@ from repro_torch.serving.faults import (
     ReplicaCrash,
     WeightInstallError,
 )
+from repro_torch.serving.frontend import FleetReport, ServingFrontend
+from repro_torch.serving.outputs import (
+    FINISH_ABORT,
+    FINISH_LENGTH,
+    FINISH_STOP,
+    CompletionOutput,
+    RequestOutput,
+)
 from repro_torch.serving.scheduler import (
     EVICTION_POLICIES,
+    Draft,
     ScheduleDecision,
     Scheduler,
     StepBudget,
+    Verify,
 )
 from repro_torch.serving.spec_decode import NGramProposer, SpecConfig
 
 __all__ = [
-    "BlockManager", "CrashFault", "EVICTION_POLICIES", "FaultError",
-    "FaultInjector", "FaultPlan", "HostCopyError", "HostCopyFault",
-    "InstallFault", "KernelConfig", "NGramProposer", "NULL_INJECTOR",
-    "NoFreeBlocksError", "ReplicaCrash", "Request", "ScheduleDecision",
-    "Scheduler", "ServeReport", "ServingEngine", "SpecConfig", "StepBudget",
-    "WeightInstallError", "kv_bytes_per_token", "request_state_bytes",
+    "BlockManager", "CompletionOutput", "CrashFault", "Draft",
+    "EVICTION_POLICIES", "FINISH_ABORT", "FINISH_LENGTH", "FINISH_STOP",
+    "FaultError", "FaultInjector", "FaultPlan", "FleetReport",
+    "HostCopyError", "HostCopyFault", "InstallFault", "KernelConfig",
+    "NGramProposer", "NULL_INJECTOR", "NoFreeBlocksError", "ReplicaCrash",
+    "Request", "RequestOutput", "ScheduleDecision", "Scheduler",
+    "ServeReport", "ServingEngine", "ServingFrontend", "SpecConfig",
+    "StepBudget", "Verify", "WeightInstallError", "kv_bytes_per_token",
+    "request_state_bytes",
 ]

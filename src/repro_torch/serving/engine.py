@@ -43,9 +43,13 @@ copy is uploaded before each fused decode), so sizing a gather never
 waits for the device.  The RNG is a `torch.Generator` seeded from `seed`
 on the engine's device.
 
+Observability: one tracer per engine (`obs.tracer`); every site is one
+``if self.tracer.enabled:`` branch, so with `NULL_TRACER` the engine does
+exactly what it did without one.  The fleet front-end over N replicas is
+`serving.frontend`.
+
 Not ported: SSM / hybrid / enc-dec / multimodal slot state (the model
-refuses those layer patterns), the recording tracer (only `NULL_TRACER`;
-ROADMAP queue 1 item 6), the fleet front-end and its weight syncer.
+refuses those layer patterns).
 """
 from __future__ import annotations
 
@@ -145,7 +149,7 @@ class ServeReport:
     # schedule went empty, or the runaway guard tripped)
     stalled: bool = False
     kv_pressure: float = 0.0
-    latency: Optional[dict] = None  # needs the recording tracer: None
+    latency: Optional[dict] = None  # with a recording tracer only
     gauges: Optional[dict] = None
 
     @property
@@ -183,10 +187,6 @@ class ServingEngine:
                  device=None):
         if admission not in ("reserve", "ondemand"):
             raise ValueError(f"unknown admission {admission!r}")
-        if tracer is not None and tracer is not NULL_TRACER:
-            raise NotImplementedError(
-                "the recording tracer is not ported yet (ROADMAP queue 1 "
-                "item 6); the port's engine runs with NULL_TRACER only")
         if cfg.frontend is not None:
             raise NotImplementedError(
                 "multimodal prefixes are not ported yet: ROADMAP queue 1")
@@ -205,7 +205,9 @@ class ServingEngine:
         self.top_k = top_k
         self.want_logps = want_logps
         self.weight_version = weight_version
-        self.tracer = NULL_TRACER
+        # one tracer per engine; NULL_TRACER keeps every instrumentation
+        # site at a single `if self.tracer.enabled` branch when disabled
+        self.tracer = tracer if tracer is not None else NULL_TRACER
         self.faults = faults if faults is not None else NULL_INJECTOR
         self.replica_index = replica_index
         self._staged_weights = None     # (params, version) for next step()
@@ -299,6 +301,8 @@ class ServingEngine:
         # rid keys BlockManager ownership: keep auto-assignment monotonic
         self._next_rid = max(self._next_rid, rid + 1)
         self.queue.append(Request(rid=rid, prompt=prompt, max_new=max_new))
+        if self.tracer.enabled:
+            self.tracer.record_submit(self, self.queue[-1])
 
     def cancel(self, rid: int) -> bool:
         """Drop a request wherever it lives (queued, swapped out, or in a
@@ -345,10 +349,14 @@ class ServingEngine:
             self.faults.on_install(self, version)
         self.params = params
         self.weight_version = version
+        if self.tracer.enabled:
+            self.tracer.record_weights(self, version, staged=False)
 
     def stage_weights(self, params, version: int):
         """Queue a hot-swap for the next `step()` boundary."""
         self._staged_weights = (params, version)
+        if self.tracer.enabled:
+            self.tracer.record_weights(self, version, staged=True)
 
     def _apply_staged_weights(self):
         if self._staged_weights is not None:
@@ -459,30 +467,54 @@ class ServingEngine:
     def execute(self, decision: ScheduleDecision):
         """Run one planned step: actions strictly in plan order, then the
         fused decode over `decode_slots`."""
+        tracing = self.tracer.enabled
+        if tracing:
+            self.tracer.begin_step(self)
         self._executing = True
         try:
             self._execute(decision)
         finally:
             self._executing = False
+        if tracing:
+            self.tracer.end_step(self, decision)
 
     def _execute(self, decision: ScheduleDecision):
+        tracing = self.tracer.enabled
         n_verify = 0
         for act in decision.actions:
             if isinstance(act, SwapOut):
                 self._exec_swap_out(act)
+                if tracing:
+                    self.tracer.record_swap_out(self, act)
             elif isinstance(act, Admit):
-                self._exec_admit(act)
+                restored = self._exec_admit(act)
+                if tracing:
+                    self.tracer.record_admit(self, act, restored)
             elif isinstance(act, Grow):
                 self._set_table_row(act.slot, act.block_ids)
+                # a slot this same plan swaps out is already empty here (the
+                # scheduler moved its request at plan time) and the swap-out
+                # clears the row: a void growth, no event (the reference's
+                # tracer raises on it)
+                if tracing and self.slot_req[act.slot] is not None:
+                    self.tracer.record_grow(self, act, self.slot_req[act.slot].rid)
             elif isinstance(act, Cow):
                 self._copy_block(act.src, act.dst)
                 self._set_table_row(act.slot, act.block_ids)
+                if tracing:
+                    self.tracer.record_cow(self, act, self.slot_req[act.slot].rid)
             elif isinstance(act, Prefill):
                 self._exec_prefill(act)
+                if tracing:
+                    self.tracer.record_prefill(self, act)
             elif isinstance(act, Draft):
                 self._exec_draft(act)
+                if tracing:
+                    self.tracer.record_draft(self, act)
             elif isinstance(act, Verify):
-                self._exec_verify(act)
+                accepted, committed = self._exec_verify(act)
+                if tracing:
+                    self.tracer.record_verify(self, act, accepted, committed)
                 n_verify += 1
             else:
                 raise TypeError(f"unknown action {act!r}")
@@ -517,6 +549,8 @@ class ServingEngine:
         self.slot_req[slot] = None
         self.block_mgr.free(req.rid)
         self._clear_slot(slot)
+        if self.tracer.enabled:
+            self.tracer.record_finish(self, req)
 
     def _sample(self, logits):
         """(tokens, logps or None) from `logits` with the engine's sampler."""
@@ -525,22 +559,30 @@ class ServingEngine:
 
     def _commit_first_token(self, req: Request, tok: int, logp, slot: int):
         """Record the token sampled off the final prefill logits; a
-        max_new=1 request is done here."""
+        max_new=1 request, or one whose first token is EOS, is done here.
+        (The reference checks only max_new here, so a first token equal to
+        EOS did not stop it: a request failed over with its streamed
+        tokens as a forced prefix then ran past the EOS it would have
+        stopped at without the failover.)"""
         req.generated = [tok]
         req.token_versions = [self.weight_version]
         req.token_logps = [float(logp)] if logp is not None else []
-        if len(req.generated) >= req.max_new:
+        if tok == self.eos_id or len(req.generated) >= req.max_new:
             self._finish(req, slot)
 
     # -- prefill -------------------------------------------------------------
-    def _exec_admit(self, act: Admit):
+    def _exec_admit(self, act: Admit) -> int:
+        """Returns the restore traffic in tokens (the host->device half of
+        the decision's `swap_tokens`, which the tracer's `AdmitEvent`
+        carries): a swap-in's restored tokens, or a fresh admit's revived
+        host-cached prefix blocks."""
         self._set_table_row(act.slot, act.block_ids)
         if act.swap_in:
-            self._swap_in(act.slot, act.req, act)
-            return
+            return self._swap_in(act.slot, act.req, act)
         if act.moves:       # host-cached prefix hits revived by copy-in
             self._promote_blocks(act.moves)
         self._lengths[act.slot] = act.req.prefilled
+        return act.n_promoted * self.block_size
 
     def _exec_prefill(self, act: Prefill):
         if act.oneshot:
@@ -650,11 +692,11 @@ class ServingEngine:
         self.stats["demoted_blocks"] += len(act.moves)
         self._clear_slot(act.slot)
 
-    def _swap_in(self, slot: int, req: Request, act: Admit):
+    def _swap_in(self, slot: int, req: Request, act: Admit) -> int:
         """The device half of an allocator promote: copy the host-tier tail
         back into fresh pool rows (no recompute).  The leading `n_shared`
         entries came from a prefix hit and already hold the prompt's KV;
-        only the restored tokens count as `wasted`."""
+        only the restored tokens count as `wasted`.  Returns them."""
         if act.moves:
             self._promote_blocks(act.moves)
         hs = self._host_state.pop(req.rid, None) or {}
@@ -669,6 +711,7 @@ class ServingEngine:
         self.stats["swap_ins"] += 1
         if req.prefilled >= len(req.prompt):
             self.block_mgr.register_prefix(req.rid, req.prompt)
+        return restored
 
     # -- speculative decoding ------------------------------------------------
     def _exec_draft(self, act: Draft):
@@ -682,7 +725,8 @@ class ServingEngine:
         """Score [pending, d_1..d_k] at positions [T, T + k] in one chunk,
         rejection-sample, and rewind: lengths drop to T + 1 + accepted, and
         the stale rows past it are never read (length masks, live-block
-        clamps) and are overwritten by the next write."""
+        clamps) and are overwritten by the next write.  Returns (accepted
+        drafts, committed tokens)."""
         req, slot = act.req, act.slot
         if self.slot_req[slot] is not req or req.cached_tokens != act.start:
             raise RuntimeError(f"verify out of step with slot {slot}")
@@ -702,8 +746,10 @@ class ServingEngine:
         req.cached_tokens = new_len
         self.stats["spec_steps"] += 1
         self.stats["accepted_tokens"] += n_acc
+        committed = 0
         for j, tok in enumerate(toks):
             self.stats["emitted"] += 1
+            committed += 1
             req.generated.append(tok)
             req.token_versions.append(self.weight_version)
             if self.want_logps:
@@ -712,6 +758,7 @@ class ServingEngine:
             if tok == self.eos_id or len(req.generated) >= req.max_new:
                 self._finish(req, slot)
                 break
+        return n_acc, committed
 
     # -- decode --------------------------------------------------------------
     def _exec_decode(self, decode_slots: List[int]):
@@ -724,6 +771,13 @@ class ServingEngine:
                         if self.slot_req[i] is not None]
         if not decode_slots:
             return
+        if self.tracer.enabled:
+            # contexts are priced pre-decode (cached rows + the row being
+            # written)
+            self.tracer.record_decode(
+                self, decode_slots,
+                [self.slot_req[i].rid for i in decode_slots],
+                [self.slot_req[i].cached_tokens + 1 for i in decode_slots])
         masked = [i for i, r in enumerate(self.slot_req)
                   if r is not None and i not in decode_slots]
         tables = self.cache["block_tables"]
@@ -801,5 +855,7 @@ class ServingEngine:
             accepted_tokens=self.stats["accepted_tokens"],
             stalled=stalled,
             kv_pressure=self.kv_pressure,
+            latency=(self.tracer.latency_summary()
+                     if self.tracer.enabled else None),
             gauges=self.gauge_snapshot(),
         )

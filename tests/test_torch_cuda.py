@@ -14,10 +14,14 @@ head widths 16-256 and group sizes 2-4 with ragged tails, chunks of 5 and
 40 rows (several row blocks, the causal early exit), NaN-poisoned stale
 table entries and dead chunk rows, a chunk row equal bit for bit to a
 decode step at the same context (up to the engine's geometry, and G 3
-and 16), head widths not a multiple of 16 and misaligned q refused with
-a ValueError, the serving engine's speculative and
-preempted greedy runs equal to plain ones on the card, the GRPO fork on
-the card, and a wrapper without its library.  Kernel 6 (contiguous
+and 16, and at the fleet's block size 4), head widths not a multiple of
+16 and misaligned q refused with a ValueError, kernels 4 and 5 at the
+fleet engines' geometry (E4M3 and bf16 pools, table rows in random and in
+pool order), the serving engine's speculative and preempted greedy runs
+equal to plain ones on the card, a two-replica fleet whose greedy
+completions after a crash (permanent or transient) and under the step
+tracer equal the fault-free fleet's, the GRPO fork on the card, and a
+wrapper without its library.  Kernel 6 (contiguous
 decode): G 1-16, D 16-256 (80 included), S 13/200/1057/1300 with ragged
 tails, lengths on and next to the key-tile and split boundaries of a
 cache whose S is a multiple of neither, fp8 and bf16 caches at q and
@@ -384,6 +388,10 @@ def test_paged_prefill_on_card(cuda, bs, d, g, c, rem_of_bs, kv):
     # straddles warps (G 3) or a tile holds one position (G 16)
     pytest.param(8, 40, 2, 3, 64, 37, 12, id="g3"),
     pytest.param(16, 24, 2, 16, 128, 70, 7, id="g16"),
+    # the fleet's engines (block size 4): 8-token pages of an E4M3 pool,
+    # 4-token pages of a bf16 one, at qwen3-8b's heads
+    pytest.param(8, 40, 8, 4, 128, 21, 8, id="fleet-e4m3"),
+    pytest.param(4, 40, 8, 4, 128, 21, 16, id="fleet-bf16"),
 ])
 def test_chunk_row_equals_decode_step_on_card(cuda, bs, c, kvh, g, d, start, w):
     """Kernel 5's row at position T over keys [0, T] is bit-equal to
@@ -397,6 +405,49 @@ def test_chunk_row_equals_decode_step_on_card(cuda, bs, c, kvh, g, d, start, w):
             q[:, ci].contiguous(), kq, vq, ks, vs, tables,
             torch.tensor([start + ci + 1], dtype=torch.int32, device=cuda))
         assert torch.equal(dec.view(torch.int16), out[:, ci].view(torch.int16)), ci
+
+
+@pytest.mark.parametrize("order", ["perm", "seq"])
+@pytest.mark.parametrize("kv", ["fp8", "bf16"])
+@pytest.mark.parametrize("kernel", ["decode", "prefill"])
+def test_paged_kernels_at_fleet_block_size_on_card(cuda, kernel, kv, order):
+    """Kernels 4 and 5 at the fleet engines' geometry (block size 4: pages
+    of 8 tokens in an E4M3 pool, 4 in a bf16 one; 64 positions a slot;
+    qwen3-8b's 8 KV heads of 128, G 4), table rows in random and in pool
+    order: within 1e-2 of the plain versions, stale entries never read."""
+    bs = 8 if kv == "fp8" else 4
+    w = 64 // bs
+    gen = torch.Generator(device=cuda).manual_seed(bs * 10 + (order == "seq"))
+    kvh, g, d = 8, 4, 128
+    if kernel == "decode":
+        lengths = torch.tensor([5, 8, 9, 31, 44, 64, 1, 0], dtype=torch.int32, device=cuda)
+        q, kq, vq, ks, vs, tables, ln, poison = _decode_case(
+            cuda, gen, len(lengths), kvh, g, d, bs, w, lengths)
+        st = None
+    else:
+        q, kq, vq, ks, vs, tables, st, ln, poison = _prefill_case(
+            cuda, gen, kvh, g, d, bs, w, [0, 0, 8, 13], [5, 40, 21, 44], 32)
+    if order == "seq":
+        nrows = kq.shape[0]
+        tables = torch.where(tables == poison, tables, torch.arange(
+            tables.numel(), device=cuda).reshape(tables.shape).to(torch.int32))
+        assert int(tables.max()) < nrows
+    if kv == "bf16":
+        kq, vq = kq.float().to(torch.bfloat16), vq.float().to(torch.bfloat16)
+        ks, vs = torch.ones_like(ks), torch.ones_like(vs)
+    args = (ln,) if st is None else (st, ln)
+    run = fa.fp8_paged_decode_attention if st is None else fa.fp8_paged_prefill_attention
+    plain = (fa.fp8_paged_decode_attention_ref if st is None
+             else fa.fp8_paged_prefill_attention_ref)
+    out = run(q, kq, vq, ks, vs, tables, *args)
+    want = plain(q, kq, vq, ks, vs, tables, *args)
+    kn, vn = kq.clone(), vq.clone()
+    kn[poison] = float("nan")
+    vn[poison] = float("nan")
+    poisoned = run(q, kn, vn, ks, vs, tables, *args)
+    torch.cuda.synchronize()
+    assert torch.allclose(out.float(), want.float(), rtol=1e-2, atol=1e-2)
+    assert torch.equal(poisoned.view(torch.int16), out.view(torch.int16))
 
 
 def test_paged_wrappers_reject_unsupported_inputs_on_card(cuda):
@@ -751,6 +802,51 @@ def test_engine_greedy_contracts_on_card(cuda):
                                     kv_budget_bytes=48 * kv_bytes_per_token(cfg, prec))
     assert plain.preemptions == 0 and tight.preemptions >= 1 and spec.spec_steps > 0
     assert spec_toks == toks and tight_toks == toks
+
+
+def test_fleet_failover_and_tracer_on_card(cuda):
+    """Two replicas behind the front-end on the card (block size 4, 8-token
+    chunks, W8A8 linears over a bf16 cache, EOS on): greedy completions
+    after a permanent crash of replica 0 and after a transient crash of
+    replica 1 equal the fault-free fleet's bit for bit, every stream is
+    delivered exactly once, and a `StepTracer` on every replica changes no
+    token."""
+    from repro_torch.core.precision import FP8_LINEAR_ROLLOUT
+    from repro_torch.obs import StepTracer
+    from repro_torch.serving import CrashFault, FaultInjector, FaultPlan, ServingFrontend
+    cfg = tiny_serving_config().reduced(d_model=128, d_ff=256, n_heads=4, n_kv_heads=2,
+                                        d_head=32)
+    prec = FP8_LINEAR_ROLLOUT
+    roll, _ = sync_policy_weights(Transformer(cfg, cuda).init_params(5), prec)
+    gen = torch.Generator().manual_seed(1)
+    trace = [torch.cat([torch.tensor([1]), torch.randint(4, 19, (int(n),), generator=gen)])
+             .to(torch.int32).numpy() for n in torch.randint(3, 9, (8,), generator=gen)]
+
+    def serve(crash=None, trace_on=False):
+        faults = FaultInjector(FaultPlan(crashes=(CrashFault(**crash),))) if crash else None
+        engines = [ServingEngine(roll, cfg, prec, max_slots=3, max_seq_len=48,
+                                 prefill_chunk=8, block_size=4, seed=i, faults=faults,
+                                 tracer=StepTracer(replica=i) if trace_on else None,
+                                 device=cuda) for i in range(2)]
+        fe = ServingFrontend(engines)
+        for i, p in enumerate(trace):
+            fe.submit(p, max_new=12, rid=i)
+        streams = {}
+        while fe.has_work():
+            for o in fe.step():
+                streams.setdefault(o.rid, []).extend(o.new_token_ids)
+        rep = fe.run()
+        finals = {o.rid: o.output.token_ids for o in rep.outputs}
+        assert streams == finals and len(finals) == len(trace)
+        return finals, rep
+
+    base, _ = serve()
+    for crash in (dict(replica=0, step=2, transient=False),
+                  dict(replica=1, step=3, transient=True, down_steps=2)):
+        got, rep = serve(crash)
+        assert rep.redispatches >= 1 and got == base, crash
+    traced, rep = serve(trace_on=True)
+    assert traced == base and rep.latency["requests"] == len(trace)
 
 
 def test_group_fork_on_card_equals_tiled_path(cuda):

@@ -51,7 +51,7 @@ from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.core import precision as tp  # noqa: E402
 from repro_torch.kernels.config import KernelConfig  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
-from repro_torch.obs.tracer import NULL_TRACER  # noqa: E402
+from repro_torch.obs.tracer import NULL_TRACER, StepTracer  # noqa: E402
 from repro_torch.rl import sync_policy_weights as tsync  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     EVICTION_POLICIES,
@@ -338,11 +338,11 @@ def test_engine_refuses_what_is_not_ported(setup):
     _, tcfg, rolls = setup
     troll = rolls["bf16"][1]
 
-    class Recording:
-        enabled = True
-
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        ServingEngine(troll, tcfg, tp.BF16_ROLLOUT, device="cpu", tracer=Recording())
+    # the recording tracer is ported: the engine takes it (its events are
+    # held to the reference's in test_torch_obs.py)
+    recording = StepTracer()
+    assert ServingEngine(troll, tcfg, tp.BF16_ROLLOUT, device="cpu",
+                         tracer=recording).tracer is recording
     assert ServingEngine(troll, tcfg, tp.BF16_ROLLOUT, device="cpu",
                          tracer=NULL_TRACER).tracer is NULL_TRACER
     with pytest.raises(NotImplementedError, match="quantize_attention"):

@@ -506,7 +506,6 @@ def test_launch_train_returns_a_row_per_step(capsys):
     (["--precision", "fp8"], "quantize_attention"),
     (["--precision", "e2e-fp8"], "fp8_training"),
     (["--precision", "default", "--rrr"], "router replay"),
-    (["--precision", "default", "--metrics-out", "m.jsonl"], "JsonlSink"),
 ])
 def test_unported_options_raise(argv, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -514,9 +513,14 @@ def test_unported_options_raise(argv, match):
 
 
 def test_fleet_backend_and_no_device_raise(setup):
+    """The fleet backend is ported (held to the reference in
+    test_torch_fleet.py); a fleet of no replicas and an unknown backend
+    raise, and so does a trainer asked for no device without CUDA."""
     _, tcfg, _, _ = setup
-    with pytest.raises(NotImplementedError, match="serving/frontend"):
-        _trainer(tcfg, rollout_backend="fleet")
+    with pytest.raises(ValueError, match="fleet_replicas 0"):
+        _trainer(tcfg, rollout_backend="fleet", fleet_replicas=0)
+    with pytest.raises(ValueError, match="rollout_backend 'async'"):
+        _trainer(tcfg, rollout_backend="async")
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
