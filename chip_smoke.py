@@ -1725,52 +1725,87 @@ def fleet_trainer(dev, cfg):
     return stats
 
 
-def _token_versions(events):
-    """From a launcher's JSONL event rows: rid -> the weight version of
-    each token as the replica that produced it stamped its step, and
-    whether each equals the version last installed on that replica."""
-    installed, out, ok = {}, {}, True
-    for e in sorted(events, key=lambda e: (e["replica"], e["step"])):
+def _installed_versions(events):
+    """From a launcher's JSONL event rows: rid -> (replica, the version each
+    of its tokens must carry), in the order the tokens were produced.  The
+    version is the last one whose install event on that replica came at or
+    before the step that produced the token, read off the install events'
+    step indices alone (not the version a token event carries)."""
+    installs, produced = {}, []
+    for e in events:
         if e["kind"] == "weights" and not e["staged"]:
-            installed[e["replica"]] = e["version"]
-        elif (e["kind"] == "prefill" and e["last"]) or e["kind"] == "decode":
-            for rid in ([e["rid"]] if e["kind"] == "prefill" else e["rids"]):
-                out.setdefault(rid, []).append(e["version"])
-            ok = ok and e["version"] == installed.get(e["replica"], 0)
-    return out, ok
+            installs.setdefault(e["replica"], []).append((e["step"], e["version"]))
+        elif e["kind"] == "prefill" and e["last"]:
+            produced.append((e["replica"], e["step"], 0, e["rid"]))
+        elif e["kind"] == "decode":
+            produced += [(e["replica"], e["step"], 1, rid) for rid in e["rids"]]
+    out = {}
+    for replica, step, _, rid in sorted(produced):
+        version = max((v for s, v in installs.get(replica, ()) if s <= step), default=0)
+        out.setdefault(rid, (replica, []))[1].append(version)
+    return out
 
 
 def fleet_serve(dev):
     """9b: `launch.serve.run` as a user runs it: 2 replicas, a freshly
     requantized weight version every 4 fleet steps, 128-token chunks,
-    greedy over the launcher's 16-prompt trace, the event log written."""
+    greedy over the launcher's 16-prompt trace, the event log written.
+    Every `RequestOutput` the launcher's front end streams is recorded on
+    the way out, and each token's version is held against the version
+    installed on its replica at the step that produced it."""
+    from unittest import mock
     import torch
     from repro_torch.kernels import build
     from repro_torch.launch import serve
+    from repro_torch.serving import ServingFrontend
     stats = {}
     fresh_peak("fleet_serve", stats)
     events_path = ROOT / "build" / "chip_smoke_fleet_events.jsonl"
     events_path.parent.mkdir(exist_ok=True)
+    streamed = {}
+    fleet_step = ServingFrontend.step
+
+    def recording_step(fe):
+        outs = fleet_step(fe)
+        for o in outs:
+            s = streamed.setdefault(o.rid, dict(replica=o.replica, tokens=[], versions=[]))
+            s["tokens"] += o.new_token_ids
+            s["versions"] += o.new_versions
+            if o.finished:
+                s["final"] = o.output
+        return outs
+
     build.reset_launch_counts()
-    # --- the launcher's fleet path --------------------------------------------
-    out = serve.run(["--replicas", "2", "--update-every", "4", "--prefill-chunk", "128",
-                     "--max-new", str(FLEET_MAX_NEW), "--events-out", str(events_path)])
-    launches = _path_launches("launch.serve fleet path", (
-        "quant_act", "quant_weight", "fp8_gemm", "paged_decode", "paged_prefill"))
-    # ----------------------------------------------------------------------
+    with mock.patch.object(ServingFrontend, "step", recording_step):
+        # --- the launcher's fleet path ----------------------------------------
+        out = serve.run(["--replicas", "2", "--update-every", "4", "--prefill-chunk", "128",
+                         "--max-new", str(FLEET_MAX_NEW), "--events-out", str(events_path)])
+        launches = _path_launches("launch.serve fleet path", (
+            "quant_act", "quant_weight", "fp8_gemm", "paged_decode", "paged_prefill"))
+        # ------------------------------------------------------------------
     log("launch.serve fleet report: " + json.dumps(out))
     check(out["completed"] == 16 and not out["stalled"], "fleet launcher run incomplete")
     check(launches["quant_weight"] == SYNC_LEAVES * (1 + out["weight_version"]),
           f"kernel 2 launched {launches['quant_weight']} times for "
           f"{1 + out['weight_version']} syncs")
     rows = [json.loads(line) for line in events_path.read_text().splitlines()]
-    versions, exact = _token_versions(rows)
-    check(exact, "a token's version is not the one installed on its replica at its step")
-    spans = sum(len(set(v)) >= 2 for v in versions.values())
+    want = _installed_versions(rows)
+    check(sorted(streamed) == list(range(16)) and sorted(want) == list(range(16)),
+          f"streamed rids {sorted(streamed)}, produced rids {sorted(want)}")
+    for rid, s in sorted(streamed.items()):
+        final = s.get("final")
+        check(final is not None and s["tokens"] == final.token_ids
+              and s["versions"] == final.versions,
+              f"rid {rid}: the streamed deltas are not the final output (exactly once)")
+        check(want[rid] == (s["replica"], s["versions"]),
+              f"rid {rid}: streamed versions {s['versions']} on replica {s['replica']}, "
+              f"installed at their steps {want[rid]}")
+    spans = sum(len(set(s["versions"])) >= 2 for s in streamed.values())
     check(spans >= 1, "no request spans two weight versions")
-    check(sorted({x for v in versions.values() for x in v}) == out["versions_seen"],
-          "the event log's versions are not the streamed ones")
+    check(sorted({v for s in streamed.values() for v in s["versions"]}) == out["versions_seen"],
+          "the streamed versions are not the launcher's versions_seen")
     stats.update(report=out, launches=launches, requests_spanning_versions=spans,
+                 tokens_attributed=sum(len(s["versions"]) for s in streamed.values()),
                  peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     log("fleet serve path: " + json.dumps(stats))
     return stats
@@ -1836,7 +1871,12 @@ def fleet_chaos(dev, cfg):
     ways: fault-free, replica 0 crashing for good at its step 2, replica 1
     crashing at its step 3 and rejoining 2 fleet steps later, and under a
     `StepTracer` on every replica.  Then the fault-free and crash runs once
-    more under `PrecisionConfig()`, logged, not held."""
+    more under `PrecisionConfig()` (FP8 KV, what the fleet trainer runs),
+    held to exactly-once delivery, a failover with replayed tokens, and
+    bit-equality with the fault-free fleet of every request that was not
+    failed over; a failed-over one keeps the tokens streamed before the
+    crash, and past them may differ: the survivor calibrated its KV
+    scales on its own first prompts."""
     import numpy as np
     import torch
     from repro_torch.core.precision import FP8_LINEAR_ROLLOUT, PrecisionConfig
@@ -1864,29 +1904,44 @@ def fleet_chaos(dev, cfg):
         # ------------------------------------------------------------------
         permanent = _fleet_run(roll, cfg, prec, dev, prompts,
                                faults=crash(replica=0, step=2, transient=False))
+        moved = {e.rid: e.replayed_tokens for e in permanent[2].tracer.events
+                 if e.kind == "redispatch"}
         differ = sum(permanent[0][r] != base[r] for r in base)
         run = dict(wall_s=wall, steps=base_rep.steps, clock_tokens=base_rep.clock_tokens,
                    delivered_tokens=base_rep.delivered_tokens,
                    tokens_per_s=base_rep.delivered_tokens / wall, launches=launches,
                    crash=dict(redispatches=permanent[3].redispatches,
                               replayed_tokens=permanent[3].replayed_tokens,
+                              failed_over=len(moved),
                               completions_differing=differ, wall_s=permanent[5]))
         stats[name] = run
         log(f"fleet chaos ({name}): " + json.dumps(run))
+        check(len(base) == 16 and all(len(t) > 0 for t in base.values()),
+              f"fault-free fleet ({name})")
+        check(permanent[3].redispatches >= 1 and permanent[3].replayed_tokens > 0
+              and len(moved) == permanent[3].redispatches,
+              f"permanent crash ({name}): redispatches {permanent[3].redispatches}, "
+              f"replayed {permanent[3].replayed_tokens}, redispatch events {len(moved)}")
+        for tag, (got, streams) in (("fault-free", (base, base_streams)),
+                                    ("permanent crash", permanent[:2])):
+            check(sorted(got) == list(range(16)) and streams == got,
+                  f"{tag} ({name}): a request is missing, or a streamed token was "
+                  "emitted twice or dropped")
+        for r in base:
+            k = moved.get(r)
+            check(permanent[0][r] == base[r] if k is None
+                  else permanent[0][r][:k] == base[r][:k],
+                  f"permanent crash ({name}): request {r} "
+                  + ("was not failed over and differs" if k is None
+                     else f"differs within the {k} tokens streamed before the crash"))
         if name == "default":
-            continue                          # measured, not held: see the docstring
-        check(len(base) == 16 and all(len(t) > 0 for t in base.values()), "fault-free fleet")
-        check(permanent[3].redispatches >= 1 and permanent[3].replayed_tokens > 0,
-              f"permanent crash: redispatches {permanent[3].redispatches}, replayed "
-              f"{permanent[3].replayed_tokens}")
+            continue                 # the rest needs one KV scale: see the docstring
         transient = _fleet_run(roll, cfg, prec, dev, prompts,
                                faults=crash(replica=1, step=3, transient=True, down_steps=2))
         traced = _fleet_run(roll, cfg, prec, dev, prompts, trace=True)
         for tag, (got, streams, fe, rep, _, _) in (("permanent crash", permanent),
                                                    ("transient crash", transient),
-                                                   ("traced", traced),
-                                                   ("fault-free", (base, base_streams, None,
-                                                                   base_rep, None, None))):
+                                                   ("traced", traced)):
             check(got == base, f"{tag}: greedy completions differ from the fault-free "
                                f"fleet's in {sum(got[r] != base[r] for r in base)} requests")
             check(streams == got, f"{tag}: a streamed token was emitted twice or dropped")

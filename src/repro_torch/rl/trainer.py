@@ -314,6 +314,7 @@ class RLTrainer:
                 "the prompt batch (raise fleet_max_slots or shrink "
                 "prompt_batch)")
         by_rid = {o.rid: o for o in report.outputs}
+        self._fleet.forget_finished()
         b = len(rids)
         resp = np.full((b, g), self.sampler.pad_id, np.int32)
         mask = np.zeros((b, g), np.float32)

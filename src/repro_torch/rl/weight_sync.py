@@ -27,7 +27,6 @@ import torch
 from repro_torch.core.fp8_params import _map_with_path, count_quantized, quantize_params
 from repro_torch.core.precision import PrecisionConfig
 from repro_torch.core.quant import QuantizedTensor, quantization_rel_error
-from repro_torch.serving.faults import WeightInstallError
 
 
 def _first_leaf(tree):
@@ -73,21 +72,18 @@ class WeightSyncer:
     both enforce monotonicity on their side too.
 
     `push_to()` is the failure-aware spelling: the version is minted
-    only AFTER the fleet accepts the push.  A failed install is retried
-    with bounded exponential backoff (`install_retries`, `backoff_s`);
-    exhausting the budget raises with `self.version` untouched, so the
-    next successful push reuses the same number — the fleet never sees
-    a skipped or repeated version, and a half-failed push can never
-    leave the trainer's counter ahead of what the fleet runs.
+    only AFTER the fleet accepts the push.  The fleet owns the retries
+    (`ServingFrontend.update_weights` retries each replica and
+    quarantines one that keeps failing); if the install raises anyway,
+    `self.version` is untouched, so the next successful push reuses the
+    same number — the fleet never sees a skipped or repeated version.
+    The reference's `start_version`, `install_retries` and `backoff_s`
+    (a second retry loop around the front end's own) are left out.
     """
 
-    def __init__(self, precision: PrecisionConfig, *, start_version: int = 0,
-                 install_retries: int = 2, backoff_s: float = 0.0):
+    def __init__(self, precision: PrecisionConfig):
         self.precision = precision
-        self.version = start_version
-        self.install_retries = install_retries
-        self.backoff_s = backoff_s
-        self.push_failures = 0    # failed install attempts absorbed
+        self.version = 0
 
     def push(self, train_params) -> VersionedWeights:
         """Requantize `train_params` and mint the next weight version.
@@ -107,19 +103,7 @@ class WeightSyncer:
         committing the version bump only on success."""
         params, stats = sync_policy_weights(train_params, self.precision)
         version = self.version + 1
-        last_exc = None
-        for attempt in range(1 + self.install_retries):
-            try:
-                fleet.update_weights(params, version)
-                break
-            except WeightInstallError as exc:
-                last_exc = exc
-                self.push_failures += 1
-                if self.backoff_s > 0:
-                    time.sleep(self.backoff_s * (2 ** attempt))
-        else:
-            raise WeightInstallError(
-                getattr(last_exc, "replica", -1), version) from last_exc
+        fleet.update_weights(params, version)
         self.version = version
         stats["weight_version"] = self.version
         return VersionedWeights(params=params, version=self.version,

@@ -607,6 +607,20 @@ class ServingFrontend:
             new_token_ids=[], new_versions=[], new_logps=None,
             output=comp, finished=True)
 
+    def forget_finished(self) -> int:
+        """Drop every finished request from the front end's books and
+        each engine's `done` list; returns how many were dropped.  For a
+        long-lived fleet (the trainer's), called once `run()` has handed
+        back their final outputs, so the books (and the next report's
+        `outputs`) stay bounded by one rollout's requests.  Automatic
+        rids keep counting, so they stay fleet-unique."""
+        gone = [rid for rid, t in self._tracked.items() if t.finished]
+        for rid in gone:
+            del self._tracked[rid]
+        for eng in self.engines:
+            eng.done[:] = [r for r in eng.done if r.rid in self._tracked]
+        return len(gone)
+
     def _record_fleet_gauges(self):
         self.tracer.record_fleet_gauges(
             step=self.steps, clock=float(self.clock_tokens),

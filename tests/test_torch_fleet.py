@@ -13,10 +13,13 @@ a token:
   (rid, replica, how many new tokens, their weight versions, finished,
   finish reason), each replica's per-step `ScheduleDecision.accounting()`
   and the `FleetReport` counters;
-* greedy tokens are equal per request up to the first token whose
-  reference logits have a top-2 gap under twice the logit tolerance of
-  the model tests (0.4 under W8A8 linears; test_torch_model.py): past a
-  near-tie the two are different sequences (as in test_torch_serving.py).
+* per request, every logits row up to and including the first token
+  that differs is within the logit tolerance of the model tests (0.4
+  under W8A8 linears; test_torch_model.py) of the reference's, and the
+  tokens may differ only where the reference's top-2 gap is under twice
+  that: past a near-tie the two are different sequences (as in
+  test_torch_serving.py).  A floor per trace (`HELD_FLOOR`) bounds how
+  few rows that may hold.
 
 Traces, under W8A8 linears with a bf16 KV cache (the reference's fault
 tests' precision: with an FP8 cache a replica calibrates its KV scales on
@@ -150,37 +153,32 @@ def _plan(mod, spec):
     return mod.FaultInjector(mod.FaultPlan(crashes=crashes, installs=installs))
 
 
-class _Gaps:
-    """(rid, index in the client's stream) -> top-2 gap of the reference
-    logits the token was sampled from, across failovers (a replayed
-    request's engine prompt carries its streamed tokens)."""
+class _Rows:
+    """(rid, index in the client's stream) -> the logits row (f32) the
+    token was sampled from, across failovers (a replayed request's engine
+    prompt carries its streamed tokens).  A later row for the same key
+    wins (a masked slot's row is written again when it decodes)."""
 
-    def __init__(self, monkeypatch, orig_len):
-        self.gaps, self.orig_len = {}, orig_len
+    def __init__(self, orig_len):
+        self.rows, self.orig_len = {}, orig_len
         self.engine, self.first = None, []
-        sample = jengine_mod.sample
-
-        def rec_sample(logits, *args, **kw):
-            arr = np.asarray(logits, np.float32)
-            if arr.ndim == 1:
-                self.first.append(arr)
-            else:
-                for i, r in enumerate(self.engine.slot_req):
-                    if r is not None and r.generated and r.prefilled >= len(r.prompt):
-                        self.gaps[r.rid, self._offset(r) + len(r.generated)] = \
-                            _top2_gap(arr[i])
-            return sample(logits, *args, **kw)
-
-        monkeypatch.setattr(jengine_mod, "sample", rec_sample)
 
     def _offset(self, req):
         return len(req.prompt) - self.orig_len[req.rid]
+
+    def record(self, eng, arr):
+        if arr.ndim == 1:
+            self.first.append(arr)
+            return
+        for i, r in enumerate(eng.slot_req):
+            if r is not None and r.generated and r.prefilled >= len(r.prompt):
+                self.rows[r.rid, self._offset(r) + len(r.generated)] = arr[i]
 
     def watch(self, eng):
         commit = eng._commit_first_token
 
         def rec_commit(req, tok, logp, slot):
-            self.gaps[req.rid, self._offset(req)] = _top2_gap(self.first.pop())
+            self.rows[req.rid, self._offset(req)] = self.first.pop()
             return commit(req, tok, logp, slot)
 
         eng._commit_first_token = rec_commit
@@ -198,7 +196,15 @@ def _serve(setup, side, ops, *, replicas=2, faults=None, monkeypatch=None, **kw)
     roll_of = {k: rolls[k][port] for k in range(len(SCALES))}
     injector = _plan(mod, faults)
     orig_len = {op[1]: op[3] for op in ops if op[0] == "submit"}
-    gaps = None if port else _Gaps(monkeypatch, orig_len)
+    rows = _Rows(orig_len)
+    if not port:
+        sample = jengine_mod.sample
+
+        def rec_sample(logits, *a, **k):
+            rows.record(rows.engine, np.asarray(logits, np.float32))
+            return sample(logits, *a, **k)
+
+        monkeypatch.setattr(jengine_mod, "sample", rec_sample)
     extra = {"device": "cpu"} if port else {}
     engines = [mod.ServingEngine(roll_of[0], cfg, PRECISION[port],
                                  temperature=0.0, seed=i, max_slots=2, max_seq_len=48,
@@ -211,15 +217,19 @@ def _serve(setup, side, ops, *, replicas=2, faults=None, monkeypatch=None, **kw)
         step = eng.step
 
         def wrapped(step=step, i=i, eng=eng):
-            if gaps is not None:
-                gaps.engine = eng
+            rows.engine = eng
             decision = step()
             accounting[i].append(decision.accounting())
             return decision
 
         eng.step = wrapped
-        if gaps is not None:
-            gaps.watch(eng)
+        rows.watch(eng)
+        if port:
+            def rec_sample(logits, eng=eng, sample=eng._sample):
+                rows.record(eng, logits.float().cpu().numpy())
+                return sample(logits)
+
+            eng._sample = rec_sample
     steps = []
     for op, *args in ops:
         if op == "submit":
@@ -244,7 +254,7 @@ def _serve(setup, side, ops, *, replicas=2, faults=None, monkeypatch=None, **kw)
         assert streams.get(rid, []) == o.output.token_ids, (side, rid)
         assert len(o.output.versions) == len(o.output.token_ids)
     return dict(
-        fe=fe, report=report, injector=injector, gaps=gaps and gaps.gaps,
+        fe=fe, report=report, injector=injector, rows=rows.rows,
         tokens={rid: o.output.token_ids for rid, o in finals.items()},
         meta=[[(o.rid, o.replica, len(o.new_token_ids), list(o.new_versions),
                 o.finished, o.finish_reason, list(o.output.versions))
@@ -256,35 +266,58 @@ def _serve(setup, side, ops, *, replicas=2, faults=None, monkeypatch=None, **kw)
 
 
 def _compare(ref, port, atol=ATOL_W8A8):
-    """The module's comparison; returns the numbers of equal tokens
-    before each request's first mismatch, and of decisive ones."""
+    """The module's comparison.  Per request, every logits row up to and
+    including the first token that differs is held to the reference's
+    within `atol` (the two sides read the same prefix there), and a token
+    may differ only where the reference's top-2 gap is under 2 atol.
+    Returns (rows held, largest row error, equal tokens before each
+    request's first mismatch, decisive ones among them)."""
     assert port["meta"] == ref["meta"]
     assert port["final_meta"] == ref["final_meta"]
     assert port["accounting"] == ref["accounting"]
     assert port["counters"] == ref["counters"]
-    equal = decisive = 0
+    held = equal = decisive = 0
+    worst = 0.0
     for rid, want in ref["tokens"].items():
         got = port["tokens"][rid]
         assert len(got) == len(want)
         for i, (a, b) in enumerate(zip(got, want)):
-            gap = ref["gaps"][rid, i]
+            want_row = ref["rows"][rid, i]
+            err = float(np.abs(port["rows"][rid, i] - want_row).max())
+            assert err <= atol, (rid, i, err)
+            held += 1
+            worst = max(worst, err)
+            gap = _top2_gap(want_row)
             if a != b:
                 assert gap < 2 * atol, (rid, i, gap)
                 break
             equal += 1
             decisive += gap >= 2 * atol
-    return equal, decisive
+    return held, worst, equal, decisive
 
 
 def _both(setup, monkeypatch, ops, **kw):
     ref = _serve(setup, "ref", ops, monkeypatch=monkeypatch, **kw)
     port = _serve(setup, "port", ops, **kw)
-    equal, decisive = _compare(ref, port)
+    held, worst, equal, decisive = _compare(ref, port)
     n = sum(len(t) for t in ref["tokens"].values())
-    print(f"{n} tokens: {equal} equal before their request's first mismatch, "
+    print(f"{n} tokens: {held} logits rows held (largest error {worst:.4f}), "
+          f"{equal} tokens equal before their request's first mismatch, "
           f"{decisive} of them decisive; accounting of "
           f"{sum(map(len, ref['accounting']))} replica steps equal")
-    return ref, port
+    return ref, port, held
+
+
+# Floors on the logits rows `_compare` holds per trace: half of what this
+# module measured on a CPU (live 25; crash 20, transient 16, install_retry 1,
+# install_quarantine 14, staged_install 2, each random seed 12), and never
+# fewer than one row per request that streams a token.  The tiny random
+# model has many near-ties (top-2 gaps down to 0.008), so two sides that
+# agree within the tolerance still part at one; the floors catch a port
+# whose streams part from the reference's at once everywhere.
+HELD_FLOOR = {"live": 12, "crash": 10, "transient": 8, "install_retry": 1,
+              "install_quarantine": 7, "staged_install": 2,
+              "random0": 6, "random1": 6, "random2": 6}
 
 
 def _submits(n, max_new, plen=lambda s: 6 + s % 4):
@@ -302,7 +335,8 @@ LIVE_OPS = (_submits(5, 8) + [("submit", 5, 5, 7, 30, 20)]
 def test_live_update_trace_matches_reference(setup, monkeypatch):
     """Streams, per-token versions, accounting and counters across an
     immediate push, a staged push, load ties and a deadline abort."""
-    ref, port = _both(setup, monkeypatch, LIVE_OPS)
+    ref, port, held = _both(setup, monkeypatch, LIVE_OPS)
+    assert held >= HELD_FLOOR["live"]
     rep = port["report"]
     assert rep.weight_version == 2 and rep.aborted == 1 and not rep.stalled
     reasons = {rid: m[2] for rid, m in port["final_meta"].items()}
@@ -336,7 +370,8 @@ FAULTS = {
 def test_fault_schedule_matches_reference(setup, monkeypatch, name):
     plan, ops, kw = FAULTS[name]
     ops = ops + [("drain",)]
-    ref, port = _both(setup, monkeypatch, ops, faults=plan, **kw)
+    ref, port, held = _both(setup, monkeypatch, ops, faults=plan, **kw)
+    assert held >= HELD_FLOOR[name]
     rep = port["report"]
     assert dict(port["injector"].injected) == dict(ref["injector"].injected)
     assert sum(port["injector"].injected.values()) >= 1, "no fault fired"
@@ -443,19 +478,18 @@ class _FlakyFleet:
 
 
 def test_push_to_mints_version_only_on_success(setup):
+    """A push the fleet refuses leaves the counter where it was; the next
+    accepted push takes that same number."""
     _, _, params, _ = setup
     tparams = params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
-    syncer = tws.WeightSyncer(tp.PrecisionConfig(), install_retries=2)
-    fleet = _FlakyFleet(fail=2)
-    vw = syncer.push_to(tparams, fleet)          # 2 failures absorbed
-    assert vw.version == 1 == syncer.version and fleet.installed == [1]
-    assert syncer.push_failures == 2 and vw.stats["weight_version"] == 1
-    syncer = tws.WeightSyncer(tp.PrecisionConfig(), install_retries=1)
+    syncer = tws.WeightSyncer(tp.PrecisionConfig())
+    fleet = _FlakyFleet(fail=1)
     with pytest.raises(tserving.WeightInstallError):
-        syncer.push_to(tparams, _FlakyFleet(fail=99))
-    assert syncer.version == 0                   # no skip, no split
-    ok = _FlakyFleet(fail=0)
-    assert syncer.push_to(tparams, ok).version == 1 and ok.installed == [1]
+        syncer.push_to(tparams, fleet)
+    assert syncer.version == 0 and fleet.installed == []    # no skip, no split
+    vw = syncer.push_to(tparams, fleet)
+    assert vw.version == 1 == syncer.version and fleet.installed == [1]
+    assert vw.stats["weight_version"] == 1
     assert [syncer.push(tparams).version for _ in range(2)] == [2, 3]
 
 
@@ -562,13 +596,20 @@ def test_fleet_update_fn_matches_reference(setup):
 
 def test_fleet_trainer_steps_on_cpu(setup):
     """Two fleet-backend train steps: versions 1 and 2 minted and
-    installed on every replica, finite metrics with the versioned rows."""
+    installed on every replica, finite metrics with the versioned rows;
+    the long-lived front end forgets each rollout's requests once the
+    rollout has its rows, so its books do not grow with the step count."""
     tcfg = setup[1]
     rl = ttrainer.RLConfig(precision=tp.PrecisionConfig(), prompt_batch=2, n_per_prompt=2,
                            max_prompt_len=8, max_new_tokens=4, rollout_backend="fleet",
                            fleet_replicas=2, fleet_max_slots=4, seed=0)
     tr = ttrainer.RLTrainer(tcfg, rl, device="cpu")
-    rows = [tr.train_step() for _ in range(2)]
+    rows = []
+    for _ in range(2):
+        rows.append(tr.train_step())
+        assert len(tr._fleet._tracked) == 0
+        assert all(e.done == [] for e in tr._fleet.engines)
+    assert tr._fleet._next_rid == 2 * 2 * 2         # rids stay fleet-unique
     assert tr.syncer.version == 2
     assert [e.weight_version for e in tr._fleet.engines] == [2, 2]
     assert [e.gen.initial_seed() for e in tr._fleet.engines] == [100, 101]
