@@ -59,6 +59,7 @@ from repro_torch.rl.rollout import (
     packed_sequences,
 )
 from repro_torch.rl.weight_sync import WeightSyncer, sync_policy_weights
+from repro_torch.serving import ServingEngine, ServingFrontend
 
 # Fixed one-hot width for the fleet's versioned TIS: with one weight push
 # per train step every batch sees one or two versions, so 4 slots is
@@ -252,7 +253,6 @@ class RLTrainer:
     def _build_fleet(self, rollout_params, version: int):
         """N engine replicas behind one streaming front-end.  Built once,
         at the first weight push; later pushes hot-swap in place."""
-        from repro_torch.serving import ServingEngine, ServingFrontend
         rl = self.rl
         engines = [
             ServingEngine(
