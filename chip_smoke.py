@@ -5,7 +5,7 @@
 
 Needs one CUDA card, nvcc and the checkout's `src/`; imports nothing of
 JAX or of the JAX package.  Phases (any failure exits non-zero), run in
-the order 1-5, 7, 6, 8, 9:
+the order 1-5, 7, 6, 8-11:
 
 1. the card's name and power limit (nvidia-smi);
 2. build the six CUDA kernels from `src/repro_torch/csrc` (nvcc, sm_90a);
@@ -124,6 +124,38 @@ the order 1-5, 7, 6, 8, 9:
       `PrecisionConfig()` (each replica calibrates its own KV scales),
       logged, not held.
 
+10. full FP8 on full qwen3-8b, each part after `gc.collect()` with its
+    own peak:
+    a. `launch.train.build_trainer` under `--precision fp8`
+       (FULL_FP8_ROLLOUT, the reference's default) with phase 8's B,
+       lengths and `--fp8-moments`: 3 train steps (launch counts zeroed
+       before and read after: kernel 2 7 a sync, kernel 1 4/7 of kernel
+       3, kernel 4 never: `generate` takes the plain QDQ attention); then
+       the same prompts rolled out under FULL_FP8_ROLLOUT,
+       `PrecisionConfig()` (kernel 4 launched once a layer and decode
+       step) and BF16_ROLLOUT and scored by the policy (mismatch KL, TIS
+       ESS);
+    b. one `--precision e2e-fp8` step from the same seed, equal to a's
+       first (the scoring pass takes no precision);
+    c. one train step with the fleet backend under FULL_FP8_ROLLOUT: no
+       kernel 4 or 5 (the replicas resolve to the QDQ branch);
+    d. `fp8_dot` forward and backward at (1408, 4096) @ (4096, 12288)
+       under both recipes against the plain CPU computation (quantized
+       payloads bit-equal, outputs within one bf16 rounding + 1e-3 x
+       max), and its card time beside the bf16 `_dot`'s.
+
+11. breadth: llama3.2-3b, stablelm-3b and starcoder2-15b at full width
+    and depth, one after the other after `gc.collect()` (what it frees
+    is logged): random weights from a seeded generator, a sync (kernel 2
+    once per quantized leaf), a greedy `generate` (8 prompts, 32
+    tokens), a `ServingEngine(kernel_config="all", prefill_chunk=128)`
+    run of 8 requests, a `launch.steps` prefill at (B 8, S 1056) and 4
+    serve steps, each with its launches counted (kernel 1 4/7 of kernel
+    3, 4/6 for starcoder2's two-matrix MLP); decode-step logits through
+    the kernels within 0.5 of the plain versions; kernels 4, 5 and 6 at
+    the model's (KVH, G, D) within 1e-2 of their plain versions; the
+    peak under 80 GB.
+
 The line before the last is the `kernels` JSON object; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
@@ -229,6 +261,16 @@ DECISIVE_GAP = 0.7
 TRAIN_STEPS = 3
 SYNC_LEAVES = 7
 CARD_BYTES = 80e9
+# phase 10d: fp8_dot at qwen3-8b's wg with the scoring pass's rows (B 32 x
+# 44 tokens); y, dx and dw within one bf16 rounding (2**-7 relative) plus
+# this share of the output's largest magnitude, for sums near zero whose
+# f32 order differs between the card's GEMM and the CPU's
+FP8_DOT_SHAPE = (1408, 4096, 12288)
+FP8_DOT_ATOL = 1e-3
+# phase 11: the dense registry at full width and depth (mistral-large-123b,
+# 123B parameters, does not fit one card), and its serve steps at ~1K
+BREADTH = ("llama3.2-3b", "stablelm-3b", "starcoder2-15b")
+BREADTH_STEPS = 4
 
 
 def check(cond, msg):
@@ -1178,22 +1220,24 @@ def _sync_ms(fn, *args):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def _path_launches(tag, need):
+def _path_launches(tag, need, ratio=QUANT_PER_GEMM):
     """Read the counts of the run just driven; every kernel in `need` must
-    have launched, and kernel 1 once per distinct linear input."""
+    have launched, and kernel 1 once per distinct linear input (`ratio`,
+    see `check_quant_per_gemm`)."""
     from repro_torch.kernels import build
     launches = dict(build.LAUNCHES)
     log(f"{tag} launches: {launches}")
     for name in need:
         check(launches[name] > 0, f"kernel {name} was not launched on {tag}")
-    check_quant_per_gemm(launches, tag)
+    check_quant_per_gemm(launches, tag, ratio)
     return launches
 
 
-def check_quant_per_gemm(launches, tag):
-    """Kernel 1 launches exactly QUANT_PER_GEMM of kernel 3's: one
+def check_quant_per_gemm(launches, tag, ratio=QUANT_PER_GEMM):
+    """Kernel 1 launches exactly `ratio` (kernel 1 : kernel 3, a gated
+    dense layer's QUANT_PER_GEMM by default) of kernel 3's: one
     quantization per distinct activation, never one per linear."""
-    q, g = QUANT_PER_GEMM
+    q, g = ratio
     check(launches["quant_act"] * g == launches["fp8_gemm"] * q,
           f"{tag}: kernel 1 launched {launches['quant_act']} times for "
           f"{launches['fp8_gemm']} of kernel 3, not {q}/{g} of them")
@@ -1309,10 +1353,11 @@ def contiguous_7a(dev, cfg, roll, prec, stats):
 
 def fresh_peak(tag, stats):
     """Reset the peak-memory counter before a phase, after collecting the
-    earlier phases' garbage: a reference cycle keeps its device tensors
-    allocated until Python's collector runs, and they would count in the
-    phase's peak.  Logs, and puts into `stats` under `tag`, what stays
-    allocated and what the collection freed (GB)."""
+    earlier phases' garbage: a reference cycle would keep its device
+    tensors allocated until Python's collector runs, and they would count
+    in the phase's peak (a dropped engine no longer sits in one).  Logs,
+    and puts into `stats` under `tag`, what stays allocated and what the
+    collection freed (GB)."""
     import gc
     import torch
     before = torch.cuda.memory_allocated()
@@ -1778,8 +1823,9 @@ def fleet_serve(dev):
     build.reset_launch_counts()
     with mock.patch.object(ServingFrontend, "step", recording_step):
         # --- the launcher's fleet path ----------------------------------------
-        out = serve.run(["--replicas", "2", "--update-every", "4", "--prefill-chunk", "128",
-                         "--max-new", str(FLEET_MAX_NEW), "--events-out", str(events_path)])
+        out = serve.run(["--precision", "default", "--replicas", "2", "--update-every", "4",
+                         "--prefill-chunk", "128", "--max-new", str(FLEET_MAX_NEW),
+                         "--events-out", str(events_path)])
         launches = _path_launches("launch.serve fleet path", (
             "quant_act", "quant_weight", "fp8_gemm", "paged_decode", "paged_prefill"))
         # ------------------------------------------------------------------
@@ -1967,6 +2013,410 @@ def fleet_path(dev, cfg):
     9c chaos and the tracer."""
     return dict(trainer=fleet_trainer(dev, cfg), serve=fleet_serve(dev),
                 chaos=fleet_chaos(dev, cfg))
+
+
+# ---------------------------------------------------------------------------
+# phase 10: full FP8 (FULL_FP8_ROLLOUT, E2E_FP8, fp8_dot) on full qwen3-8b
+# ---------------------------------------------------------------------------
+
+def _build_full_fp8_trainer(cfg, dev, precision):
+    """`launch.train.build_trainer` as a user runs it: phase 8's B, lengths
+    and fp8 moments under `--precision` (random weights from the seed)."""
+    from repro_torch.launch import train as launch_train
+    args = launch_train.parser().parse_args([
+        "--arch", cfg.name, "--precision", precision, "--prompt-batch", "8",
+        "--n-per-prompt", "4", "--max-new-tokens", "32", "--seed", str(SEED),
+        "--fp8-moments", "--device", str(dev)])
+    return launch_train.build_trainer(args)
+
+
+def _decode_steps(traj):
+    """`generate`'s decode steps: its loop stops before token i once every
+    row is done, i.e. at the first all-zero mask column."""
+    mask = traj.response_mask.sum(0).cpu()
+    return next((i for i in range(len(mask)) if mask[i] == 0), len(mask))
+
+
+def _step_keys(m):
+    """A train step's metrics without its times."""
+    return {k: v for k, v in m.items()
+            if not k.endswith(("_ms", "_s", "tokens_per_s"))}
+
+
+def _close(a, b):
+    """Equal up to the last bits of a sum (the embedding's backward adds
+    with atomics on the card)."""
+    import math
+    if isinstance(a, list):
+        return len(a) == len(b) and all(_close(x, y) for x, y in zip(a, b))
+    return a == b or math.isclose(a, b, rel_tol=1e-6, abs_tol=1e-9)
+
+
+def full_fp8_trainer(dev, cfg):
+    """10a: `launch.train`'s trainer under `--precision fp8` (FULL_FP8_ROLLOUT):
+    TRAIN_STEPS train steps, then the same prompts rolled out under
+    FULL_FP8_ROLLOUT, `PrecisionConfig()` and BF16_ROLLOUT and scored by
+    the policy; 10b one `--precision e2e-fp8` step from the same seed, held
+    equal to 10a's first."""
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch.core.precision import BF16_ROLLOUT, FULL_FP8_ROLLOUT, PrecisionConfig
+    from repro_torch.data import PromptPipeline
+    from repro_torch.kernels import build
+    from repro_torch.rl.rewards import batch_rewards
+    from repro_torch.rl.trainer import stats_to_host
+
+    stats = {}
+    fresh_peak("full_fp8_train", stats)
+    trainer = _build_full_fp8_trainer(cfg, dev, "fp8")
+    prec = trainer.rl.precision
+    check(prec.quantize_attention and not prec.fp8_training
+          and trainer.rl.optimizer.fp8_moments, f"10a: precision {prec}")
+    build.reset_launch_counts()
+    # --- the full-FP8 trainer path: TRAIN_STEPS train steps ----------------
+    rows = [trainer.train_step() for _ in range(TRAIN_STEPS)]
+    launches = _path_launches("full-FP8 trainer path", ("quant_act", "quant_weight", "fp8_gemm"))
+    # ----------------------------------------------------------------------
+    check(launches["quant_weight"] == SYNC_LEAVES * TRAIN_STEPS,
+          f"full-FP8 trainer path: kernel 2 launched {launches['quant_weight']} times")
+    check(launches["paged_decode"] == 0,
+          f"kernel 4 launched {launches['paged_decode']} times under FULL_FP8_ROLLOUT")
+    keys = ("step", "loss", "grad_norm", "reward_mean", "response_len_mean", "mismatch_kl",
+            "corr_weight_mean", "corr_weight_ess", "sync_ms", "rollout_s", "score_backward_ms",
+            "optimizer_ms", "step_s", "rollout_tokens_per_s")
+    for m in rows:
+        _finite_metrics(m, f"full-FP8 train step {m['step']}")
+        log("full-FP8 train step: " + json.dumps({k: m[k] for k in keys}))
+    stats["launches"] = launches
+    stats["steps"] = [{k: m[k] for k in keys} for m in rows]
+
+    # the same prompts and generator seed under the three presets, each
+    # trajectory scored by the policy the steps left, with advantages drawn
+    # per group (as phase 8); kernel 4 runs under PrecisionConfig() only
+    adv = np.repeat(np.random.default_rng(SEED).normal(size=8), 4)
+    advantages = torch.tensor(adv, dtype=torch.float32, device=dev)
+    prompts = PromptPipeline(8, trainer.rl.max_prompt_len, seed=SEED + 3).next_batch()
+    problems = [p for p in prompts.problems for _ in range(4)]
+    for name, p in (("full_fp8", FULL_FP8_ROLLOUT), ("fp8", PrecisionConfig()),
+                    ("bf16", BF16_ROLLOUT)):
+        trainer.generator.manual_seed(SEED)
+        build.reset_launch_counts()
+        traj, _, roll_s = trainer.rollout(prompts, p)
+        want = 0 if p.quantize_attention else cfg.n_layers * _decode_steps(traj)
+        check(build.LAUNCHES["paged_decode"] == want,
+              f"{name} rollout: kernel 4 launched {build.LAUNCHES['paged_decode']} times, "
+              f"not {want}")
+        rewards = batch_rewards(problems, traj.response_tokens.cpu().numpy(),
+                                traj.response_lengths.cpu().numpy())
+        ub = trainer.make_update_batch(traj, rewards)
+        ub["advantages"], ub["mask"] = advantages, ub["response_mask"]
+        st = stats_to_host(trainer.batch_loss(trainer.params, ub)[1])
+        _finite_metrics(st, f"{name} rollout stats")
+        stats[f"{name}_rollout"] = dict(
+            rollout_s=roll_s, kernel4_launches=build.LAUNCHES["paged_decode"],
+            tokens=float(traj.response_mask.sum()),
+            tokens_per_s=float(traj.response_mask.sum()) / roll_s,
+            **{k: st[k] for k in ("mismatch_kl", "mismatch_kl_k1", "corr_weight_mean",
+                                  "corr_weight_ess", "is_weight_max")})
+    log("same prompts, FULL_FP8 vs FP8 vs BF16 rollout scored by the bf16 policy: "
+        + json.dumps({k: stats[f"{k}_rollout"] for k in ("full_fp8", "fp8", "bf16")}))
+    check(stats["full_fp8_rollout"]["mismatch_kl"] > stats["bf16_rollout"]["mismatch_kl"],
+          "the FULL_FP8 rollout's mismatch is not above BF16's")
+    stats["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    check(stats["peak_gb"] * 1e9 < CARD_BYTES, f"10a peak {stats['peak_gb']:.1f} GB")
+    del trainer
+
+    fresh_peak("e2e_fp8_train", stats)
+    e2e = _build_full_fp8_trainer(cfg, dev, "e2e-fp8")
+    check(e2e.rl.precision.fp8_training, "10b: E2E_FP8 not selected")
+    m = e2e.train_step()
+    _finite_metrics(m, "E2E_FP8 train step")
+    first = _step_keys(rows[0])
+    apart = {k: (v, m[k]) for k, v in first.items() if not _close(v, m[k])}
+    log("E2E_FP8 step against the FULL_FP8_ROLLOUT step 1 (same seed): "
+        + json.dumps({k: m[k] for k in keys}) + f"; metrics apart: {apart}")
+    check(not apart, f"the E2E_FP8 step differs from the FULL_FP8_ROLLOUT step: {apart}")
+    stats["e2e_step"] = {k: m[k] for k in keys}
+    stats["e2e_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del e2e
+    log("full-FP8 trainer: " + json.dumps(stats))
+    return stats
+
+
+def full_fp8_fleet(dev, cfg):
+    """10c: one train step with the fleet rollout backend under
+    FULL_FP8_ROLLOUT: the replicas' default kernels resolve to the plain
+    QDQ attention (no kernel 4 or 5), as the reference's engines run."""
+    import torch
+    from repro_torch.core.precision import FULL_FP8_ROLLOUT
+    from repro_torch.kernels import build
+    from repro_torch.models import Transformer
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.rl import RLConfig, RLTrainer
+    rl = RLConfig(precision=FULL_FP8_ROLLOUT, prompt_batch=8, n_per_prompt=4,
+                  max_prompt_len=12, max_new_tokens=32, temperature=1.0,
+                  optimizer=AdamWConfig(lr=3e-4, b2=0.98, grad_clip=1.0, fp8_moments=True),
+                  rollout_backend="fleet", fleet_replicas=2, fleet_max_slots=8,
+                  fleet_block_size=FLEET_BLOCK_SIZE)
+    stats = {}
+    fresh_peak("full_fp8_fleet", stats)
+    trainer = RLTrainer(cfg, rl, params=Transformer(cfg, dev).init_params(SEED), device=dev)
+    build.reset_launch_counts()
+    # --- the full-FP8 fleet path: one train step ----------------------------
+    m = trainer.train_step()
+    launches = _path_launches("full-FP8 fleet path", ("quant_act", "quant_weight", "fp8_gemm"))
+    # ----------------------------------------------------------------------
+    check(launches["paged_decode"] == 0 and launches["paged_prefill"] == 0,
+          f"the fleet launched kernels 4/5 under FULL_FP8_ROLLOUT: {launches}")
+    check(all(not e.kernels.any for e in trainer._fleet.engines),
+          "a replica resolved to kernels under FULL_FP8_ROLLOUT")
+    _finite_metrics(m, "full-FP8 fleet train step")
+    keys = ("loss", "mismatch_kl", "corr_weight_ess", "push_ms", "rollout_s",
+            "score_backward_ms", "optimizer_ms", "step_s", "rollout_tokens_per_s")
+    stats.update(launches=launches, step={k: m[k] for k in keys},
+                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    check(stats["peak_gb"] * 1e9 < CARD_BYTES, f"10c peak {stats['peak_gb']:.1f} GB")
+    log("full-FP8 fleet path: " + json.dumps(stats))
+    del trainer
+    return stats
+
+
+def fp8_dot_check(dev):
+    """10d: `fp8_dot` forward and backward at qwen3-8b's wg shape (the
+    scoring pass's 1408 rows, (1408, 4096) @ (4096, 12288)) under both
+    recipes, on the card against the plain CPU computation: the quantized
+    payloads and scales (kernels 1 and 2 against their plain versions)
+    bit-equal; y, dx and dw each within one bf16 rounding (2**-7 relative)
+    plus FP8_DOT_ATOL of the output's largest magnitude (the GEMMs' f32
+    sums run in another order).  Also its card time beside the bf16
+    `_dot`'s, forward + backward."""
+    import torch
+    from repro_torch.core import fp8_linear
+    from repro_torch.core.precision import E4M3, E5M2, Fp8Recipe, ScaleFormat
+    from repro_torch.kernels import ops
+    m, k, n = FP8_DOT_SHAPE
+    gen = torch.Generator().manual_seed(SEED)
+    x = torch.randn((m, k), generator=gen).to(torch.bfloat16)
+    w = (torch.randn((k, n), generator=gen) * k ** -0.5).to(torch.bfloat16)
+    g = (torch.randn((m, n), generator=gen)
+         * torch.exp(torch.rand((m, n), generator=gen) * 12 - 10)).to(torch.bfloat16)
+    stats = {}
+
+    def payload(qt):
+        return qt.data.contiguous().view(torch.uint8).cpu(), qt.scales.cpu()
+
+    def same(a, b):
+        return torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+    xq = [payload(ops.quantize_activation(x.to(d), E4M3)) for d in ("cpu", dev)]
+    wq = [payload(ops.quantize_weight(w.to(d), E4M3)) for d in ("cpu", dev)]
+    check(same(*xq) and same(*wq), "fp8_dot: x or w payloads differ between kernel and plain")
+    for recipe in Fp8Recipe:
+        fmt = E5M2 if recipe == Fp8Recipe.HYBRID else E4M3
+        gq = [[payload(ops.quantize_activation(t.to(d), fmt)) for d in ("cpu", dev)]
+              for t in (g, g.t().contiguous())]
+        check(all(same(*p) for p in gq), f"fp8_dot {recipe.value}: gradient payloads differ")
+        outs = {}
+        for d in ("cpu", dev):
+            xr = x.to(d, copy=True).requires_grad_(True)
+            wr = w.to(d, copy=True).requires_grad_(True)
+            y = fp8_linear.fp8_dot(xr, wr, recipe)
+            y.backward(g.to(d))
+            outs[d] = [t.detach().cpu().float() for t in (y, xr.grad, wr.grad)]
+        errs = {}
+        for name, a, b in zip(("y", "dx", "dw"), outs["cpu"], outs[dev]):
+            err = (a - b).abs()
+            bound = 2 ** -7 * a.abs() + FP8_DOT_ATOL * a.abs().max()
+            errs[name] = err.max().item()
+            check(bool((err <= bound).all()), f"fp8_dot {recipe.value} {name}: max abs err "
+                  f"{errs[name]:.3e} against its bound")
+        xr = x.to(dev, copy=True).requires_grad_(True)
+        wr = w.to(dev, copy=True).requires_grad_(True)
+        gd = g.to(dev)
+
+        def fwd_bwd(fn):
+            def run():
+                fn(xr, wr).backward(gd)
+            return run
+        ms = cuda_time_ms(fwd_bwd(lambda a, b: fp8_linear.fp8_dot(a, b, recipe)), reps=5)
+        bf16_ms = cuda_time_ms(fwd_bwd(fp8_linear._dot), reps=5)
+        stats[recipe.value] = dict(max_abs_err=errs, ms=ms, bf16_dot_ms=bf16_ms)
+        log(f"fp8_dot {recipe.value} at ({m}, {k}) @ ({k}, {n}): payloads bit-equal, max abs "
+            f"err {json.dumps(errs)} (within 2**-7 relative + {FP8_DOT_ATOL} x max); "
+            f"forward + backward {ms:.3f} ms on the card, bf16 _dot {bf16_ms:.3f} ms")
+        del xr, wr, gd
+    return stats
+
+
+def full_fp8_path(dev, cfg):
+    """Phase 10: 10a-b the trainer under FULL_FP8_ROLLOUT and E2E_FP8, 10c
+    the fleet under FULL_FP8_ROLLOUT, 10d `fp8_dot`."""
+    return dict(trainer=full_fp8_trainer(dev, cfg), fleet=full_fp8_fleet(dev, cfg),
+                fp8_dot=fp8_dot_check(dev))
+
+
+# ---------------------------------------------------------------------------
+# phase 11: breadth, the dense registry at full width and depth
+# ---------------------------------------------------------------------------
+
+def hold_attention_kernels(dev, gen, cfg):
+    """Kernels 4, 5 and 6 at `cfg`'s (KVH, G, D) against their plain
+    versions on phase 3's shapes, within 1e-2 (kernel 6 also within 1e-2 x
+    max|plain|, at q and q x PEAKED_Q); stale entries never read.  Returns
+    the worst error of each."""
+    import torch
+    from repro_torch.kernels import fp8_kv_attention as fa
+    kvh, d = cfg.n_kv_heads, cfg.d_head
+    g = cfg.n_heads // kvh
+    errs = {}
+    q, kq, vq, ks, vs, tables, lengths, poison = decode_case(dev, gen, kvh=kvh, g=g, d=d)
+    out = fa.fp8_paged_decode_attention(q, kq, vq, ks, vs, tables, lengths)
+    plain = fa.fp8_paged_decode_attention_ref(q, kq, vq, ks, vs, tables, lengths)
+    kq[poison] = float("nan")
+    vq[poison] = float("nan")
+    poisoned = fa.fp8_paged_decode_attention(q, kq, vq, ks, vs, tables, lengths)
+    torch.cuda.synchronize()
+    errs["paged_decode"] = (out.float() - plain.float()).abs().max().item()
+    check(torch.allclose(out.float(), plain.float(), rtol=1e-2, atol=1e-2)
+          and torch.equal(poisoned.view(torch.int16), out.view(torch.int16)),
+          f"{cfg.name}: kernel 4 disagrees with its plain version")
+    del kq, vq
+    worst = 0.0
+    for (b, c), (start, lengths) in PREFILL_CASES.items():
+        q, kq, vq, ks, vs, tables, st, ln, poison = prefill_case(
+            dev, gen, start, lengths, c, kvh=kvh, g=g, d=d)
+        out = fa.fp8_paged_prefill_attention(q, kq, vq, ks, vs, tables, st, ln)
+        plain = fa.fp8_paged_prefill_attention_ref(q, kq, vq, ks, vs, tables, st, ln)
+        kq[poison] = 448.0
+        vq[poison] = 448.0
+        poisoned = fa.fp8_paged_prefill_attention(q, kq, vq, ks, vs, tables, st, ln)
+        torch.cuda.synchronize()
+        worst = max(worst, (out.float() - plain.float()).abs().max().item())
+        check(torch.allclose(out.float(), plain.float(), rtol=1e-2, atol=1e-2)
+              and torch.equal(poisoned.view(torch.int16), out.view(torch.int16)),
+              f"{cfg.name}: kernel 5 disagrees with its plain version (B {b}, C {c})")
+        del kq, vq
+    errs["paged_prefill"] = worst
+    q, kq, vq, ks, vs, ln = contiguous_case(dev, gen, 8, 1057, [1057, 1, 0, 300, 512, 999,
+                                                                64, 700], kvh=kvh, g=g, d=d)
+    worst = 0.0
+    for q_scale in (1.0, PEAKED_Q):
+        qs = (q.float() * q_scale).to(q.dtype)
+        out = fa.fp8_decode_attention(qs, kq, vq, ks, vs, ln).float()
+        plain = fa.fp8_decode_attention_ref(qs, kq, vq, ks, vs, ln).float()
+        torch.cuda.synchronize()
+        err = (out - plain).abs().max().item()
+        check(torch.allclose(out, plain, rtol=DECODE_TOL, atol=DECODE_TOL)
+              and err <= DECODE_TOL * plain.abs().max().item(),
+              f"{cfg.name}: kernel 6 disagrees with its plain version at q x {q_scale:g}")
+        worst = max(worst, err)
+    errs["decode"] = worst
+    log(f"{cfg.name} (KVH {kvh}, G {g}, D {d}): kernels 4/5/6 vs plain, max abs err "
+        + json.dumps(errs) + " (tol 1e-2)")
+    return errs
+
+
+def breadth_model(dev, gen, cfg):
+    """One dense model at full width and depth: random weights, a sync, a
+    greedy `generate` (8 prompts, 32 tokens), a `ServingEngine(kernel_config
+    "all", prefill_chunk 128)` run of 8 requests, a `launch.steps` prefill at
+    (B 8, S 1056) and BREADTH_STEPS serve steps, each path's launches
+    counted; decode-step logits through the kernels held against the plain
+    versions; kernels 4-6 at the model's heads; the peak."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core.precision import PrecisionConfig
+    from repro_torch.kernels import build
+    from repro_torch.launch import steps
+    from repro_torch.models import Transformer
+    from repro_torch.rl import SamplerConfig, generate, sync_policy_weights
+    from repro_torch.serving import ServingEngine
+    prec = PrecisionConfig()
+    ratio = (4, 7) if cfg.mlp_gated else (4, 6)       # wu shares wg's input
+    leaves = 7 if cfg.mlp_gated else 6
+    stats = {}
+    fresh_peak(cfg.name, stats)
+    model = Transformer(cfg, dev)
+    params, init_ms = _sync_ms(model.init_params, SEED)
+    build.reset_launch_counts()
+    roll, sync_stats = sync_policy_weights(params, prec)
+    check(build.LAUNCHES["quant_weight"] == leaves,
+          f"{cfg.name}: kernel 2 launched {build.LAUNCHES['quant_weight']} times for {leaves}")
+    del params               # the rollout tree keeps the leaves it shares
+    prompts, lengths = make_prompts(np.random.default_rng(SEED))
+    greedy = SamplerConfig(max_new_tokens=32, temperature=0.0)
+
+    build.reset_launch_counts()
+    # --- generate -----------------------------------------------------------
+    traj, gen_ms = _sync_ms(lambda: generate(roll, prompts, lengths, None, cfg, prec, greedy,
+                                             page_size=16, device=dev))
+    launches = _path_launches(f"{cfg.name} generate", ("quant_act", "fp8_gemm",
+                                                        "paged_decode"), ratio)
+    # ----------------------------------------------------------------------
+    check(launches["paged_decode"] == cfg.n_layers * _decode_steps(traj),
+          f"{cfg.name}: kernel 4 launches {launches['paged_decode']}")
+    check_trajectory(traj, 8, 32, cfg.vocab_size, f"{cfg.name} greedy")
+    stats.update(init_ms=init_ms, sync_ms=sync_stats["sync_ms"], generate_s=gen_ms / 1e3,
+                 generate_tokens_per_s=float(traj.response_mask.sum()) / (gen_ms / 1e3),
+                 generate_launches=launches)
+    stats["decode_logit_max_abs_err"] = decode_logits_check(model, roll, prec, prompts,
+                                                            lengths, dev)
+
+    trace = engine_trace(n=8)
+    eng = ServingEngine(roll, cfg, prec, max_slots=8, max_seq_len=ENGINE_MAX_SEQ,
+                        block_size=ENGINE_BLOCK_SIZE, admission="ondemand",
+                        prefill_chunk=128, kernel_config="all", eos_id=None, device=dev)
+    for i, p in enumerate(trace):
+        eng.submit(p, max_new=ENGINE_MAX_NEW, rid=i)
+    build.reset_launch_counts()
+    # --- the serving engine -------------------------------------------------
+    rep, eng_ms = _sync_ms(lambda: eng.run(max_steps=2000))
+    launches = _path_launches(f"{cfg.name} engine", ("quant_act", "fp8_gemm", "paged_decode",
+                                                      "paged_prefill"), ratio)
+    # ----------------------------------------------------------------------
+    check_engine_report(eng, rep, len(trace), f"{cfg.name} engine")
+    stats.update(engine_s=eng_ms / 1e3, engine_tokens_per_s=rep.emitted_tokens / (eng_ms / 1e3),
+                 engine_launches=launches)
+    del eng
+
+    shape = ShapeConfig("breadth", CONTIG_SHAPE[1], 8, "prefill")
+    cprompts, clengths = make_prompts(np.random.default_rng(SEED + 7), b=8, lo=512, hi=1024)
+    tokens = np.zeros((8, shape.seq_len), np.int32)
+    tokens[:, :cprompts.shape[1]] = cprompts
+    batch = {"tokens": torch.from_numpy(tokens).to(dev), "lengths": torch.from_numpy(clengths)}
+    prefill_step = steps.make_prefill_step(cfg, shape, prec, device=dev)
+    serve_step = steps.make_serve_step(cfg, prec, device=dev)
+    build.reset_launch_counts()
+    # --- launch.steps: prefill, then BREADTH_STEPS serve steps --------------
+    (logits, cache), prefill_ms = _sync_ms(prefill_step, roll, batch)
+    step_ms = []
+    for _ in range(BREADTH_STEPS):
+        (logits, cache), ms = _sync_ms(serve_step, roll, logits.argmax(-1), cache)
+        step_ms.append(ms)
+    launches = _path_launches(f"{cfg.name} launch.steps", ("quant_act", "fp8_gemm", "decode"),
+                              ratio)
+    # ----------------------------------------------------------------------
+    check(launches["decode"] == cfg.n_layers * BREADTH_STEPS,
+          f"{cfg.name}: kernel 6 launched {launches['decode']} times")
+    check(bool(torch.isfinite(logits).all()), f"{cfg.name}: serve-step logits not finite")
+    del cache
+    stats.update(steps_prefill_ms=prefill_ms, serve_step_ms=step_ms, steps_launches=launches)
+    stats["kernel_errs"] = hold_attention_kernels(dev, gen, cfg)
+    stats["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    check(stats["peak_gb"] * 1e9 < CARD_BYTES, f"{cfg.name} peak {stats['peak_gb']:.1f} GB")
+    log(f"breadth {cfg.name}: " + json.dumps(stats))
+    del roll, model
+    return stats
+
+
+def breadth_path(dev, gen):
+    """Phase 11: each of BREADTH at full width and depth, one after the
+    other."""
+    from repro_torch.configs import get_config
+    return {name: breadth_model(dev, gen, get_config(name)) for name in BREADTH}
 
 
 # ---------------------------------------------------------------------------
@@ -2365,6 +2815,20 @@ def main() -> int:
         {"generate": [{k: r[k] for k in keys} for r in train_stats["train_steps"]],
          "fleet": [{k: r[k] for k in keys + ("push_ms",)} for r in fleet["trainer"]["steps"]],
          "peak_gb": [train_stats["train_peak_gb"], fleet["trainer"]["peak_gb"]]}))
+    full_fp8 = full_fp8_path(dev, cfg)
+    tr = full_fp8["trainer"]
+    log("phase 8 (PrecisionConfig()) against 10a (FULL_FP8_ROLLOUT), per step: " + json.dumps(
+        {"phase8": [{k: r[k] for k in keys} for r in train_stats["train_steps"]],
+         "full_fp8": [{k: r[k] for k in keys} for r in tr["steps"]],
+         "peak_gb": [train_stats["train_peak_gb"], tr["peak_gb"], tr["e2e_peak_gb"],
+                     full_fp8["fleet"]["peak_gb"]],
+         "mismatch": {name: {k: tr[f"{name}_rollout"][k] for k in (
+             "mismatch_kl", "corr_weight_ess", "rollout_s")}
+             for name in ("full_fp8", "fp8", "bf16")},
+         "phase8_mismatch": {name: train_stats[f"{name}_rollout"]["mismatch_kl"]
+                             for name in ("fp8", "bf16")}}))
+    breadth = breadth_path(dev, gen)
+    log("phase 11 peaks (GB): " + json.dumps({k: v["peak_gb"] for k, v in breadth.items()}))
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, "
         f"wall {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

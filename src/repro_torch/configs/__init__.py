@@ -2,7 +2,10 @@
 `repro.configs`).
 
 Only the dense family is ported so far; the registry holds the paper's
-dense model, qwen3-8b.
+dense model, qwen3-8b, and the reference's dense assigned architectures:
+llama3.2-3b (tied embeddings), stablelm-3b (D 80, no GQA), starcoder2-15b
+(G 12, a classic gelu MLP) and mistral-large-123b (too large for one
+card: meta specs and reduced runs only).
 """
 from repro_torch.configs.base import (
     ALL_SHAPES,
@@ -13,9 +16,14 @@ from repro_torch.configs.base import (
     ArchConfig,
     ShapeConfig,
 )
+from repro_torch.configs.llama3_2_3b import CONFIG as llama3_2_3b
+from repro_torch.configs.mistral_large_123b import CONFIG as mistral_large_123b
 from repro_torch.configs.qwen3_8b import CONFIG as qwen3_8b
+from repro_torch.configs.stablelm_3b import CONFIG as stablelm_3b
+from repro_torch.configs.starcoder2_15b import CONFIG as starcoder2_15b
 
-REGISTRY = {qwen3_8b.name: qwen3_8b}
+REGISTRY = {c.name: c for c in (qwen3_8b, llama3_2_3b, stablelm_3b,
+                                starcoder2_15b, mistral_large_123b)}
 
 
 def get_config(name: str) -> ArchConfig:
@@ -36,4 +44,5 @@ def tiny_serving_config() -> ArchConfig:
 
 __all__ = ["ALL_SHAPES", "ArchConfig", "DECODE_32K", "LONG_500K",
            "PREFILL_32K", "REGISTRY", "ShapeConfig", "TRAIN_4K", "get_config",
-           "qwen3_8b", "tiny_serving_config"]
+           "llama3_2_3b", "mistral_large_123b", "qwen3_8b", "stablelm_3b",
+           "starcoder2_15b", "tiny_serving_config"]

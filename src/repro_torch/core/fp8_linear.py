@@ -7,8 +7,18 @@ reference's CPU default (a QDQ matmul of dequantized bf16 operands), the
 port never materialises dequantized operands: its GEMM takes the fp8
 payloads and applies the block scales to each slab's f32 partial, which is
 what the reference's TPU kernel computes.  The bf16 `_dot` is also the
-trainer's linear and differentiates on the card.  `fp8_dot`, the
-end-to-end FP8 training path, is not ported yet (ROADMAP queue 1 item 4).
+trainer's linear and differentiates on the card.
+
+End-to-end FP8 training (paper §2.4): `fp8_dot` is a dot with its own
+backward (the reference's `custom_vjp`).  Its forward quantizes x to E4M3
+in 1x128 tiles and w in 128x128 blocks and multiplies the dequantized
+bf16 operands; its backward quantizes the incoming gradient to the
+recipe's format (E5M2 hybrid, E4M3 for the pure-E4M3 ablation) in 1x128
+tiles along each GEMM's contraction dim.  The quantizations go through
+kernels 1 and 2 on the card (their plain versions on the CPU); the three
+GEMMs are `_dot`s of the dequantized bf16 operands with f32 sums, as the
+reference's run in XLA.
+`linear` takes it for a bf16 weight under `precision.fp8_training`.
 """
 from __future__ import annotations
 
@@ -16,7 +26,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.precision import PrecisionConfig, ScaleFormat
+from repro_torch.core.precision import E4M3, E5M2, Fp8Recipe, PrecisionConfig, ScaleFormat
 from repro_torch.core.quant import QuantizedTensor, dequantize
 from repro_torch.kernels import ops
 
@@ -80,9 +90,7 @@ def linear(x: torch.Tensor, w, *, precision: Optional[PrecisionConfig] = None,
         fmt = precision.scale_format if precision else ScaleFormat.FP32
         return fp8_linear_rollout(x, w, scale_format=fmt)
     if precision is not None and precision.fp8_training and quantized:
-        raise NotImplementedError(
-            "fp8_dot (end-to-end FP8 training) is not ported yet: "
-            "ROADMAP queue 1 item 4")
+        return fp8_dot(x, w, precision.recipe, precision.scale_format)
     return _dot(x, w.to(x.dtype))
 
 
@@ -98,3 +106,54 @@ def linears(x: torch.Tensor, ws, *, precision: Optional[PrecisionConfig] = None
         x_q = ops.quantize_activation(x, scale_format=fmt)
         return [ops.fp8_matmul(x_q, w, out_dtype=x.dtype) for w in ws]
     return [linear(x, w, precision=precision) for w in ws]
+
+
+# ---------------------------------------------------------------------------
+# End-to-end FP8 training path
+# ---------------------------------------------------------------------------
+
+def _qdq_tiles(x: torch.Tensor, fp8_dtype, scale_format) -> torch.Tensor:
+    """QDQ of a 2-D x in 1x128 tiles along its last dim through kernel 1
+    (its plain version on the CPU): the reference's `qdq`, dequantized in
+    f32 and rounded once to x.dtype."""
+    return dequantize(ops.quantize_activation(x, fp8_dtype, scale_format), x.dtype)
+
+
+class _Fp8Dot(torch.autograd.Function):
+    """The reference's `fp8_dot` custom_vjp on 2-D x (M, K), w (K, N)."""
+
+    @staticmethod
+    def forward(ctx, x2, w, recipe, scale_format):
+        x_f = _qdq_tiles(x2, E4M3, scale_format)
+        w_f = dequantize(ops.quantize_weight(w, E4M3, scale_format), x2.dtype)
+        ctx.save_for_backward(x_f, w_f)
+        ctx.grad_fmt = E5M2 if recipe == Fp8Recipe.HYBRID else E4M3
+        ctx.scale_format = scale_format
+        return _dot(x_f, w_f)
+
+    @staticmethod
+    def backward(ctx, g):
+        x_f, w_f = ctx.saved_tensors
+        g = g.to(x_f.dtype)
+        # one quantization of g per contraction layout (DeepGEMM's dgrad /
+        # wgrad pair): tiles over N for dx, over M for dw
+        g_dx = _qdq_tiles(g, ctx.grad_fmt, ctx.scale_format)
+        dx = _dot(g_dx, w_f.t())
+        g_dw = _qdq_tiles(g.t().contiguous(), ctx.grad_fmt, ctx.scale_format).t()
+        dw = _dot(x_f.t(), g_dw)
+        return dx, dw, None, None
+
+
+def fp8_dot(x: torch.Tensor, w: torch.Tensor,
+            recipe: Fp8Recipe = Fp8Recipe.HYBRID,
+            scale_format: ScaleFormat = ScaleFormat.FP32) -> torch.Tensor:
+    """Quantized dot with a recipe-controlled backward (paper §2.4.3).
+
+    forward : E4M3(x, 1x128) @ E4M3(w, 128x128), f32 sums, in x.dtype
+    backward: the gradient QDQ'd to E5M2 (hybrid) or E4M3 (pure-E4M3
+              ablation) before the dgrad (g @ w_f^T, tiles over N) and the
+              wgrad (x_f^T @ g, tiles over the M rows), each in f32 and
+              rounded to its operand's dtype.
+    x: (..., K), any leading rank; w: (K, N) bf16."""
+    y = _Fp8Dot.apply(x.reshape(-1, x.shape[-1]), w, recipe, scale_format)
+    return y.reshape(*x.shape[:-1], w.shape[-1])

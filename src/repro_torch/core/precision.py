@@ -55,7 +55,7 @@ class PrecisionConfig:
     # --- rollout (inference engine) side -----------------------------------
     quantize_linears: bool = True
     kv_cache_dtype: str = "fp8_e4m3"           # "bf16" | "fp8_e4m3"
-    quantize_attention: bool = False           # "Full FP8": not ported yet
+    quantize_attention: bool = False           # "Full FP8": QDQ'd q, k, v and P
     calculate_kv_scales: bool = True
     router_dtype: RouterDtype = RouterDtype.BF16
     scale_format: ScaleFormat = ScaleFormat.FP32
@@ -92,6 +92,6 @@ BF16_ROLLOUT = PrecisionConfig(
 FP8_LINEAR_ROLLOUT = PrecisionConfig(kv_cache_dtype="bf16", calculate_kv_scales=False)
 FP8_KV_ONLY_ROLLOUT = PrecisionConfig(quantize_linears=False)
 FULL_FP8_ROLLOUT = PrecisionConfig(quantize_attention=True)
-# end-to-end FP8 (fp8_dot training + quantized attention): the port raises
-# for both halves until ROADMAP queue 1 item 4
+# end-to-end FP8: `fp8_dot` in every linear given bf16 weights, and the
+# quantized attention
 E2E_FP8 = PrecisionConfig(quantize_attention=True, fp8_training=True)

@@ -144,6 +144,25 @@ def quantize_activation(x: torch.Tensor, fp8_dtype=E4M3,
     return quantize_blockwise(x, block, fp8_dtype, scale_format)
 
 
+def qdq(x: torch.Tensor, block: tuple | None = None, fp8_dtype=E4M3,
+        scale_format: ScaleFormat = ScaleFormat.FP32) -> torch.Tensor:
+    """Quantize-dequantize: the fp8 values of `x` in its own dtype (1x128
+    tiles along the last dim unless `block` says otherwise).  The payload
+    and scales are the reference's; the dequantize multiplies in f32 and
+    rounds once to x.dtype.  "Full FP8" attention quantizes q, k, v and P
+    through it; nothing differentiates through it (`fp8_dot` has its own
+    backward)."""
+    if block is None:
+        block = (1,) * (x.dim() - 1) + (ACT_BLOCK,)
+    return dequantize(quantize_blockwise(x, block, fp8_dtype, scale_format), x.dtype)
+
+
+def qdq_weight(x: torch.Tensor, scale_format: ScaleFormat = ScaleFormat.FP32,
+               fp8_dtype=E4M3) -> torch.Tensor:
+    """`qdq` over 128x128 weight blocks (leading dims blocks of 1)."""
+    return dequantize(quantize_weight(x, fp8_dtype, scale_format), x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Per-tensor quantization (KV-cache scales, paper §2.3)
 # ---------------------------------------------------------------------------

@@ -19,6 +19,16 @@ On the CPU the kernel wrappers run their plain versions; on the card they
 launch the CUDA kernels.  The numerics contract is the repo-wide one:
 allclose + argmax agreement with the gather paths, never token equality
 across mechanisms.
+
+`KernelConfig.resolve(spec, precision)` is the one place that turns a
+caller's choice into a config, with None as the port's default.  The
+port's default is "all", where the reference's is "off" — except under
+`precision.quantize_attention` ("Full FP8"), where it is "off" as in the
+reference: the reference's kernel branches skip the QDQ of q, k, v and P,
+its defaults take the jnp branch, and so every reference rollout under
+FULL_FP8_ROLLOUT quantizes its attention.  An explicit choice ("all",
+"decode", `use_kernel=True`) keeps the reference's kernel semantics and
+skips the QDQ.  The precision config alone decides, never a failure.
 """
 from __future__ import annotations
 
@@ -46,6 +56,22 @@ class KernelConfig:
                 f"unknown kernel_config {spec!r}; expected a KernelConfig "
                 f"or one of {sorted(table)}")
         return table[spec]
+
+    @classmethod
+    def resolve(cls, spec, precision) -> "KernelConfig":
+        """The caller's `spec` (a KernelConfig or a shorthand), or with
+        None the port's default for `precision`: every kernel, or none
+        under `quantize_attention` (the reference's default branch, which
+        quantizes the attention math)."""
+        if spec is None:
+            return cls() if precision.quantize_attention else cls(prefill=True, decode=True)
+        return cls.parse(spec)
+
+    @property
+    def name(self) -> str:
+        """The shorthand this config is spelled by."""
+        return {(False, False): "off", (False, True): "decode",
+                (True, False): "prefill", (True, True): "all"}[(self.prefill, self.decode)]
 
     @property
     def any(self) -> bool:

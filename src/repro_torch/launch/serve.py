@@ -14,9 +14,15 @@ nudge of every weight by 1e-3 stands in for the trainer's step); prints
 the JSON report.  `--trace-out` / `--events-out` put a `StepTracer` on
 every replica and write a Chrome trace / the JSONL event log;
 `--chaos-seed` or `--crash-replica` inject replica crashes that the
-front-end fails over.  Runs on CUDA unless `--device` says otherwise;
-`--kernel-config` defaults to `all`, so a run on the card goes through
-the paged decode and chunked-prefill kernels.
+front-end fails over.  Runs on CUDA unless `--device` says otherwise.
+`--precision` defaults to the reference's `fp8` (FULL_FP8_ROLLOUT: W8A8
+linears, an FP8 KV cache and QDQ'd attention math).  Without
+`--kernel-config` the port's default applies (`KernelConfig.resolve`):
+the paged decode and chunked-prefill kernels, except under `fp8`, where
+the attention takes the reference's default QDQ branch; an explicit
+`--kernel-config all` keeps the kernels (which skip the QDQ, as the
+reference's kernel branches do).  The report's `kernel_config` is the
+resolved one.
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ from repro_torch.core.precision import (
     PrecisionConfig,
 )
 from repro_torch.data import tasks
+from repro_torch.kernels.config import KernelConfig
 from repro_torch.models import Transformer
 from repro_torch.obs import JsonlSink, StepTracer, chrome_trace
 from repro_torch.rl import WeightSyncer, sync_policy_weights
@@ -52,9 +59,9 @@ from repro_torch.serving import (
     kv_bytes_per_token,
 )
 
-# the reference's rollout presets; "default" is PrecisionConfig() (W8A8
-# linears + FP8 KV, the paper's recipe).  "fp8" quantizes the attention
-# math too, which the port does not do yet: the engine raises for it.
+# the reference's rollout presets; "fp8" (the default, as in the
+# reference) quantizes the attention math too; "default", a port-only
+# spelling, is PrecisionConfig() (W8A8 linears + FP8 KV).
 PRECISIONS = {
     "bf16": BF16_ROLLOUT,
     "default": PrecisionConfig(),
@@ -68,7 +75,7 @@ def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", default="qwen3-8b")
     ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--precision", choices=sorted(PRECISIONS), default="default")
+    ap.add_argument("--precision", choices=sorted(PRECISIONS), default="fp8")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=12)
     ap.add_argument("--slots", type=int, default=8)
@@ -93,12 +100,14 @@ def _parser() -> argparse.ArgumentParser:
                     help="max prefill tokens scheduled per engine step")
     ap.add_argument("--kernel-config",
                     choices=("off", "decode", "prefill", "all"),
-                    default="all",
+                    default=None,
                     help="attention hot path: decode routes the fused "
                          "decode through fp8_paged_decode_attention, "
                          "prefill routes chunks through "
                          "fp8_paged_prefill_attention, all does both, off "
-                         "uses the table gather (plain versions on the CPU)")
+                         "uses the table gather (plain versions on the "
+                         "CPU); default: all, or off under --precision "
+                         "fp8 (the reference's QDQ'd attention)")
     ap.add_argument("--spec-k", type=int, default=None,
                     help="speculative decoding: draft up to K tokens per "
                          "verify with the n-gram proposer")
@@ -310,7 +319,8 @@ def run(argv=None) -> dict:
         torch.cuda.synchronize(device)
     wall_s = time.perf_counter() - t0
     _write_traces(args, tracers)
-    out.update(device=str(device), kernel_config=args.kernel_config,
+    out.update(device=str(device),
+               kernel_config=KernelConfig.resolve(args.kernel_config, precision).name,
                kv_bytes_per_token=kv_bytes_per_token(cfg, precision),
                sync_ms=round(sync_stats.get("sync_ms", 0.0), 2),
                serve_wall_s=round(wall_s, 3))

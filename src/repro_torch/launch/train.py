@@ -8,11 +8,13 @@ train steps, printing each step's metrics as one JSON line; a greedy
 evaluation runs at step 1 and every `--eval-every` steps.  With
 `--metrics-out PATH` every step's metrics are also streamed there as JSONL
 (`obs.JsonlSink`), stamped with `--run-id` when given.  Runs on CUDA
-unless `--device` says otherwise.  `--precision default` is the paper's
-recommended W8A8 + FP8 KV (`PrecisionConfig()`); the reference's default
-`fp8` (FULL_FP8_ROLLOUT) and `e2e-fp8` need quantized attention and
-`fp8_dot`, which the port does not have yet, and raise, as does `--rrr`
-(ROADMAP queue 1).
+unless `--device` says otherwise.  `--precision` defaults to the
+reference's `fp8` (FULL_FP8_ROLLOUT: the rollout's attention math QDQ'd
+too); `e2e-fp8` (E2E_FP8) trains exactly as `fp8` does, because the
+scoring pass takes no precision, as in the reference; `default`, a
+port-only spelling, is `PrecisionConfig()`.  `--rrr` (rollout router
+replay, MoE) raises (ROADMAP queue 1).  `--fp8-moments` (port-only) keeps
+AdamW's moments in fp8, as a full-width model on one card needs.
 """
 from __future__ import annotations
 
@@ -59,7 +61,8 @@ def build_trainer(args, metrics_sink=None) -> RLTrainer:
         prompt_batch=args.prompt_batch,
         n_per_prompt=args.n_per_prompt,
         max_new_tokens=args.max_new_tokens,
-        optimizer=AdamWConfig(lr=args.lr, b2=0.98, grad_clip=1.0),
+        optimizer=AdamWConfig(lr=args.lr, b2=0.98, grad_clip=1.0,
+                              fp8_moments=args.fp8_moments),
         calibration=args.calibration,
         ckpt_dir=args.ckpt_dir,
         ckpt_every=args.ckpt_every,
@@ -68,7 +71,7 @@ def build_trainer(args, metrics_sink=None) -> RLTrainer:
     return RLTrainer(cfg, rl, metrics_sink=metrics_sink, device=args.device)
 
 
-def main(argv=None):
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
     ap.add_argument("--arch", default="qwen3-8b")
     ap.add_argument("--reduced", action="store_true")
@@ -103,7 +106,15 @@ def main(argv=None):
                          "serving side (repro_torch.launch.serve --run-id) "
                          "with the SAME id to join trainer steps to the "
                          "serving steps that produced their rollout batches")
-    args = ap.parse_args(argv)
+    ap.add_argument("--fp8-moments", action="store_true",
+                    help="keep AdamW's moments in fp8 (a port-only flag: the "
+                         "f32 moments of full-width qwen3-8b do not fit one "
+                         "80 GB card beside its params and gradients)")
+    return ap
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
 
     sink = JsonlSink(args.metrics_out, run_id=args.run_id) \
         if args.metrics_out else None

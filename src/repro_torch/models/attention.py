@@ -12,6 +12,14 @@ padded prompt positions go there, and reads of it are masked by
 scale per layer for K and for V, recalibrated at prefill from the
 prompt's amax x 1.05 when `precision.calculate_kv_scales` is set.
 
+"Full FP8" (`precision.quantize_attention`, paper §2.3.2) also quantizes
+the attention math: q, k, v and the softmax output P go through an E4M3
+QDQ (`core.quant.qdq`) in the plain paths (`_sdpa`, `_sdpa_chunked`), as
+in the reference's jnp branch; the kernels skip it, as the reference's
+kernel branches do.  Which branch a default call takes is decided by
+`kernels.config.KernelConfig.resolve` (the plain one under
+`quantize_attention`, as the reference's defaults).
+
 One-shot prefill attention is plain PyTorch (as the reference's is plain
 jnp) over K/V dequantized the way `dequantize_per_tensor` does: the naive
 `_sdpa`, or `_sdpa_chunked` (online softmax over KV chunks, so the scores
@@ -48,9 +56,11 @@ from repro_torch.core.precision import E4M3, PrecisionConfig
 from repro_torch.core.quant import (
     calibrate_scale,
     dequantize_per_tensor,
+    qdq,
     quantize_per_tensor,
 )
 from repro_torch.kernels import ops
+from repro_torch.kernels.config import KernelConfig
 from repro_torch.models.common import apply_rope, rms_norm
 
 _NEG_INF = -1e30
@@ -187,17 +197,31 @@ def _project_qkv(x, params, cfg, precision):
     return q, k, v
 
 
-def _sdpa(q, k, v, mask):
+def _qdq_probs(p: torch.Tensor) -> torch.Tensor:
+    """"Full FP8" P: cast to bf16, QDQ in 1x128 tiles along the keys (from
+    key 0; masked keys are exact zeros), back to f32."""
+    return qdq(p.to(torch.bfloat16)).float()
+
+
+def _sdpa(q, k, v, mask, precision: Optional[PrecisionConfig] = None):
     """Naive grouped attention. q (B,S,H,D), k/v (B,S',KVH,D) in bf16;
-    mask broadcast (B,S,S') or None."""
+    mask broadcast (B,S,S') or None.  Under `precision.quantize_attention`
+    q, k and v are QDQ'd in 1x128 tiles along D (one tile, zero-padded,
+    at D 80) and so is the normalized P (`_qdq_probs`), as the reference's
+    jnp branch does."""
     b, s, h, dh = q.shape
     kvh = k.shape[2]
     g = h // kvh
+    fp8 = precision is not None and precision.quantize_attention
+    if fp8:
+        q, k, v = qdq(q), qdq(k), qdq(v)
     qg = q.reshape(b, s, kvh, g, dh)
     scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float() * (dh ** -0.5)
     if mask is not None:
         scores = torch.where(mask[:, None, None], scores, _NEG_INF)
     p = torch.softmax(scores, dim=-1)
+    if fp8:
+        p = _qdq_probs(p)
     out = torch.einsum("bkgst,btkd->bskgd", p.to(v.dtype), v)
     return out.reshape(b, s, h * dh)
 
@@ -228,15 +252,22 @@ def _impl() -> str:
     return getattr(_IMPL_CTX, "impl", "naive")
 
 
-def _sdpa_chunked(q, k, v, *, lengths=None, kv_chunk: int = 1024):
+def _sdpa_chunked(q, k, v, *, lengths=None, kv_chunk: int = 1024,
+                  precision: Optional[PrecisionConfig] = None):
     """Online-softmax attention over KV chunks (causal [+ lengths]);
     q (B,S,H,D), k/v (B,S',KVH,D) bf16 -> (B,S,H*D).  Equal to
     the naive path up to f32 accumulation order; scores exist only at
     (..., S, C) per chunk.  The last chunk may be short (the reference
-    pads it with masked zeros, which adds exact zeros)."""
+    pads it with masked zeros, which adds exact zeros).  Under
+    `precision.quantize_attention` q, k and v are QDQ'd as in `_sdpa`, and
+    each chunk's *unnormalized* P = exp(s - m) after the row sum (its
+    tiles start at the chunk's first key)."""
     b, s, h, dh = q.shape
     s_kv, kvh = k.shape[1], k.shape[2]
     g = h // kvh
+    fp8 = precision is not None and precision.quantize_attention
+    if fp8:
+        q, k, v = qdq(q), qdq(k), qdq(v)
     c = min(kv_chunk, s_kv)
     qg = q.reshape(b, s, kvh, g, dh)
     q_pos = torch.arange(s, device=q.device)[:, None]
@@ -256,6 +287,8 @@ def _sdpa_chunked(q, k, v, *, lengths=None, kv_chunk: int = 1024):
         p = torch.where(mask, torch.exp(scores - m_new), 0.0)
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1, keepdim=True)
+        if fp8:
+            p = _qdq_probs(p)
         pv = torch.einsum("bkgst,btkd->bkgsd", p.to(v_blk.dtype), v_blk)
         acc = acc * alpha + pv.float()
         m = m_new
@@ -278,9 +311,9 @@ def attention_forward(x, params, cfg, precision: Optional[PrecisionConfig], *,
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     if _impl() == "chunked":
-        out = _sdpa_chunked(q, k, v, lengths=lengths)
+        out = _sdpa_chunked(q, k, v, lengths=lengths, precision=precision)
     else:
-        out = _sdpa(q, k, v, mask)
+        out = _sdpa(q, k, v, mask, precision)
     return linear(out, params["wo"], precision=precision)
 
 
@@ -328,12 +361,12 @@ def attention_prefill(x, params, cfg, cache, precision: PrecisionConfig, *,
     else:
         k_use, v_use = k, v
     if _impl() == "chunked":
-        out = _sdpa_chunked(q, k_use, v_use, lengths=lengths)
+        out = _sdpa_chunked(q, k_use, v_use, lengths=lengths, precision=precision)
     else:
         ar = torch.arange(s, device=x.device)
         mask = (ar[None, :] <= ar[:, None])[None]                    # causal
         mask = mask & (ar[None, :] < lengths[:, None])[:, None, :]   # (B, S, S)
-        out = _sdpa(q, k_use, v_use, mask)
+        out = _sdpa(q, k_use, v_use, mask, precision)
     return linear(out, params["wo"], precision=precision)
 
 
@@ -374,20 +407,24 @@ def attention_prefill_chunk(x, params, cfg, cache: PagedKVCache,
         k_pos = torch.arange(live_blocks * bs, device=x.device)[None, None, :]
         mask = (k_pos <= positions[:, :, None]) \
             & (k_pos < lengths[:, None, None])                 # (B, C, S')
-        out = _sdpa(q, k_all, v_all, mask)
+        out = _sdpa(q, k_all, v_all, mask, precision)
     return linear(out, params["wo"], precision=precision)
 
 
 def attention_decode(x, params, cfg, cache, lengths,
                      precision: PrecisionConfig, *, block_tables=None,
-                     use_kernel: bool = True,
+                     use_kernel: Optional[bool] = None,
                      live_blocks: Optional[int] = None):
     """One decode step: append K/V at `lengths` (device ints, each below
     S_max for a contiguous cache), attend over [0, lengths].  A contiguous
     `KVCache` attends through kernel 6, or (use_kernel=False) through the
     reference's dequantized full-S_max `_sdpa`; a pool through kernel 4,
     or through the gather of the first `live_blocks` table entries (all of
-    them when None)."""
+    them when None).  `use_kernel=None` is the port's default, resolved by
+    `KernelConfig.resolve`: the kernel, or under `quantize_attention` the
+    reference's default jnp branch with its QDQ."""
+    if use_kernel is None:
+        use_kernel = KernelConfig.resolve(None, precision).decode
     b = x.shape[0]
     q, k, v = _project_qkv(x, params, cfg, precision)
     pos = lengths[:, None]
@@ -427,7 +464,7 @@ def _contiguous_attention(x, q, cache: KVCache, new_lengths, params, precision,
             k_all, v_all = cache.k, cache.v
         k_pos = torch.arange(cache.max_len, device=x.device)
         mask = (k_pos[None, :] < new_lengths[:, None])[:, None, :]
-        out = _sdpa(q, k_all, v_all, mask)
+        out = _sdpa(q, k_all, v_all, mask, precision)
     return linear(out, params["wo"], precision=precision)
 
 
@@ -465,5 +502,5 @@ def _paged_attention_over_table(x, q, cache: PagedKVCache, block_tables,
         k_all, v_all = _gather_live(cache, phys[:, :w_live], x.dtype)
         k_pos = torch.arange(w_live * cache.block_size, device=x.device)
         mask = (k_pos[None, :] < new_lengths[:, None])[:, None, :]
-        out = _sdpa(q, k_all, v_all, mask)
+        out = _sdpa(q, k_all, v_all, mask, precision)
     return linear(out, params["wo"], precision=precision)

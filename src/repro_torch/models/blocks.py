@@ -100,12 +100,13 @@ def apply_slot_full(x, slot_params, spec: SlotSpec, cfg, precision, *,
 
 def apply_slot_decode(x, slot_params, spec: SlotSpec, cfg, precision, *,
                       kv_cache, lengths, block_tables=None,
-                      use_kernel: bool = True,
+                      use_kernel: Optional[bool] = None,
                       live_blocks: Optional[int] = None):
     """One-token decode through the slot: attention through kernel 6 (a
     contiguous `KVCache`, no `block_tables`) or kernel 4 (a pool), or with
     `use_kernel` off through the reference's full-cache path or the gather
-    of `live_blocks` table entries; then the MLP."""
+    of `live_blocks` table entries (None: `attention.attention_decode`'s
+    default); then the MLP."""
     p = slot_params["attn"]
     xn = rms_norm(x, p["norm_scale"], cfg.norm_eps)
     x = x + attn_mod.attention_decode(xn, p, cfg, kv_cache, lengths,

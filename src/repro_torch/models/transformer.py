@@ -34,13 +34,6 @@ from repro_torch.models import blocks as blocks_mod
 from repro_torch.models.common import dense_init, embed_init, pad_rows, rms_norm
 
 
-def _check_precision(precision: PrecisionConfig) -> None:
-    if precision.quantize_attention:
-        raise NotImplementedError(
-            "quantize_attention (FULL_FP8_ROLLOUT) is not ported yet: "
-            "ROADMAP queue 1")
-
-
 def _layer(tree, r: int):
     """Layer `r` of a stacked param tree (views)."""
     if isinstance(tree, dict):
@@ -183,7 +176,6 @@ class Transformer(nn.Module):
         at each last valid position (B, V) f32 and the cache.  A contiguous
         cache takes T <= S_max and records max(lengths) on the host (one
         device sync when the lengths are a CUDA tensor)."""
-        _check_precision(precision)
         tokens = inputs["tokens"].to(self.device)
         lengths = inputs["lengths"].to(self.device, torch.int32)
         b, t = tokens.shape
@@ -218,7 +210,6 @@ class Transformer(nn.Module):
         position (B, V) f32 — or at every chunk position (B, C, V) with
         `want_all_logits` (the speculative verifier) — and the cache, whose
         "lengths" become start + chunk_lengths."""
-        _check_precision(precision)
         tokens = torch.as_tensor(tokens, device=self.device)
         b, c = tokens.shape
         start_h = np.asarray(start, np.int64).reshape(b)
@@ -245,11 +236,14 @@ class Transformer(nn.Module):
         return self._unembed(params, x_last, precision), cache
 
     def decode_step(self, params, tokens: torch.Tensor, cache: dict,
-                    precision: PrecisionConfig, *, use_kernel: bool = True,
+                    precision: PrecisionConfig, *,
+                    use_kernel: Optional[bool] = None,
                     live_blocks: Optional[int] = None):
         """One autoregressive step on (B,) tokens -> (logits (B, V), cache).
         A contiguous cache attends through kernel 6, or with
-        `use_kernel=False` through the reference's full-S_max path; it
+        `use_kernel=False` through the reference's full-S_max path (the
+        default None takes the kernel, except under `quantize_attention`:
+        `kernels.config.KernelConfig.resolve`); it
         raises a `ValueError` before any write when the host's bound on
         the lengths ("max_length") has reached S_max — the reference's XLA
         scatter drops such a write, a CUDA index past the cache would kill
@@ -257,7 +251,6 @@ class Transformer(nn.Module):
         `use_kernel=False` through the gather of the first `live_blocks`
         table entries (the caller's `attention._live_blocks` over
         lengths + 1; all entries when None)."""
-        _check_precision(precision)
         contiguous = "block_tables" not in cache
         if contiguous and cache["max_length"] >= self._max_len(cache):
             raise ValueError(
@@ -311,8 +304,6 @@ def forward_train(params: dict, inputs: dict, cfg,
     While autograd records, each layer runs under
     `torch.utils.checkpoint` and is recomputed in the backward (the
     reference's `jax.checkpoint`)."""
-    if precision is not None:
-        _check_precision(precision)
     model = Transformer(cfg, params["emb"].device)
     dev = model.device
     tokens = inputs["tokens"].to(dev).long()

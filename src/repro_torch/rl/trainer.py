@@ -25,9 +25,15 @@ Randomness comes from one `torch.Generator` on the trainer's device (the
 reference's `jax.random` key cannot be reproduced); each fleet replica
 samples from its own, seeded `seed + 100 + i`.  The fleet keeps the live
 weight version between steps (its quantized linears; the other leaves
-are the training params themselves).  MoE aux loss, rollout router
-replay and FP8 training (`fp8_training`, `quantize_attention`) are not
-ported and raise.
+are the training params themselves).
+
+Precision, as in the reference: the rollout runs under `rl.precision`
+(with `quantize_attention` the attention math is QDQ'd: `generate` and
+the fleet's engines take the plain attention branch, see
+`kernels.config.KernelConfig.resolve`); the scoring pass takes no
+precision, so the backward is bf16 and `fp8_training` (E2E_FP8) reaches
+no linear here: an E2E_FP8 step equals a FULL_FP8_ROLLOUT step.  MoE aux
+loss and rollout router replay are not ported and raise.
 """
 from __future__ import annotations
 
@@ -107,12 +113,7 @@ def check_supported(rl: RLConfig) -> None:
         raise ValueError(f"fleet_replicas {rl.fleet_replicas} < 1")
     if rl.calibration not in ("inference", "trainer"):
         raise ValueError(f"calibration {rl.calibration!r}")
-    prec = rl.precision
-    if prec.fp8_training or prec.quantize_attention:
-        raise NotImplementedError(
-            "fp8_training (fp8_dot) and quantize_attention are not ported "
-            "yet: ROADMAP queue 1 item 4")
-    if prec.rollout_router_replay:
+    if rl.precision.rollout_router_replay:
         raise NotImplementedError(
             "rollout router replay (MoE) is not ported yet: ROADMAP queue 1 item 5")
 

@@ -25,7 +25,10 @@ What it does, as the reference does:
   speculative verifies through kernel 5 (`fp8_paged_prefill_attention`),
   the fused decode through kernel 4 (`fp8_paged_decode_attention`), or
   either through the reference's table gather.  The port defaults to
-  "all"; "off" is the reference's baseline, chosen by the caller.
+  "all" ("off" is the reference's default), except under
+  `quantize_attention`, where its default is the reference's "off" with
+  the QDQ'd attention (`KernelConfig.resolve`); an explicit "all" keeps
+  the kernels there, which skip the QDQ as the reference's do.
 * Prefix sharing with refcounts and copy-on-write (`paged_copy_rows`).
 * Preemption as allocator demote/promote: a victim's valid blocks go to a
   host tier of CPU tensors and come back into fresh pool rows; nothing is
@@ -54,6 +57,7 @@ refuses those layer patterns).
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -66,7 +70,7 @@ from repro_torch.data import tasks
 from repro_torch.kernels.config import KernelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as blocks_mod
-from repro_torch.models.transformer import Transformer, _check_precision
+from repro_torch.models.transformer import Transformer
 from repro_torch.obs.tracer import NULL_TRACER
 from repro_torch.serving.block_manager import BlockManager
 from repro_torch.serving.faults import NULL_INJECTOR
@@ -102,6 +106,16 @@ def request_state_bytes(cfg, precision: PrecisionConfig) -> int:
     for spec in blocks_mod.layer_pattern(cfg):
         blocks_mod.check_supported(spec)
     return 0
+
+
+def _weak_hook(method):
+    """An engine's bound `method` as a callback that holds no reference
+    to the engine.  The allocator the engine owns keeps its hooks; a bound
+    method there would close a reference cycle (engine -> allocator ->
+    method -> engine), and a dropped engine, device pool included, would
+    wait for `gc.collect()` instead of being freed by its refcount."""
+    ref = weakref.WeakMethod(method)
+    return lambda *args: ref()(*args)
 
 
 def _to_host(rows: torch.Tensor) -> torch.Tensor:
@@ -174,7 +188,7 @@ class ServingEngine:
                  eviction: str = "youngest",
                  prefill_chunk: Optional[int] = None,
                  step_budget: Optional[StepBudget] = None,
-                 kernel_config="all",
+                 kernel_config=None,
                  eos_id: Optional[int] = tasks.EOS,
                  spec: Optional[SpecConfig] = None,
                  proposer=None,
@@ -190,11 +204,10 @@ class ServingEngine:
         if cfg.frontend is not None:
             raise NotImplementedError(
                 "multimodal prefixes are not ported yet: ROADMAP queue 1")
-        _check_precision(precision)
         # raises for SSM, MoE and cross-attention layer patterns
         self.model = Transformer(cfg, resolve_device(device))
         self.device = self.model.device
-        self.kernels = KernelConfig.parse(kernel_config)
+        self.kernels = KernelConfig.resolve(kernel_config, precision)
         self.prompt_pad = prompt_pad   # one-shot prefill width
         self.params = params
         self.cfg = cfg
@@ -259,8 +272,8 @@ class ServingEngine:
             enable_prefix_sharing=bm["prefix_sharing"],
             host_blocks=bm["host_blocks"])
         self.block_mgr.set_host_callbacks(
-            demote_copy=self._host_copy_out_block,
-            host_drop=self._host_drop_block)
+            demote_copy=_weak_hook(self._host_copy_out_block),
+            host_drop=_weak_hook(self._host_drop_block))
         # mutable token-denominated budget; shrinking it lowers the
         # effective block limit below the physical pool size
         self.budget_tokens = self.block_mgr.capacity_tokens

@@ -41,7 +41,13 @@ to the synchronized pair; a CUDA graph of kernel 1 and three kernel 3
 calls replays bit-equal to eager.  The trainer: `_dot`'s backward within
 one bf16 rounding of the f32 products, one reduced-size update on the
 card against the same update on the CPU, and the optimizer's temporaries
-held to one chunk of a stacked leaf.
+held to one chunk of a stacked leaf.  Full FP8 and the dense registry:
+`fp8_dot` forward and backward on the card against the CPU (its
+quantized operands bit-equal), kernels 4, 5 and 6 at the (KVH, G, D) of
+stablelm-3b (G 1, D 80), llama3.2-3b (G 3) and starcoder2-15b (G 12), a
+FULL_FP8_ROLLOUT decode step that launches no kernel 4 (and, asked for
+the kernel, equals the `PrecisionConfig()` step), and a dropped engine
+that returns its device memory with the collector off.
 """
 import pytest
 
@@ -886,3 +892,144 @@ def test_wrapper_without_library_raises(cuda, monkeypatch):
     x = torch.randn((8, 256), device=cuda).to(torch.bfloat16)
     with pytest.raises(RuntimeError, match="cannot be built"):
         ops.quantize_activation(x)
+
+
+# ---------------------------------------------------------------------------
+# full FP8, the dense registry's head geometries, the engine's memory
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("recipe", ["HYBRID", "E4M3"])
+def test_fp8_dot_on_card_matches_cpu(cuda, recipe):
+    """`fp8_dot` forward and backward on the card against the CPU: the
+    quantized operands (kernels 1 and 2 against their plain versions)
+    bit-equal, y, dx and dw within one bf16 rounding of the largest
+    magnitude (the GEMMs' f32 sum order)."""
+    from repro_torch.core.precision import Fp8Recipe
+    gen = torch.Generator().manual_seed(11)
+    x = torch.randn((3, 40, 512), generator=gen).to(torch.bfloat16)
+    w = (torch.randn((512, 384), generator=gen) * 0.05).to(torch.bfloat16)
+    g = (torch.randn((3, 40, 384), generator=gen)
+         * torch.exp(torch.rand((3, 40, 384), generator=gen) * 8 - 6)).to(torch.bfloat16)
+    out = {}
+    for dev in ("cpu", cuda):
+        xr = x.to(dev).requires_grad_(True)
+        wr = w.to(dev).requires_grad_(True)
+        y = fp8_linear.fp8_dot(xr, wr, Fp8Recipe[recipe])
+        y.backward(g.to(dev))
+        out[str(dev)] = [t.detach().cpu() for t in (y, xr.grad, wr.grad)]
+        out[str(dev) + "q"] = [fp8_linear._qdq_tiles(t.to(dev), fmt, ScaleFormat.FP32).cpu()
+                               for t, fmt in ((x.reshape(-1, 512), E4M3),
+                                              (g.reshape(-1, 384), E5M2),
+                                              (g.reshape(-1, 384).t().contiguous(), E5M2))]
+    torch.cuda.synchronize()
+    for a, b in zip(out["cpuq"], out[str(cuda) + "q"]):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    for a, b in zip(out["cpu"], out[str(cuda)]):
+        assert b.dtype == torch.bfloat16
+        tol = 2 ** -7 * a.float().abs().max().item()
+        assert (a.float() - b.float()).abs().max().item() <= tol
+
+
+# (KVH, G, D) of stablelm-3b (G 1, D 80: the 128-lane body with 48 padded
+# lanes), llama3.2-3b (G 3) and starcoder2-15b (G 12: kernel 6's two halves)
+REGISTRY_HEADS = [pytest.param(32, 1, 80, id="stablelm-3b"),
+                  pytest.param(8, 3, 128, id="llama3.2-3b"),
+                  pytest.param(4, 12, 128, id="starcoder2-15b")]
+
+
+@pytest.mark.parametrize("kvh,g,d", REGISTRY_HEADS)
+def test_attention_kernels_at_registry_heads_on_card(cuda, kvh, g, d):
+    """Kernels 4, 5 and 6 at each dense model's (KVH, G, D): within 1e-2
+    of the plain versions, stale entries and positions never read."""
+    gen = torch.Generator(device=cuda).manual_seed(kvh * 100 + g)
+    bs, w = 16, 6
+    lengths = torch.tensor([2 * bs + 3, w * bs, 0], dtype=torch.int32, device=cuda)
+    q, kq, vq, ks, vs, tables, ln, poison = _decode_case(cuda, gen, 3, kvh, g, d, bs, w,
+                                                         lengths)
+    out = fa.fp8_paged_decode_attention(q, kq, vq, ks, vs, tables, ln)
+    plain = fa.fp8_paged_decode_attention_ref(q, kq, vq, ks, vs, tables, ln)
+    torch.cuda.synchronize()
+    assert torch.allclose(out.float(), plain.float(), rtol=1e-2, atol=1e-2)
+    assert bool((out[2] == 0).all())
+    c = 40
+    q, kq, vq, ks, vs, tables, st, ln, poison = _prefill_case(
+        cuda, gen, kvh, g, d, bs, w, [0, 37], [c, 37 + c], c)
+    out = fa.fp8_paged_prefill_attention(q, kq, vq, ks, vs, tables, st, ln)
+    plain = fa.fp8_paged_prefill_attention_ref(q, kq, vq, ks, vs, tables, st, ln)
+    kn, vn = kq.clone(), vq.clone()
+    kn.view(torch.uint8)[poison] = 0x7F
+    vn.view(torch.uint8)[poison] = 0x7F
+    poisoned = fa.fp8_paged_prefill_attention(q, kn, vn, ks, vs, tables, st, ln)
+    torch.cuda.synchronize()
+    assert torch.allclose(out.float(), plain.float(), rtol=1e-2, atol=1e-2)
+    assert torch.equal(poisoned.view(torch.int16), out.view(torch.int16))
+    q, kq, vq, ks, vs, ln = _contiguous_case(cuda, gen, 3, kvh, g, d, 1057, [1057, 0, 300])
+    _hold_decode(q, kq, vq, ks, vs, ln)
+
+
+def test_full_fp8_decode_step_launches_no_kernel_4_on_card(cuda):
+    """Under FULL_FP8_ROLLOUT a default decode step takes the plain
+    attention with the QDQ (no kernel 4; kernels 1 and 3 still run the
+    linears); asked for the kernel it launches it, and then equals the
+    `PrecisionConfig()` step bit for bit."""
+    from repro_torch.core.precision import FULL_FP8_ROLLOUT
+    cfg = tiny_serving_config().reduced(d_model=128, d_ff=256, n_heads=4, n_kv_heads=2,
+                                        d_head=32)
+    model = Transformer(cfg, cuda)
+    roll, _ = sync_policy_weights(model.init_params(3), PrecisionConfig())
+    tokens = torch.randint(4, 19, (2, 8), dtype=torch.int32, device=cuda)
+    inputs = {"tokens": tokens, "lengths": torch.tensor([6, 8], dtype=torch.int32)}
+    logits = {}
+    for prec, use_kernel in ((PrecisionConfig(), None), (FULL_FP8_ROLLOUT, None),
+                             (FULL_FP8_ROLLOUT, True)):
+        cache = model.init_cache(2, 16, prec, page_size=4)
+        _, cache = model.prefill(roll, inputs, cache, PrecisionConfig())
+        build.reset_launch_counts()
+        logits[(prec.quantize_attention, use_kernel)], _ = model.decode_step(
+            roll, torch.tensor([5, 6], device=cuda), cache, prec, use_kernel=use_kernel)
+        torch.cuda.synchronize()
+        kernel4 = build.LAUNCHES["paged_decode"]
+        assert kernel4 == (0 if (prec.quantize_attention and use_kernel is None)
+                           else cfg.n_layers)
+        assert build.LAUNCHES["fp8_gemm"] == 7 * cfg.n_layers
+    assert torch.equal(logits[(True, True)], logits[(False, None)])
+    assert bool(torch.isfinite(logits[(True, None)]).all())
+    assert not torch.equal(logits[(True, None)], logits[(False, None)])
+
+
+def test_dropped_engine_frees_device_memory_on_card(cuda):
+    """A dropped engine returns its device memory (pool, tables, host-tier
+    staging) with the collector off: `memory_allocated` is back at its
+    level before the engine."""
+    import gc
+    cfg = tiny_serving_config().reduced(d_model=128, d_ff=256, n_heads=4, n_kv_heads=2,
+                                        d_head=32)
+    prec = PrecisionConfig()
+    roll, _ = sync_policy_weights(Transformer(cfg, cuda).init_params(5), prec)
+    trace = [torch.randint(4, 19, (12,), dtype=torch.int32).numpy() for _ in range(6)]
+
+    def serve():
+        eng = ServingEngine(roll, cfg, prec, max_slots=4, max_seq_len=64, prefill_chunk=8,
+                            eos_id=None, admission="ondemand", host_kv_blocks=8,
+                            kv_budget_bytes=kv_bytes_per_token(cfg, prec) * 48,
+                            kernel_config="all", device=cuda)
+        for i, p in enumerate(trace):
+            eng.submit(p, max_new=10, rid=i)
+        rep = eng.run(max_steps=500)
+        assert len(rep.completed) == len(trace) and rep.swap_outs >= 1
+        return eng
+
+    serve()            # first use: cuBLAS's workspace and the like stay allocated
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda)
+    gc.disable()
+    try:
+        eng = serve()
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated(cuda) > before
+        del eng
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated(cuda) == before
+    finally:
+        gc.enable()

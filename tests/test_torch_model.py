@@ -220,14 +220,31 @@ def test_prefill_and_decode_logits_match_reference(setup, name):
     print(f"{name}: max |logit gap| over prefill + 6 decode steps {gap:.4f} (tol {atol})")
 
 
-def test_full_fp8_attention_is_not_ported_yet(setup):
+def test_full_fp8_prefill_matches_reference(setup):
+    """FULL_FP8_ROLLOUT prefill (q, k, v and P QDQ'd in the attention) of a
+    paged and of a contiguous cache against the reference's, with the
+    W8A8 tolerance; the QDQ moves the logits (they differ from the
+    `PrecisionConfig()` prefill's)."""
     cfg, params, np_params = setup
-    troll = params_from_numpy(np_params, "cpu")
+    jroll, _ = jsync(params, jp.FULL_FP8_ROLLOUT)
+    troll = tsync(params_from_numpy(np_params, "cpu"), tp.FULL_FP8_ROLLOUT)[0]
+    toks, lens = _prompts()
     model = Transformer(tconfigs.tiny_serving_config(), "cpu")
-    cache = model.init_cache(1, 8, tp.FULL_FP8_ROLLOUT, page_size=4)
-    with pytest.raises(NotImplementedError, match="quantize_attention"):
-        model.prefill(troll, {"tokens": torch.ones((1, 4), dtype=torch.int32),
-                              "lengths": torch.tensor([4])}, cache, tp.FULL_FP8_ROLLOUT)
+    inputs = {"tokens": torch.from_numpy(toks), "lengths": torch.from_numpy(lens)}
+    for page_size in (4, None):
+        jcache = init_cache(cfg, 3, 24, jp.FULL_FP8_ROLLOUT, page_size=page_size)
+        jl, _ = jax.jit(lambda p, i, c: prefill(p, i, c, cfg, jp.FULL_FP8_ROLLOUT))(
+            jroll, {"tokens": jnp.asarray(toks), "lengths": jnp.asarray(lens)}, jcache)
+        tl, _ = model.prefill(troll, inputs,
+                              model.init_cache(3, 24, tp.FULL_FP8_ROLLOUT,
+                                               page_size=page_size),
+                              tp.FULL_FP8_ROLLOUT)
+        _check_logits(jl, tl, ATOL_W8A8, f"prefill, page size {page_size}")
+        plain, _ = model.prefill(troll, inputs,
+                                 model.init_cache(3, 24, tp.PrecisionConfig(),
+                                                  page_size=page_size),
+                                 tp.PrecisionConfig())
+        assert not torch.equal(plain, tl)
 
 
 def test_unported_layer_kinds_raise():

@@ -503,13 +503,22 @@ def test_launch_train_returns_a_row_per_step(capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--precision", "fp8"], "quantize_attention"),
-    (["--precision", "e2e-fp8"], "fp8_training"),
-    (["--precision", "default", "--rrr"], "router replay"),
+    pytest.param(["--precision", "default", "--rrr"], "router replay",
+                 id="argv2-router replay"),
 ])
 def test_unported_options_raise(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         tlaunch.main(["--reduced", "--device", "cpu", "--steps", "1"] + argv)
+
+
+@pytest.mark.parametrize("argv", [[], ["--precision", "e2e-fp8"]], ids=["fp8", "e2e-fp8"])
+def test_launch_train_full_fp8_presets_run(argv):
+    """The reference's default `--precision fp8` (FULL_FP8_ROLLOUT) and
+    `e2e-fp8` run, and train alike: the scoring pass takes no precision."""
+    rows = tlaunch.main(["--reduced", "--device", "cpu", "--steps", "2", "--prompt-batch",
+                         "2", "--n-per-prompt", "2", "--max-new-tokens", "4"] + argv)
+    assert [r["step"] for r in rows] == [1, 2]
+    assert np.isfinite(rows[1]["loss"]) and np.isfinite(rows[0]["mismatch_kl"])
 
 
 def test_fleet_backend_and_no_device_raise(setup):
