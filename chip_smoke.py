@@ -165,6 +165,7 @@ import json
 import subprocess
 import sys
 import time
+import weakref
 from pathlib import Path
 from unittest import mock
 
@@ -1870,8 +1871,10 @@ def _fleet_run(roll, cfg, prec, dev, prompts, faults=None, trace=False):
         tracer=StepTracer(replica=i) if trace else None) for i in range(2)]
     ledgers = [[] for _ in engines]
     for eng, ledger in zip(engines, ledgers):
-        def step(step=eng.step, ledger=ledger):
-            decision = step()
+        # the engine through a weak reference: a bound method stored on its
+        # own instance would keep a dropped fleet for `gc.collect()`
+        def step(me=weakref.ref(eng), ledger=ledger):
+            decision = type(me()).step(me())
             ledger.append(decision.accounting())
             return decision
         eng.step = step

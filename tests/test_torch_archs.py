@@ -27,6 +27,7 @@ classic two-matrix gelu MLP) and mistral-large-123b.
 * The launchers take each name (`--arch`, reduced, on the CPU).
 """
 import dataclasses
+import functools
 
 import pytest
 
@@ -94,11 +95,22 @@ def test_activations_match_reference():
         assert np.abs(got - want)[diff].max(initial=0.0) <= np.finfo(np.float32).tiny, name
 
 
-@pytest.mark.parametrize("name", DENSE)
-def test_forward_train_and_rollout_match_reference(name):
+@functools.lru_cache(maxsize=None)
+def _model(name):
+    """(reference config, port config, reference params, bridged params)."""
     jcfg, tcfg = _reduced(name)
     params = init_params(jcfg, jax.random.key(1))
-    tparams = params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
+    return jcfg, tcfg, params, params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
+
+
+def _tokens(vocab):
+    rng = np.random.default_rng(0)
+    return rng.integers(4, vocab, (2, 10)).astype(np.int32), np.array([10, 7], np.int32)
+
+
+@pytest.mark.parametrize("name", DENSE)
+def test_forward_train_matches_reference(name):
+    jcfg, tcfg, params, tparams = _model(name)
     mlp = tparams["blocks"]["s0"]["mlp"]
     assert ("wu" in mlp) == jcfg.mlp_gated
     assert ("lm_head" in tparams) != jcfg.tie_embeddings
@@ -106,10 +118,7 @@ def test_forward_train_and_rollout_match_reference(name):
     shapes = jax.tree.map(lambda a: tuple(a.shape), params)
     assert jax.tree.map(lambda a: tuple(a.shape), Transformer(tcfg, "meta").init_params(0)) \
         == shapes
-
-    rng = np.random.default_rng(0)
-    tokens = rng.integers(4, jcfg.vocab_size, (2, 10)).astype(np.int32)
-    lens = np.array([10, 7], np.int32)
+    tokens, lens = _tokens(jcfg.vocab_size)
     want, _ = jax.jit(lambda p, i: forward_train(p, i, jcfg))(
         params, {"tokens": jnp.asarray(tokens), "lengths": jnp.asarray(lens)})
     got, _ = tforward_train(tparams, {"tokens": torch.from_numpy(tokens),
@@ -118,24 +127,31 @@ def test_forward_train_and_rollout_match_reference(name):
     valid = np.arange(10)[None] < lens[:, None]
     np.testing.assert_allclose(got.numpy()[valid], want[valid], atol=ATOL_BF16)
 
+
+@pytest.mark.parametrize("prec", ["bf16", "default"])
+@pytest.mark.parametrize("name", DENSE)
+def test_rollout_matches_reference(name, prec):
+    jcfg, tcfg, params, tparams = _model(name)
+    jprec, tprec, atol = {"bf16": (jp.BF16_ROLLOUT, tp.BF16_ROLLOUT, ATOL_BF16),
+                          "default": (jp.PrecisionConfig(), tp.PrecisionConfig(),
+                                      ATOL_W8A8)}[prec]
+    tokens, lens = _tokens(jcfg.vocab_size)
     model = Transformer(tcfg, "cpu")
-    for jprec, tprec, atol in ((jp.BF16_ROLLOUT, tp.BF16_ROLLOUT, ATOL_BF16),
-                               (jp.PrecisionConfig(), tp.PrecisionConfig(), ATOL_W8A8)):
-        jroll, _ = jsync(params, jprec)
-        troll, _ = tsync(tparams, tprec)
-        jcache = init_cache(jcfg, 2, 14, jprec)
-        jl, jcache = jax.jit(lambda p, i, c: prefill(p, i, c, jcfg, jprec))(
-            jroll, {"tokens": jnp.asarray(tokens), "lengths": jnp.asarray(lens)}, jcache)
-        tcache = model.init_cache(2, 14, tprec)
-        tl, tcache = model.prefill(troll, {"tokens": torch.from_numpy(tokens),
-                                           "lengths": torch.from_numpy(lens)}, tcache, tprec)
+    jroll, _ = jsync(params, jprec)
+    troll, _ = tsync(tparams, tprec)
+    jcache = init_cache(jcfg, 2, 14, jprec)
+    jl, jcache = jax.jit(lambda p, i, c: prefill(p, i, c, jcfg, jprec))(
+        jroll, {"tokens": jnp.asarray(tokens), "lengths": jnp.asarray(lens)}, jcache)
+    tcache = model.init_cache(2, 14, tprec)
+    tl, tcache = model.prefill(troll, {"tokens": torch.from_numpy(tokens),
+                                       "lengths": torch.from_numpy(lens)}, tcache, tprec)
+    _check_logits(tl, jl, atol)
+    step = jax.jit(lambda p, t, c: decode_step(p, t, c, jcfg, jprec)[:2])
+    for _ in range(3):
+        tok = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+        jl, jcache = step(jroll, jnp.asarray(tok), jcache)
+        tl, tcache = model.decode_step(troll, torch.from_numpy(tok), tcache, tprec)
         _check_logits(tl, jl, atol)
-        step = jax.jit(lambda p, t, c: decode_step(p, t, c, jcfg, jprec)[:2])
-        for _ in range(3):
-            tok = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
-            jl, jcache = step(jroll, jnp.asarray(tok), jcache)
-            tl, tcache = model.decode_step(troll, torch.from_numpy(tok), tcache, tprec)
-            _check_logits(tl, jl, atol)
 
 
 def _check_logits(got, want, atol):

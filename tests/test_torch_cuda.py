@@ -912,8 +912,8 @@ def test_fp8_dot_on_card_matches_cpu(cuda, recipe):
          * torch.exp(torch.rand((3, 40, 384), generator=gen) * 8 - 6)).to(torch.bfloat16)
     out = {}
     for dev in ("cpu", cuda):
-        xr = x.to(dev).requires_grad_(True)
-        wr = w.to(dev).requires_grad_(True)
+        xr = x.to(dev, copy=True).requires_grad_(True)
+        wr = w.to(dev, copy=True).requires_grad_(True)
         y = fp8_linear.fp8_dot(xr, wr, Fp8Recipe[recipe])
         y.backward(g.to(dev))
         out[str(dev)] = [t.detach().cpu() for t in (y, xr.grad, wr.grad)]
