@@ -5,7 +5,7 @@
 
 Needs one CUDA card, nvcc and the checkout's `src/`; imports nothing of
 JAX or of the JAX package.  Phases (any failure exits non-zero), run in
-the order 1-5, 7, 6, 8-11:
+the order 1-5, 7, 6, 8-12:
 
 1. the card's name and power limit (nvidia-smi);
 2. build the six CUDA kernels from `src/repro_torch/csrc` (nvcc, sm_90a);
@@ -156,6 +156,35 @@ the order 1-5, 7, 6, 8-11:
     the model's (KVH, G, D) within 1e-2 of their plain versions; the
     peak under 80 GB.
 
+12. MoE at full width and depth, each part after `gc.collect()`:
+    a. qwen3-30b-a3b (48 layers, d 2048, 32/4 heads, 128 experts top-8,
+       d_ff 768) under `PrecisionConfig()`: random weights drawn and
+       synced leaf by leaf (each bf16 leaf quantized and dropped before
+       the next is drawn: the bf16 tree and its fp8 copy do not fit one
+       card together; kernel 2 once per quantized leaf, fc1's sync timed),
+       a greedy `generate` with the routing recorded and a GRPO one
+       (groups of 4), launch counts zeroed before and read after (kernel
+       1 4/6 of kernel 3, the expert-batched kernel 3 twice per MoE layer
+       and forward), the prefill's capacity drops reported, one decode
+       step profiled, then phase 11's paths (decode-step logits through
+       the kernels within 0.5 of the plain versions, an engine run of 8
+       requests, `launch.steps` at (B 8, S 1056) and 4 serve steps), and
+       the expert-batched kernel 3 at E 128 on fc1 and fc2 at M 8 and 128
+       an expert: every expert bit-equal to the 2-D kernel, within one
+       bf16 rounding of the plain version, timed on cold weights (48
+       layers rotated) beside its byte bound; the peak under 80 GB.  Drops
+       depend on grouping at capacity factor 1.25, so no engine invariant
+       of phase 5 is asserted here;
+    b. `RLTrainer` on granite-moe-3b-a800m (32 layers, d 1536, 24/8 heads,
+       D 64, 40 experts top-8) at phase 8's geometry under
+       `PrecisionConfig(rollout_router_replay=True)` with f32 AdamW
+       moments: 3 train steps (routing recorded each step, finite
+       `moe_aux_loss`, kernel 2 6 a sync, kernel 1 4/6 of kernel 3), the
+       same prompts rolled out under router BF16, FP32 and FP8 and under
+       BF16_ROLLOUT and scored side by side (k3, TIS ESS: the paper's
+       fig. 6 comparison, reported), kernels 4-6 at (G 3, D 64) within
+       1e-2; the peak under 80 GB.
+
 The line before the last is the `kernels` JSON object; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
@@ -208,6 +237,10 @@ KERNEL_SOURCES = {
     "quant_act": ("src/repro_torch/csrc/fp8_quant.cu", "src/repro/kernels/fp8_quant.py:55"),
     "quant_weight": ("src/repro_torch/csrc/fp8_quant.cu", "src/repro/kernels/fp8_quant.py:90"),
     "fp8_gemm": ("src/repro_torch/csrc/fp8_gemm.cu", "src/repro/kernels/fp8_gemm.py:72"),
+    # kernel 3's expert-batched launch (the reference vmaps the GEMM over
+    # an MoE layer's experts)
+    "fp8_gemm_batched": ("src/repro_torch/csrc/fp8_gemm.cu",
+                         "src/repro/kernels/fp8_gemm.py:72"),
     "paged_decode": ("src/repro_torch/csrc/fp8_paged_decode.cu",
                      "src/repro/kernels/fp8_kv_attention.py:285"),
     "paged_prefill": ("src/repro_torch/csrc/fp8_paged_prefill.cu",
@@ -272,6 +305,14 @@ FP8_DOT_ATOL = 1e-3
 # 123B parameters, does not fit one card), and its serve steps at ~1K
 BREADTH = ("llama3.2-3b", "stablelm-3b", "starcoder2-15b")
 BREADTH_STEPS = 4
+# phase 12: MoE at full width and depth — the paper's MoE model serves,
+# granite-moe trains (30.5B parameters with grads and moments do not fit
+# one card); the expert-batched kernel 3 is held and timed at the M of a
+# B-8 decode (8 rows an expert) and of a 128-token engine chunk (8 rows
+# of capacity 16)
+MOE_SERVE = "qwen3-30b-a3b"
+MOE_TRAIN = "granite-moe-3b-a800m"
+MOE_GEMM_MS = (8, 128)
 
 
 def check(cond, msg):
@@ -1239,9 +1280,10 @@ def check_quant_per_gemm(launches, tag, ratio=QUANT_PER_GEMM):
     dense layer's QUANT_PER_GEMM by default) of kernel 3's: one
     quantization per distinct activation, never one per linear."""
     q, g = ratio
-    check(launches["quant_act"] * g == launches["fp8_gemm"] * q,
+    gemms = launches["fp8_gemm"] + launches["fp8_gemm_batched"]
+    check(launches["quant_act"] * g == gemms * q,
           f"{tag}: kernel 1 launched {launches['quant_act']} times for "
-          f"{launches['fp8_gemm']} of kernel 3, not {q}/{g} of them")
+          f"{gemms} of kernel 3, not {q}/{g} of them")
 
 
 def _top2_gap(logits):
@@ -2321,34 +2363,38 @@ def hold_attention_kernels(dev, gen, cfg):
     return errs
 
 
-def breadth_model(dev, gen, cfg):
-    """One dense model at full width and depth: random weights, a sync, a
-    greedy `generate` (8 prompts, 32 tokens), a `ServingEngine(kernel_config
-    "all", prefill_chunk 128)` run of 8 requests, a `launch.steps` prefill at
-    (B 8, S 1056) and BREADTH_STEPS serve steps, each path's launches
-    counted; decode-step logits through the kernels held against the plain
-    versions; kernels 4-6 at the model's heads; the peak."""
+def _quant_ratio(cfg):
+    """Kernel 1 : kernel 3 launches of `cfg`'s layer: 4 : 7 for a gated MLP
+    (wu shares wg's input), 4 : 6 for a two-matrix MLP or an MoE layer
+    (attention 2 : 4, the experts' fc1 and fc2 2 : 2)."""
+    return (4, 7) if cfg.mlp_gated and not cfg.n_experts else (4, 6)
+
+
+def _sync_leaves(cfg):
+    """Kernel-2 launches of one sync: the quantized leaves of a layer
+    (wq, wk, wv, wo and the MLP's or the experts' fc1 and fc2); the
+    router stays bf16 under `PrecisionConfig()`."""
+    return 6 if cfg.n_experts or not cfg.mlp_gated else 7
+
+
+def model_paths(dev, cfg, roll, prec, stats, gemms=("fp8_gemm",)):
+    """A greedy `generate` (8 prompts, 32 tokens), decode-step logits
+    through the kernels held against the plain versions, a
+    `ServingEngine(kernel_config "all", prefill_chunk 128)` run of 8
+    requests, a `launch.steps` prefill at (B 8, S 1056) and BREADTH_STEPS
+    serve steps, each path's launches counted (`gemms`: the kernel-3
+    launches the model runs).  Fills `stats`; returns the greedy
+    trajectory."""
     import numpy as np
     import torch
     from repro_torch.configs import ShapeConfig
-    from repro_torch.core.precision import PrecisionConfig
     from repro_torch.kernels import build
     from repro_torch.launch import steps
     from repro_torch.models import Transformer
-    from repro_torch.rl import SamplerConfig, generate, sync_policy_weights
+    from repro_torch.rl import SamplerConfig, generate
     from repro_torch.serving import ServingEngine
-    prec = PrecisionConfig()
-    ratio = (4, 7) if cfg.mlp_gated else (4, 6)       # wu shares wg's input
-    leaves = 7 if cfg.mlp_gated else 6
-    stats = {}
-    fresh_peak(cfg.name, stats)
+    ratio = _quant_ratio(cfg)
     model = Transformer(cfg, dev)
-    params, init_ms = _sync_ms(model.init_params, SEED)
-    build.reset_launch_counts()
-    roll, sync_stats = sync_policy_weights(params, prec)
-    check(build.LAUNCHES["quant_weight"] == leaves,
-          f"{cfg.name}: kernel 2 launched {build.LAUNCHES['quant_weight']} times for {leaves}")
-    del params               # the rollout tree keeps the leaves it shares
     prompts, lengths = make_prompts(np.random.default_rng(SEED))
     greedy = SamplerConfig(max_new_tokens=32, temperature=0.0)
 
@@ -2356,13 +2402,13 @@ def breadth_model(dev, gen, cfg):
     # --- generate -----------------------------------------------------------
     traj, gen_ms = _sync_ms(lambda: generate(roll, prompts, lengths, None, cfg, prec, greedy,
                                              page_size=16, device=dev))
-    launches = _path_launches(f"{cfg.name} generate", ("quant_act", "fp8_gemm",
-                                                        "paged_decode"), ratio)
+    launches = _path_launches(f"{cfg.name} generate", ("quant_act", *gemms, "paged_decode"),
+                              ratio)
     # ----------------------------------------------------------------------
     check(launches["paged_decode"] == cfg.n_layers * _decode_steps(traj),
           f"{cfg.name}: kernel 4 launches {launches['paged_decode']}")
     check_trajectory(traj, 8, 32, cfg.vocab_size, f"{cfg.name} greedy")
-    stats.update(init_ms=init_ms, sync_ms=sync_stats["sync_ms"], generate_s=gen_ms / 1e3,
+    stats.update(generate_s=gen_ms / 1e3,
                  generate_tokens_per_s=float(traj.response_mask.sum()) / (gen_ms / 1e3),
                  generate_launches=launches)
     stats["decode_logit_max_abs_err"] = decode_logits_check(model, roll, prec, prompts,
@@ -2377,7 +2423,7 @@ def breadth_model(dev, gen, cfg):
     build.reset_launch_counts()
     # --- the serving engine -------------------------------------------------
     rep, eng_ms = _sync_ms(lambda: eng.run(max_steps=2000))
-    launches = _path_launches(f"{cfg.name} engine", ("quant_act", "fp8_gemm", "paged_decode",
+    launches = _path_launches(f"{cfg.name} engine", ("quant_act", *gemms, "paged_decode",
                                                       "paged_prefill"), ratio)
     # ----------------------------------------------------------------------
     check_engine_report(eng, rep, len(trace), f"{cfg.name} engine")
@@ -2399,7 +2445,7 @@ def breadth_model(dev, gen, cfg):
     for _ in range(BREADTH_STEPS):
         (logits, cache), ms = _sync_ms(serve_step, roll, logits.argmax(-1), cache)
         step_ms.append(ms)
-    launches = _path_launches(f"{cfg.name} launch.steps", ("quant_act", "fp8_gemm", "decode"),
+    launches = _path_launches(f"{cfg.name} launch.steps", ("quant_act", *gemms, "decode"),
                               ratio)
     # ----------------------------------------------------------------------
     check(launches["decode"] == cfg.n_layers * BREADTH_STEPS,
@@ -2407,11 +2453,34 @@ def breadth_model(dev, gen, cfg):
     check(bool(torch.isfinite(logits).all()), f"{cfg.name}: serve-step logits not finite")
     del cache
     stats.update(steps_prefill_ms=prefill_ms, serve_step_ms=step_ms, steps_launches=launches)
+    return traj
+
+
+def breadth_model(dev, gen, cfg):
+    """One dense model at full width and depth: random weights, a sync,
+    `model_paths`, kernels 4-6 at the model's heads, the peak."""
+    import torch
+    from repro_torch.core.precision import PrecisionConfig
+    from repro_torch.kernels import build
+    from repro_torch.models import Transformer
+    from repro_torch.rl import sync_policy_weights
+    prec = PrecisionConfig()
+    leaves = _sync_leaves(cfg)
+    stats = {}
+    fresh_peak(cfg.name, stats)
+    params, init_ms = _sync_ms(Transformer(cfg, dev).init_params, SEED)
+    build.reset_launch_counts()
+    roll, sync_stats = sync_policy_weights(params, prec)
+    check(build.LAUNCHES["quant_weight"] == leaves,
+          f"{cfg.name}: kernel 2 launched {build.LAUNCHES['quant_weight']} times for {leaves}")
+    del params               # the rollout tree keeps the leaves it shares
+    stats.update(init_ms=init_ms, sync_ms=sync_stats["sync_ms"])
+    model_paths(dev, cfg, roll, prec, stats)
     stats["kernel_errs"] = hold_attention_kernels(dev, gen, cfg)
     stats["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     check(stats["peak_gb"] * 1e9 < CARD_BYTES, f"{cfg.name} peak {stats['peak_gb']:.1f} GB")
     log(f"breadth {cfg.name}: " + json.dumps(stats))
-    del roll, model
+    del roll
     return stats
 
 
@@ -2420,6 +2489,296 @@ def breadth_path(dev, gen):
     other."""
     from repro_torch.configs import get_config
     return {name: breadth_model(dev, gen, get_config(name)) for name in BREADTH}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: MoE at full width and depth
+# ---------------------------------------------------------------------------
+
+def leafwise_sync(model, prec, stats):
+    """`sync_policy_weights(model.init_params(SEED), prec)` one leaf at a
+    time: each bf16 leaf is drawn (`Transformer.iter_params`), quantized
+    (`core.fp8_params.quantize_leaf`, the sync's own function) and dropped
+    before the next is drawn — the same rollout tree, without the whole
+    bf16 tree (61 GB at qwen3-30b-a3b) beside its fp8 copy.  Puts the
+    draw and sync ms (device synchronized around each leaf), the fc1
+    leaf's sync ms and the peak into `stats`."""
+    import torch
+    from repro_torch.core.fp8_params import quantize_leaf
+    roll, draw_ms, sync_ms = {}, 0.0, 0.0
+    leaves = model.iter_params(SEED)
+    while True:
+        got, ms = _sync_ms(next, leaves, None)
+        draw_ms += ms
+        if got is None:
+            break
+        path, leaf = got
+        q, ms = _sync_ms(quantize_leaf, "/".join(path), leaf, prec)
+        sync_ms += ms
+        if path[-1] == "fc1":
+            stats["fc1_sync_ms"] = ms
+        tree = roll
+        for k in path[:-1]:
+            tree = tree.setdefault(k, {})
+        tree[path[-1]] = q
+        del got, leaf, q
+    stats.update(draw_ms=draw_ms, sync_ms=sync_ms,
+                 sync_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return roll
+
+
+def routed_drops(routing, cfg):
+    """The share of (token, k) units an MoE layer drops, from a prefill's
+    routing {slot: (R, B, T, K)} (one group per row, capacity
+    `group_capacity(T)`), over every layer and row."""
+    import torch
+    from repro_torch.models.moe import group_capacity
+    dropped = units = 0
+    for idx in routing.values():
+        r, b, t, k = idx.shape
+        counts = torch.zeros((r * b, cfg.n_experts), dtype=torch.long, device=idx.device)
+        counts.scatter_add_(1, idx.reshape(r * b, t * k).long(),
+                            torch.ones((r * b, t * k), dtype=torch.long, device=idx.device))
+        dropped += int((counts - group_capacity(t, cfg)).clamp_min(0).sum())
+        units += idx.numel()
+    return dropped / max(units, 1)
+
+
+def moe_gemm_row(stack, m, gen):
+    """The expert-batched kernel 3 on a (L, E, K, N) expert stack at M rows
+    an expert: bit-equal per expert to the 2-D kernel on that expert alone,
+    within one bf16 rounding of the plain version; then its times, each
+    call on the next layer's experts (cold in L2), and the bound (the
+    experts' weight bytes, every expert's M rows, padding included)."""
+    import itertools
+
+    import torch
+    from repro_torch.kernels import fp8_gemm as fg
+    from repro_torch.kernels import fp8_quant as fq
+    layers, e, k, n = stack.data.shape
+    dev = stack.data.device
+    x = torch.randn((e * m, k), generator=gen, device=dev).to(torch.bfloat16)
+    a, a_s = fq.quantize_activation_kernel(x)
+    a, a_s = a.view(e, m, k), a_s.view(e, m, k // 128)
+    w = stack.layer(0)
+    y = fg.fp8_gemm_batched(a, w.data, a_s, w.scales)
+    for i in range(e):
+        one = fg.fp8_gemm(a[i], w.data[i], a_s[i], w.scales[i])
+        check(torch.equal(y[i].view(torch.int16), one.view(torch.int16)),
+              f"batched fp8_gemm E {e} M {m} K {k} N {n}: expert {i} differs from the 2-D kernel")
+    yp = fg.fp8_gemm_batched_ref(a, w.data, a_s, w.scales).float()
+    torch.cuda.synchronize()
+    err = (y.float() - yp).abs().max().item()
+    scale = yp.abs().max().item()
+    check(bool(torch.isfinite(y).all()) and torch.allclose(y.float(), yp, rtol=2 ** -7,
+                                                           atol=1e-5 * scale),
+          f"batched fp8_gemm E {e} M {m} K {k} N {n}: kernel disagrees with its plain version")
+    ws = itertools.cycle([stack.layer(r) for r in range(layers)])
+
+    def kernel():
+        w = next(ws)
+        return fg.fp8_gemm_batched(a, w.data, a_s, w.scales)
+
+    def plain():
+        w = next(ws)
+        return fg.fp8_gemm_batched_ref(a, w.data, a_s, w.scales)
+    row = timed_row(kernel, plain, reps=20, plain_reps=2, plain_warmup=1)
+    nbytes = e * (m * k + k * n + m * (k // 128) * 4 + (k // 128) * (n // 128) * 4 + m * n * 2)
+    row["bound_ms"], row["bound_by"] = bound(nbytes, 2 * e * m * n * k, FP8_TC_FLOPS)
+    row["max_abs_err"] = err
+    log(f"fp8_gemm batched E {e} M {m} K {k} N {n}: every expert bit-equal to the 2-D kernel; "
+        f"max|kernel-plain| {err:.3e} (max|plain| {scale:.3f}); device {row['device_ms']:.4f} "
+        f"ms (bound {row['bound_ms']:.4f}, {row['bound_by']}), ms {row['ms']:.4f}, plain "
+        f"{row['plain_ms']:.2f}")
+    return row
+
+
+def moe_serve_path(dev, gen, results, extra):
+    """12a: qwen3-30b-a3b at full width and depth under `PrecisionConfig()`:
+    the leafwise sync, greedy and GRPO `generate` (routing recorded),
+    `model_paths` (decode logits, the engine, `launch.steps`), the
+    expert-batched kernel 3 at E 128 held and timed, the peak."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import PrecisionConfig
+    from repro_torch.kernels import build
+    from repro_torch.models import Transformer
+    from repro_torch.rl import SamplerConfig, generate
+    cfg = get_config(MOE_SERVE)
+    prec = PrecisionConfig()
+    gemms = ("fp8_gemm", "fp8_gemm_batched")
+    stats = {}
+    fresh_peak(cfg.name, stats)
+    model = Transformer(cfg, dev)
+    build.reset_launch_counts()
+    roll = leafwise_sync(model, prec, stats)
+    check(build.LAUNCHES["quant_weight"] == _sync_leaves(cfg),
+          f"{cfg.name}: kernel 2 launched {build.LAUNCHES['quant_weight']} times")
+    log(f"{cfg.name}: {cfg.n_layers} layers, {cfg.n_experts} experts top-{cfg.top_k}, "
+        f"{cfg.param_count() / 1e9:.2f}B params drawn and synced leaf by leaf: "
+        + json.dumps(stats))
+
+    prompts, lengths = make_prompts(np.random.default_rng(SEED))
+    build.reset_launch_counts()
+    # --- the MoE main path: greedy and GRPO generate -------------------------
+    greedy, g_ms = _sync_ms(lambda: generate(
+        roll, prompts, lengths, None, cfg, prec, SamplerConfig(max_new_tokens=32,
+                                                               temperature=0.0),
+        page_size=16, want_routing=True, device=dev))
+    sampler = torch.Generator(device=dev).manual_seed(SEED)
+    group, grp_ms = _sync_ms(lambda: generate(
+        roll, prompts, lengths, sampler, cfg, prec, SamplerConfig(max_new_tokens=32),
+        page_size=16, num_samples_per_prompt=4, shared_prefix_blocks=int(lengths.min()) // 16,
+        device=dev))
+    launches = _path_launches(f"{cfg.name} rollout path",
+                              ("quant_act", *gemms, "paged_decode"), _quant_ratio(cfg))
+    # ----------------------------------------------------------------------
+    results["fp8_gemm_batched"]["launches"] = launches["fp8_gemm_batched"]
+    forwards = 2 + _decode_steps(greedy) + _decode_steps(group)
+    check(launches["fp8_gemm_batched"] == 2 * cfg.n_layers * forwards,
+          f"{cfg.name}: kernel 3 batched {launches['fp8_gemm_batched']} times, not twice a "
+          f"layer in each of {forwards} forwards")
+    check_trajectory(greedy, 8, 32, cfg.vocab_size, f"{cfg.name} greedy")
+    check_trajectory(group, 32, 32, cfg.vocab_size, f"{cfg.name} group")
+    pre = greedy.routing["prefill"]["s0"]
+    check(tuple(pre.shape) == (cfg.n_layers, 8, prompts.shape[1], cfg.top_k)
+          and tuple(greedy.routing["decode"]["s0"].shape) == (32, cfg.n_layers, 8, 1,
+                                                               cfg.top_k),
+          f"{cfg.name}: routing shapes {tuple(pre.shape)}")
+    stats.update(rollout_launches=launches, greedy_generate_s=g_ms / 1e3,
+                 group_generate_s=grp_ms / 1e3,
+                 greedy_tokens_per_s=float(greedy.response_mask.sum()) / (g_ms / 1e3),
+                 group_tokens_per_s=float(group.response_mask.sum()) / (grp_ms / 1e3),
+                 prefill_dropped_frac=routed_drops(greedy.routing["prefill"], cfg))
+    del greedy, group
+    stats.update(profile_decode_step(model, roll, prec, prompts, lengths, dev, "moe_"))
+    model_paths(dev, cfg, roll, prec, stats, gemms)
+
+    rows = {}
+    for name in ("fc1", "fc2"):
+        stack = roll["blocks"]["s0"]["moe"][name]
+        for m in MOE_GEMM_MS:
+            row = moe_gemm_row(stack, m, gen)
+            _, e, k, n = stack.data.shape
+            extra.append(dict(kernel="fp8_gemm_batched", shape=[e, m, k, n], weight=name, **row))
+            rows[f"{name}_m{m}"] = {key: row[key] for key in ("ms", "device_ms", "bound_ms")}
+            if (name, m) == ("fc1", 8):
+                results["fp8_gemm_batched"].update(row)
+    results["fp8_gemm_batched"]["max_abs_err"] = max(r["max_abs_err"] for r in extra)
+    stats["batched_gemm"] = rows
+    stats["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    check(stats["peak_gb"] * 1e9 < CARD_BYTES, f"{cfg.name} peak {stats['peak_gb']:.1f} GB")
+    log(f"MoE {cfg.name}: " + json.dumps(stats))
+    del roll, model
+    return stats
+
+
+def _score_rollouts(trainer, presets, dev):
+    """The same prompts and generator seed rolled out under each preset,
+    every trajectory scored by the trainer's policy with advantages drawn
+    per GRPO group (as phase 8): mismatch KL (k3, k1), TIS weight mean
+    and ESS, rollout s."""
+    import numpy as np
+    import torch
+    from repro_torch.data import PromptPipeline
+    from repro_torch.rl.rewards import batch_rewards
+    from repro_torch.rl.trainer import stats_to_host
+    rl = trainer.rl
+    adv = np.repeat(np.random.default_rng(SEED).normal(size=rl.prompt_batch), rl.n_per_prompt)
+    advantages = torch.tensor(adv, dtype=torch.float32, device=dev)
+    prompts = PromptPipeline(rl.prompt_batch, rl.max_prompt_len, seed=SEED + 3).next_batch()
+    problems = [p for p in prompts.problems for _ in range(rl.n_per_prompt)]
+    out = {}
+    for name, p in presets.items():
+        trainer.generator.manual_seed(SEED)
+        traj, _, roll_s = trainer.rollout(prompts, p)
+        rewards = batch_rewards(problems, traj.response_tokens.cpu().numpy(),
+                                traj.response_lengths.cpu().numpy())
+        ub = trainer.make_update_batch(traj, rewards)
+        ub["advantages"], ub["mask"] = advantages, ub["response_mask"]
+        st = stats_to_host(trainer.batch_loss(trainer.params, ub)[1])
+        _finite_metrics(st, f"{name} rollout stats")
+        out[name] = dict(rollout_s=roll_s, tokens=float(traj.response_mask.sum()),
+                         **{k: st[k] for k in ("mismatch_kl", "mismatch_kl_k1",
+                                               "corr_weight_mean", "corr_weight_ess")})
+    return out
+
+
+def moe_train_path(dev, gen):
+    """12b: `RLTrainer` on granite-moe-3b-a800m at full width and depth under
+    `PrecisionConfig()` with rollout router replay on, phase 8's geometry,
+    f32 AdamW moments: TRAIN_STEPS train steps (routing recorded, a finite
+    `moe_aux_loss`), the same prompts rolled out under router BF16, FP32
+    and FP8 and under BF16_ROLLOUT and scored side by side (the paper's
+    fig. 6 comparison: a report, not a gate), kernels 4-6 at (G 3, D 64)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import BF16_ROLLOUT, PrecisionConfig, RouterDtype
+    from repro_torch.kernels import build
+    from repro_torch.models import Transformer
+    from repro_torch.optim import AdamWConfig, state_bytes
+    from repro_torch.rl import RLConfig, RLTrainer
+    from repro_torch.rl import trainer as trainer_mod
+    cfg = get_config(MOE_TRAIN)
+    prec = PrecisionConfig(rollout_router_replay=True)
+    rl = RLConfig(precision=prec, prompt_batch=8, n_per_prompt=4, max_prompt_len=12,
+                  max_new_tokens=32, temperature=1.0,
+                  optimizer=AdamWConfig(lr=3e-4, b2=0.98, grad_clip=1.0))
+    stats = {}
+    fresh_peak(cfg.name, stats)
+    trainer = RLTrainer(cfg, rl, params=Transformer(cfg, dev).init_params(SEED), device=dev)
+    stats["opt_state_gb"] = state_bytes(trainer.opt_state) / 1e9
+    routings = []
+    real = trainer_mod.generate
+
+    def recording(*args, **kw):
+        traj = real(*args, **kw)
+        routings.append(traj.routing)
+        return traj
+    build.reset_launch_counts()
+    # --- the MoE trainer path: TRAIN_STEPS train steps -----------------------
+    with mock.patch.object(trainer_mod, "generate", recording):
+        rows = [trainer.train_step() for _ in range(TRAIN_STEPS)]
+    launches = _path_launches(f"{cfg.name} trainer path", (
+        "quant_act", "quant_weight", "fp8_gemm", "fp8_gemm_batched", "paged_decode"),
+        _quant_ratio(cfg))
+    # ----------------------------------------------------------------------
+    check(launches["quant_weight"] == _sync_leaves(cfg) * TRAIN_STEPS,
+          f"{cfg.name} trainer: kernel 2 launched {launches['quant_weight']} times")
+    r, k = cfg.n_layers, cfg.top_k
+    for routing in routings:
+        pre, dec = routing["prefill"]["s0"], routing["decode"]["s0"]
+        check(pre.shape[0] == r and pre.shape[1] == rl.prompt_batch and pre.shape[3] == k
+              and tuple(dec.shape) == (rl.max_new_tokens, r, rl.rollout_batch, 1, k),
+              f"{cfg.name} trainer: routing shapes {tuple(pre.shape)}, {tuple(dec.shape)}")
+    check(len(routings) == TRAIN_STEPS, f"{cfg.name} trainer: {len(routings)} routings recorded")
+    keys = ("step", "loss", "moe_aux_loss", "grad_norm", "mismatch_kl", "corr_weight_ess",
+            "sync_ms", "rollout_s", "score_backward_ms", "optimizer_ms", "step_s")
+    for m in rows:
+        _finite_metrics(m, f"{cfg.name} train step {m['step']}")
+        log(f"{cfg.name} train step: " + json.dumps({key: m[key] for key in keys}))
+    stats.update(launches=launches, steps=[{key: m[key] for key in keys} for m in rows],
+                 routing_prefill_shape=list(routings[0]["prefill"]["s0"].shape))
+    presets = {f"router_{rd.value}": PrecisionConfig(router_dtype=rd)
+               for rd in (RouterDtype.BF16, RouterDtype.FP32, RouterDtype.FP8)}
+    presets["bf16"] = BF16_ROLLOUT
+    stats["rollouts"] = _score_rollouts(trainer, presets, dev)
+    log(f"{cfg.name}, same prompts, router BF16 / FP32 / FP8 (W8A8 + FP8 KV) and BF16 rollout "
+        "scored by the policy: " + json.dumps(stats["rollouts"]))
+    stats["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    check(stats["peak_gb"] * 1e9 < CARD_BYTES, f"{cfg.name} trainer peak "
+          f"{stats['peak_gb']:.1f} GB")
+    del trainer
+    stats["kernel_errs"] = hold_attention_kernels(dev, gen, cfg)
+    log(f"MoE trainer {cfg.name}: " + json.dumps(stats))
+    return stats
+
+
+def moe_path(dev, gen, results, extra):
+    """Phase 12: 12a then 12b."""
+    return {"serve": moe_serve_path(dev, gen, results, extra),
+            "train": moe_train_path(dev, gen)}
 
 
 # ---------------------------------------------------------------------------
@@ -2832,6 +3191,10 @@ def main() -> int:
                              for name in ("fp8", "bf16")}}))
     breadth = breadth_path(dev, gen)
     log("phase 11 peaks (GB): " + json.dumps({k: v["peak_gb"] for k, v in breadth.items()}))
+    moe_extra = []
+    moe = moe_path(dev, gen, results, moe_extra)
+    log("kernel_timings_moe " + json.dumps(moe_extra))
+    log("phase 12 peaks (GB): " + json.dumps({k: v["peak_gb"] for k, v in moe.items()}))
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, "
         f"wall {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

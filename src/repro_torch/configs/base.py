@@ -100,13 +100,17 @@ class ArchConfig:
         return self.n_experts > 0 and i % self.moe_period == self.moe_offset
 
     def param_count(self) -> int:
-        """Analytic parameter count of a dense decoder (the ported family)."""
+        """Analytic parameter count of a dense or MoE decoder (the ported
+        families; an MoE layer holds its experts' fc1/fc2 and the router)."""
         d, f, v = self.d_model, self.d_ff, self.vocab_size
         per_attn = d * (self.n_heads * self.d_head) * 2 \
             + d * (self.n_kv_heads * self.d_head) * 2
         per_mlp = (3 if self.mlp_gated else 2) * d * f
+        per_moe = self.n_experts * 3 * d * f + d * self.n_experts
         total = v * d * (1 if self.tie_embeddings else 2)
-        return total + self.n_layers * (per_attn + per_mlp)
+        for i in range(self.n_layers):
+            total += per_attn + (per_moe if self.is_moe_layer(i) else per_mlp)
+        return total
 
     # ------------------------------------------------------------------
     def reduced(self, **overrides) -> "ArchConfig":
@@ -129,6 +133,8 @@ class ArchConfig:
                 d_head=min(self.d_head, 32),
             )
         if self.n_experts:
+            # dropless at test scale: the incremental and teacher-forced
+            # paths compute the same MoE function (drops depend on grouping)
             changes.update(n_experts=min(self.n_experts, 4),
                            top_k=min(self.top_k, 2),
                            capacity_factor=8.0)

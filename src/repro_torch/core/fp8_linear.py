@@ -57,6 +57,28 @@ class _MmF32(torch.autograd.Function):
         return dx, dw
 
 
+class _BmmF32(torch.autograd.Function):
+    """`_MmF32` over a batch of experts: x3 (E, M, K) @ w (E, K, N) as one
+    batched GEMM with f32 sums and an f32 result (`aten::bmm.dtype`, CUDA
+    and meta); the backward is the same batched GEMM twice."""
+
+    @staticmethod
+    def forward(ctx, x3, w):
+        ctx.save_for_backward(x3, w)
+        return torch.bmm(x3, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x3, w = ctx.saved_tensors
+        g = g.to(x3.dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.bmm(g, w.transpose(1, 2), out_dtype=torch.float32).to(x3.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.bmm(x3.transpose(1, 2), g, out_dtype=torch.float32).to(w.dtype)
+        return dx, dw
+
+
 def _dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w with f32 accumulation, output in x.dtype (the reference's
     `preferred_element_type=f32` dot).
@@ -65,7 +87,17 @@ def _dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     into one GEMM as they are, which sums in f32 and writes f32
     (`_MmF32`), rounded to x.dtype once: no widened copy of w and no
     reduced-precision split-K sum; its backward is the same kind of GEMM.
-    On the CPU the operands are widened to f32, as before."""
+    On the CPU the operands are widened to f32, as before.  A stacked
+    (E, K, N) w (an MoE layer's experts, which the reference vmaps over)
+    takes x (E, ..., K) and one batched GEMM (`_BmmF32`; `aten::bmm.dtype`
+    has no CPU kernel, so the CPU widens as for one matrix)."""
+    if w.dim() == 3:
+        x3 = x.reshape(w.shape[0], -1, x.shape[-1])
+        if x.is_cuda or x.is_meta:
+            out = _BmmF32.apply(x3, w)
+        else:
+            out = torch.matmul(x3.float(), w.float())
+        return out.to(x.dtype).reshape(*x.shape[:-1], w.shape[-1])
     if x.is_cuda or x.is_meta:
         out = _MmF32.apply(x.reshape(-1, x.shape[-1]), w)
         return out.to(x.dtype).reshape(*x.shape[:-1], w.shape[-1])
@@ -83,13 +115,21 @@ def fp8_linear_rollout(x: torch.Tensor, w_q: QuantizedTensor, *,
 def linear(x: torch.Tensor, w, *, precision: Optional[PrecisionConfig] = None,
            quantized: bool = True) -> torch.Tensor:
     """Precision-dispatching linear: `w` is a bf16 tensor (bf16 path or an
-    excluded layer) or a `QuantizedTensor` (rollout path after sync)."""
+    excluded layer) or a `QuantizedTensor` (rollout path after sync).  A
+    stacked (E, K, N) w (an MoE layer's experts) takes x (E, M, K) and
+    gives (E, M, N) on every branch: kernel 1 once over all E·M rows then
+    the expert-batched kernel 3; one batched bf16 GEMM; or `fp8_dot` per
+    expert under `fp8_training`."""
     if isinstance(w, QuantizedTensor):
         if not quantized:  # excluded layer got a quantized weight: dequant
             return _dot(x, dequantize(w, x.dtype))
         fmt = precision.scale_format if precision else ScaleFormat.FP32
         return fp8_linear_rollout(x, w, scale_format=fmt)
     if precision is not None and precision.fp8_training and quantized:
+        if w.dim() == 3:
+            return torch.stack([fp8_dot(x[e], w[e], precision.recipe,
+                                        precision.scale_format)
+                                for e in range(w.shape[0])])
         return fp8_dot(x, w, precision.recipe, precision.scale_format)
     return _dot(x, w.to(x.dtype))
 

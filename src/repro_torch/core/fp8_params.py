@@ -7,6 +7,9 @@ dicts with the reference's key names and layer-stacked leaves, so the same
 path regexes select the same leaves ("blocks/s0/attn/wq", ...).  Linear
 weights become `QuantizedTensor`s through kernel 2 (one launch per stacked
 leaf); embeddings, norms and the lm_head pass through by reference.
+An MoE router is cast to the configured router dtype instead (paper
+§2.2.4, fig. 6): bf16 or f32, or under the FP8 ablation quantized like a
+linear (E4M3, f32 block scales).
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ import re
 
 import torch
 
-from repro_torch.core.precision import E4M3, PrecisionConfig
+from repro_torch.core.precision import E4M3, PrecisionConfig, RouterDtype, ScaleFormat
 from repro_torch.core.quant import QuantizedTensor
 from repro_torch.kernels import ops
 
@@ -52,11 +55,38 @@ def _map_with_path(fn, tree, prefix=""):
 
 def quantize_params(params: dict, precision: PrecisionConfig) -> dict:
     """BF16 training params -> rollout params (paper Fig 1, "weight
-    synchronization phase").  Stacked (L, K, N) weights keep per-layer
-    128x128 blocks.  (MoE router casts come with the MoE slice.)"""
+    synchronization phase").  Stacked (L, K, N) and (L, E, K, N) weights
+    keep per-slice 128x128 blocks.  Router weights are cast to the
+    configured router dtype instead."""
+    if not precision.quantize_linears:
+        return _apply_router_dtype(params, precision)
+    return _map_with_path(lambda path, leaf: quantize_leaf(path, leaf, precision), params)
+
+
+def quantize_leaf(path: str, leaf, precision: PrecisionConfig):
+    """One leaf of `quantize_params` (its "/"-joined key path): the same
+    function leaf by leaf, so a caller can sync a tree that never exists
+    whole in bf16 (`models.Transformer.iter_params`)."""
+    if "router" in path:
+        return _router_cast(leaf, precision.router_dtype)
+    if precision.quantize_linears and default_quant_filter(path, leaf):
+        return ops.quantize_weight(leaf, E4M3, precision.scale_format)
+    return leaf
+
+
+def _router_cast(leaf: torch.Tensor, router_dtype: RouterDtype):
+    if router_dtype == RouterDtype.FP32:
+        return leaf.float()
+    if router_dtype == RouterDtype.FP8:
+        # router quantized along with the linears (ablation, paper fig 6)
+        return ops.quantize_weight(leaf, E4M3, ScaleFormat.FP32)
+    return leaf.to(torch.bfloat16)
+
+
+def _apply_router_dtype(params: dict, precision: PrecisionConfig) -> dict:
     def convert(path, leaf):
-        if precision.quantize_linears and default_quant_filter(path, leaf):
-            return ops.quantize_weight(leaf, E4M3, precision.scale_format)
+        if "router" in path:
+            return _router_cast(leaf, precision.router_dtype)
         return leaf
 
     return _map_with_path(convert, params)

@@ -34,6 +34,11 @@
 //     GEMM (q, k, v; gate, up): the first stage's weights stream before
 //     `griddepcontrol.wait`, and each block lets the next GEMM launch
 //     once its last stage is issued.
+// The expert-batched form (the reference vmaps its GEMM over an MoE
+// layer's experts, which gives the Pallas call a batch grid axis) is the
+// same launch with blockIdx.z as the expert: A, W, a_s, w_s and out each
+// advance by a 64-bit stride per expert and nothing else changes, so
+// expert e's rows are bit-equal to the 2-D launch on expert e alone.
 // One block body serves every M; the four tile shapes differ only in how
 // many 16x8 output fragments a warp and a block hold and in their rings.
 // Each output element's arithmetic is the same in all of them: four k32
@@ -180,8 +185,17 @@ template <typename T>
 __global__ void __launch_bounds__(T::kThreads) fp8_gemm_kernel(
     const uint8_t* __restrict__ A, const uint8_t* __restrict__ W,
     const float* __restrict__ a_s, const float* __restrict__ w_s,
-    __nv_bfloat16* __restrict__ out, int64_t m, int64_t n, int64_t k, int64_t ldw) {
+    __nv_bfloat16* __restrict__ out, int64_t m, int64_t n, int64_t k, int64_t ldw,
+    int64_t stride_w) {
   extern __shared__ __align__(16) uint8_t smem[];
+  {  // this block's expert (0 for the 2-D launch)
+    const int64_t e = blockIdx.z;
+    A += e * m * k;
+    W += e * stride_w;
+    a_s += e * m * (k / BK);
+    w_s += e * (k / BK) * (n / 128);
+    out += e * m * n;
+  }
   constexpr int kNT = T::kNT, kMT = T::kMT, kU = T::kU, S = T::kStages;
   constexpr int kSplit = T::kSplit, kUG = kU / kSplit;  // slabs per group and stage
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -352,12 +366,14 @@ __global__ void __launch_bounds__(T::kThreads) fp8_gemm_kernel(
 
 template <typename T>
 int launch_gemm(const void* a, const void* w, const void* a_s, const void* w_s, void* out,
-                int64_t m, int64_t n, int64_t k, int64_t ldw, int pdl, cudaStream_t stream) {
+                int64_t batch, int64_t m, int64_t n, int64_t k, int64_t ldw, int64_t stride_w,
+                int pdl, cudaStream_t stream) {
   const int err = set_smem(fp8_gemm_kernel<T>, T::kSmem);
   if (err) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(n / T::BN),
-                     static_cast<unsigned>((m + T::BM - 1) / T::BM));
+                     static_cast<unsigned>((m + T::BM - 1) / T::BM),
+                     static_cast<unsigned>(batch));
   cfg.blockDim = dim3(T::kThreads);
   cfg.dynamicSmemBytes = T::kSmem;
   cfg.stream = stream;
@@ -369,7 +385,7 @@ int launch_gemm(const void* a, const void* w, const void* a_s, const void* w_s, 
   const cudaError_t launched = cudaLaunchKernelEx(
       &cfg, fp8_gemm_kernel<T>, static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(w),
       static_cast<const float*>(a_s), static_cast<const float*>(w_s),
-      static_cast<__nv_bfloat16*>(out), m, n, k, ldw);
+      static_cast<__nv_bfloat16*>(out), m, n, k, ldw, stride_w);
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(launched != cudaSuccess ? launched : last);
 }
@@ -381,20 +397,25 @@ using namespace fp8rl;
 
 // a (M, K) e4m3, w (K, N) e4m3 K-major (element (k, n) at w[n * ldw + k]),
 // a_s (M, K/128) f32, w_s (K/128, N/128) f32 -> out (M, N) bf16;
-// K % 128 == 0, N % 128 == 0, ldw >= K and ldw % 16 == 0.  The tile shape
-// follows M; every shape computes each element alike.  pdl != 0 launches
-// it as a programmatic dependent of the kernel before it in the stream,
-// which must not write W or w_s.
+// K % 128 == 0, N % 128 == 0, ldw >= K and ldw % 16 == 0.  With batch > 1
+// each of the `batch` experts e has its own contiguous a (M, K), a_s, w_s
+// and out (M, N) one after the other, and its weight at w + e * stride_w
+// (stride_w % 16 == 0; a layer slice of the sync's (L, E, N_pad, K_pad)
+// storage); batch <= 65535.  The tile shape follows M; every shape
+// computes each element alike.  pdl != 0 launches it as a programmatic
+// dependent of the kernel before it in the stream, which must not write
+// W or w_s.
 extern "C" int fp8rl_gemm(const void* a, const void* w, const void* a_s, const void* w_s,
-                          void* out, int64_t m, int64_t n, int64_t k, int64_t ldw, int pdl,
-                          void* stream) {
+                          void* out, int64_t batch, int64_t m, int64_t n, int64_t k,
+                          int64_t ldw, int64_t stride_w, int pdl, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  if (m <= 0) return static_cast<int>(cudaGetLastError());
+  if (m <= 0 || batch <= 0) return static_cast<int>(cudaGetLastError());
+  if (batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
   if (m <= SmallTile::BM)
-    return launch_gemm<SmallTile>(a, w, a_s, w_s, out, m, n, k, ldw, pdl, s);
+    return launch_gemm<SmallTile>(a, w, a_s, w_s, out, batch, m, n, k, ldw, stride_w, pdl, s);
   if (m <= 2 * MidTile::BM)
-    return launch_gemm<MidTile>(a, w, a_s, w_s, out, m, n, k, ldw, pdl, s);
+    return launch_gemm<MidTile>(a, w, a_s, w_s, out, batch, m, n, k, ldw, stride_w, pdl, s);
   if (m <= ChunkTile::BM)
-    return launch_gemm<ChunkTile>(a, w, a_s, w_s, out, m, n, k, ldw, pdl, s);
-  return launch_gemm<LargeTile>(a, w, a_s, w_s, out, m, n, k, ldw, pdl, s);
+    return launch_gemm<ChunkTile>(a, w, a_s, w_s, out, batch, m, n, k, ldw, stride_w, pdl, s);
+  return launch_gemm<LargeTile>(a, w, a_s, w_s, out, batch, m, n, k, ldw, stride_w, pdl, s);
 }

@@ -10,9 +10,12 @@ with A (M, K) e4m3 in 1x128 tiles, W (K, N) e4m3 in 128x128 blocks
 128-wide K slab's partial product taken in f32 and accumulated in f32.
 It runs in every W8A8 linear.  On the H100 it is bound by the weight
 bytes at decode (M = 8) and by the tensor cores at prefill (M = 1024);
-`csrc/fp8_gemm.cu` gives the design.  `fp8_gemm_ref` is the plain
-version: the CPU path and the on-card comparisons use it, the card's main
-path never does.
+`csrc/fp8_gemm.cu` gives the design.  `fp8_gemm_batched` is the same
+kernel over the E experts of an MoE layer in one launch (the reference
+vmaps its GEMM over them): (E, M, K) @ (E, K, N), each expert's rows
+bit-equal to the 2-D launch on that expert alone.  `fp8_gemm_ref` and
+`fp8_gemm_batched_ref` are the plain versions: the CPU path and the
+on-card comparisons use them, the card's main path never does.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ BK = 128   # one K step per scale slab
 # of these: they never write W or w_s, which the GEMM reads before its
 # grid-dependency wait.  Kernel 2, the sync, writes them: a GEMM right
 # behind it waits for it whole.
-PDL_AFTER = ("quant_act", "fp8_gemm")
+PDL_AFTER = ("quant_act", "fp8_gemm", "fp8_gemm_batched")
 
 
 def fp8_gemm_ref(a, w, a_scales, w_scales, out_dtype=torch.bfloat16):
@@ -49,15 +52,16 @@ def fp8_gemm_ref(a, w, a_scales, w_scales, out_dtype=torch.bfloat16):
     return acc.to(out_dtype)
 
 
-def fp8_gemm(a: torch.Tensor, w: torch.Tensor, a_scales: torch.Tensor,
-             w_scales: torch.Tensor, out_dtype=torch.bfloat16) -> torch.Tensor:
-    """Kernel 3 on the card -> (M, N) bf16.  w is K-major: a (K, N) view
-    with strides (1, ldw), ldw >= K (the `ops.quantize_weight` storage; a
-    row-major w raises).  K and N must be multiples of 128 (the
-    `ops.fp8_matmul` wrapper hands over the padded storage); any M."""
-    tensors = (a, w, a_scales, w_scales)
-    if not all(t.is_cuda for t in tensors):
-        raise ValueError("fp8_gemm takes CUDA tensors")
+def fp8_gemm_batched_ref(a, w, a_scales, w_scales, out_dtype=torch.bfloat16):
+    """Plain version of the expert-batched kernel 3: `fp8_gemm_ref` on
+    each expert, a (E, M, K), w (E, K, N), a_scales (E, M, K/128),
+    w_scales (E, K/128, ceil(N/128)) -> (E, M, N)."""
+    return torch.stack([fp8_gemm_ref(a[e], w[e], a_scales[e], w_scales[e], out_dtype)
+                        for e in range(a.shape[0])])
+
+
+def _check(a, w, a_scales, w_scales, out_dtype):
+    """The 2-D operands of one expert: (m, n, k, ldw)."""
     if out_dtype != torch.bfloat16:
         raise ValueError("the CUDA fp8 GEMM writes bf16")
     m, k = a.shape
@@ -73,14 +77,61 @@ def fp8_gemm(a: torch.Tensor, w: torch.Tensor, a_scales: torch.Tensor,
     if w.stride(0) != 1 or ldw < k or ldw % 16:
         raise ValueError(f"fp8_gemm takes a K-major weight, strides (1, ldw) with "
                          f"ldw >= K and ldw % 16 == 0; got strides {w.stride()}")
-    if not all(t.is_contiguous() for t in (a, a_scales, w_scales)):
-        raise ValueError("fp8_gemm takes contiguous activations and scales")
     if a_scales.dtype != torch.float32 or w_scales.dtype != torch.float32:
         raise ValueError("fp8_gemm takes f32 scales")
+    return m, n, k, ldw
+
+
+def _operands_ok(tensors):
+    if not all(t.is_cuda for t in tensors):
+        raise ValueError("fp8_gemm takes CUDA tensors")
+    a, w, a_scales, w_scales = tensors
+    if not all(t.is_contiguous() for t in (a, a_scales, w_scales)):
+        raise ValueError("fp8_gemm takes contiguous activations and scales")
     if a.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("fp8_gemm operands must be 16-byte aligned")
+
+
+def fp8_gemm(a: torch.Tensor, w: torch.Tensor, a_scales: torch.Tensor,
+             w_scales: torch.Tensor, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Kernel 3 on the card -> (M, N) bf16.  w is K-major: a (K, N) view
+    with strides (1, ldw), ldw >= K (the `ops.quantize_weight` storage; a
+    row-major w raises).  K and N must be multiples of 128 (the
+    `ops.fp8_matmul` wrapper hands over the padded storage); any M."""
+    _operands_ok((a, w, a_scales, w_scales))
+    m, n, k, ldw = _check(a, w, a_scales, w_scales, out_dtype)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
     build.launch("fp8_gemm", "fp8rl_gemm", a.device, a.data_ptr(),
                  w.data_ptr(), a_scales.data_ptr(), w_scales.data_ptr(),
-                 out.data_ptr(), m, n, k, ldw, int(build.LAST_LAUNCH in PDL_AFTER))
+                 out.data_ptr(), 1, m, n, k, ldw, 0,
+                 int(build.LAST_LAUNCH in PDL_AFTER))
+    return out
+
+
+def fp8_gemm_batched(a: torch.Tensor, w: torch.Tensor, a_scales: torch.Tensor,
+                     w_scales: torch.Tensor, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """The expert-batched kernel 3 on the card, one launch -> (E, M, N)
+    bf16.  a (E, M, K), a_scales (E, M, K/128) and w_scales (E, K/128,
+    N/128) contiguous; w (E, K, N) K-major, each expert's slice as
+    `fp8_gemm` takes it and the experts `w.stride(0)` elements apart (a
+    layer of the sync's (L, E, N_pad, K_pad) storage, handed over as a
+    view); E <= 65535.  Expert e's rows are bit-equal to `fp8_gemm` on
+    expert e alone; every expert's M rows are computed, padding rows
+    included."""
+    _operands_ok((a, w, a_scales, w_scales))
+    e = a.shape[0]
+    if w.dim() != 3 or w.shape[0] != e or a_scales.shape[0] != e or w_scales.shape[0] != e:
+        raise ValueError(f"bad batched shapes {tuple(a.shape)} @ {tuple(w.shape)}")
+    if not 0 < e <= 65535:
+        raise ValueError(f"{e} experts: the grid's z extent takes 1-65535")
+    m, n, k, ldw = _check(a[0], w[0], a_scales[0], w_scales[0], out_dtype)
+    stride_w = w.stride(0)
+    if e > 1 and (stride_w % 16 or stride_w < n * ldw):
+        raise ValueError(f"experts' weights {stride_w} elements apart, need a multiple "
+                         f"of 16 and at least {n * ldw}")
+    out = torch.empty((e, m, n), dtype=torch.bfloat16, device=a.device)
+    build.launch("fp8_gemm_batched", "fp8rl_gemm", a.device, a.data_ptr(),
+                 w.data_ptr(), a_scales.data_ptr(), w_scales.data_ptr(),
+                 out.data_ptr(), e, m, n, k, ldw, stride_w,
+                 int(build.LAST_LAUNCH in PDL_AFTER))
     return out

@@ -90,16 +90,25 @@ def quantize_weight(w: torch.Tensor, fp8_dtype=E4M3,
 
 
 def _gemm_weight(w: torch.Tensor) -> torch.Tensor:
-    """The (K_pad, N_pad) operand of kernel 3 for a (K, N) weight, without
-    a copy where `w` is a view of `quantize_weight`'s padded K-major
-    storage (every weight the sync makes); any other layout is padded,
-    which copies it (the CUDA kernel then refuses a row-major result)."""
-    k, n = w.shape
+    """The (K_pad, N_pad) operand of kernel 3 for a (K, N) weight — or the
+    (E, K_pad, N_pad) one for an MoE layer's stacked (E, K, N) experts —
+    without a copy where `w` is a view of `quantize_weight`'s padded
+    K-major storage (every weight the sync makes); any other layout is
+    padded, which copies it (the CUDA kernel then refuses a row-major
+    result)."""
+    *lead, k, n = w.shape
     kp, np_ = -(-k // 128) * 128, -(-n // 128) * 128
-    if (w.stride() == (1, kp) and w.storage_offset() + np_ * kp
-            <= w.untyped_storage().nbytes() // w.element_size()):
-        return w.as_strided((kp, np_), (1, kp))
-    return _pad_to(w, (128, 128))
+    size = w.untyped_storage().nbytes() // w.element_size()
+    if not lead:
+        if w.stride() == (1, kp) and w.storage_offset() + np_ * kp <= size:
+            return w.as_strided((kp, np_), (1, kp))
+        return _pad_to(w, (128, 128))
+    (e,) = lead
+    se = w.stride(0)
+    if (w.stride()[1:] == (1, kp) and (e == 1 or se >= np_ * kp)
+            and w.storage_offset() + (e - 1) * se + np_ * kp <= size):
+        return w.as_strided((e, kp, np_), (se, 1, kp))
+    return _pad_to(w, (1, 128, 128))
 
 
 def fp8_matmul(x_q: QuantizedTensor, w_q: QuantizedTensor,
@@ -110,8 +119,12 @@ def fp8_matmul(x_q: QuantizedTensor, w_q: QuantizedTensor,
     weights in 128x128 blocks, K-major as `quantize_weight` stores them
     (the kernel reads that storage in place, padding included).  K is
     padded to a 128 multiple in the activations; M needs no padding (the
-    kernel masks its edge rows).
+    kernel masks its edge rows).  A stacked (E, K, N) w_q (an MoE layer's
+    experts) takes x_q (E, ..., K) and runs the expert-batched kernel 3,
+    one launch for all E.
     """
+    if w_q.data.dim() == 3:
+        return _fp8_matmul_batched(x_q, w_q, out_dtype)
     xshape = x_q.data.shape
     k = xshape[-1]
     kw, n = w_q.data.shape
@@ -126,6 +139,27 @@ def fp8_matmul(x_q: QuantizedTensor, w_q: QuantizedTensor,
     y = fn(a, w, a_s, w_s, out_dtype)
     if n % 128:
         y = y[:, :n]
+    return y.reshape(xshape[:-1] + (n,))
+
+
+def _fp8_matmul_batched(x_q: QuantizedTensor, w_q: QuantizedTensor,
+                        out_dtype) -> torch.Tensor:
+    """`fp8_matmul` over E experts: x_q (E, ..., K) @ w_q (E, K, N) ->
+    (E, ..., N), one launch (the weights a view of the sync's storage)."""
+    e, kw, n = w_q.data.shape
+    xshape = x_q.data.shape
+    k = xshape[-1]
+    assert k == kw and xshape[0] == e, (xshape, w_q.data.shape)
+    a = x_q.data.reshape(e, -1, k)
+    if k % 128 or not a.is_contiguous():
+        a = _pad_to(a, (1, 1, 128)).contiguous()
+    a_s = x_q.scales.reshape(e, a.shape[1], -1).contiguous()
+    w = _gemm_weight(w_q.data)
+    w_s = w_q.scales.contiguous()
+    fn = _route(x_q.data, _gemm.fp8_gemm_batched, _gemm.fp8_gemm_batched_ref)
+    y = fn(a, w, a_s, w_s, out_dtype)
+    if n % 128:
+        y = y[..., :n]
     return y.reshape(xshape[:-1] + (n,))
 
 

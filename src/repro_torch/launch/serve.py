@@ -22,7 +22,8 @@ the paged decode and chunked-prefill kernels, except under `fp8`, where
 the attention takes the reference's default QDQ branch; an explicit
 `--kernel-config all` keeps the kernels (which skip the QDQ, as the
 reference's kernel branches do).  The report's `kernel_config` is the
-resolved one.
+resolved one.  `--arch` takes any name of the port's registry, the MoE
+models (qwen3-30b-a3b, granite-moe-3b-a800m, grok-1-314b) included.
 """
 from __future__ import annotations
 
@@ -73,7 +74,8 @@ PRECISIONS = {
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
-    ap.add_argument("--arch", default="qwen3-8b")
+    ap.add_argument("--arch", default="qwen3-8b",
+                    help="a name of repro_torch.configs.REGISTRY (dense or MoE)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--precision", choices=sorted(PRECISIONS), default="fp8")
     ap.add_argument("--requests", type=int, default=16)

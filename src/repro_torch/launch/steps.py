@@ -14,8 +14,8 @@ before any launch (the reference's XLA scatter drops it silently).
 
 `input_specs`, `cache_specs` and `param_specs` are the counterpart of the
 reference's `ShapeDtypeStruct` stand-ins: tensors on the "meta" device,
-with shapes and dtypes and no storage.  The port runs the dense text
-decoder only, so there are no frontend specs.  `make_train_step` and
+with shapes and dtypes and no storage.  The port runs dense and MoE text
+decoders, so there are no frontend specs.  `make_train_step` and
 `make_opt_specs` (the TRAIN_4K cell's step) are not ported yet; the RL
 trainer's update is `rl.RLTrainer.update_fn` (ROADMAP queue 1).
 """
@@ -27,7 +27,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core import fp8_params
-from repro_torch.core.precision import E4M3, PrecisionConfig
+from repro_torch.core.precision import E4M3, PrecisionConfig, RouterDtype
 from repro_torch.core.quant import QuantizedTensor
 from repro_torch.models.transformer import Transformer
 
@@ -65,23 +65,34 @@ def cache_specs(cfg: ArchConfig, shape: ShapeConfig,
 
 
 def param_specs(cfg: ArchConfig, precision: Optional[PrecisionConfig] = None) -> dict:
-    """Param shapes on meta; the quantized rollout tree (the leaves that
-    `core.fp8_params.quantize_params` quantizes: E4M3 payload, f32 scales
-    per 128x128 block) when `precision` quantizes the linears."""
+    """Param shapes on meta; with `precision`, the rollout tree that
+    `core.fp8_params.quantize_params` makes: the linears it quantizes
+    (E4M3 payload, f32 scales per 128x128 block) when `precision`
+    quantizes them, and an MoE router in the router dtype (E4M3 blocks
+    under the FP8 router)."""
     specs = Transformer(cfg, META).init_params(0)
-    if precision is None or not precision.quantize_linears:
+    if precision is None:
         return specs
 
-    def quantized(path, leaf):
-        if not fp8_params.default_quant_filter(path, leaf):
-            return leaf
+    def blocks(leaf):
         *lead, k, n = leaf.shape
         scales = torch.empty((*lead, -(-k // 128), -(-n // 128)), dtype=torch.float32,
                              device=META)
         return QuantizedTensor(torch.empty(leaf.shape, dtype=E4M3, device=META), scales,
                                (1,) * len(lead) + (128, 128))
 
-    return fp8_params._map_with_path(quantized, specs)
+    def rollout(path, leaf):
+        if "router" in path:
+            if precision.router_dtype == RouterDtype.FP8:
+                return blocks(leaf)
+            dtype = torch.float32 if precision.router_dtype == RouterDtype.FP32 \
+                else torch.bfloat16
+            return torch.empty(leaf.shape, dtype=dtype, device=META)
+        if precision.quantize_linears and fp8_params.default_quant_filter(path, leaf):
+            return blocks(leaf)
+        return leaf
+
+    return fp8_params._map_with_path(rollout, specs)
 
 
 def make_prefill_step(cfg: ArchConfig, shape: ShapeConfig,

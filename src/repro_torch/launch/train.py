@@ -13,8 +13,11 @@ reference's `fp8` (FULL_FP8_ROLLOUT: the rollout's attention math QDQ'd
 too); `e2e-fp8` (E2E_FP8) trains exactly as `fp8` does, because the
 scoring pass takes no precision, as in the reference; `default`, a
 port-only spelling, is `PrecisionConfig()`.  `--rrr` (rollout router
-replay, MoE) raises (ROADMAP queue 1).  `--fp8-moments` (port-only) keeps
-AdamW's moments in fp8, as a full-width model on one card needs.
+replay) records an MoE model's routing in the rollout; as in the
+reference, the update does not replay it.  `--arch` takes any name of the
+port's registry, the MoE models (qwen3-30b-a3b, granite-moe-3b-a800m,
+grok-1-314b) included.  `--fp8-moments` (port-only) keeps AdamW's moments
+in fp8, as a full-width model on one card needs.
 """
 from __future__ import annotations
 
@@ -73,7 +76,8 @@ def build_trainer(args, metrics_sink=None) -> RLTrainer:
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
-    ap.add_argument("--arch", default="qwen3-8b")
+    ap.add_argument("--arch", default="qwen3-8b",
+                    help="a name of repro_torch.configs.REGISTRY (dense or MoE)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--layers", type=int, default=2)
     ap.add_argument("--d-model", type=int, default=128)

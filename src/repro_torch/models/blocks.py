@@ -2,9 +2,9 @@
 
 A model is `n_layers = R * len(pattern)` layers; params and caches are
 stacked over the R repeats, as in the reference, and the port walks them
-with a Python loop where the reference scans.  Only the attention + MLP
-slot (the dense decoder) is ported; SSM, MoE and cross-attention slots
-raise.
+with a Python loop where the reference scans.  Attention slots with an
+MLP (the dense decoder) or an MoE layer are ported; SSM and
+cross-attention slots raise.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ from typing import Optional, Tuple
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import rms_norm
 
 
@@ -55,31 +56,41 @@ def n_repeats(cfg, decoder: bool = True) -> int:
 
 
 def check_supported(spec: SlotSpec) -> None:
-    """The port runs attention + MLP slots only (ROADMAP queue 1)."""
-    if spec.mixer != "attn" or spec.ffn != "mlp" or spec.cross:
+    """The port runs attention slots with an MLP or an MoE layer
+    (ROADMAP queue 1)."""
+    if spec.mixer != "attn" or spec.ffn not in ("mlp", "moe") or spec.cross:
         raise NotImplementedError(
-            f"slot {spec} is not ported yet: SSM, MoE and cross-attention "
+            f"slot {spec} is not ported yet: SSM and cross-attention "
             "wait for the model-breadth item of ROADMAP queue 1")
 
 
-def _mlp(x, slot_params, cfg, precision):
+def _ffn(x, slot_params, spec: SlotSpec, cfg, precision, forced_topk=None):
+    """The slot's MLP or MoE layer on its pre-norm input, residual added:
+    (x, aux), aux the MoE layer's (`moe.moe_forward`) or empty."""
+    if spec.ffn == "moe":
+        p = slot_params["moe"]
+        h, aux = moe_mod.moe_forward(rms_norm(x, p["norm_scale"], cfg.norm_eps), p, cfg,
+                                     precision, forced_topk_idx=forced_topk)
+        return x + h, aux
     p = slot_params["mlp"]
     return x + mlp_mod.mlp_forward(rms_norm(x, p["norm_scale"], cfg.norm_eps),
-                                   p, cfg, precision)
+                                   p, cfg, precision), {}
 
 
 def apply_slot_full(x, slot_params, spec: SlotSpec, cfg, precision, *,
                     kv_cache=None, positions=None, lengths=None, mask=None,
                     block_tables=None, chunk_start=None,
                     use_kernel: bool = False,
-                    live_blocks: Optional[int] = None):
+                    live_blocks: Optional[int] = None, forced_topk=None):
     """Full-sequence branch of the reference's `apply_slot_full`, then the
-    MLP.  Without `kv_cache` (training / scoring): cache-free attention
+    MLP or MoE layer (`forced_topk` (B, T, K) replays an MoE routing).
+    Without `kv_cache` (training / scoring): cache-free attention
     under `mask` (`attention.attention_forward`).  With a cache: prefill
     attention over the prompt, writing the cache (a contiguous `KVCache`,
     or a pool through `block_tables`) — or, with `chunk_start`, over one
     chunk of it at [chunk_start, chunk_start + C) of a pool (`use_kernel`
-    and `live_blocks` as in `attention_prefill_chunk`)."""
+    and `live_blocks` as in `attention_prefill_chunk`).  Returns (x, aux),
+    aux the MoE layer's or empty."""
     p = slot_params["attn"]
     xn = rms_norm(x, p["norm_scale"], cfg.norm_eps)
     if kv_cache is None:
@@ -95,22 +106,22 @@ def apply_slot_full(x, slot_params, spec: SlotSpec, cfg, precision, *,
         h = attn_mod.attention_prefill(
             xn, p, cfg, kv_cache, precision, lengths=lengths,
             positions=positions, block_tables=block_tables)
-    return _mlp(x + h, slot_params, cfg, precision)
+    return _ffn(x + h, slot_params, spec, cfg, precision, forced_topk)
 
 
 def apply_slot_decode(x, slot_params, spec: SlotSpec, cfg, precision, *,
                       kv_cache, lengths, block_tables=None,
                       use_kernel: Optional[bool] = None,
-                      live_blocks: Optional[int] = None):
+                      live_blocks: Optional[int] = None, forced_topk=None):
     """One-token decode through the slot: attention through kernel 6 (a
     contiguous `KVCache`, no `block_tables`) or kernel 4 (a pool), or with
     `use_kernel` off through the reference's full-cache path or the gather
     of `live_blocks` table entries (None: `attention.attention_decode`'s
-    default); then the MLP."""
+    default); then the MLP or MoE layer.  Returns (x, aux)."""
     p = slot_params["attn"]
     xn = rms_norm(x, p["norm_scale"], cfg.norm_eps)
     x = x + attn_mod.attention_decode(xn, p, cfg, kv_cache, lengths,
                                       precision, block_tables=block_tables,
                                       use_kernel=use_kernel,
                                       live_blocks=live_blocks)
-    return _mlp(x, slot_params, cfg, precision)
+    return _ffn(x, slot_params, spec, cfg, precision, forced_topk)

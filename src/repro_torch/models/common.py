@@ -58,6 +58,8 @@ def dense_init(generator: torch.Generator, shape, in_axis_size: Optional[int] = 
     fan_in = in_axis_size if in_axis_size is not None else shape[-2]
     std = fan_in ** -0.5
     out = torch.empty(shape, dtype=dtype, device=device)
+    if out.is_meta:             # shapes only: nothing to draw
+        return out
     flat = out.view(-1, *shape[-2:]) if len(shape) > 2 else out[None]
     for i in range(flat.shape[0]):
         flat[i] = torch.randn(shape[-2:], generator=generator, device=device) * std

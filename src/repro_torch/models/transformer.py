@@ -1,5 +1,5 @@
-"""Model assembly: init / cache / prefill / decode for the dense decoder
-(port of `repro.models.transformer`, rollout half).
+"""Model assembly: init / cache / prefill / decode for the dense and MoE
+decoders (port of `repro.models.transformer`).
 
 `Transformer` holds the configuration and the device; the parameters are
 a nested dict with the reference's key names and layer-stacked leaves
@@ -15,6 +15,11 @@ serving`).  On the "meta" device the model builds shapes only
 (`launch.steps` specs).  `forward_train` / `token_logprobs` are the
 trainer's differentiable teacher-forced pass (no cache, each layer
 recomputed in the backward as the reference's `jax.checkpoint` does).
+With MoE layers, `prefill`, `prefill_chunk`, `decode_step` and
+`forward_train` return the routing on request (`want_routing`: each MoE
+slot's top-k expert indices stacked over the R repeats, as the
+reference's scan stacks them) and `forward_train` takes a routing to
+replay (`forced_routing`).
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from repro_torch.core.precision import PrecisionConfig
 from repro_torch.core.quant import QuantizedTensor
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as blocks_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import dense_init, embed_init, pad_rows, rms_norm
 
 
@@ -43,8 +49,20 @@ def _layer(tree, r: int):
     return tree[r]
 
 
+def _set(tree: dict, path: tuple, leaf) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = leaf
+
+
+def _stack_routing(per_layer: dict) -> dict:
+    """{slot: [R x (B, T, K)]} -> {slot: (R, B, T, K)}."""
+    return {name: torch.stack(idx) for name, idx in per_layer.items()}
+
+
 class Transformer(nn.Module):
-    """Dense decoder-only transformer on one device (CUDA by default)."""
+    """Dense or MoE decoder-only transformer on one device (CUDA by
+    default)."""
 
     def __init__(self, cfg, device=None, dtype=torch.bfloat16):
         super().__init__()
@@ -66,6 +84,16 @@ class Transformer(nn.Module):
         ones for norm scales).  They cannot equal the reference's
         `jax.random` draws: tests bridge the reference's params instead.
         A "meta" model returns the shapes and dtypes only."""
+        params = {}
+        for path, leaf in self.iter_params(seed):
+            _set(params, path, leaf)
+        return params
+
+    def iter_params(self, seed: int = 0):
+        """`init_params(seed)`'s leaves as (key path, leaf), drawn one at a
+        time in the same order: a caller can quantize and drop each bf16
+        leaf before the next exists (a full-width MoE model's bf16 tree
+        and its rollout copy do not fit one card together)."""
         cfg, r, dt, dev = self.cfg, self.repeats, self.dtype, self.device
         gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
         gen.manual_seed(seed)
@@ -75,33 +103,34 @@ class Transformer(nn.Module):
         def ones(*shape):
             return torch.ones(shape, dtype=dt, device=dev)
 
-        def dense(shape, fan_in):
-            return dense_init(gen, shape, fan_in, dt, dev)
+        def dense(shape, fan_in, dtype=None):
+            return dense_init(gen, shape, fan_in, dtype or dt, dev)
 
-        params = {"emb": embed_init(gen, (cfg.vocab_size, d), dt, dev)}
-        blocks = {}
-        for j, _ in enumerate(self.pattern):
-            attn = {
-                "wq": dense((r, d, h * dh), d),
-                "wk": dense((r, d, kvh * dh), d),
-                "wv": dense((r, d, kvh * dh), d),
-                "wo": dense((r, h * dh, d), h * dh),
-                "norm_scale": ones(r, d),
-            }
+        yield ("emb",), embed_init(gen, (cfg.vocab_size, d), dt, dev)
+        for j, spec in enumerate(self.pattern):
+            attn = ("blocks", f"s{j}", "attn")
+            yield attn + ("wq",), dense((r, d, h * dh), d)
+            yield attn + ("wk",), dense((r, d, kvh * dh), d)
+            yield attn + ("wv",), dense((r, d, kvh * dh), d)
+            yield attn + ("wo",), dense((r, h * dh, d), h * dh)
+            yield attn + ("norm_scale",), ones(r, d)
             if cfg.qk_norm:
-                attn["q_norm_scale"] = ones(r, dh)
-                attn["k_norm_scale"] = ones(r, dh)
-            mlp = {"wg": dense((r, d, f), d),
-                   "wd": dense((r, f, d), f),
-                   "norm_scale": ones(r, d)}
+                yield attn + ("q_norm_scale",), ones(r, dh)
+                yield attn + ("k_norm_scale",), ones(r, dh)
+            if spec.ffn == "moe":
+                for name, leaf in moe_mod.init_moe_params(dense, ones, cfg, r):
+                    yield ("blocks", f"s{j}", "moe", name), leaf
+                    del leaf    # held here, it would outlive the caller's copy
+                continue
+            mlp = ("blocks", f"s{j}", "mlp")
+            yield mlp + ("wg",), dense((r, d, f), d)
+            yield mlp + ("wd",), dense((r, f, d), f)
+            yield mlp + ("norm_scale",), ones(r, d)
             if cfg.mlp_gated:
-                mlp["wu"] = dense((r, d, f), d)
-            blocks[f"s{j}"] = {"attn": attn, "mlp": mlp}
-        params["blocks"] = blocks
-        params["final_norm_scale"] = ones(d)
+                yield mlp + ("wu",), dense((r, d, f), d)
+        yield ("final_norm_scale",), ones(d)
         if not cfg.tie_embeddings:
-            params["lm_head"] = dense((d, cfg.vocab_size), d)
-        return params
+            yield ("lm_head",), dense((d, cfg.vocab_size), d)
 
     def init_cache(self, batch: int, max_len: int, precision: PrecisionConfig,
                    *, page_size: Optional[int] = None,
@@ -163,17 +192,18 @@ class Transformer(nn.Module):
             slot_params = _layer(params["blocks"], r)
             for j, spec in enumerate(self.pattern):
                 name = f"s{j}"
-                yield spec, slot_params[name], cache["slots"][name]["kv"].layer(r)
+                yield name, spec, slot_params[name], cache["slots"][name]["kv"].layer(r)
 
     # ------------------------------------------------------------------
     # prefill / decode
     # ------------------------------------------------------------------
 
     def prefill(self, params, inputs: dict, cache: dict,
-                precision: PrecisionConfig):
+                precision: PrecisionConfig, *, want_routing: bool = False):
         """Process right-padded prompts `inputs["tokens"]` (B, T) with
         lengths `inputs["lengths"]` (B,), fill the cache, return the logits
-        at each last valid position (B, V) f32 and the cache.  A contiguous
+        at each last valid position (B, V) f32 and the cache — and with
+        `want_routing` the routing, {MoE slot: (R, B, T, K)}.  A contiguous
         cache takes T <= S_max and records max(lengths) on the host (one
         device sync when the lengths are a CUDA tensor)."""
         tokens = inputs["tokens"].to(self.device)
@@ -186,21 +216,27 @@ class Transformer(nn.Module):
                 raise ValueError(f"prompts of {t} positions exceed the cache's {s_max}")
         x = params["emb"][tokens.long()]
         positions = torch.arange(t, device=self.device)[None, :]
-        for spec, p, kv in self._layers(params, cache):
-            x = blocks_mod.apply_slot_full(
+        routing = {}
+        for name, spec, p, kv in self._layers(params, cache):
+            x, aux = blocks_mod.apply_slot_full(
                 x, p, spec, self.cfg, precision, kv_cache=kv,
                 positions=positions, lengths=lengths,
                 block_tables=cache.get("block_tables"))
+            if aux:
+                routing.setdefault(name, []).append(aux["topk_idx"])
         cache["lengths"] = lengths
         if contiguous:
             cache["max_length"] = int(inputs["lengths"].max()) if b else 0
         idx = torch.clamp(lengths.long() - 1, 0, t - 1)
         x_last = x[torch.arange(b, device=self.device), idx]
-        return self._unembed(params, x_last, precision), cache
+        logits = self._unembed(params, x_last, precision)
+        if want_routing:
+            return logits, cache, _stack_routing(routing)
+        return logits, cache
 
     def prefill_chunk(self, params, tokens, start, chunk_lengths, cache: dict,
                       precision: PrecisionConfig, *, use_kernel: bool = False,
-                      want_all_logits: bool = False):
+                      want_all_logits: bool = False, want_routing: bool = False):
         """One chunk of prompt tokens (B, C) of a *paged* cache: write the
         chunk's K/V at [start, start + chunk_lengths) and attend each
         position over everything reachable so far — through kernel 5 with
@@ -209,7 +245,8 @@ class Transformer(nn.Module):
         no device sync).  Returns the logits at each row's last valid
         position (B, V) f32 — or at every chunk position (B, C, V) with
         `want_all_logits` (the speculative verifier) — and the cache, whose
-        "lengths" become start + chunk_lengths."""
+        "lengths" become start + chunk_lengths; with `want_routing` also
+        the chunk's routing, {MoE slot: (R, B, C, K)}."""
         tokens = torch.as_tensor(tokens, device=self.device)
         b, c = tokens.shape
         start_h = np.asarray(start, np.int64).reshape(b)
@@ -222,24 +259,32 @@ class Transformer(nn.Module):
         start_t = torch.as_tensor(start_h, dtype=torch.int32, device=self.device)
         lengths_t = torch.as_tensor(new_h, dtype=torch.int32, device=self.device)
         x = params["emb"][tokens.long()]
-        for spec, p, kv in self._layers(params, cache):
-            x = blocks_mod.apply_slot_full(
+        routing = {}
+        for name, spec, p, kv in self._layers(params, cache):
+            x, aux = blocks_mod.apply_slot_full(
                 x, p, spec, self.cfg, precision, kv_cache=kv,
                 lengths=lengths_t, block_tables=tables, chunk_start=start_t,
                 use_kernel=use_kernel, live_blocks=live)
+            if aux:
+                routing.setdefault(name, []).append(aux["topk_idx"])
         cache["lengths"] = lengths_t
-        if want_all_logits:
-            return self._unembed(params, x, precision), cache
-        idx = np.clip(n_h - 1, 0, c - 1)
-        x_last = x[torch.arange(b, device=self.device),
-                   torch.as_tensor(idx, device=self.device)]
-        return self._unembed(params, x_last, precision), cache
+        if not want_all_logits:
+            idx = np.clip(n_h - 1, 0, c - 1)
+            x = x[torch.arange(b, device=self.device),
+                  torch.as_tensor(idx, device=self.device)]
+        logits = self._unembed(params, x, precision)
+        if want_routing:
+            return logits, cache, _stack_routing(routing)
+        return logits, cache
 
     def decode_step(self, params, tokens: torch.Tensor, cache: dict,
                     precision: PrecisionConfig, *,
                     use_kernel: Optional[bool] = None,
-                    live_blocks: Optional[int] = None):
-        """One autoregressive step on (B,) tokens -> (logits (B, V), cache).
+                    live_blocks: Optional[int] = None,
+                    want_routing: bool = False):
+        """One autoregressive step on (B,) tokens -> (logits (B, V), cache),
+        and with `want_routing` the reference's aux, {"routing": {MoE slot:
+        (R, B, 1, K)}}, third.
         A contiguous cache attends through kernel 6, or with
         `use_kernel=False` through the reference's full-S_max path (the
         default None takes the kernel, except under `quantize_attention`:
@@ -258,15 +303,21 @@ class Transformer(nn.Module):
                 f" and the cache holds {self._max_len(cache)} positions")
         lengths = cache["lengths"]
         x = params["emb"][tokens.to(self.device).long()][:, None, :]
-        for spec, p, kv in self._layers(params, cache):
-            x = blocks_mod.apply_slot_decode(
+        routing = {}
+        for name, spec, p, kv in self._layers(params, cache):
+            x, aux = blocks_mod.apply_slot_decode(
                 x, p, spec, self.cfg, precision, kv_cache=kv,
                 lengths=lengths, block_tables=cache.get("block_tables"),
                 use_kernel=use_kernel, live_blocks=live_blocks)
+            if aux:
+                routing.setdefault(name, []).append(aux["topk_idx"])
         cache["lengths"] = lengths + 1
         if contiguous:
             cache["max_length"] += 1
-        return self._unembed(params, x[:, 0], precision), cache
+        logits = self._unembed(params, x[:, 0], precision)
+        if want_routing:
+            return logits, cache, {"routing": _stack_routing(routing)}
+        return logits, cache
 
 
 # ---------------------------------------------------------------------------
@@ -296,14 +347,20 @@ def _train_mask(t: int, lengths, device) -> torch.Tensor:
 
 
 def forward_train(params: dict, inputs: dict, cfg,
-                  precision: Optional[PrecisionConfig] = None):
+                  precision: Optional[PrecisionConfig] = None, *,
+                  forced_routing: Optional[dict] = None,
+                  want_routing: bool = False):
     """Full teacher-forced forward over `inputs["tokens"]` (B, T), keys
     masked causally and past `inputs["lengths"]` when given.  Returns
-    (logits (B, T, V) f32, aux); aux has the reference's keys ("moe" is
-    empty: the port's models are dense).  Runs on the params' device.
-    While autograd records, each layer runs under
-    `torch.utils.checkpoint` and is recomputed in the backward (the
-    reference's `jax.checkpoint`)."""
+    (logits (B, T, V) f32, aux); aux has the reference's keys: "moe",
+    {MoE slot: {"router_entropy", "dropped_frac", "aux_loss",
+    "router_logits_amax"}, each (R,) over the repeats} (empty for a
+    dense model), and with `want_routing` "routing", {MoE slot: (R, B,
+    T, K)}.  `forced_routing` ({MoE slot: (R, B, T, K)}) replays a
+    routing (RRR).  Runs on the params' device.  While autograd records,
+    each layer runs under `torch.utils.checkpoint` and is recomputed in
+    the backward (the reference's `jax.checkpoint`); the MoE layer's ops
+    are deterministic, so the recompute routes as the forward did."""
     model = Transformer(cfg, params["emb"].device)
     dev = model.device
     tokens = inputs["tokens"].to(dev).long()
@@ -312,27 +369,45 @@ def forward_train(params: dict, inputs: dict, cfg,
     mask = _train_mask(t, lengths, dev)
     positions = torch.arange(t, device=dev)[None, :]
 
-    def body(h, slot_params):
+    def body(h, slot_params, forced):
+        auxes = {}
         for j, spec in enumerate(model.pattern):
-            h = blocks_mod.apply_slot_full(
-                h, slot_params[f"s{j}"], spec, cfg, precision,
-                positions=positions, mask=mask, lengths=lengths)
-        return h
+            name = f"s{j}"
+            h, aux = blocks_mod.apply_slot_full(
+                h, slot_params[name], spec, cfg, precision,
+                positions=positions, mask=mask, lengths=lengths,
+                forced_topk=forced.get(name) if forced else None)
+            if aux:
+                auxes[name] = aux
+        return h, auxes
 
     x = params["emb"][tokens]
     remat = torch.is_grad_enabled()
-    for slot_params in _unbind_layers(params["blocks"], model.repeats):
-        x = checkpoint(body, x, slot_params, use_reentrant=False) if remat \
-            else body(x, slot_params)
-    return model._unembed(params, x, precision), {"moe": {}}
+    per_layer = []
+    for r, slot_params in enumerate(_unbind_layers(params["blocks"], model.repeats)):
+        forced = None if forced_routing is None else \
+            {name: idx[r] for name, idx in forced_routing.items()}
+        x, auxes = checkpoint(body, x, slot_params, forced, use_reentrant=False) \
+            if remat else body(x, slot_params, forced)
+        per_layer.append(auxes)
+    moe, routing = {}, {}
+    for name in per_layer[0] if per_layer else ():
+        stacked = {k: torch.stack([a[name][k] for a in per_layer]) for k in per_layer[0][name]}
+        routing[name] = stacked.pop("topk_idx")
+        moe[name] = stacked
+    aux = {"moe": moe}
+    if want_routing:
+        aux["routing"] = routing
+    return model._unembed(params, x, precision), aux
 
 
 def token_logprobs(params: dict, inputs: dict, cfg,
-                   precision: Optional[PrecisionConfig] = None):
+                   precision: Optional[PrecisionConfig] = None, **kw):
     """log p(token_t | tokens_<t) for t >= 1, (B, T-1) f32 — the
     trainer-side scoring pass behind the TIS ratios and the mismatch KL
-    (paper §2.1.3).  Returns (logprobs, aux)."""
-    logits, aux = forward_train(params, inputs, cfg, precision)
+    (paper §2.1.3).  Returns (logprobs, aux); `kw` goes to
+    `forward_train` (`forced_routing`, `want_routing`)."""
+    logits, aux = forward_train(params, inputs, cfg, precision, **kw)
     tokens = inputs["tokens"].to(logits.device).long()
     logp = torch.log_softmax(logits[:, :-1], dim=-1)
     return torch.gather(logp, -1, tokens[:, 1:, None])[..., 0], aux

@@ -9,7 +9,10 @@ steps, and returns per-token rollout logprobs (the pi^FP8 side of TIS).
 GRPO group sampling (`num_samples_per_prompt` > 1) prefills each prompt
 once and forks per-sample block tables over the shared KV blocks,
 copying the partially filled boundary block before the first divergent
-append (copy-on-write), as the reference does.  The scoring helpers (`packed_sequences`,
+append (copy-on-write), as the reference does.  With `want_routing` an
+MoE model's routing is recorded for rollout router replay: the prefill's
+per prompt and every decode step's per sample, as the reference records
+them.  The scoring helpers (`packed_sequences`,
 `gather_response_logps`) align a trajectory with the trainer's
 teacher-forced pass.
 """
@@ -25,6 +28,7 @@ from repro_torch.core.precision import PrecisionConfig
 from repro_torch.core.sampling import sample as _sample
 from repro_torch.data import tasks
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import blocks as blocks_mod
 from repro_torch.models.transformer import Transformer
 from repro_torch.rl.calibration import apply_kv_scales
 
@@ -38,7 +42,7 @@ class Trajectory(NamedTuple):
     response_mask: torch.Tensor     # (B, G) 1.0 through EOS inclusive
     rollout_logps: torch.Tensor     # (B, G) log pi^FP8 of sampled tokens
     response_lengths: torch.Tensor  # (B,)
-    routing: Optional[dict]         # MoE routing replay: not ported (None)
+    routing: Optional[dict]         # MoE routing (want_routing), else None
     kv_scales: Optional[dict]       # per-slot (R,) k/v scales after calibration
 
 
@@ -58,7 +62,7 @@ def generate(rollout_params: dict, prompts, prompt_lengths,
              kv_scales: Optional[dict] = None, page_size: int = 8,
              num_samples_per_prompt: int = 1,
              shared_prefix_blocks: Optional[int] = None,
-             device=None) -> Trajectory:
+             want_routing: bool = False, device=None) -> Trajectory:
     """Sample `num_samples_per_prompt` responses per right-padded prompt.
 
     Runs on `device` (CUDA when not given; without CUDA that raises).
@@ -69,6 +73,11 @@ def generate(rollout_params: dict, prompts, prompt_lengths,
     read-only; that bound must not exceed min(prompt_lengths) //
     page_size (the default None shares nothing).  Rows come back grouped:
     sample s of prompt i is row i * num_samples_per_prompt + s.
+
+    With `want_routing` and MoE layers, `routing` is {"prefill": {slot:
+    (R, B, P, K)} — per prompt, the prefill is shared by a group —,
+    "decode": {slot: (G, R, B * group, 1, K)}}, int32, the rows of steps
+    not run (every sequence done) zero, as the reference's buffer.
     """
     device = resolve_device(device)
     model = Transformer(cfg, device)
@@ -90,9 +99,17 @@ def generate(rollout_params: dict, prompts, prompt_lengths,
         cache["block_tables"] = _prefill_tables(b, group, w, fp, priv, device)
     if kv_scales is not None:
         apply_kv_scales(cache, kv_scales)
-    logits0, cache = model.prefill(
+    moe_slots = [f"s{j}" for j, s in enumerate(model.pattern) if s.ffn == "moe"]
+    want_routing = want_routing and bool(moe_slots)
+    out = model.prefill(
         rollout_params, {"tokens": prompts, "lengths": prompt_lengths}, cache,
-        precision)
+        precision, want_routing=want_routing)
+    logits0, cache = out[:2]
+    routing = None
+    if want_routing:
+        routing = {"prefill": out[2], "decode": {
+            name: torch.zeros((g, model.repeats, n, 1, cfg.top_k), dtype=torch.int32,
+                              device=device) for name in moe_slots}}
 
     if group > 1:
         cache = _fork_group(cache, b, group, p, page_size, fp, priv, w)
@@ -117,7 +134,12 @@ def generate(rollout_params: dict, prompts, prompt_lengths,
         logps[:, i] = torch.where(done, 0.0, logp)
         mask[:, i] = torch.where(done, 0.0, 1.0)
         done = done | (tok == sampler.eos_id)
-        logits, cache = model.decode_step(rollout_params, tok, cache, precision)
+        out = model.decode_step(rollout_params, tok, cache, precision,
+                                want_routing=want_routing)
+        logits, cache = out[:2]
+        if want_routing:
+            for name, idx in out[2]["routing"].items():
+                routing["decode"][name][i] = idx
         tok, logp = _sample(logits, generator, sampler.temperature,
                             sampler.top_k)
 
@@ -128,7 +150,7 @@ def generate(rollout_params: dict, prompts, prompt_lengths,
         response_mask=mask,
         rollout_logps=logps,
         response_lengths=mask.sum(dim=1).to(torch.int32),
-        routing=None,
+        routing=routing,
         kv_scales=_collect_kv_scales(cache),
     )
 

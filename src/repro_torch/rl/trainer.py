@@ -32,8 +32,12 @@ Precision, as in the reference: the rollout runs under `rl.precision`
 the fleet's engines take the plain attention branch, see
 `kernels.config.KernelConfig.resolve`); the scoring pass takes no
 precision, so the backward is bf16 and `fp8_training` (E2E_FP8) reaches
-no linear here: an E2E_FP8 step equals a FULL_FP8_ROLLOUT step.  MoE aux
-loss and rollout router replay are not ported and raise.
+no linear here: an E2E_FP8 step equals a FULL_FP8_ROLLOUT step.  An MoE
+model adds `moe_aux_coef` x the MoE layers' load-balancing losses to the
+loss (stat `moe_aux_loss`).  Under `rollout_router_replay` the batch
+rollout records the routing (`Trajectory.routing`) and, as in the
+reference, the update does not replay it: the scoring pass routes on its
+own (the fleet backend records none).
 """
 from __future__ import annotations
 
@@ -85,6 +89,7 @@ class RLConfig:
     seed: int = 0
     optimizer: AdamWConfig = AdamWConfig(lr=3e-4, b2=0.98, grad_clip=1.0)
     loss: LossConfig = LossConfig()
+    moe_aux_coef: float = 1e-2
     dynamic_sampling: bool = True
     overlong_shaping: bool = False
     calibration: str = "inference"       # "inference" | "trainer"
@@ -113,9 +118,6 @@ def check_supported(rl: RLConfig) -> None:
         raise ValueError(f"fleet_replicas {rl.fleet_replicas} < 1")
     if rl.calibration not in ("inference", "trainer"):
         raise ValueError(f"calibration {rl.calibration!r}")
-    if rl.precision.rollout_router_replay:
-        raise NotImplementedError(
-            "rollout router replay (MoE) is not ported yet: ROADMAP queue 1 item 5")
 
 
 def _fill(like, it):
@@ -135,7 +137,7 @@ def _clock(device) -> float:
 class RLTrainer:
     def __init__(self, cfg, rl: RLConfig, params=None, metrics_sink=None,
                  device=None):
-        """cfg: a decoder-only dense ArchConfig.  Runs on `device` (CUDA
+        """cfg: a decoder-only dense or MoE ArchConfig.  Runs on `device` (CUDA
         when not given; without CUDA that raises); `params`, if given,
         must live there.  metrics_sink: an object with a ``write(dict)``
         method; every `train_step()` writes its metrics there."""
@@ -173,10 +175,10 @@ class RLTrainer:
 
     def _loss(self, params, batch):
         rl = self.rl
-        logp_all, _ = _score_logprobs(
+        logp_all, aux = _score_logprobs(
             params, {"tokens": batch["packed_tokens"]}, self.cfg)
         resp_logps = _gather(logp_all, batch)
-        return dapo_token_loss(
+        loss, stats = dapo_token_loss(
             logp_theta=resp_logps,
             logp_old=resp_logps.detach(),
             logp_rollout=batch["rollout_logps"],
@@ -188,6 +190,11 @@ class RLTrainer:
             token_versions=batch["token_versions"] if self.versioned else None,
             num_versions=_VERSION_SLOTS if self.versioned else 1,
         )
+        if aux["moe"]:
+            aux_loss = sum(v["aux_loss"].mean() for v in aux["moe"].values())
+            loss = loss + rl.moe_aux_coef * aux_loss
+            stats["moe_aux_loss"] = aux_loss
+        return loss, stats
 
     @torch.no_grad()
     def batch_loss(self, params, batch):
@@ -243,6 +250,7 @@ class RLTrainer:
                 kv_scales=self.kv_scales, page_size=page_size,
                 num_samples_per_prompt=rl.n_per_prompt,
                 shared_prefix_blocks=int(np.min(batch.lengths)) // page_size,
+                want_routing=rl.precision.rollout_router_replay,
                 device=self.device)
             del rollout_params
             rollout_s = _clock(self.device) - t_roll

@@ -40,7 +40,7 @@ def sync_policy_weights(train_params: dict, precision: PrecisionConfig
     """BF16 train params -> rollout params.  Returns (params, stats); the
     stats' `sync_ms` is host time up to a device synchronize."""
     t0 = time.perf_counter()
-    if not precision.any_fp8_rollout:
+    if not precision.any_fp8_rollout and precision.router_dtype.value == "bf16":
         return train_params, {"sync_ms": 0.0, "quantized_leaves": 0}
     rollout_params = quantize_params(train_params, precision)
     leaf = _first_leaf(train_params)

@@ -1,5 +1,6 @@
 """Serving engine: the execution mechanism over a paged FP8/BF16 KV pool
-(port of `repro.serving.engine`, the dense attention-only path).
+(port of `repro.serving.engine`, the attention-only path: dense and MoE
+decoders).
 
 Every admission / eviction / growth / chunking decision lives in the
 ported `Scheduler`; the engine runs the device work of each planned step,
@@ -101,7 +102,8 @@ def kv_bytes_per_token(cfg, precision: PrecisionConfig) -> int:
 
 def request_state_bytes(cfg, precision: PrecisionConfig) -> int:
     """Constant per-request slot-state bytes beyond the paged KV blocks:
-    0 for the attention-only patterns the port serves.  SSM state and
+    0 for the attention-only patterns the port serves (dense and MoE
+    decoders: routing carries no state between steps).  SSM state and
     cross-attention KV are not ported; their patterns raise."""
     for spec in blocks_mod.layer_pattern(cfg):
         blocks_mod.check_supported(spec)
@@ -204,7 +206,7 @@ class ServingEngine:
         if cfg.frontend is not None:
             raise NotImplementedError(
                 "multimodal prefixes are not ported yet: ROADMAP queue 1")
-        # raises for SSM, MoE and cross-attention layer patterns
+        # raises for SSM and cross-attention layer patterns
         self.model = Transformer(cfg, resolve_device(device))
         self.device = self.model.device
         self.kernels = KernelConfig.resolve(kernel_config, precision)

@@ -47,7 +47,13 @@ quantized operands bit-equal), kernels 4, 5 and 6 at the (KVH, G, D) of
 stablelm-3b (G 1, D 80), llama3.2-3b (G 3) and starcoder2-15b (G 12), a
 FULL_FP8_ROLLOUT decode step that launches no kernel 4 (and, asked for
 the kernel, equals the `PrecisionConfig()` step), and a dropped engine
-that returns its device memory with the collector off.
+that returns its device memory with the collector off.  MoE: the
+expert-batched kernel 3 bit-equal per expert to the 2-D kernel and within
+one bf16 rounding of its plain version (E 4-8, odd M, a layer view of the
+sync's storage, no copy), `_dot`'s batched GEMM and its backward, the
+stable top-k on planted ties, a reduced granite-moe decode step and chunk
+on the card against the CPU (with the launches per MoE layer), and the
+FP8 router's sync at N 40.
 """
 import pytest
 
@@ -1033,3 +1039,154 @@ def test_dropped_engine_frees_device_memory_on_card(cuda):
         assert torch.cuda.memory_allocated(cuda) == before
     finally:
         gc.enable()
+
+
+# ---------------------------------------------------------------------------
+# MoE: the expert-batched kernel 3, the stable top-k, an MoE model on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("e,m,k,n", [(4, 9, 256, 384), (8, 1, 128, 256), (5, 33, 512, 128),
+                                     (6, 130, 256, 256), (4, 8, 768, 2048)])
+def test_batched_gemm_bit_equal_per_expert_on_card(cuda, e, m, k, n, monkeypatch):
+    """The expert-batched kernel 3 on a layer of a stacked (L, E, K, N)
+    weight: expert e's rows bit-equal to the 2-D kernel on expert e alone,
+    within one bf16 rounding of the plain version, and `ops.fp8_matmul`
+    hands the launch the sync's storage (no copy)."""
+    gen = torch.Generator(device=cuda).manual_seed(e * m + k + n)
+    w = (torch.randn((2, e, k, n), generator=gen, device=cuda) * k ** -0.5).to(torch.bfloat16)
+    w_q = ops.quantize_weight(w).layer(1)
+    x = torch.randn((e, m, k), generator=gen, device=cuda).to(torch.bfloat16)
+    x_q = ops.quantize_activation(x)
+    seen = []
+    launch = build.launch
+
+    def spy(kernel, entry, device, *args):
+        if kernel == "fp8_gemm_batched":
+            seen.append(args[1])
+        return launch(kernel, entry, device, *args)
+    monkeypatch.setattr(build, "launch", spy)
+    y = ops.fp8_matmul(x_q, w_q)
+    torch.cuda.synchronize()
+    assert seen == [w_q.data.data_ptr()] and y.shape == (e, m, n)
+    for i in range(e):
+        one = ops._gemm.fp8_gemm(x_q.data[i].contiguous(), w_q.data[i],
+                                 x_q.scales[i].contiguous(), w_q.scales[i])
+        assert torch.equal(y[i].view(torch.int16), one.view(torch.int16)), i
+    yp = ops._gemm.fp8_gemm_batched_ref(x_q.data, w_q.data, x_q.scales, w_q.scales).float()
+    assert torch.allclose(y.float(), yp, rtol=2 ** -7, atol=1e-5 * yp.abs().max().item())
+
+
+def test_batched_dot_on_card(cuda):
+    """`_dot` on stacked experts: one batched bf16 GEMM with f32 sums
+    (`aten::bmm.dtype`), within one bf16 rounding of the f32 products, and
+    its backward likewise."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn((4, 24, 256), generator=gen, device=cuda).to(torch.bfloat16)
+    w = torch.randn((4, 256, 512), generator=gen, device=cuda).to(torch.bfloat16)
+    g = torch.randn((4, 24, 512), generator=gen, device=cuda).to(torch.bfloat16)
+    xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    out = fp8_linear._dot(xr, wr)
+    ref = torch.bmm(x.float(), w.float())
+    assert out.dtype == torch.bfloat16
+    assert torch.allclose(out.float(), ref, rtol=2 ** -7, atol=1e-2)
+    out.backward(g)
+    gf = g.float()
+    assert torch.allclose(xr.grad.float(), torch.bmm(gf, w.float().transpose(1, 2)),
+                          rtol=2 ** -7, atol=1e-2)
+    assert torch.allclose(wr.grad.float(), torch.bmm(x.float().transpose(1, 2), gf),
+                          rtol=2 ** -7, atol=1e-2)
+
+
+def test_stable_top_k_on_card(cuda):
+    """Planted ties rank the lower expert first on the card as on the CPU
+    (`jax.lax.top_k`'s order; `torch.topk` promises none)."""
+    from repro_torch.models import moe
+    gen = torch.Generator().manual_seed(2)
+    levels = torch.tensor([0.5, 0.25, 0.125, 0.0625])
+    probs = levels[torch.randint(0, 4, (512, 128), generator=gen)]
+    probs[:, ::7] = 0.5
+    v_cpu, i_cpu = moe.top_k(probs, 8)
+    v_gpu, i_gpu = moe.top_k(probs.to(cuda), 8)
+    assert torch.equal(i_gpu.cpu(), i_cpu) and torch.equal(v_gpu.cpu(), v_cpu)
+    assert bool((i_cpu[:, :1] == 0).all())          # column 0 holds a 0.5
+
+
+def _moe_cfg():
+    from repro_torch.configs import get_config
+    from repro_torch.data import tasks
+    return get_config("granite-moe-3b-a800m").reduced(vocab_size=tasks.VOCAB_SIZE,
+                                                      n_layers=2)
+
+
+def test_moe_decode_step_and_chunk_on_card_match_cpu(cuda):
+    """A reduced granite-moe under `PrecisionConfig()`: prefill, one
+    decode step and one prefill chunk on the card (kernels 1-5, the
+    expert-batched kernel 3) against the same calls on the CPU (plain
+    versions): logits within 0.5 (chip_smoke's kernel-vs-plain band),
+    routing equal where the CPU's K-th and (K+1)-th probabilities are
+    apart; kernel 3 batched twice and kernel 1 twice per MoE layer
+    beside the attention's 4 and 2."""
+    import numpy as np
+    cfg = _moe_cfg()
+    prec = PrecisionConfig()
+    params = Transformer(cfg, "cpu").init_params(4)
+    tokens = torch.randint(4, 19, (3, 12), generator=torch.Generator().manual_seed(5),
+                           dtype=torch.int32)
+    lengths = torch.tensor([12, 7, 9], dtype=torch.int32)
+    chunk = torch.randint(4, 19, (3, 5), generator=torch.Generator().manual_seed(6),
+                          dtype=torch.int32)
+    out = {}
+    for dev in ("cpu", cuda):
+        model = Transformer(cfg, dev)
+        roll, _ = sync_policy_weights(_to(params, dev), prec)
+        cache = model.init_cache(3, 24, prec, page_size=4)
+        build.reset_launch_counts()
+        l0, cache, r0 = model.prefill(roll, {"tokens": tokens.to(dev), "lengths": lengths},
+                                      cache, prec, want_routing=True)
+        l1, cache, a1 = model.decode_step(roll, l0.argmax(-1), cache, prec, want_routing=True)
+        l2, cache, r2 = model.prefill_chunk(roll, chunk, (lengths + 1).numpy(),
+                                            np.array([5, 3, 1]), cache,
+                                            prec.replace(calculate_kv_scales=False),
+                                            use_kernel=True, want_routing=True)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            launches = dict(build.LAUNCHES)
+            assert launches["fp8_gemm_batched"] == 2 * cfg.n_layers * 3
+            assert launches["fp8_gemm"] == 4 * cfg.n_layers * 3
+            assert launches["quant_act"] == 4 * cfg.n_layers * 3
+        out[str(dev)] = [t.cpu() for t in (l0, l1, l2)], (r0, a1["routing"], r2)
+    (lc, rc), (lg, rg) = out["cpu"], out[str(cuda)]
+    for a, b in zip(lc, lg):
+        assert bool(torch.isfinite(b).all())
+        assert (a - b).abs().max().item() <= 0.5
+    assert rc[0]["s0"].shape == rg[0]["s0"].shape == (2, 3, 12, 2)
+    assert rg[1]["s0"].shape == (2, 3, 1, 2) and rg[2]["s0"].shape == (2, 3, 5, 2)
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev, copy=True)
+            for k, v in tree.items()}
+
+
+def test_fp8_router_sync_on_card(cuda):
+    """The FP8-router ablation's sync on the card: an (R, D, 40) router
+    (granite's 40 experts, N padded to 128 in kernel 2's K-major storage)
+    quantizes bit-equal to the CPU's, and its logits on the card equal the
+    CPU's within one bf16 rounding."""
+    from repro_torch.core.fp8_params import quantize_params
+    from repro_torch.core.precision import RouterDtype
+    from repro_torch.models import moe
+    gen = torch.Generator().manual_seed(3)
+    router = (torch.randn((2, 256, 40), generator=gen) * 256 ** -0.5).to(torch.bfloat16)
+    prec = PrecisionConfig(router_dtype=RouterDtype.FP8)
+    q_cpu = quantize_params({"moe": {"router": router}}, prec)["moe"]["router"]
+    q_gpu = quantize_params({"moe": {"router": router.to(cuda)}}, prec)["moe"]["router"]
+    torch.cuda.synchronize()
+    assert tuple(q_gpu.data.shape) == (2, 256, 40)
+    assert torch.equal(_bits(q_gpu.data.contiguous()).cpu(), _bits(q_cpu.data.contiguous()))
+    assert torch.equal(q_gpu.scales.cpu(), q_cpu.scales)
+    x = torch.randn((16, 256), generator=gen).to(torch.bfloat16)
+    lc = moe.router_logits(x, q_cpu.layer(1))
+    lg = moe.router_logits(x.to(cuda), q_gpu.layer(1)).cpu()
+    assert lg.shape == (16, 40)
+    assert torch.allclose(lg, lc, rtol=2 ** -7, atol=1e-3)

@@ -249,9 +249,27 @@ def test_full_fp8_prefill_matches_reference(setup):
 
 def test_unported_layer_kinds_raise():
     cfg = tconfigs.tiny_serving_config()
-    for kw in (dict(n_experts=4, top_k=2), dict(ssm_state=8, attn_period=2)):
+    for kw in (dict(ssm_state=8, attn_period=2),):
         with pytest.raises(NotImplementedError, match="not ported"):
             Transformer(cfg.reduced(**kw), "cpu")
+
+
+def test_moe_layer_kind_builds():
+    """MoE slots are ported (held to the reference in test_torch_moe.py):
+    a dense config with experts builds, draws the reference's MoE leaves
+    and decodes."""
+    cfg = tconfigs.tiny_serving_config().reduced(n_experts=4, top_k=2)
+    model = Transformer(cfg, "cpu")
+    params = model.init_params(0)
+    moe = params["blocks"]["s0"]["moe"]
+    assert set(moe) == {"router", "fc1", "fc2", "norm_scale"}
+    assert tuple(moe["fc1"].shape) == (2, 4, cfg.d_model, 2 * cfg.d_ff)
+    assert moe["router"].dtype == torch.bfloat16 and "mlp" not in params["blocks"]["s0"]
+    cache = model.init_cache(2, 8, tp.BF16_ROLLOUT, page_size=4)
+    inputs = {"tokens": torch.tensor([[1, 5, 6], [1, 7, 0]]), "lengths": torch.tensor([3, 2])}
+    logits, cache = model.prefill(params, inputs, cache, tp.BF16_ROLLOUT)
+    logits, _ = model.decode_step(params, logits.argmax(-1), cache, tp.BF16_ROLLOUT)
+    assert bool(torch.isfinite(logits).all())
 
 
 def test_transformer_without_device_needs_cuda():

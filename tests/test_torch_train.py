@@ -502,15 +502,6 @@ def test_launch_train_returns_a_row_per_step(capsys):
     assert len(capsys.readouterr().out.strip().splitlines()) == 2
 
 
-@pytest.mark.parametrize("argv,match", [
-    pytest.param(["--precision", "default", "--rrr"], "router replay",
-                 id="argv2-router replay"),
-])
-def test_unported_options_raise(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
-        tlaunch.main(["--reduced", "--device", "cpu", "--steps", "1"] + argv)
-
-
 @pytest.mark.parametrize("argv", [[], ["--precision", "e2e-fp8"]], ids=["fp8", "e2e-fp8"])
 def test_launch_train_full_fp8_presets_run(argv):
     """The reference's default `--precision fp8` (FULL_FP8_ROLLOUT) and
