@@ -1593,6 +1593,45 @@ def _sync_fingerprint(params, prec):
     return out
 
 
+def score_rollouts(trainer, presets, dev):
+    """The same prompts and generator seed rolled out under each of
+    `presets` ({name: PrecisionConfig}), every trajectory scored by the
+    trainer's policy with the same advantages, drawn per GRPO group (with
+    random weights every reward ties at 0): per preset the mismatch KL (k3
+    and k1), the TIS weight mean, ESS and max, rollout s and tokens/s, and
+    the rollout's decode steps and kernel-4 launches."""
+    import numpy as np
+    import torch
+    from repro_torch.data import PromptPipeline
+    from repro_torch.kernels import build
+    from repro_torch.rl.rewards import batch_rewards
+    from repro_torch.rl.trainer import stats_to_host
+    rl = trainer.rl
+    adv = np.repeat(np.random.default_rng(SEED).normal(size=rl.prompt_batch), rl.n_per_prompt)
+    advantages = torch.tensor(adv, dtype=torch.float32, device=dev)
+    prompts = PromptPipeline(rl.prompt_batch, rl.max_prompt_len, seed=SEED + 3).next_batch()
+    problems = [p for p in prompts.problems for _ in range(rl.n_per_prompt)]
+    out = {}
+    for name, p in presets.items():
+        trainer.generator.manual_seed(SEED)
+        build.reset_launch_counts()
+        traj, _, roll_s = trainer.rollout(prompts, p)
+        kernel4 = build.LAUNCHES["paged_decode"]
+        rewards = batch_rewards(problems, traj.response_tokens.cpu().numpy(),
+                                traj.response_lengths.cpu().numpy())
+        ub = trainer.make_update_batch(traj, rewards)
+        ub["advantages"], ub["mask"] = advantages, ub["response_mask"]
+        st = stats_to_host(trainer.batch_loss(trainer.params, ub)[1])
+        _finite_metrics(st, f"{name} rollout stats")
+        tokens = float(traj.response_mask.sum())
+        out[name] = dict(rollout_s=roll_s, tokens=tokens, tokens_per_s=tokens / roll_s,
+                         decode_steps=_decode_steps(traj), kernel4_launches=kernel4,
+                         **{k: st[k] for k in ("mismatch_kl", "mismatch_kl_k1",
+                                               "corr_weight_mean", "corr_weight_ess",
+                                               "is_weight_max")})
+    return out
+
+
 def train_path(dev, cfg):
     """Phase 8: `RLTrainer` on full-width, full-depth qwen3-8b over the
     main path's bf16 weights, drawn again from the same seed (held through
@@ -1604,12 +1643,10 @@ def train_path(dev, cfg):
     import torch
     from repro_torch.checkpoint import flatten_tree
     from repro_torch.core.precision import BF16_ROLLOUT, PrecisionConfig
-    from repro_torch.data import PromptPipeline
     from repro_torch.kernels import build
     from repro_torch.models import Transformer
     from repro_torch.optim import AdamWConfig, state_bytes
     from repro_torch.rl import RLConfig, RLTrainer
-    from repro_torch.rl.rewards import batch_rewards
     from repro_torch.rl.trainer import stats_to_host
 
     prec = PrecisionConfig()
@@ -1642,24 +1679,10 @@ def train_path(dev, cfg):
     advantages = torch.tensor(adv, dtype=torch.float32, device=dev)
 
     # FP8 against BF16 rollout: the same prompts and generator seed, each
-    # trajectory scored by the policy the train steps left, with the same
-    # advantages (one per group)
-    prompts = PromptPipeline(rl.prompt_batch, rl.max_prompt_len, seed=SEED + 3).next_batch()
-    problems = [p for p in prompts.problems for _ in range(rl.n_per_prompt)]
-    for name, p in (("fp8", prec), ("bf16", BF16_ROLLOUT)):
-        trainer.generator.manual_seed(SEED)
-        traj, _, roll_s = trainer.rollout(prompts, p)
-        rewards = batch_rewards(problems, traj.response_tokens.cpu().numpy(),
-                                traj.response_lengths.cpu().numpy())
-        ub = trainer.make_update_batch(traj, rewards)
-        ub["advantages"], ub["mask"] = advantages, ub["response_mask"]
-        st = stats_to_host(trainer.batch_loss(trainer.params, ub)[1])
-        _finite_metrics(st, f"{name} rollout stats")
-        stats[f"{name}_rollout"] = dict(
-            tokens=float(traj.response_mask.sum()),
-            tokens_per_s=float(traj.response_mask.sum()) / roll_s,
-            **{k: st[k] for k in ("mismatch_kl", "mismatch_kl_k1", "corr_weight_mean",
-                                  "corr_weight_ess", "is_weight_max")})
+    # trajectory scored by the policy the train steps left
+    for name, row in score_rollouts(trainer, {"fp8": prec, "bf16": BF16_ROLLOUT},
+                                    dev).items():
+        stats[f"{name}_rollout"] = row
     log("same prompts, FP8 vs BF16 rollout scored by the bf16 policy: fp8 "
         + json.dumps(stats["fp8_rollout"]) + "; bf16 " + json.dumps(stats["bf16_rollout"]))
 
@@ -2103,15 +2126,9 @@ def full_fp8_trainer(dev, cfg):
     FULL_FP8_ROLLOUT, `PrecisionConfig()` and BF16_ROLLOUT and scored by
     the policy; 10b one `--precision e2e-fp8` step from the same seed, held
     equal to 10a's first."""
-    import math
-
-    import numpy as np
     import torch
     from repro_torch.core.precision import BF16_ROLLOUT, FULL_FP8_ROLLOUT, PrecisionConfig
-    from repro_torch.data import PromptPipeline
     from repro_torch.kernels import build
-    from repro_torch.rl.rewards import batch_rewards
-    from repro_torch.rl.trainer import stats_to_host
 
     stats = {}
     fresh_peak("full_fp8_train", stats)
@@ -2138,33 +2155,15 @@ def full_fp8_trainer(dev, cfg):
     stats["steps"] = [{k: m[k] for k in keys} for m in rows]
 
     # the same prompts and generator seed under the three presets, each
-    # trajectory scored by the policy the steps left, with advantages drawn
-    # per group (as phase 8); kernel 4 runs under PrecisionConfig() only
-    adv = np.repeat(np.random.default_rng(SEED).normal(size=8), 4)
-    advantages = torch.tensor(adv, dtype=torch.float32, device=dev)
-    prompts = PromptPipeline(8, trainer.rl.max_prompt_len, seed=SEED + 3).next_batch()
-    problems = [p for p in prompts.problems for _ in range(4)]
-    for name, p in (("full_fp8", FULL_FP8_ROLLOUT), ("fp8", PrecisionConfig()),
-                    ("bf16", BF16_ROLLOUT)):
-        trainer.generator.manual_seed(SEED)
-        build.reset_launch_counts()
-        traj, _, roll_s = trainer.rollout(prompts, p)
-        want = 0 if p.quantize_attention else cfg.n_layers * _decode_steps(traj)
-        check(build.LAUNCHES["paged_decode"] == want,
-              f"{name} rollout: kernel 4 launched {build.LAUNCHES['paged_decode']} times, "
+    # trajectory scored by the policy the steps left (as phase 8); kernel 4
+    # runs under PrecisionConfig() only
+    presets = {"full_fp8": FULL_FP8_ROLLOUT, "fp8": PrecisionConfig(), "bf16": BF16_ROLLOUT}
+    for name, row in score_rollouts(trainer, presets, dev).items():
+        want = 0 if presets[name].quantize_attention else cfg.n_layers * row["decode_steps"]
+        check(row["kernel4_launches"] == want,
+              f"{name} rollout: kernel 4 launched {row['kernel4_launches']} times, "
               f"not {want}")
-        rewards = batch_rewards(problems, traj.response_tokens.cpu().numpy(),
-                                traj.response_lengths.cpu().numpy())
-        ub = trainer.make_update_batch(traj, rewards)
-        ub["advantages"], ub["mask"] = advantages, ub["response_mask"]
-        st = stats_to_host(trainer.batch_loss(trainer.params, ub)[1])
-        _finite_metrics(st, f"{name} rollout stats")
-        stats[f"{name}_rollout"] = dict(
-            rollout_s=roll_s, kernel4_launches=build.LAUNCHES["paged_decode"],
-            tokens=float(traj.response_mask.sum()),
-            tokens_per_s=float(traj.response_mask.sum()) / roll_s,
-            **{k: st[k] for k in ("mismatch_kl", "mismatch_kl_k1", "corr_weight_mean",
-                                  "corr_weight_ess", "is_weight_max")})
+        stats[f"{name}_rollout"] = row
     log("same prompts, FULL_FP8 vs FP8 vs BF16 rollout scored by the bf16 policy: "
         + json.dumps({k: stats[f"{k}_rollout"] for k in ("full_fp8", "fp8", "bf16")}))
     check(stats["full_fp8_rollout"]["mismatch_kl"] > stats["bf16_rollout"]["mismatch_kl"],
@@ -2502,9 +2501,13 @@ def leafwise_sync(model, prec, stats):
     before the next is drawn — the same rollout tree, without the whole
     bf16 tree (61 GB at qwen3-30b-a3b) beside its fp8 copy.  Puts the
     draw and sync ms (device synchronized around each leaf), the fc1
-    leaf's sync ms and the peak into `stats`."""
+    leaf's sync ms and the peak into `stats`.  Kernel 2 takes the fc1
+    leaf in one launch (a grid of L·E = 6144 slices, 1.93e10 elements):
+    its last slice, past 2^31 elements, is held bit-equal to the plain
+    version."""
     import torch
     from repro_torch.core.fp8_params import quantize_leaf
+    from repro_torch.kernels import fp8_quant as fq
     roll, draw_ms, sync_ms = {}, 0.0, 0.0
     leaves = model.iter_params(SEED)
     while True:
@@ -2517,6 +2520,12 @@ def leafwise_sync(model, prec, stats):
         sync_ms += ms
         if path[-1] == "fc1":
             stats["fc1_sync_ms"] = ms
+            wq, ws = fq.quantize_weight_ref(leaf[-1, -1])
+            check(torch.equal(q.data[-1, -1].contiguous().view(torch.uint8),
+                              wq.view(torch.uint8)) and torch.equal(q.scales[-1, -1], ws),
+                  f"kernel 2 on the fc1 leaf {tuple(leaf.shape)}: its last slice differs "
+                  "from the plain version")
+            del wq, ws
         tree = roll
         for k in path[:-1]:
             tree = tree.setdefault(k, {})
@@ -2674,37 +2683,6 @@ def moe_serve_path(dev, gen, results, extra):
     return stats
 
 
-def _score_rollouts(trainer, presets, dev):
-    """The same prompts and generator seed rolled out under each preset,
-    every trajectory scored by the trainer's policy with advantages drawn
-    per GRPO group (as phase 8): mismatch KL (k3, k1), TIS weight mean
-    and ESS, rollout s."""
-    import numpy as np
-    import torch
-    from repro_torch.data import PromptPipeline
-    from repro_torch.rl.rewards import batch_rewards
-    from repro_torch.rl.trainer import stats_to_host
-    rl = trainer.rl
-    adv = np.repeat(np.random.default_rng(SEED).normal(size=rl.prompt_batch), rl.n_per_prompt)
-    advantages = torch.tensor(adv, dtype=torch.float32, device=dev)
-    prompts = PromptPipeline(rl.prompt_batch, rl.max_prompt_len, seed=SEED + 3).next_batch()
-    problems = [p for p in prompts.problems for _ in range(rl.n_per_prompt)]
-    out = {}
-    for name, p in presets.items():
-        trainer.generator.manual_seed(SEED)
-        traj, _, roll_s = trainer.rollout(prompts, p)
-        rewards = batch_rewards(problems, traj.response_tokens.cpu().numpy(),
-                                traj.response_lengths.cpu().numpy())
-        ub = trainer.make_update_batch(traj, rewards)
-        ub["advantages"], ub["mask"] = advantages, ub["response_mask"]
-        st = stats_to_host(trainer.batch_loss(trainer.params, ub)[1])
-        _finite_metrics(st, f"{name} rollout stats")
-        out[name] = dict(rollout_s=roll_s, tokens=float(traj.response_mask.sum()),
-                         **{k: st[k] for k in ("mismatch_kl", "mismatch_kl_k1",
-                                               "corr_weight_mean", "corr_weight_ess")})
-    return out
-
-
 def moe_train_path(dev, gen):
     """12b: `RLTrainer` on granite-moe-3b-a800m at full width and depth under
     `PrecisionConfig()` with rollout router replay on, phase 8's geometry,
@@ -2763,7 +2741,7 @@ def moe_train_path(dev, gen):
     presets = {f"router_{rd.value}": PrecisionConfig(router_dtype=rd)
                for rd in (RouterDtype.BF16, RouterDtype.FP32, RouterDtype.FP8)}
     presets["bf16"] = BF16_ROLLOUT
-    stats["rollouts"] = _score_rollouts(trainer, presets, dev)
+    stats["rollouts"] = score_rollouts(trainer, presets, dev)
     log(f"{cfg.name}, same prompts, router BF16 / FP32 / FP8 (W8A8 + FP8 KV) and BF16 rollout "
         "scored by the policy: " + json.dumps(stats["rollouts"]))
     stats["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9

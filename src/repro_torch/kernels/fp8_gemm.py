@@ -60,7 +60,7 @@ def fp8_gemm_batched_ref(a, w, a_scales, w_scales, out_dtype=torch.bfloat16):
                         for e in range(a.shape[0])])
 
 
-def _check(a, w, a_scales, w_scales, out_dtype):
+def _check_shapes(a, w, a_scales, w_scales, out_dtype):
     """The 2-D operands of one expert: (m, n, k, ldw)."""
     if out_dtype != torch.bfloat16:
         raise ValueError("the CUDA fp8 GEMM writes bf16")
@@ -82,7 +82,7 @@ def _check(a, w, a_scales, w_scales, out_dtype):
     return m, n, k, ldw
 
 
-def _operands_ok(tensors):
+def _check_operands(tensors):
     if not all(t.is_cuda for t in tensors):
         raise ValueError("fp8_gemm takes CUDA tensors")
     a, w, a_scales, w_scales = tensors
@@ -98,8 +98,8 @@ def fp8_gemm(a: torch.Tensor, w: torch.Tensor, a_scales: torch.Tensor,
     with strides (1, ldw), ldw >= K (the `ops.quantize_weight` storage; a
     row-major w raises).  K and N must be multiples of 128 (the
     `ops.fp8_matmul` wrapper hands over the padded storage); any M."""
-    _operands_ok((a, w, a_scales, w_scales))
-    m, n, k, ldw = _check(a, w, a_scales, w_scales, out_dtype)
+    _check_operands((a, w, a_scales, w_scales))
+    m, n, k, ldw = _check_shapes(a, w, a_scales, w_scales, out_dtype)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
     build.launch("fp8_gemm", "fp8rl_gemm", a.device, a.data_ptr(),
                  w.data_ptr(), a_scales.data_ptr(), w_scales.data_ptr(),
@@ -118,13 +118,13 @@ def fp8_gemm_batched(a: torch.Tensor, w: torch.Tensor, a_scales: torch.Tensor,
     view); E <= 65535.  Expert e's rows are bit-equal to `fp8_gemm` on
     expert e alone; every expert's M rows are computed, padding rows
     included."""
-    _operands_ok((a, w, a_scales, w_scales))
+    _check_operands((a, w, a_scales, w_scales))
     e = a.shape[0]
     if w.dim() != 3 or w.shape[0] != e or a_scales.shape[0] != e or w_scales.shape[0] != e:
         raise ValueError(f"bad batched shapes {tuple(a.shape)} @ {tuple(w.shape)}")
     if not 0 < e <= 65535:
         raise ValueError(f"{e} experts: the grid's z extent takes 1-65535")
-    m, n, k, ldw = _check(a[0], w[0], a_scales[0], w_scales[0], out_dtype)
+    m, n, k, ldw = _check_shapes(a[0], w[0], a_scales[0], w_scales[0], out_dtype)
     stride_w = w.stride(0)
     if e > 1 and (stride_w % 16 or stride_w < n * ldw):
         raise ValueError(f"experts' weights {stride_w} elements apart, need a multiple "

@@ -28,7 +28,6 @@ from repro_torch.core.precision import PrecisionConfig
 from repro_torch.core.sampling import sample as _sample
 from repro_torch.data import tasks
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import blocks as blocks_mod
 from repro_torch.models.transformer import Transformer
 from repro_torch.rl.calibration import apply_kv_scales
 
