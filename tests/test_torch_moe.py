@@ -35,7 +35,8 @@ CPU (run with `-s` to print the gaps):
   test_torch_serving.py.
 * one update with `moe_aux_coef` against the reference's jitted
   `update_fn`, with test_torch_train.py's bounds.
-* `quantize_params`' router casts bit-equal; the launchers' `--arch
+* `quantize_params`' router casts bit-equal, and the reference's synced
+  MoE tree (f32 and FP8 routers) bridged bit for bit; the launchers' `--arch
   granite-moe-3b-a800m --reduced --rrr`; meta specs of qwen3-30b-a3b and
   grok-1-314b against the reference's shapes.
 """
@@ -249,6 +250,34 @@ def test_quantize_params_router_casts_bit_equal(setup, router, linears):
         assert isinstance(got, QuantizedTensor)
     else:
         assert got.dtype == {"bf16": torch.bfloat16, "fp32": torch.float32}[router]
+
+
+@pytest.mark.parametrize("router", ["fp32", "fp8"])
+def test_bridge_carries_moe_rollout_trees(setup, router):
+    """`params_from_numpy` carries the reference's synced MoE tree across:
+    an f32 router as f32, an FP8 router and the experts as
+    `QuantizedTensor`s with the reference's bits (row-major, where the
+    port's own sync stores K-major), and the layer computes the same
+    function on either tree."""
+    jcfg, tcfg, params, np_params = setup
+    jprec = jp.PrecisionConfig(router_dtype=RD(router))
+    tprec = tp.PrecisionConfig(router_dtype=tp.RouterDtype(router))
+    jroll = jax.jit(lambda p: jquantize_params(p, jprec))(params)
+    bridged = params_from_numpy(jax.tree.map(np.asarray, jroll), "cpu")
+    own = tquantize_params(params_from_numpy(np_params, "cpu"), tprec)
+    for key in ("router", "fc1", "fc2"):
+        b, o = bridged["blocks"]["s0"]["moe"][key], own["blocks"]["s0"]["moe"][key]
+        assert isinstance(b, QuantizedTensor) == isinstance(o, QuantizedTensor), key
+        if isinstance(b, QuantizedTensor):
+            assert b.block == o.block and np.array_equal(_bits(b.data), _bits(o.data))
+            assert np.array_equal(_bits(b.scales), _bits(o.scales))
+        else:
+            assert b.dtype == o.dtype == torch.float32 and torch.equal(b, o)
+    x = torch.from_numpy(np.random.default_rng(5).normal(size=(2, 6, jcfg.d_model))).to(
+        torch.bfloat16)
+    yb, ab = tmoe.moe_forward(x, _layer(bridged["blocks"]["s0"]["moe"], 1), tcfg, tprec)
+    yo, ao = tmoe.moe_forward(x, _layer(own["blocks"]["s0"]["moe"], 1), tcfg, tprec)
+    assert torch.equal(yb, yo) and torch.equal(ab["topk_idx"], ao["topk_idx"])
 
 
 # ---------------------------------------------------------------------------
