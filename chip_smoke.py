@@ -5,7 +5,7 @@
 
 Needs one CUDA card, nvcc and the checkout's `src/`; imports nothing of
 JAX or of the JAX package.  Phases (any failure exits non-zero), run in
-the order 1-5, 7, 6, 8-12:
+the order 1-5, 7, 6, 8-13:
 
 1. the card's name and power limit (nvidia-smi);
 2. build the six CUDA kernels from `src/repro_torch/csrc` (nvcc, sm_90a);
@@ -185,6 +185,43 @@ the order 1-5, 7, 6, 8-12:
        fig. 6 comparison, reported), kernels 4-6 at (G 3, D 64) within
        1e-2; the peak under 80 GB.
 
+13. SSM and hybrid, each part after `gc.collect()` with its own peak:
+    a. mamba2-780m (48 layers, d 1536, d_inner 3072, 48 heads of 64,
+       state 128, conv 4, vocab 50280, no attention) at full width and
+       depth under `PrecisionConfig()`, whose kernel config resolves to
+       "off": random weights from seed 0, a sync (kernel 2 twice: w_in,
+       w_out), greedy and GRPO `generate` (8 x 64-128 tokens, 32 new;
+       launch counts zeroed before and read after: kernel 1 : kernel 3 =
+       1 : 1, twice a layer and forward) and greedy under BF16_ROLLOUT,
+       decode-step logits through the kernels within 0.5 of the plain
+       versions, one decode step profiled, a chunked prefill (C 128)
+       against the one-shot one (the first layer's state within 1e-3,
+       next-token logits within 0.5), the
+       engine over 16 of phase 5's prompts (C 128, 8 slots) roomy and
+       with its budget cut to 60% after 8 decode steps (bit-equal
+       completions, at least one swap-in of SSM state), `launch.steps`
+       (B 8 x 512-1024 + 4 serve steps, a 16384-token prefill + 4 steps,
+       LONG_500K's 4 serve steps on the O(1) state), kernel 3 at w_in
+       (K 1536, N 6448, stored at 6528) and w_out (3072 -> 1536) held
+       against plain and timed at M 8 and 128 beside the byte bound,
+       then 3 `RLTrainer` steps with f32 moments (kernel 2 twice a sync),
+       the same prompts rolled out under W8A8 and BF16_ROLLOUT and scored
+       by the policy, and one nonzero-advantage update (every leaf's
+       moment non-zero);
+    b. jamba-1.5-large-398b, one period (8 of 72 layers; d 8192, 64/8
+       heads of 128, d_inner 16384, 128 SSM heads of 128, 16 experts
+       top-2, d_ff 24576, vocab 65536): synced leaf by leaf (kernel 2 38
+       times), a greedy `generate` (kernel 1 : kernel 3 = 32 : 38, kernel
+       4 once a decode step), decode-step logits through the kernels
+       against plain logged, not held (last-bit differences flip top-2
+       routings of the random routers, and the SSM state carries the
+       flips; for the same reason no chunked-vs-one-shot check),
+       the engine over 4 prompts (2 slots, 32 new) roomy and under the
+       cut (bit-equal), a `launch.steps` prefill (B 8, S 1056) and 4 serve
+       steps (kernel 6 once a step), the expert-batched kernel 3 at E 16
+       (fc1, fc2, M 8) bit-equal per expert to the 2-D kernel and timed,
+       kernels 4-6 at (G 8, D 128) within 1e-2; the peak under 80 GB.
+
 The line before the last is the `kernels` JSON object; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
@@ -267,9 +304,6 @@ QUANT_ACT_HOLDS = (
 # 16K prefill) and the M of the kernel 1 + kernel 3 pair rows
 QUANT_ACT_MS = (8, 1024, 16384)
 PAIR_M = 8
-# a dense layer's 7 quantized linears take 4 distinct inputs (q/k/v,
-# wo, gate/up, wd): kernel 1 launches 4 times for every 7 of kernel 3
-QUANT_PER_GEMM = (4, 7)
 # phase 7: kernel 6 at 7a's shape, and the chunked-attention prefill of 7b
 CONTIG_SHAPE = ("smoke_prefill", 1056, 8, "prefill")
 CONTIG_STEPS = 32
@@ -313,6 +347,22 @@ BREADTH_STEPS = 4
 MOE_SERVE = "qwen3-30b-a3b"
 MOE_TRAIN = "granite-moe-3b-a800m"
 MOE_GEMM_MS = (8, 128)
+# phase 13: SSM and hybrid at full width — mamba2-780m at full depth, one
+# period (8 of 72 layers) of jamba-1.5-large-398b; an engine's budget cut to
+# SHRINK_FRAC after SHRINK_AT decode steps forces its swaps.  The
+# attention-free engine has no KV: its block is a 64 KiB accounting unit
+# of slot state (at 8 bytes its allocator would list ~76M blocks)
+SSM_SERVE = "mamba2-780m"
+HYBRID = "jamba-1.5-large-398b"
+SSM_GEMM_MS = (8, 128)
+SSM_ENGINE_BLOCK = 1 << 16
+SHRINK_AT = 8
+SHRINK_FRAC = 0.6
+# 13b's decode step with each layer's input forced to the kernel step's:
+# a layer's update (output less input) through the kernels vs the plain
+# versions, over its largest entry (set before its first reading; kernel
+# 3 alone is held within 2**-7)
+FORCED_LAYER_RTOL = 5e-2
 
 
 def check(cond, msg):
@@ -801,35 +851,104 @@ def check_trajectory(traj, n_rows, max_new, vocab, tag):
                   f"{tag}: kv scale not finite and positive")
 
 
-def decode_logits_check(model, roll, prec, prompts, lengths, dev):
-    """One decode step through the kernels vs the plain versions called on
-    the same CUDA tensors (the same cache, cloned)."""
-    import copy
-
+def _prefilled(model, roll, prec, prompts, lengths, dev):
+    """A paged cache prefilled with `prompts`, and each row's next token."""
     import torch
-    from repro_torch.kernels import ops
     cache = model.init_cache(len(prompts), prompts.shape[1] + 2, prec, page_size=16)
     logits, cache = model.prefill(roll, {"tokens": torch.from_numpy(prompts).to(dev),
                                          "lengths": torch.from_numpy(lengths).to(dev)},
                                   cache, prec)
-    tok = logits.argmax(-1)
-    twin = copy.deepcopy(cache)
-    lk, _ = model.decode_step(roll, tok, cache, prec)
-    with mock.patch.object(ops, "_route", lambda t, kernel, plain: plain):
-        lp, _ = model.decode_step(roll, tok, twin, prec)
+    return cache, logits.argmax(-1)
+
+
+def _hold_decode_logits(lk, lp, what=""):
+    """Kernel-step logits `lk` against plain-step logits `lp`: within
+    LOGIT_ATOL, argmax equal on the rows whose top two differ by more
+    than 2 x LOGIT_ATOL.  Returns the largest gap."""
+    import torch
     torch.cuda.synchronize()
     err = (lk - lp).abs().max().item()
     mean_err = (lk - lp).abs().mean().item()
     top2 = lp.topk(2, dim=-1).values
     decisive = (top2[:, 0] - top2[:, 1]) > 2 * LOGIT_ATOL
     agree = bool((lk.argmax(-1) == lp.argmax(-1))[decisive].all())
-    log(f"decode-step logits kernel vs plain: max abs err {err:.4f}, mean {mean_err:.5f} "
+    log(f"decode-step logits kernel vs plain{what}: max abs err {err:.4f}, mean {mean_err:.5f} "
         f"(max|logit| {lp.abs().max().item():.3f}, tol {LOGIT_ATOL}); "
         f"argmax equal on {int(decisive.sum())} decisive rows: {agree}; "
         f"on all rows: {bool((lk.argmax(-1) == lp.argmax(-1)).all())}")
     check(bool(torch.isfinite(lk).all()), "kernel logits not finite")
-    check(err <= LOGIT_ATOL and agree, "decode-step logits: kernels disagree with plain")
+    check(err <= LOGIT_ATOL and agree, f"decode-step logits{what}: kernels disagree with plain")
     return err
+
+
+def decode_logits_check(model, roll, prec, prompts, lengths, dev):
+    """One decode step through the kernels vs the plain versions called on
+    the same CUDA tensors (the same cache, cloned)."""
+    import copy
+
+    from repro_torch.kernels import ops
+    cache, tok = _prefilled(model, roll, prec, prompts, lengths, dev)
+    twin = copy.deepcopy(cache)
+    lk, _ = model.decode_step(roll, tok, cache, prec)
+    with mock.patch.object(ops, "_route", lambda t, kernel, plain: plain):
+        lp, _ = model.decode_step(roll, tok, twin, prec)
+    return _hold_decode_logits(lk, lp)
+
+
+def forced_decode_logits_check(model, roll, prec, prompts, lengths, dev):
+    """`decode_logits_check` teacher-forced: each layer of the plain step
+    takes the kernel step's input to that layer, so no gap compounds over
+    the layers (through random weights a last-bit difference that moves
+    an activation across an fp8 rounding boundary grows layer by layer).
+    Each layer's update (its output less its input) within
+    FORCED_LAYER_RTOL of its largest entry, and the logits held as
+    `decode_logits_check` holds them.  Beside it, logged: the free-running
+    plain step's gap and how many MoE expert sets it routes differently
+    from the kernel step."""
+    import copy
+
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import blocks
+    cache, tok = _prefilled(model, roll, prec, prompts, lengths, dev)
+    twin, free = copy.deepcopy(cache), copy.deepcopy(cache)
+    step = blocks.apply_slot_decode
+    inputs, outputs = [], {"kernel": [], "plain": []}     # in layer order
+
+    def recording(x, *args, **kw):
+        inputs.append(x.clone())
+        out = step(x, *args, **kw)
+        outputs["kernel"].append(out[0].clone())
+        return out
+    forced = iter(inputs)
+
+    def forcing(x, *args, **kw):
+        out = step(next(forced), *args, **kw)
+        outputs["plain"].append(out[0])
+        return out
+    with mock.patch.object(blocks, "apply_slot_decode", recording):
+        lk, _, kernel_aux = model.decode_step(roll, tok, cache, prec, want_routing=True)
+    with mock.patch.object(ops, "_route", lambda t, kernel, plain: plain), \
+            mock.patch.object(blocks, "apply_slot_decode", forcing):
+        lp, _ = model.decode_step(roll, tok, twin, prec)
+    with mock.patch.object(ops, "_route", lambda t, kernel, plain: plain):
+        lf, _, free_aux = model.decode_step(roll, tok, free, prec, want_routing=True)
+    torch.cuda.synchronize()
+    layer_gaps = [((k - p).float().abs().max() / (p - x).float().abs().max().clamp_min(1e-30))
+                  .item() for x, k, p in zip(inputs, outputs["kernel"], outputs["plain"])]
+    pairs = [(a, free_aux["routing"][name]) for name, a in kernel_aux["routing"].items()]
+    flips = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum()) for a, b in pairs)
+    log(f"decode step, each layer's input forced: its update kernel vs plain over its largest "
+        f"entry " + json.dumps([f"{g:.2e}" for g in layer_gaps])
+        + f" (tol {FORCED_LAYER_RTOL}); plain free-running: logits max abs err "
+        f"{(lk - lf).abs().max().item():.4f}, {flips} of "
+        f"{sum(a[..., 0].numel() for a, _ in pairs)} token-layer expert sets routed "
+        "differently from the kernel step")
+    check(len(layer_gaps) == len(outputs["plain"]) == model.repeats * len(model.pattern)
+          and max(layer_gaps) <= FORCED_LAYER_RTOL,
+          "decode step, each layer's input forced: a layer's kernels disagree with plain")
+    del inputs[:], outputs, cache, twin, free
+    return _hold_decode_logits(lk, lp, ", each layer's input forced")
 
 
 def chunk_logits_check(model, roll, prec, prompts, lengths, dev):
@@ -950,7 +1069,7 @@ def main_path(dev, results, cfg):
     for name in ("quant_act", "quant_weight", "fp8_gemm", "paged_decode"):
         check(launches[name] > 0, f"kernel {name} was not launched on the main path")
         results[name]["launches"] = launches[name]
-    check_quant_per_gemm(launches, "the rollout path")
+    check_quant_per_gemm(launches, "the rollout path", _quant_ratio(cfg))
 
     steps = per_run[0]["paged_decode"] // cfg.n_layers
     check_trajectory(t_greedy, 8, 32, cfg.vocab_size, "greedy")
@@ -1159,7 +1278,7 @@ def engine_path(dev, results, cfg, roll):
     log(f"serving-path launches (roomy + tight runs): {launches}")
     for name in ("quant_act", "fp8_gemm", "paged_decode", "paged_prefill"):
         check(launches[name] > 0, f"kernel {name} was not launched on the serving path")
-    check_quant_per_gemm(launches, "the serving path")
+    check_quant_per_gemm(launches, "the serving path", _quant_ratio(cfg))
     results["paged_prefill"]["launches"] = launches["paged_prefill"]
     stats["serving_path_launches"] = launches
     check(roomy.preemptions == 0 and tight.preemptions >= 1,
@@ -1262,10 +1381,10 @@ def _sync_ms(fn, *args):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def _path_launches(tag, need, ratio=QUANT_PER_GEMM):
+def _path_launches(tag, need, ratio):
     """Read the counts of the run just driven; every kernel in `need` must
     have launched, and kernel 1 once per distinct linear input (`ratio`,
-    see `check_quant_per_gemm`)."""
+    the model's `_quant_ratio`; see `check_quant_per_gemm`)."""
     from repro_torch.kernels import build
     launches = dict(build.LAUNCHES)
     log(f"{tag} launches: {launches}")
@@ -1275,10 +1394,10 @@ def _path_launches(tag, need, ratio=QUANT_PER_GEMM):
     return launches
 
 
-def check_quant_per_gemm(launches, tag, ratio=QUANT_PER_GEMM):
-    """Kernel 1 launches exactly `ratio` (kernel 1 : kernel 3, a gated
-    dense layer's QUANT_PER_GEMM by default) of kernel 3's: one
-    quantization per distinct activation, never one per linear."""
+def check_quant_per_gemm(launches, tag, ratio):
+    """Kernel 1 launches exactly `ratio` (kernel 1 : kernel 3 of the
+    path's layer pattern, `_quant_ratio`) of kernel 3's: one quantization
+    per distinct activation, never one per linear."""
     q, g = ratio
     gemms = launches["fp8_gemm"] + launches["fp8_gemm_batched"]
     check(launches["quant_act"] * g == gemms * q,
@@ -1324,7 +1443,8 @@ def contiguous_7a(dev, cfg, roll, prec, stats):
         step_ms.append(ms)
         toks.append(logits.argmax(-1))
         gaps.append(_top2_gap(logits))
-    launches = _path_launches("contiguous path 7a", ("quant_act", "fp8_gemm", "decode"))
+    launches = _path_launches("contiguous path 7a", ("quant_act", "fp8_gemm", "decode"),
+                              _quant_ratio(cfg))
     # ----------------------------------------------------------------------
     check(launches["decode"] == cfg.n_layers * CONTIG_STEPS,
           f"kernel 6 launched {launches['decode']} times, not {cfg.n_layers} x {CONTIG_STEPS}")
@@ -1439,7 +1559,8 @@ def contiguous_7b(dev, cfg, roll, prec, stats):
     for _ in range(LONG_STEPS):
         (logits, cache), ms = _sync_ms(serve_step, roll, logits.argmax(-1), cache)
         step_ms.append(ms)
-    launches = _path_launches("contiguous path 7b", ("quant_act", "fp8_gemm", "decode"))
+    launches = _path_launches("contiguous path 7b", ("quant_act", "fp8_gemm", "decode"),
+                              _quant_ratio(cfg))
     # ----------------------------------------------------------------------
     check(launches["decode"] == cfg.n_layers * LONG_STEPS, "7b: kernel 6 launch count")
     check(bool(torch.isfinite(logits).all()), "7b: logits not finite")
@@ -1499,7 +1620,8 @@ def contiguous_7c(dev, gen, cfg, roll, prec, stats, extra, results):
         step_ms.append(ms)
     (logits, cache), busy_ms, n_kernels, by_name = _profile(
         lambda: serve_step(roll, tok, cache))
-    launches = _path_launches("LONG_500K decode 7c", ("quant_act", "fp8_gemm", "decode"))
+    launches = _path_launches("LONG_500K decode 7c", ("quant_act", "fp8_gemm", "decode"),
+                              _quant_ratio(cfg))
     # ----------------------------------------------------------------------
     check(launches["decode"] == cfg.n_layers * LONG_500K_STEPS, "7c: kernel 6 launch count")
     check(bool(torch.isfinite(logits).all()), "7c: logits not finite")
@@ -1661,7 +1783,7 @@ def train_path(dev, cfg):
     # --- the trainer path: TRAIN_STEPS train steps --------------------------
     rows = [trainer.train_step() for _ in range(TRAIN_STEPS)]
     launches = _path_launches("trainer path", ("quant_act", "quant_weight", "fp8_gemm",
-                                               "paged_decode"))
+                                               "paged_decode"), _quant_ratio(cfg))
     # ----------------------------------------------------------------------
     check(launches["quant_weight"] == SYNC_LEAVES * TRAIN_STEPS,
           f"trainer path: kernel 2 launched {launches['quant_weight']} times for "
@@ -1784,7 +1906,7 @@ def fleet_trainer(dev, cfg):
     # --- the fleet trainer path: TRAIN_STEPS train steps --------------------
     rows = [trainer.train_step() for _ in range(TRAIN_STEPS)]
     launches = _path_launches("fleet trainer path", ("quant_act", "quant_weight", "fp8_gemm",
-                                                     "paged_decode"))
+                                                     "paged_decode"), _quant_ratio(cfg))
     # ----------------------------------------------------------------------
     check(launches["quant_weight"] == SYNC_LEAVES * TRAIN_STEPS,
           f"fleet trainer path: kernel 2 launched {launches['quant_weight']} times for "
@@ -1866,6 +1988,7 @@ def fleet_serve(dev):
     installed on its replica at the step that produced it."""
     from unittest import mock
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.launch import serve
     from repro_torch.serving import ServingFrontend
@@ -1893,7 +2016,8 @@ def fleet_serve(dev):
                          "--prefill-chunk", "128", "--max-new", str(FLEET_MAX_NEW),
                          "--events-out", str(events_path)])
         launches = _path_launches("launch.serve fleet path", (
-            "quant_act", "quant_weight", "fp8_gemm", "paged_decode", "paged_prefill"))
+            "quant_act", "quant_weight", "fp8_gemm", "paged_decode", "paged_prefill"),
+            _quant_ratio(get_config("qwen3-8b")))
         # ------------------------------------------------------------------
     log("launch.serve fleet report: " + json.dumps(out))
     check(out["completed"] == 16 and not out["stalled"], "fleet launcher run incomplete")
@@ -2014,7 +2138,7 @@ def fleet_chaos(dev, cfg):
         # --- the fleet path, fault-free -------------------------------------
         base, base_streams, _, base_rep, _, wall = _fleet_run(roll, cfg, prec, dev, prompts)
         launches = _path_launches(f"fleet path ({name})", (
-            "quant_act", "fp8_gemm", "paged_decode", "paged_prefill"))
+            "quant_act", "fp8_gemm", "paged_decode", "paged_prefill"), _quant_ratio(cfg))
         # ------------------------------------------------------------------
         permanent = _fleet_run(roll, cfg, prec, dev, prompts,
                                faults=crash(replica=0, step=2, transient=False))
@@ -2139,7 +2263,8 @@ def full_fp8_trainer(dev, cfg):
     build.reset_launch_counts()
     # --- the full-FP8 trainer path: TRAIN_STEPS train steps ----------------
     rows = [trainer.train_step() for _ in range(TRAIN_STEPS)]
-    launches = _path_launches("full-FP8 trainer path", ("quant_act", "quant_weight", "fp8_gemm"))
+    launches = _path_launches("full-FP8 trainer path", ("quant_act", "quant_weight", "fp8_gemm"),
+                              _quant_ratio(cfg))
     # ----------------------------------------------------------------------
     check(launches["quant_weight"] == SYNC_LEAVES * TRAIN_STEPS,
           f"full-FP8 trainer path: kernel 2 launched {launches['quant_weight']} times")
@@ -2210,7 +2335,8 @@ def full_fp8_fleet(dev, cfg):
     build.reset_launch_counts()
     # --- the full-FP8 fleet path: one train step ----------------------------
     m = trainer.train_step()
-    launches = _path_launches("full-FP8 fleet path", ("quant_act", "quant_weight", "fp8_gemm"))
+    launches = _path_launches("full-FP8 fleet path", ("quant_act", "quant_weight", "fp8_gemm"),
+                              _quant_ratio(cfg))
     # ----------------------------------------------------------------------
     check(launches["paged_decode"] == 0 and launches["paged_prefill"] == 0,
           f"the fleet launched kernels 4/5 under FULL_FP8_ROLLOUT: {launches}")
@@ -2363,17 +2489,36 @@ def hold_attention_kernels(dev, gen, cfg):
 
 
 def _quant_ratio(cfg):
-    """Kernel 1 : kernel 3 launches of `cfg`'s layer: 4 : 7 for a gated MLP
-    (wu shares wg's input), 4 : 6 for a two-matrix MLP or an MoE layer
-    (attention 2 : 4, the experts' fc1 and fc2 2 : 2)."""
-    return (4, 7) if cfg.mlp_gated and not cfg.n_experts else (4, 6)
+    """Kernel 1 : kernel 3 launches of one period of `cfg`'s layer pattern,
+    one kernel-1 call per distinct linear input: attention 2 : 4 (q/k/v
+    share one), a gated MLP 2 : 3 (wu shares wg's input), a two-matrix MLP
+    or an MoE layer (the experts' fc1 and fc2) 2 : 2, an SSM mixer 2 : 2
+    (w_in, w_out).  Dense gated 4 : 7, starcoder2 and MoE 4 : 6, mamba2
+    2 : 2, jamba's period 32 : 38."""
+    from repro_torch.models.blocks import layer_pattern
+    q = g = 0
+    for spec in layer_pattern(cfg):
+        q, g = q + 2, g + (4 if spec.mixer == "attn" else 2)
+        if spec.ffn is not None:
+            q, g = q + 2, g + (3 if spec.ffn == "mlp" and cfg.mlp_gated else 2)
+    return q, g
 
 
 def _sync_leaves(cfg):
-    """Kernel-2 launches of one sync: the quantized leaves of a layer
-    (wq, wk, wv, wo and the MLP's or the experts' fc1 and fc2); the
-    router stays bf16 under `PrecisionConfig()`."""
-    return 6 if cfg.n_experts or not cfg.mlp_gated else 7
+    """Kernel-2 launches of one sync: the quantized (layer-stacked) leaves
+    of one period of the pattern — wq, wk, wv, wo or an SSM mixer's w_in
+    and w_out, then the MLP's (wg, wu, wd; no wu without the gate) or the
+    experts' fc1 and fc2; the router stays bf16 under `PrecisionConfig()`.
+    Dense 7 (starcoder2 6), MoE 6, mamba2 2, jamba's period 38."""
+    from repro_torch.models.blocks import layer_pattern
+    n = 0
+    for spec in layer_pattern(cfg):
+        n += 4 if spec.mixer == "attn" else 2
+        if spec.ffn == "mlp":
+            n += 3 if cfg.mlp_gated else 2
+        elif spec.ffn == "moe":
+            n += 2
+    return n
 
 
 def model_paths(dev, cfg, roll, prec, stats, gemms=("fp8_gemm",)):
@@ -2760,6 +2905,531 @@ def moe_path(dev, gen, results, extra):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: SSM and hybrid at full width
+# ---------------------------------------------------------------------------
+
+def state_engine_runs(roll, cfg, prec, dev, trace, slots, block_size, stats, tag, need):
+    """The engine over `trace` twice on the same synced weights: roomy, then
+    with its budget cut to SHRINK_FRAC after SHRINK_AT decode steps (the
+    launcher's `--shrink-at`), so that victims' SSM rows (and KV blocks)
+    go to the host and come back.  Greedy completions must be bit-equal,
+    with at least one swap-in.  Launch counts are zeroed before and read
+    after the two runs (`need`).  Fills `stats`."""
+    from repro_torch.kernels import build
+    from repro_torch.serving import ServingEngine
+
+    def engine():
+        eng = ServingEngine(roll, cfg, prec, max_slots=slots, max_seq_len=ENGINE_MAX_SEQ,
+                            block_size=block_size, admission="ondemand", prefill_chunk=128,
+                            eos_id=None, device=dev)
+        for i, p in enumerate(trace):
+            eng.submit(p, max_new=ENGINE_MAX_NEW, rid=i)
+        return eng
+
+    def cut(eng):
+        full = eng.budget_tokens
+        while eng.stats["steps"] < SHRINK_AT:
+            eng.step()
+        eng.budget_tokens = int(full * SHRINK_FRAC)
+        return eng.run(max_steps=4000)
+    roomy, tight = engine(), engine()
+    build.reset_launch_counts()
+    # --- the serving engine: roomy, then under a budget cut ------------------
+    rep_roomy, roomy_ms = _sync_ms(lambda: roomy.run(max_steps=4000))
+    rep_tight, tight_ms = _sync_ms(cut, tight)
+    launches = _path_launches(f"{tag} engine", need, _quant_ratio(cfg))
+    # ----------------------------------------------------------------------
+    check_engine_report(roomy, rep_roomy, len(trace), f"{tag} roomy")
+    check_engine_report(tight, rep_tight, len(trace), f"{tag} under the cut")
+    check(rep_roomy.preemptions == 0 and rep_tight.swap_ins >= 1,
+          f"{tag}: the budget cut forced no swap ({rep_tight.preemptions} preemptions, "
+          f"{rep_tight.swap_ins} swap-ins)")
+    want = {r.rid: r.generated for r in rep_roomy.completed}
+    got = {r.rid: r.generated for r in rep_tight.completed}
+    check(got == want, f"{tag}: preempted completions differ from the roomy run's")
+    stats.update(engine_launches=launches, engine_roomy_s=roomy_ms / 1e3,
+                 engine_tight_s=tight_ms / 1e3,
+                 engine_tokens_per_s=rep_roomy.emitted_tokens / (roomy_ms / 1e3),
+                 engine_preemptions=rep_tight.preemptions, engine_swap_ins=rep_tight.swap_ins,
+                 engine_wasted_tokens=rep_tight.wasted_tokens,
+                 engine_state_swap_tokens=tight.state_swap_tokens,
+                 engine_state_blocks=tight.state_blocks,
+                 engine_kernel_config=tight.kernels.name)
+    log(f"{tag} engine: roomy and cut runs bit-equal over {len(trace)} requests; the cut "
+        f"preempted {rep_tight.preemptions} (swap-ins {rep_tight.swap_ins}, wasted "
+        f"{rep_tight.wasted_tokens} tokens, {tight.state_blocks} state blocks a request)")
+    return launches
+
+
+def chunked_state_check(model, roll, prec, dev, prompt, tag):
+    """A chunked prefill (C 128, a ragged last chunk) against the one-shot
+    prefill of the same prompt on an attention-free model (no KV, so no
+    scale calibration to match), run twice.  Free-running: the first SSM
+    layer's state within 1e-3 of its largest entry (its input rows are
+    bit-equal, kernel 3's rows being independent of M; only the SSD's
+    batched products change shape) and next-token logits within
+    CHUNK_LOGIT_ATOL.  Deeper layers and the free-running logits are
+    logged, not held: a last-bit difference that moves an activation
+    across an fp8 rounding boundary (kernel 1) grows layer by layer
+    through random weights.  Teacher-forced: every layer of the chunked
+    run takes the one-shot run's input rows (the residual stream) for its
+    chunk, so no difference passes from layer to layer; every layer's
+    state, carried from chunk to chunk through the cache, is held within
+    1e-3 of its largest entry, and the next-token logits within
+    CHUNK_LOGIT_ATOL."""
+    import numpy as np
+    import torch
+    from repro_torch.data import tasks
+    from repro_torch.models import blocks
+    n = len(prompt)
+    fwd = blocks.apply_slot_full
+    inputs = []             # the one-shot run's layer inputs, in layer order
+    at = {"call": 0}
+
+    def recording(x, *args, **kw):
+        inputs.append(x.detach().clone())
+        return fwd(x, *args, **kw)
+
+    def forcing(x, *args, **kw):
+        full = inputs[at["call"] % len(inputs)]
+        at["call"] += 1
+        x = x.clone()
+        x[:, :at["c"]] = full[:, at["start"]:at["start"] + at["c"]]
+        return fwd(x, *args, **kw)
+
+    def chunked_prefill(mixer):
+        cache = model.init_cache(1, n + 1, prec, page_size=16)
+        for start in range(0, n, 128):
+            at.update(start=start, c=min(128, n - start))
+            chunk = np.full((1, 128), tasks.PAD, np.int32)
+            chunk[0, :at["c"]] = prompt[start:start + at["c"]]
+            with mock.patch.object(blocks, "apply_slot_full", mixer):
+                logits, cache = model.prefill_chunk(roll, torch.from_numpy(chunk), [start],
+                                                    [at["c"]], cache, prec)
+        return logits, cache
+
+    def state_errs(a_cache, b_cache):
+        """Per SSM layer, in (repeat, slot) order: the larger of h's and
+        the conv tail's largest gap over their largest entry."""
+        errs = []
+        for r in range(model.repeats):
+            for name, sd in a_cache["slots"].items():
+                if "ssm" in sd:
+                    a, b = sd["ssm"].layer(r), b_cache["slots"][name]["ssm"].layer(r)
+                    errs.append(max(
+                        ((x.float() - y.float()).abs().max()
+                         / x.float().abs().max().clamp_min(1e-30)).item()
+                        for x, y in ((a.h, b.h), (a.conv, b.conv))))
+        return errs
+    one = model.init_cache(1, n + 1, prec, page_size=16)
+    with mock.patch.object(blocks, "apply_slot_full", recording):
+        l1, one = model.prefill(roll, {"tokens": torch.from_numpy(prompt[None]).to(dev),
+                                       "lengths": torch.tensor([n], dtype=torch.int32)},
+                                one, prec)
+    l2, chunked = chunked_prefill(fwd)
+    free = state_errs(one, chunked)
+    del chunked
+    l3, chunked = chunked_prefill(forcing)
+    forced = state_errs(one, chunked)
+    del chunked, inputs[:]
+    torch.cuda.synchronize()
+    err, forced_err = (l1 - l2).abs().max().item(), (l1 - l3).abs().max().item()
+    log(f"{tag}: chunked (C 128) vs one-shot prefill of {n} tokens, SSM state over its "
+        f"largest entry: free-running, the first layer {free[0]:.2e} (tol 1e-3), the median "
+        f"layer {sorted(free)[len(free) // 2]:.2e}, the worst {max(free):.2e}, next-token "
+        f"logits {err:.4f}; teacher-forced, the worst of {len(forced)} layers "
+        f"{max(forced):.2e} (layer {forced.index(max(forced))}, tol 1e-3), next-token logits "
+        f"{forced_err:.4f} (tol {CHUNK_LOGIT_ATOL})")
+    log(f"{tag}: per-layer state gaps, free-running " + json.dumps([f"{e:.2e}" for e in free])
+        + ", teacher-forced " + json.dumps([f"{e:.2e}" for e in forced]))
+    check(free[0] <= 1e-3 and max(forced) <= 1e-3 and forced_err <= CHUNK_LOGIT_ATOL,
+          f"{tag}: chunked prefill differs from the one-shot prefill")
+    return {"chunked_state_first_layer_err": free[0],
+            "chunked_state_worst_layer_err": max(free), "chunked_logit_err": err,
+            "chunked_forced_state_worst_layer_err": max(forced),
+            "chunked_forced_logit_err": forced_err}
+
+
+def hold_linears(roll, gen, tag, ms=SSM_GEMM_MS):
+    """Kernels 1 and 3 at every distinct 2-D linear of `roll`'s blocks
+    (each (K, N) of a stacked (R, K, N) leaf once, on layer 0's weight)
+    and each M in `ms`: kernel 1 on a bf16 activation of width K
+    bit-equal to its plain version (`hold_quant_act`), and kernel 3
+    through `ops.fp8_matmul` (its (M, N) view of a padded output
+    included) within one bf16 rounding of the plain version on the same
+    quantized activation.  Returns {"slot/module/leaf": the largest
+    |kernel - plain| of kernel 3}."""
+    import torch
+    from repro_torch.core.precision import E4M3, ScaleFormat
+    from repro_torch.core.quant import QuantizedTensor
+    from repro_torch.kernels import ops
+    errs, seen, acts = {}, set(), set()
+    for slot, mods in roll["blocks"].items():
+        for mod, leaves in mods.items():
+            for name, stack in leaves.items():
+                if not isinstance(stack, QuantizedTensor) or stack.data.dim() != 3:
+                    continue
+                _, k, n = stack.data.shape
+                if (k, n) in seen:
+                    continue
+                seen.add((k, n))
+                w, worst = stack.layer(0), 0.0
+                for m in ms:
+                    x = torch.randn((m, k), generator=gen, device=w.data.device)
+                    x = x.to(torch.bfloat16)
+                    if (m, k) not in acts:
+                        acts.add((m, k))
+                        hold_quant_act(x, E4M3, ScaleFormat.FP32)
+                    xq = ops.quantize_activation(x)
+                    y = ops.fp8_matmul(xq, w)
+                    with mock.patch.object(ops, "_route", lambda t, kernel, plain: plain):
+                        yp = ops.fp8_matmul(xq, w).float()
+                    torch.cuda.synchronize()
+                    err = (y.float() - yp).abs().max().item()
+                    scale = yp.abs().max().item()
+                    check(tuple(y.shape) == (m, n) and bool(torch.isfinite(y).all())
+                          and torch.allclose(y.float(), yp, rtol=2 ** -7, atol=1e-5 * scale),
+                          f"{tag}: kernel 3 at {slot}/{mod}/{name} (M {m}, K {k}, N {n}) "
+                          "disagrees with its plain version")
+                    log(f"{tag} fp8_gemm at {mod}/{name} (M {m}, K {k}, N {n}, stored N "
+                        f"{-(-n // 128) * 128}) through ops.fp8_matmul: max|kernel-plain| "
+                        f"{err:.3e} (max|plain| {scale:.3f}); output contiguous: "
+                        f"{y.is_contiguous()}")
+                    worst = max(worst, err)
+                errs[f"{slot}/{mod}/{name}"] = worst
+    return errs
+
+
+def ssm_gemm_rows(dev, gen, roll, extra):
+    """Kernels 1 and 3 held at mamba2's projections (`hold_linears`):
+    w_in (K 1536, N 6448, stored at 6528) and w_out (3072 -> 1536); then
+    kernel 3 at each, at M in SSM_GEMM_MS, timed on cold weights (the 48
+    layers rotated) beside its byte bound (the real N, not the padding)."""
+    errs = hold_linears(roll, gen, "mamba2")
+    rows = {}
+    for name in ("w_in", "w_out"):
+        stack = roll["blocks"]["s0"]["ssm"][name]
+        _, k, n = stack.data.shape
+        for m in SSM_GEMM_MS:
+            row = gemm_row(stack, m, gen)
+            row["max_abs_err"] = errs[f"s0/ssm/{name}"]
+            extra.append(dict(kernel="fp8_gemm", shape=[m, k, n], weight=f"mamba2 {name}",
+                              **row))
+            rows[f"{name}_m{m}"] = {key: row[key] for key in ("ms", "device_ms", "bound_ms",
+                                                              "plain_ms")}
+    return rows
+
+
+def ssm_steps(dev, cfg, roll, prec, stats):
+    """mamba2's `launch.steps` path: a B 8 prefill of 512-1024 tokens and
+    BREADTH_STEPS serve steps, a LONG_PROMPT-token prefill and its serve
+    steps, then the LONG_500K cell's serve steps on the O(1) state (the
+    cell's cache, built as `cache_specs` shapes it, holds no KV: its state
+    is the long prompt's, its lengths 524284).  Kernel 1 : kernel 3 at 1 : 1,
+    no attention kernel."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import LONG_500K, ShapeConfig
+    from repro_torch.data import tasks
+    from repro_torch.kernels import build
+    from repro_torch.launch import steps
+    from repro_torch.models import Transformer
+    spec = steps.cache_specs(cfg, LONG_500K, prec)
+    check(all("ssm" in sd and "kv" not in sd for sd in spec["slots"].values()),
+          f"{cfg.name}: the LONG_500K cache holds KV")
+    shape = ShapeConfig("ssm_steps", CONTIG_SHAPE[1], 8, "prefill")
+    cprompts, clengths = make_prompts(np.random.default_rng(SEED + 7), b=8, lo=512, hi=1024)
+    tokens = np.zeros((8, shape.seq_len), np.int32)
+    tokens[:, :cprompts.shape[1]] = cprompts
+    batch = {"tokens": torch.from_numpy(tokens).to(dev), "lengths": torch.from_numpy(clengths)}
+    prefill_step = steps.make_prefill_step(cfg, shape, prec, device=dev)
+    serve_step = steps.make_serve_step(cfg, prec, device=dev)
+    long_shape = ShapeConfig("ssm_long_prompt", LONG_PROMPT, 1, "prefill")
+    long_prompt = tasks.random_prompt(SEED + 9, LONG_PROMPT)[None]
+    long_batch = {"tokens": torch.from_numpy(long_prompt).to(dev),
+                  "lengths": torch.tensor([LONG_PROMPT], dtype=torch.int32)}
+    long_prefill = steps.make_prefill_step(cfg, long_shape, prec, device=dev)
+    build.reset_launch_counts()
+    # --- launch.steps: prefill + serve steps, 16K, LONG_500K -----------------
+    (logits, cache), prefill_ms = _sync_ms(prefill_step, roll, batch)
+    step_ms = []
+    for _ in range(BREADTH_STEPS):
+        (logits, cache), ms = _sync_ms(serve_step, roll, logits.argmax(-1), cache)
+        step_ms.append(ms)
+    (llog, lcache), long_ms = _sync_ms(long_prefill, roll, long_batch)
+    long_step_ms = []
+    for _ in range(BREADTH_STEPS):
+        (llog, lcache), ms = _sync_ms(serve_step, roll, llog.argmax(-1), lcache)
+        long_step_ms.append(ms)
+    cell = Transformer(cfg, dev).init_cache(LONG_500K.global_batch, LONG_500K.seq_len, prec)
+    for name, sd in cell["slots"].items():
+        sd["ssm"].copy_(lcache["slots"][name]["ssm"])
+    cell["lengths"] = torch.full((1,), LONG_500K.seq_len - 4, dtype=torch.int32, device=dev)
+    cell["max_length"] = LONG_500K.seq_len - 4
+    cell_ms = []
+    for _ in range(4):
+        (llog, cell), ms = _sync_ms(serve_step, roll, llog.argmax(-1), cell)
+        cell_ms.append(ms)
+    launches = _path_launches(f"{cfg.name} launch.steps", ("quant_act", "fp8_gemm"),
+                              _quant_ratio(cfg))
+    # ----------------------------------------------------------------------
+    # one serve step of each batch profiled (outside the counted run)
+    for tag, (toks, c) in (("b8", (logits.argmax(-1), cache)), ("b1", (llog.argmax(-1), cell))):
+        _, busy_ms, n_kernels, _ = _profile(lambda: serve_step(roll, toks, c))
+        stats[f"serve_step_{tag}_busy_ms"], stats[f"serve_step_{tag}_kernels"] = \
+            busy_ms, n_kernels
+    check(launches["decode"] == 0 and launches["paged_decode"] == 0,
+          f"{cfg.name}: an attention kernel launched")
+    check(bool(torch.isfinite(logits).all()) and bool(torch.isfinite(llog).all()),
+          f"{cfg.name}: serve-step logits not finite")
+    state_gb = sum(st.h.numel() * 4 + st.conv.numel() * 2
+                   for st in (sd["ssm"] for sd in cell["slots"].values())) / 1e9
+    del cache, lcache, cell
+    stats.update(steps_launches=launches, steps_prefill_ms=prefill_ms, serve_step_ms=step_ms,
+                 long_prefill_ms=long_ms, long_serve_step_ms=long_step_ms,
+                 long_500k_serve_step_ms=cell_ms, long_500k_cache_gb=state_gb)
+    log(f"{cfg.name} launch.steps: prefill (B 8, S {shape.seq_len}) {prefill_ms:.1f} ms, serve "
+        f"steps {[round(x, 1) for x in step_ms]} ms; {LONG_PROMPT}-token prefill {long_ms:.1f} "
+        f"ms, serve steps {[round(x, 1) for x in long_step_ms]}; LONG_500K serve steps "
+        f"{[round(x, 1) for x in cell_ms]} ms on a {state_gb * 1e3:.1f} MB state; a serve step "
+        f"profiled: B 8 {stats['serve_step_b8_busy_ms']:.2f} ms busy "
+        f"({stats['serve_step_b8_kernels']} kernels), B 1 {stats['serve_step_b1_busy_ms']:.2f} "
+        f"ms busy ({stats['serve_step_b1_kernels']} kernels)")
+
+
+def ssm_path(dev, gen, extra):
+    """13a: mamba2-780m at full width and depth under `PrecisionConfig()`
+    (its kernel config resolves to "off": no KV, no attention kernel):
+    the sync, greedy and GRPO `generate` and greedy under BF16_ROLLOUT,
+    decode-step logits through the kernels against the plain versions, a
+    chunked prefill against the one-shot one, the engine roomy and under a
+    budget cut, `launch.steps` (1K, 16K, LONG_500K), kernel 3 at w_in and
+    w_out, then TRAIN_STEPS `RLTrainer` steps with f32 moments."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import BF16_ROLLOUT, PrecisionConfig
+    from repro_torch.kernels import build
+    from repro_torch.models import Transformer
+    from repro_torch.checkpoint import flatten_tree
+    from repro_torch.optim import AdamWConfig, state_bytes
+    from repro_torch.rl import RLConfig, RLTrainer, SamplerConfig, generate
+    from repro_torch.rl import sync_policy_weights
+    from repro_torch.rl.trainer import stats_to_host
+    from repro_torch.serving import request_state_bytes
+    cfg = get_config(SSM_SERVE)
+    prec = PrecisionConfig()
+    stats = {"state_bytes_per_request": request_state_bytes(cfg, prec)}
+    fresh_peak(cfg.name, stats)
+    model = Transformer(cfg, dev)
+    params, init_ms = _sync_ms(model.init_params, SEED)
+    build.reset_launch_counts()
+    roll, sync_stats = sync_policy_weights(params, prec)
+    check(build.LAUNCHES["quant_weight"] == _sync_leaves(cfg),
+          f"{cfg.name}: kernel 2 launched {build.LAUNCHES['quant_weight']} times")
+    stats.update(init_ms=init_ms, sync_ms=sync_stats["sync_ms"])
+    log(f"{cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, d_inner {cfg.d_inner}, "
+        f"{cfg.ssm_heads} heads of {cfg.ssm_head_dim}, state {cfg.ssm_state}, "
+        f"{cfg.param_count() / 1e9:.3f}B params; {stats['state_bytes_per_request'] / 1e6:.2f} "
+        "MB of SSM state a request")
+
+    prompts, lengths = make_prompts(np.random.default_rng(SEED))
+    sampler = torch.Generator(device=dev).manual_seed(SEED)
+    build.reset_launch_counts()
+    # --- the SSM rollout path: greedy and GRPO generate ----------------------
+    greedy, g_ms = _sync_ms(lambda: generate(
+        roll, prompts, lengths, None, cfg, prec, SamplerConfig(max_new_tokens=32,
+                                                               temperature=0.0),
+        page_size=16, device=dev))
+    group, grp_ms = _sync_ms(lambda: generate(
+        roll, prompts, lengths, sampler, cfg, prec, SamplerConfig(max_new_tokens=32),
+        page_size=16, num_samples_per_prompt=4, shared_prefix_blocks=int(lengths.min()) // 16,
+        device=dev))
+    launches = _path_launches(f"{cfg.name} rollout path", ("quant_act", "fp8_gemm"),
+                              _quant_ratio(cfg))
+    # ----------------------------------------------------------------------
+    forwards = 1 + _decode_steps(greedy) + 1 + _decode_steps(group)
+    check(launches["fp8_gemm"] == 2 * cfg.n_layers * forwards,
+          f"{cfg.name}: kernel 3 launched {launches['fp8_gemm']} times, not twice a layer "
+          f"in each of {forwards} forwards")
+    check_trajectory(greedy, 8, 32, cfg.vocab_size, f"{cfg.name} greedy")
+    check_trajectory(group, 32, 32, cfg.vocab_size, f"{cfg.name} group")
+    bf16, b_ms = _sync_ms(lambda: generate(
+        params, prompts, lengths, None, cfg, BF16_ROLLOUT,
+        SamplerConfig(max_new_tokens=32, temperature=0.0), page_size=16, device=dev))
+    check_trajectory(bf16, 8, 32, cfg.vocab_size, f"{cfg.name} BF16_ROLLOUT")
+    same = float((bf16.response_tokens == greedy.response_tokens).float().mean())
+    stats.update(rollout_launches=launches, greedy_generate_s=g_ms / 1e3,
+                 group_generate_s=grp_ms / 1e3, bf16_generate_s=b_ms / 1e3,
+                 greedy_tokens_per_s=float(greedy.response_mask.sum()) / (g_ms / 1e3),
+                 group_tokens_per_s=float(group.response_mask.sum()) / (grp_ms / 1e3),
+                 bf16_tokens_per_s=float(bf16.response_mask.sum()) / (b_ms / 1e3),
+                 fp8_bf16_greedy_token_agreement=same)
+    del greedy, group, bf16
+    stats["decode_logit_max_abs_err"] = decode_logits_check(model, roll, prec, prompts,
+                                                            lengths, dev)
+    stats.update(profile_decode_step(model, roll, prec, prompts, lengths, dev, "ssm_"))
+    stats.update(chunked_state_check(model, roll, prec, dev, engine_trace(n=1, lo=600)[0],
+                                     cfg.name))
+    state_engine_runs(roll, cfg, prec, dev, engine_trace(n=16), 8, SSM_ENGINE_BLOCK, stats,
+                      cfg.name, ("quant_act", "fp8_gemm"))
+    ssm_steps(dev, cfg, roll, prec, stats)
+    stats["gemm"] = ssm_gemm_rows(dev, gen, roll, extra)
+    del roll
+
+    rl = RLConfig(precision=prec, prompt_batch=8, n_per_prompt=4, max_prompt_len=12,
+                  max_new_tokens=32, temperature=1.0,
+                  optimizer=AdamWConfig(lr=3e-4, b2=0.98, grad_clip=1.0))
+    trainer = RLTrainer(cfg, rl, params=params, device=dev)
+    stats["opt_state_gb"] = state_bytes(trainer.opt_state) / 1e9
+    build.reset_launch_counts()
+    # --- the SSM trainer path: TRAIN_STEPS train steps -----------------------
+    rows = [trainer.train_step() for _ in range(TRAIN_STEPS)]
+    launches = _path_launches(f"{cfg.name} trainer path",
+                              ("quant_act", "quant_weight", "fp8_gemm"), _quant_ratio(cfg))
+    # ----------------------------------------------------------------------
+    check(launches["quant_weight"] == _sync_leaves(cfg) * TRAIN_STEPS,
+          f"{cfg.name} trainer: kernel 2 launched {launches['quant_weight']} times")
+    keys = ("step", "loss", "grad_norm", "mismatch_kl", "corr_weight_ess", "sync_ms",
+            "rollout_s", "score_backward_ms", "optimizer_ms", "step_s")
+    for m in rows:
+        _finite_metrics(m, f"{cfg.name} train step {m['step']}")
+        log(f"{cfg.name} train step: " + json.dumps({key: m[key] for key in keys}))
+    stats.update(train_launches=launches, train_steps=[{key: m[key] for key in keys}
+                                                       for m in rows])
+    # FP8 against BF16 rollout, the same prompts scored by the policy
+    stats["rollouts"] = score_rollouts(trainer, {"fp8": prec, "bf16": BF16_ROLLOUT}, dev)
+    log(f"{cfg.name}, same prompts, FP8 (W8A8) vs BF16 rollout scored by the bf16 policy: "
+        + json.dumps(stats["rollouts"]))
+    # one update with nonzero advantages (random weights tie every reward
+    # at 0): the backward through the SSD reaches every leaf
+    batch = dict(trainer.last_update_batch)
+    adv = np.repeat(np.random.default_rng(SEED).normal(size=rl.prompt_batch), rl.n_per_prompt)
+    batch["advantages"] = torch.tensor(adv, dtype=torch.float32, device=dev)
+    batch["mask"] = batch["response_mask"]
+    _, opt_state, upd = trainer.update_fn(trainer.params, trainer.opt_state, batch, {})
+    upd = stats_to_host(upd)
+    _finite_metrics(upd, f"{cfg.name} nonzero-advantage update")
+    no_grad = [k for k, m in flatten_tree(opt_state.m) if not bool(m.any())]
+    check(upd["grad_norm"] > 0 and not no_grad,
+          f"{cfg.name}: grad_norm {upd['grad_norm']}, no gradient reached {no_grad}")
+    stats["update"] = {k: upd[k] for k in ("loss", "grad_norm", "clip_scale")}
+    log(f"{cfg.name} nonzero-advantage update: " + json.dumps(stats["update"]))
+    del trainer, params, opt_state
+    stats["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    check(stats["peak_gb"] * 1e9 < CARD_BYTES, f"{cfg.name} peak {stats['peak_gb']:.1f} GB")
+    log(f"SSM {cfg.name}: " + json.dumps(stats))
+    return stats
+
+
+def hybrid_path(dev, gen, extra):
+    """13b: one full-width period of jamba-1.5-large-398b (8 of its 72
+    layers, every width kept) under `PrecisionConfig()`: the leafwise sync
+    (kernel 2 once per quantized leaf), greedy `generate`, decode-step
+    logits through the kernels against the plain versions (each layer of
+    the plain step fed the kernel step's input to it), the engine roomy and under a
+    budget cut (2 slots: a decode group of 2 rows never fills an expert's
+    capacity of 2, so no drop depends on which rows share a step), a
+    `launch.steps` prefill and serve steps, the expert-batched kernel 3 at
+    E 16 bit-equal per expert to the 2-D kernel, kernels 1 and 3 at every
+    2-D linear's widths, kernels 4-6 at its heads.  Kernel 1 : kernel 3 =
+    32 : 38 a period."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core.precision import PrecisionConfig
+    from repro_torch.kernels import build
+    from repro_torch.launch import steps
+    from repro_torch.models import Transformer
+    from repro_torch.rl import SamplerConfig, generate
+    from repro_torch.serving import request_state_bytes
+    full = get_config(HYBRID)
+    cfg = dataclasses.replace(full, n_layers=full.attn_period)
+    prec = PrecisionConfig()
+    gemms = ("fp8_gemm", "fp8_gemm_batched")
+    stats = {"state_bytes_per_request": request_state_bytes(cfg, prec)}
+    fresh_peak(cfg.name, stats)
+    model = Transformer(cfg, dev)
+    build.reset_launch_counts()
+    roll = leafwise_sync(model, prec, stats)
+    check(build.LAUNCHES["quant_weight"] == _sync_leaves(cfg),
+          f"{cfg.name}: kernel 2 launched {build.LAUNCHES['quant_weight']} times for "
+          f"{_sync_leaves(cfg)} leaves")
+    log(f"{cfg.name}: one period ({cfg.n_layers} of {full.n_layers} layers, the only cut), "
+        f"{cfg.param_count() / 1e9:.2f}B params drawn and synced leaf by leaf: "
+        + json.dumps(stats))
+
+    prompts, lengths = make_prompts(np.random.default_rng(SEED))
+    build.reset_launch_counts()
+    # --- the hybrid rollout path: greedy generate ----------------------------
+    greedy, g_ms = _sync_ms(lambda: generate(
+        roll, prompts, lengths, None, cfg, prec, SamplerConfig(max_new_tokens=32,
+                                                               temperature=0.0),
+        page_size=16, device=dev))
+    launches = _path_launches(f"{cfg.name} rollout path",
+                              ("quant_act", *gemms, "paged_decode"), _quant_ratio(cfg))
+    # ----------------------------------------------------------------------
+    n_attn = sum(cfg.is_attn_layer(i) for i in range(cfg.n_layers))
+    check(launches["paged_decode"] == n_attn * _decode_steps(greedy),
+          f"{cfg.name}: kernel 4 launched {launches['paged_decode']} times")
+    check_trajectory(greedy, 8, 32, cfg.vocab_size, f"{cfg.name} greedy")
+    stats.update(rollout_launches=launches, greedy_generate_s=g_ms / 1e3,
+                 greedy_tokens_per_s=float(greedy.response_mask.sum()) / (g_ms / 1e3))
+    del greedy
+    stats["decode_logit_max_abs_err"] = forced_decode_logits_check(model, roll, prec, prompts,
+                                                                   lengths, dev)
+    state_engine_runs(roll, cfg, prec, dev, engine_trace(n=4), 2, ENGINE_BLOCK_SIZE, stats,
+                      cfg.name, ("quant_act", *gemms, "paged_decode", "paged_prefill"))
+
+    shape = ShapeConfig("hybrid_steps", CONTIG_SHAPE[1], 8, "prefill")
+    cprompts, clengths = make_prompts(np.random.default_rng(SEED + 7), b=8, lo=512, hi=1024)
+    tokens = np.zeros((8, shape.seq_len), np.int32)
+    tokens[:, :cprompts.shape[1]] = cprompts
+    batch = {"tokens": torch.from_numpy(tokens).to(dev), "lengths": torch.from_numpy(clengths)}
+    prefill_step = steps.make_prefill_step(cfg, shape, prec, device=dev)
+    serve_step = steps.make_serve_step(cfg, prec, device=dev)
+    build.reset_launch_counts()
+    # --- launch.steps: prefill, then BREADTH_STEPS serve steps --------------
+    (logits, cache), prefill_ms = _sync_ms(prefill_step, roll, batch)
+    step_ms = []
+    for _ in range(BREADTH_STEPS):
+        (logits, cache), ms = _sync_ms(serve_step, roll, logits.argmax(-1), cache)
+        step_ms.append(ms)
+    launches = _path_launches(f"{cfg.name} launch.steps", ("quant_act", *gemms, "decode"),
+                              _quant_ratio(cfg))
+    # ----------------------------------------------------------------------
+    check(launches["decode"] == n_attn * BREADTH_STEPS,
+          f"{cfg.name}: kernel 6 launched {launches['decode']} times")
+    check(bool(torch.isfinite(logits).all()), f"{cfg.name}: serve-step logits not finite")
+    del cache
+    stats.update(steps_launches=launches, steps_prefill_ms=prefill_ms, serve_step_ms=step_ms)
+
+    rows = {}
+    for name in ("fc1", "fc2"):
+        stack = roll["blocks"]["s1"]["moe"][name]
+        row = moe_gemm_row(stack, 8, gen)
+        _, e, k, n = stack.data.shape
+        extra.append(dict(kernel="fp8_gemm_batched", shape=[e, 8, k, n],
+                          weight=f"jamba {name}", **row))
+        rows[f"{name}_m8"] = {key: row[key] for key in ("ms", "device_ms", "bound_ms")}
+    stats["batched_gemm"] = rows
+    stats["linear_errs"] = hold_linears(roll, gen, cfg.name)
+    stats["kernel_errs"] = hold_attention_kernels(dev, gen, cfg)
+    del roll, model
+    stats["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    check(stats["peak_gb"] * 1e9 < CARD_BYTES, f"{cfg.name} peak {stats['peak_gb']:.1f} GB")
+    log(f"hybrid {cfg.name}: " + json.dumps(stats))
+    return stats
+
+
+def ssm_hybrid_path(dev, gen, extra):
+    """Phase 13: 13a then 13b."""
+    return {"ssm": ssm_path(dev, gen, extra), "hybrid": hybrid_path(dev, gen, extra)}
+
+
+# ---------------------------------------------------------------------------
 # phase 6: times at the main paths' shapes
 # ---------------------------------------------------------------------------
 
@@ -2813,26 +3483,30 @@ def gemm_row(stack, m, gen, reps=20):
     import torch
     from repro_torch.kernels import fp8_gemm as fg
     from repro_torch.kernels import fp8_quant as fq
+    from repro_torch.kernels import ops
     layers, k, n = stack.data.shape
     dev = stack.data.device
     x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
     a, a_s = fq.quantize_activation_kernel(x)
-    ws = itertools.cycle([stack.layer(r) for r in range(layers)])
+    # the padded (K_pad, N_pad) view of the sync's storage, as
+    # `ops.fp8_matmul` hands it over (the same view where N % 128 == 0)
+    ws = itertools.cycle([(ops._gemm_weight(w.data), w.scales)
+                          for w in (stack.layer(r) for r in range(layers))])
 
     def kernel():
-        w = next(ws)
-        return fg.fp8_gemm(a, w.data, a_s, w.scales)
+        w, w_s = next(ws)
+        return fg.fp8_gemm(a, w, a_s, w_s)
 
     def plain():
-        w = next(ws)
-        return fg.fp8_gemm_ref(a, w.data, a_s, w.scales)
+        w, w_s = next(ws)
+        return fg.fp8_gemm_ref(a, w, a_s, w_s)
     row = timed_row(kernel, plain, reps=reps, plain_reps=3, plain_warmup=1)
-    nbytes = m * k + k * n + m * (k // 128) * 4 + (k // 128) * (n // 128) * 4 + m * n * 2
+    nbytes = m * k + k * n + m * (k // 128) * 4 + (k // 128) * -(-n // 128) * 4 + m * n * 2
     row["bound_ms"], row["bound_by"] = bound(nbytes, 2 * m * n * k, FP8_TC_FLOPS)
     one = torch.ones((), dtype=torch.float32, device=dev)
 
     def scaled_mm():
-        return torch._scaled_mm(a, next(ws).data, one, one, out_dtype=torch.bfloat16)
+        return torch._scaled_mm(a, next(ws)[0], one, one, out_dtype=torch.bfloat16)
     try:
         scaled_mm()
         row["scaled_mm_device_ms"] = device_time_ms(scaled_mm, reps=reps)
@@ -3173,6 +3847,10 @@ def main() -> int:
     moe = moe_path(dev, gen, results, moe_extra)
     log("kernel_timings_moe " + json.dumps(moe_extra))
     log("phase 12 peaks (GB): " + json.dumps({k: v["peak_gb"] for k, v in moe.items()}))
+    ssm_extra = []
+    ssm_hybrid = ssm_hybrid_path(dev, gen, ssm_extra)
+    log("kernel_timings_ssm " + json.dumps(ssm_extra))
+    log("phase 13 peaks (GB): " + json.dumps({k: v["peak_gb"] for k, v in ssm_hybrid.items()}))
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, "
         f"wall {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -11,7 +11,10 @@ bf16 and fp8 arrays cross as raw bits (`arr.view(np.uint16)` ->
 `(data, scales)` pair — become the port's `QuantizedTensor`.
 `kv_cache_from_numpy` carries a reference contiguous `KVCache` across the
 same way (raw fp8 bytes and f32 scales, one layer or stacked by layer), so
-a test can start the port's decode from the reference's exact cache.
+a test can start the port's decode from the reference's exact cache;
+`ssm_state_from_numpy` does the same for an `SSMState` (h f32, conv tail
+bf16).  SSM params (f32 `dt_bias`, `a_log`, `D` among them) cross as any
+other leaf.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.quant import QuantizedTensor
 from repro_torch.models.attention import KVCache
+from repro_torch.models.ssm import SSMState
 
 # numpy dtype names of the ml_dtypes types -> (raw-bit view, torch dtype)
 _RAW_BITS = {
@@ -70,3 +74,12 @@ def kv_cache_from_numpy(kv, device=None) -> KVCache:
     device = resolve_device(device)
     return KVCache(*(tensor_from_numpy(getattr(kv, f), device)
                      for f in ("k", "v", "k_scale", "v_scale")))
+
+
+def ssm_state_from_numpy(state, device=None) -> SSMState:
+    """A reference `SSMState` with numpy leaves (h (.., B, H, P, N) f32,
+    conv (.., B, W-1, C) bf16, one layer or stacked by layer) -> the
+    port's `SSMState` on `device`, bit for bit."""
+    device = resolve_device(device)
+    return SSMState(tensor_from_numpy(state.h, device),
+                    tensor_from_numpy(state.conv, device))

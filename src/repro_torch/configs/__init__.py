@@ -7,8 +7,11 @@ the reference's dense assigned architectures: llama3.2-3b (tied
 embeddings), stablelm-3b (D 80, no GQA), starcoder2-15b (G 12, a classic
 gelu MLP) and mistral-large-123b, and its MoE ones: granite-moe-3b-a800m
 (40 experts top-8, D 64, tied embeddings) and grok-1-314b (8 experts
-top-2).  mistral-large-123b and grok-1-314b are too large for one card:
-meta specs and reduced runs only.
+top-2), the SSM model mamba2-780m (attention-free) and the hybrid
+jamba-1.5-large-398b (one attention per 8 layers, MoE every other
+layer).  mistral-large-123b, grok-1-314b and jamba-1.5-large-398b are too
+large for one card: meta specs and reduced runs (jamba also one
+full-width period).
 """
 from repro_torch.configs.base import (
     ALL_SHAPES,
@@ -21,7 +24,9 @@ from repro_torch.configs.base import (
 )
 from repro_torch.configs.granite_moe_3b_a800m import CONFIG as granite_moe_3b_a800m
 from repro_torch.configs.grok_1_314b import CONFIG as grok_1_314b
+from repro_torch.configs.jamba_1_5_large_398b import CONFIG as jamba_1_5_large_398b
 from repro_torch.configs.llama3_2_3b import CONFIG as llama3_2_3b
+from repro_torch.configs.mamba2_780m import CONFIG as mamba2_780m
 from repro_torch.configs.mistral_large_123b import CONFIG as mistral_large_123b
 from repro_torch.configs.qwen3_8b import CONFIG as qwen3_8b
 from repro_torch.configs.qwen3_30b_a3b import CONFIG as qwen3_30b_a3b
@@ -31,7 +36,8 @@ from repro_torch.configs.starcoder2_15b import CONFIG as starcoder2_15b
 REGISTRY = {c.name: c for c in (qwen3_8b, llama3_2_3b, stablelm_3b,
                                 starcoder2_15b, mistral_large_123b,
                                 qwen3_30b_a3b, granite_moe_3b_a800m,
-                                grok_1_314b)}
+                                grok_1_314b, mamba2_780m,
+                                jamba_1_5_large_398b)}
 
 
 def get_config(name: str) -> ArchConfig:
@@ -50,8 +56,33 @@ def tiny_serving_config() -> ArchConfig:
         n_heads=4, n_kv_heads=2, d_head=16)
 
 
+def tiny_hybrid_serving_config() -> ArchConfig:
+    """Jamba-style attention + SSM interleave (period 2: one attention
+    layer, one Mamba2 layer) at serving-test scale
+    (`repro.configs.tiny_hybrid_serving_config`, the same overrides)."""
+    from repro_torch.data import tasks
+    return get_config("jamba-1.5-large-398b").reduced(
+        n_layers=2, attn_period=2, n_experts=0, top_k=0,
+        moe_period=1, moe_offset=0,
+        d_model=64, d_ff=128, vocab_size=tasks.VOCAB_SIZE,
+        n_heads=4, n_kv_heads=2, d_head=16,
+        ssm_state=8, ssm_head_dim=16)
+
+
+def tiny_ssm_serving_config() -> ArchConfig:
+    """Attention-free reduced mamba2-780m: no KV cache, serving bounded by
+    the per-slot recurrent-state bytes
+    (`repro.configs.tiny_ssm_serving_config`, the same overrides)."""
+    from repro_torch.data import tasks
+    return get_config("mamba2-780m").reduced(
+        n_layers=2, d_model=64, vocab_size=tasks.VOCAB_SIZE,
+        ssm_state=8, ssm_head_dim=16)
+
+
 __all__ = ["ALL_SHAPES", "ArchConfig", "DECODE_32K", "LONG_500K",
            "PREFILL_32K", "REGISTRY", "ShapeConfig", "TRAIN_4K", "get_config",
-           "granite_moe_3b_a800m", "grok_1_314b", "llama3_2_3b",
-           "mistral_large_123b", "qwen3_30b_a3b", "qwen3_8b", "stablelm_3b",
-           "starcoder2_15b", "tiny_serving_config"]
+           "granite_moe_3b_a800m", "grok_1_314b", "jamba_1_5_large_398b",
+           "llama3_2_3b", "mamba2_780m", "mistral_large_123b",
+           "qwen3_30b_a3b", "qwen3_8b", "stablelm_3b", "starcoder2_15b",
+           "tiny_hybrid_serving_config", "tiny_serving_config",
+           "tiny_ssm_serving_config"]

@@ -8,7 +8,7 @@ builds its steps and specs for.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +89,28 @@ class ArchConfig:
     def attention_free(self) -> bool:
         return self.n_heads == 0
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """True when decode does not need a dense KV cache over the whole
+        context in every layer (SSM and hybrid)."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim if self.ssm_state else 0
+
+    def shapes(self) -> Tuple[ShapeConfig, ...]:
+        """The shape cells this arch runs: LONG_500K only for the
+        sub-quadratic families."""
+        cells = [TRAIN_4K, PREFILL_32K, DECODE_32K]
+        if self.sub_quadratic:
+            cells.append(LONG_500K)
+        return tuple(cells)
+
     def is_attn_layer(self, i: int) -> bool:
         if self.attention_free:
             return False
@@ -100,16 +122,28 @@ class ArchConfig:
         return self.n_experts > 0 and i % self.moe_period == self.moe_offset
 
     def param_count(self) -> int:
-        """Analytic parameter count of a dense or MoE decoder (the ported
-        families; an MoE layer holds its experts' fc1/fc2 and the router)."""
+        """Analytic parameter count of a decoder (the ported families: an
+        MoE layer holds its experts' fc1/fc2 and the router, an SSM mixer
+        its projections, conv and per-head leaves; mamba2 blocks have no
+        MLP)."""
         d, f, v = self.d_model, self.d_ff, self.vocab_size
         per_attn = d * (self.n_heads * self.d_head) * 2 \
             + d * (self.n_kv_heads * self.d_head) * 2
         per_mlp = (3 if self.mlp_gated else 2) * d * f
         per_moe = self.n_experts * 3 * d * f + d * self.n_experts
+        per_ssm = 0
+        if self.ssm_state:
+            di, n, h = self.d_inner, self.ssm_state, self.ssm_heads
+            per_ssm = d * (2 * di + 2 * n + h) + di * d \
+                + self.ssm_conv * (di + 2 * n) + 3 * h + di
         total = v * d * (1 if self.tie_embeddings else 2)
         for i in range(self.n_layers):
-            total += per_attn + (per_moe if self.is_moe_layer(i) else per_mlp)
+            if self.is_attn_layer(i):
+                total += per_attn
+            elif self.ssm_state:
+                total += per_ssm
+            if self.family != "ssm":
+                total += per_moe if self.is_moe_layer(i) else per_mlp
         return total
 
     # ------------------------------------------------------------------

@@ -29,6 +29,9 @@ its defaults take the jnp branch, and so every reference rollout under
 FULL_FP8_ROLLOUT quantizes its attention.  An explicit choice ("all",
 "decode", `use_kernel=True`) keeps the reference's kernel semantics and
 skips the QDQ.  The precision config alone decides, never a failure.
+On an attention-free model (mamba2) the attention kernels have nothing
+to serve: the default resolves to "off", and an explicit kernel request
+raises, as the reference's engine asserts.
 """
 from __future__ import annotations
 
@@ -58,14 +61,22 @@ class KernelConfig:
         return table[spec]
 
     @classmethod
-    def resolve(cls, spec, precision) -> "KernelConfig":
+    def resolve(cls, spec, precision, attention_free: bool = False) -> "KernelConfig":
         """The caller's `spec` (a KernelConfig or a shorthand), or with
         None the port's default for `precision`: every kernel, or none
         under `quantize_attention` (the reference's default branch, which
-        quantizes the attention math)."""
+        quantizes the attention math) or on an `attention_free` model,
+        where an explicit kernel request raises a `ValueError`."""
         if spec is None:
-            return cls() if precision.quantize_attention else cls(prefill=True, decode=True)
-        return cls.parse(spec)
+            if precision.quantize_attention or attention_free:
+                return cls()
+            return cls(prefill=True, decode=True)
+        config = cls.parse(spec)
+        if attention_free and config.any:
+            raise ValueError(
+                f"kernel_config {config.name!r}: attention kernels have nothing "
+                "to serve on an attention-free model; leave it unset or 'off'")
+        return config
 
     @property
     def name(self) -> str:

@@ -23,7 +23,10 @@ the attention takes the reference's default QDQ branch; an explicit
 `--kernel-config all` keeps the kernels (which skip the QDQ, as the
 reference's kernel branches do).  The report's `kernel_config` is the
 resolved one.  `--arch` takes any name of the port's registry, the MoE
-models (qwen3-30b-a3b, granite-moe-3b-a800m, grok-1-314b) included.
+models (qwen3-30b-a3b, granite-moe-3b-a800m, grok-1-314b), mamba2-780m
+and jamba-1.5-large-398b (`--reduced` keeps its 8-layer period) included;
+an attention-free model resolves `--kernel-config` to `off` and refuses
+a kernel, and `--shrink-at` preempts on its slot state alone.
 """
 from __future__ import annotations
 
@@ -75,7 +78,8 @@ PRECISIONS = {
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", default="qwen3-8b",
-                    help="a name of repro_torch.configs.REGISTRY (dense or MoE)")
+                    help="a name of repro_torch.configs.REGISTRY (dense, MoE, "
+                         "SSM or hybrid)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--precision", choices=sorted(PRECISIONS), default="fp8")
     ap.add_argument("--requests", type=int, default=16)
@@ -322,7 +326,8 @@ def run(argv=None) -> dict:
     wall_s = time.perf_counter() - t0
     _write_traces(args, tracers)
     out.update(device=str(device),
-               kernel_config=KernelConfig.resolve(args.kernel_config, precision).name,
+               kernel_config=KernelConfig.resolve(
+                   args.kernel_config, precision, attention_free=cfg.attention_free).name,
                kv_bytes_per_token=kv_bytes_per_token(cfg, precision),
                sync_ms=round(sync_stats.get("sync_ms", 0.0), 2),
                serve_wall_s=round(wall_s, 3))

@@ -14,10 +14,13 @@ before any launch (the reference's XLA scatter drops it silently).
 
 `input_specs`, `cache_specs` and `param_specs` are the counterpart of the
 reference's `ShapeDtypeStruct` stand-ins: tensors on the "meta" device,
-with shapes and dtypes and no storage.  The port runs dense and MoE text
-decoders, so there are no frontend specs.  `make_train_step` and
-`make_opt_specs` (the TRAIN_4K cell's step) are not ported yet; the RL
-trainer's update is `rl.RLTrainer.update_fn` (ROADMAP queue 1).
+with shapes and dtypes and no storage.  The port runs dense, MoE, SSM and
+hybrid text decoders, so there are no frontend specs; an SSM layer's cache
+is its O(1) recurrent state (h f32, conv tail bf16), so jamba's LONG_500K
+cache holds dense KV in only its attention layers and mamba2's none.
+`make_train_step` and `make_opt_specs` (the TRAIN_4K cell's step) are not
+ported yet; the RL trainer's update is `rl.RLTrainer.update_fn` (ROADMAP
+queue 1).
 """
 from __future__ import annotations
 
@@ -58,7 +61,8 @@ def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict:
 
 def cache_specs(cfg: ArchConfig, shape: ShapeConfig,
                 precision: PrecisionConfig) -> dict:
-    """The contiguous rollout cache of a cell (S_max = seq_len) on meta."""
+    """The contiguous rollout cache of a cell (S_max = seq_len) on meta:
+    KV for the attention layers, the recurrent state for the SSM ones."""
     _text_only(cfg)
     return Transformer(cfg, META).init_cache(shape.global_batch, shape.seq_len,
                                              precision)
@@ -98,8 +102,8 @@ def param_specs(cfg: ArchConfig, precision: Optional[PrecisionConfig] = None) ->
 def make_prefill_step(cfg: ArchConfig, shape: ShapeConfig,
                       precision: PrecisionConfig, device=None):
     """Prompt processing into a fresh contiguous cache of seq_len + 1
-    positions; returns only the last-position logits (B, V) f32 and the
-    cache."""
+    positions (and zero SSM state); returns only the last-position logits
+    (B, V) f32 and the cache."""
     model = Transformer(cfg, device)
     b, s = shape.global_batch, shape.seq_len
 
@@ -112,7 +116,8 @@ def make_prefill_step(cfg: ArchConfig, shape: ShapeConfig,
 
 def make_serve_step(cfg: ArchConfig, precision: PrecisionConfig, device=None):
     """One decode token (B,) against an existing contiguous cache, through
-    kernel 6 on the card (its plain version on the CPU)."""
+    kernel 6 on the card (its plain version on the CPU) in the attention
+    layers and the recurrent step in the SSM ones."""
     model = Transformer(cfg, device)
 
     def serve_step(params, tokens, cache):

@@ -16,7 +16,9 @@ port-only spelling, is `PrecisionConfig()`.  `--rrr` (rollout router
 replay) records an MoE model's routing in the rollout; as in the
 reference, the update does not replay it.  `--arch` takes any name of the
 port's registry, the MoE models (qwen3-30b-a3b, granite-moe-3b-a800m,
-grok-1-314b) included.  `--fp8-moments` (port-only) keeps AdamW's moments
+grok-1-314b), mamba2-780m and jamba-1.5-large-398b included (with
+`--reduced`, jamba needs `--layers 8`, its pattern's period, as in the
+reference).  `--fp8-moments` (port-only) keeps AdamW's moments
 in fp8, as a full-width model on one card needs.
 """
 from __future__ import annotations

@@ -2,9 +2,9 @@
 
 A model is `n_layers = R * len(pattern)` layers; params and caches are
 stacked over the R repeats, as in the reference, and the port walks them
-with a Python loop where the reference scans.  Attention slots with an
-MLP (the dense decoder) or an MoE layer are ported; SSM and
-cross-attention slots raise.
+with a Python loop where the reference scans.  A slot's mixer is
+attention or an SSM (Mamba2) layer, its FFN an MLP, an MoE layer or none
+(mamba2); cross-attention slots (enc-dec) raise.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ from typing import Optional, Tuple
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import rms_norm
 
 
@@ -56,17 +57,19 @@ def n_repeats(cfg, decoder: bool = True) -> int:
 
 
 def check_supported(spec: SlotSpec) -> None:
-    """The port runs attention slots with an MLP or an MoE layer
-    (ROADMAP queue 1)."""
-    if spec.mixer != "attn" or spec.ffn not in ("mlp", "moe") or spec.cross:
+    """The port runs every slot but cross-attention (ROADMAP queue 1)."""
+    if spec.cross:
         raise NotImplementedError(
-            f"slot {spec} is not ported yet: SSM and cross-attention "
-            "wait for the model-breadth item of ROADMAP queue 1")
+            f"slot {spec} is not ported yet: cross-attention waits for the "
+            "enc-dec item of ROADMAP queue 1")
 
 
 def _ffn(x, slot_params, spec: SlotSpec, cfg, precision, forced_topk=None):
     """The slot's MLP or MoE layer on its pre-norm input, residual added:
-    (x, aux), aux the MoE layer's (`moe.moe_forward`) or empty."""
+    (x, aux), aux the MoE layer's (`moe.moe_forward`) or empty; x as it
+    is for a slot without one (mamba2)."""
+    if spec.ffn is None:
+        return x, {}
     if spec.ffn == "moe":
         p = slot_params["moe"]
         h, aux = moe_mod.moe_forward(rms_norm(x, p["norm_scale"], cfg.norm_eps), p, cfg,
@@ -77,20 +80,46 @@ def _ffn(x, slot_params, spec: SlotSpec, cfg, precision, forced_topk=None):
                                    p, cfg, precision), {}
 
 
+def _ssm_full(x, slot_params, cfg, precision, ssm_state, lengths, chunk_start):
+    """The SSM mixer over a sequence, residual added.  With `ssm_state`
+    (a cache layer's, prefill or a chunk of it) it runs from that state
+    and writes the new one into it in place; padded positions are state
+    no-ops: `lengths` counts the valid tokens, so inside a chunk starting
+    at `chunk_start` the valid region is its first lengths - chunk_start
+    positions."""
+    p = slot_params["ssm"]
+    xn = rms_norm(x, p["norm_scale"], cfg.norm_eps)
+    if ssm_state is None:
+        h, _ = ssm_mod.ssm_forward(xn, p, cfg, precision)
+        return x + h
+    ssm_lengths = None
+    if lengths is not None:
+        ssm_lengths = lengths - chunk_start if chunk_start is not None else lengths
+    h, new = ssm_mod.ssm_forward(xn, p, cfg, precision, state=ssm_state,
+                                 return_state=True, lengths=ssm_lengths)
+    ssm_state.copy_(new)
+    return x + h
+
+
 def apply_slot_full(x, slot_params, spec: SlotSpec, cfg, precision, *,
-                    kv_cache=None, positions=None, lengths=None, mask=None,
-                    block_tables=None, chunk_start=None,
-                    use_kernel: bool = False,
+                    kv_cache=None, ssm_state=None, positions=None,
+                    lengths=None, mask=None, block_tables=None,
+                    chunk_start=None, use_kernel: bool = False,
                     live_blocks: Optional[int] = None, forced_topk=None):
     """Full-sequence branch of the reference's `apply_slot_full`, then the
     MLP or MoE layer (`forced_topk` (B, T, K) replays an MoE routing).
-    Without `kv_cache` (training / scoring): cache-free attention
-    under `mask` (`attention.attention_forward`).  With a cache: prefill
+    Without a cache (training / scoring): cache-free attention
+    under `mask` (`attention.attention_forward`), or the SSM mixer from
+    a zero state.  With a cache: prefill
     attention over the prompt, writing the cache (a contiguous `KVCache`,
     or a pool through `block_tables`) — or, with `chunk_start`, over one
     chunk of it at [chunk_start, chunk_start + C) of a pool (`use_kernel`
-    and `live_blocks` as in `attention_prefill_chunk`).  Returns (x, aux),
-    aux the MoE layer's or empty."""
+    and `live_blocks` as in `attention_prefill_chunk`); an SSM slot runs
+    from its `ssm_state` and writes the new state into it.  Returns (x,
+    aux), aux the MoE layer's or empty."""
+    if spec.mixer == "ssm":
+        x = _ssm_full(x, slot_params, cfg, precision, ssm_state, lengths, chunk_start)
+        return _ffn(x, slot_params, spec, cfg, precision, forced_topk)
     p = slot_params["attn"]
     xn = rms_norm(x, p["norm_scale"], cfg.norm_eps)
     if kv_cache is None:
@@ -110,14 +139,22 @@ def apply_slot_full(x, slot_params, spec: SlotSpec, cfg, precision, *,
 
 
 def apply_slot_decode(x, slot_params, spec: SlotSpec, cfg, precision, *,
-                      kv_cache, lengths, block_tables=None,
-                      use_kernel: Optional[bool] = None,
+                      kv_cache=None, ssm_state=None, lengths=None,
+                      block_tables=None, use_kernel: Optional[bool] = None,
                       live_blocks: Optional[int] = None, forced_topk=None):
     """One-token decode through the slot: attention through kernel 6 (a
     contiguous `KVCache`, no `block_tables`) or kernel 4 (a pool), or with
     `use_kernel` off through the reference's full-cache path or the gather
     of `live_blocks` table entries (None: `attention.attention_decode`'s
-    default); then the MLP or MoE layer.  Returns (x, aux)."""
+    default); or the SSM mixer's recurrent step, which writes the new
+    state into `ssm_state` in place; then the MLP or MoE layer.  Returns
+    (x, aux)."""
+    if spec.mixer == "ssm":
+        p = slot_params["ssm"]
+        h, new = ssm_mod.ssm_decode(rms_norm(x, p["norm_scale"], cfg.norm_eps), p, cfg,
+                                    ssm_state, precision)
+        ssm_state.copy_(new)
+        return _ffn(x + h, slot_params, spec, cfg, precision, forced_topk)
     p = slot_params["attn"]
     xn = rms_norm(x, p["norm_scale"], cfg.norm_eps)
     x = x + attn_mod.attention_decode(xn, p, cfg, kv_cache, lengths,

@@ -1,5 +1,5 @@
-"""Model assembly: init / cache / prefill / decode for the dense and MoE
-decoders (port of `repro.models.transformer`).
+"""Model assembly: init / cache / prefill / decode for the dense, MoE, SSM
+and hybrid decoders (port of `repro.models.transformer`).
 
 `Transformer` holds the configuration and the device; the parameters are
 a nested dict with the reference's key names and layer-stacked leaves
@@ -19,7 +19,10 @@ With MoE layers, `prefill`, `prefill_chunk`, `decode_step` and
 `forward_train` return the routing on request (`want_routing`: each MoE
 slot's top-k expert indices stacked over the R repeats, as the
 reference's scan stacks them) and `forward_train` takes a routing to
-replay (`forced_routing`).
+replay (`forced_routing`).  SSM layers (mamba2, jamba's hybrid pattern)
+keep their recurrent state slot-indexed in the cache ("ssm", an
+`ssm.SSMState` stacked over the R repeats) in either layout; a paged cache
+of an attention-free model has no pool and no block tables.
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ from repro_torch.core.quant import QuantizedTensor
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as blocks_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import dense_init, embed_init, pad_rows, rms_norm
 
 
@@ -55,13 +59,19 @@ def _set(tree: dict, path: tuple, leaf) -> None:
     tree[path[-1]] = leaf
 
 
+def _first_kv(cache):
+    """The first attention slot's KV cache (all share the geometry), or
+    None for an attention-free model."""
+    return next((sd["kv"] for sd in cache["slots"].values() if "kv" in sd), None)
+
+
 def _stack_routing(per_layer: dict) -> dict:
     """{slot: [R x (B, T, K)]} -> {slot: (R, B, T, K)}."""
     return {name: torch.stack(idx) for name, idx in per_layer.items()}
 
 
 class Transformer(nn.Module):
-    """Dense or MoE decoder-only transformer on one device (CUDA by
+    """Dense, MoE, SSM or hybrid decoder on one device (CUDA by
     default)."""
 
     def __init__(self, cfg, device=None, dtype=torch.bfloat16):
@@ -108,15 +118,22 @@ class Transformer(nn.Module):
 
         yield ("emb",), embed_init(gen, (cfg.vocab_size, d), dt, dev)
         for j, spec in enumerate(self.pattern):
-            attn = ("blocks", f"s{j}", "attn")
-            yield attn + ("wq",), dense((r, d, h * dh), d)
-            yield attn + ("wk",), dense((r, d, kvh * dh), d)
-            yield attn + ("wv",), dense((r, d, kvh * dh), d)
-            yield attn + ("wo",), dense((r, h * dh, d), h * dh)
-            yield attn + ("norm_scale",), ones(r, d)
-            if cfg.qk_norm:
-                yield attn + ("q_norm_scale",), ones(r, dh)
-                yield attn + ("k_norm_scale",), ones(r, dh)
+            if spec.mixer == "ssm":
+                for name, leaf in ssm_mod.init_ssm_params(dense, ones, cfg, r, dev):
+                    yield ("blocks", f"s{j}", "ssm", name), leaf
+                    del leaf
+            else:
+                attn = ("blocks", f"s{j}", "attn")
+                yield attn + ("wq",), dense((r, d, h * dh), d)
+                yield attn + ("wk",), dense((r, d, kvh * dh), d)
+                yield attn + ("wv",), dense((r, d, kvh * dh), d)
+                yield attn + ("wo",), dense((r, h * dh, d), h * dh)
+                yield attn + ("norm_scale",), ones(r, d)
+                if cfg.qk_norm:
+                    yield attn + ("q_norm_scale",), ones(r, dh)
+                    yield attn + ("k_norm_scale",), ones(r, dh)
+            if spec.ffn is None:
+                continue
             if spec.ffn == "moe":
                 for name, leaf in moe_mod.init_moe_params(dense, ones, cfg, r):
                     yield ("blocks", f"s{j}", "moe", name), leaf
@@ -142,23 +159,34 @@ class Transformer(nn.Module):
         `page_size` tokens (+ the trash row) and a (B, W) block table,
         W = ceil(max_len / page_size); without `num_pages` each sequence
         owns a contiguous run of blocks (identity tables), with it the
-        tables start unmapped (-1) for an external allocator."""
+        tables start unmapped (-1) for an external allocator.  SSM slots
+        hold zero (R, B, ...) recurrent state ("ssm") in either layout; an
+        attention-free paged cache has no block tables."""
         cfg = self.cfg
         lengths = torch.zeros((batch,), dtype=torch.int32, device=self.device)
-        if page_size is None:
-            slots = {f"s{j}": {"kv": attn_mod.init_kv_cache(
-                batch, max_len, cfg.n_kv_heads, cfg.d_head, precision,
-                repeats=self.repeats, device=self.device, dtype=self.dtype)}
-                for j, _ in enumerate(self.pattern)}
+        paged = page_size is not None
+        if paged:
+            pages_per_seq = -(-max_len // page_size)
+            self_owned = num_pages is None
+            if self_owned:
+                num_pages = batch * pages_per_seq
+        slots = {}
+        for j, spec in enumerate(self.pattern):
+            if spec.mixer == "ssm":
+                slots[f"s{j}"] = {"ssm": ssm_mod.init_ssm_state(
+                    batch, cfg, repeats=self.repeats, device=self.device, dtype=self.dtype)}
+            elif paged:
+                slots[f"s{j}"] = {"kv": attn_mod.init_paged_kv_cache(
+                    num_pages, page_size, cfg.n_kv_heads, cfg.d_head, precision,
+                    repeats=self.repeats, device=self.device, dtype=self.dtype)}
+            else:
+                slots[f"s{j}"] = {"kv": attn_mod.init_kv_cache(
+                    batch, max_len, cfg.n_kv_heads, cfg.d_head, precision,
+                    repeats=self.repeats, device=self.device, dtype=self.dtype)}
+        if not paged:
             return {"slots": slots, "lengths": lengths, "max_length": 0}
-        pages_per_seq = -(-max_len // page_size)
-        self_owned = num_pages is None
-        if self_owned:
-            num_pages = batch * pages_per_seq
-        slots = {f"s{j}": {"kv": attn_mod.init_paged_kv_cache(
-            num_pages, page_size, cfg.n_kv_heads, cfg.d_head, precision,
-            repeats=self.repeats, device=self.device, dtype=self.dtype)}
-            for j, _ in enumerate(self.pattern)}
+        if cfg.attention_free:
+            return {"slots": slots, "lengths": lengths}
         if self_owned:
             tables = torch.arange(batch * pages_per_seq, dtype=torch.int32,
                                   device=self.device).reshape(batch, pages_per_seq)
@@ -182,17 +210,17 @@ class Transformer(nn.Module):
         logits = linear(pad_rows(x2), head, precision=precision, quantized=False)
         return logits[: x2.shape[0]].reshape(lead + (-1,)).float()
 
-    @staticmethod
-    def _max_len(cache) -> int:
-        """S_max of a contiguous cache."""
-        return next(iter(cache["slots"].values()))["kv"].max_len
-
     def _layers(self, params, cache):
+        """(slot name, spec, layer params, layer cache) for every layer, the
+        layer cache {"kv_cache": ...} or {"ssm_state": ...} (views)."""
         for r in range(self.repeats):
             slot_params = _layer(params["blocks"], r)
             for j, spec in enumerate(self.pattern):
                 name = f"s{j}"
-                yield name, spec, slot_params[name], cache["slots"][name]["kv"].layer(r)
+                sd = cache["slots"][name]
+                sc = {"ssm_state": sd["ssm"].layer(r)} if "ssm" in sd else \
+                    {"kv_cache": sd["kv"].layer(r)}
+                yield name, spec, slot_params[name], sc
 
     # ------------------------------------------------------------------
     # prefill / decode
@@ -205,23 +233,23 @@ class Transformer(nn.Module):
         at each last valid position (B, V) f32 and the cache — and with
         `want_routing` the routing, {MoE slot: (R, B, T, K)}.  A contiguous
         cache takes T <= S_max and records max(lengths) on the host (one
-        device sync when the lengths are a CUDA tensor)."""
+        device sync when the lengths are a CUDA tensor).  SSM slots run
+        from the cache's state (zeros in a fresh cache) and leave the
+        state at each row's last valid token in it."""
         tokens = inputs["tokens"].to(self.device)
         lengths = inputs["lengths"].to(self.device, torch.int32)
         b, t = tokens.shape
-        contiguous = "block_tables" not in cache
-        if contiguous:
-            s_max = self._max_len(cache)
-            if t > s_max:
-                raise ValueError(f"prompts of {t} positions exceed the cache's {s_max}")
+        kv0 = _first_kv(cache)
+        contiguous = "max_length" in cache
+        if isinstance(kv0, attn_mod.KVCache) and t > kv0.max_len:
+            raise ValueError(f"prompts of {t} positions exceed the cache's {kv0.max_len}")
         x = params["emb"][tokens.long()]
         positions = torch.arange(t, device=self.device)[None, :]
         routing = {}
-        for name, spec, p, kv in self._layers(params, cache):
+        for name, spec, p, sc in self._layers(params, cache):
             x, aux = blocks_mod.apply_slot_full(
-                x, p, spec, self.cfg, precision, kv_cache=kv,
-                positions=positions, lengths=lengths,
-                block_tables=cache.get("block_tables"))
+                x, p, spec, self.cfg, precision, positions=positions,
+                lengths=lengths, block_tables=cache.get("block_tables"), **sc)
             if aux:
                 routing.setdefault(name, []).append(aux["topk_idx"])
         cache["lengths"] = lengths
@@ -246,25 +274,29 @@ class Transformer(nn.Module):
         position (B, V) f32 — or at every chunk position (B, C, V) with
         `want_all_logits` (the speculative verifier) — and the cache, whose
         "lengths" become start + chunk_lengths; with `want_routing` also
-        the chunk's routing, {MoE slot: (R, B, C, K)}."""
+        the chunk's routing, {MoE slot: (R, B, C, K)}.  SSM slots carry
+        their state from chunk to chunk (a ragged last chunk's padded
+        positions are state no-ops), so an attention-free cache (no block
+        tables) streams through here too."""
         tokens = torch.as_tensor(tokens, device=self.device)
         b, c = tokens.shape
         start_h = np.asarray(start, np.int64).reshape(b)
         n_h = np.asarray(chunk_lengths, np.int64).reshape(b)
         new_h = start_h + n_h
-        tables = cache["block_tables"]
-        pools = next(iter(cache["slots"].values()))["kv"]
-        live = attn_mod._live_blocks(np.minimum(start_h + c, new_h),
-                                     tables.shape[1], pools.block_size)
+        tables = cache.get("block_tables")
+        live = None
+        if tables is not None:
+            live = attn_mod._live_blocks(np.minimum(start_h + c, new_h),
+                                         tables.shape[1], _first_kv(cache).block_size)
         start_t = torch.as_tensor(start_h, dtype=torch.int32, device=self.device)
         lengths_t = torch.as_tensor(new_h, dtype=torch.int32, device=self.device)
         x = params["emb"][tokens.long()]
         routing = {}
-        for name, spec, p, kv in self._layers(params, cache):
+        for name, spec, p, sc in self._layers(params, cache):
             x, aux = blocks_mod.apply_slot_full(
-                x, p, spec, self.cfg, precision, kv_cache=kv,
-                lengths=lengths_t, block_tables=tables, chunk_start=start_t,
-                use_kernel=use_kernel, live_blocks=live)
+                x, p, spec, self.cfg, precision, lengths=lengths_t,
+                block_tables=tables, chunk_start=start_t,
+                use_kernel=use_kernel, live_blocks=live, **sc)
             if aux:
                 routing.setdefault(name, []).append(aux["topk_idx"])
         cache["lengths"] = lengths_t
@@ -295,20 +327,22 @@ class Transformer(nn.Module):
         the context.  A paged cache attends through kernel 4, or with
         `use_kernel=False` through the gather of the first `live_blocks`
         table entries (the caller's `attention._live_blocks` over
-        lengths + 1; all entries when None)."""
-        contiguous = "block_tables" not in cache
-        if contiguous and cache["max_length"] >= self._max_len(cache):
+        lengths + 1; all entries when None).  SSM slots advance their
+        recurrent state in place (every row's; O(1) per token, no bound)."""
+        kv0 = _first_kv(cache)
+        contiguous = "max_length" in cache
+        if isinstance(kv0, attn_mod.KVCache) and cache["max_length"] >= kv0.max_len:
             raise ValueError(
                 f"decode step past the cache: a length reaches {cache['max_length']}"
-                f" and the cache holds {self._max_len(cache)} positions")
+                f" and the cache holds {kv0.max_len} positions")
         lengths = cache["lengths"]
         x = params["emb"][tokens.to(self.device).long()][:, None, :]
         routing = {}
-        for name, spec, p, kv in self._layers(params, cache):
+        for name, spec, p, sc in self._layers(params, cache):
             x, aux = blocks_mod.apply_slot_decode(
-                x, p, spec, self.cfg, precision, kv_cache=kv,
-                lengths=lengths, block_tables=cache.get("block_tables"),
-                use_kernel=use_kernel, live_blocks=live_blocks)
+                x, p, spec, self.cfg, precision, lengths=lengths,
+                block_tables=cache.get("block_tables"),
+                use_kernel=use_kernel, live_blocks=live_blocks, **sc)
             if aux:
                 routing.setdefault(name, []).append(aux["topk_idx"])
         cache["lengths"] = lengths + 1

@@ -22,7 +22,8 @@ def calibrate_kv_scales(params: dict, calib_inputs: dict, cfg) -> dict:
     "lengths": (B,)}) into a contiguous bf16 cache of T positions and
     harvest each layer's K/V amax — over every cached position, padding
     included, as the reference does.  Returns {slot: {"k_scale": (R,),
-    "v_scale": (R,)}} (amax x 1.05 / 448), on the params' device."""
+    "v_scale": (R,)}} (amax x 1.05 / 448) for the attention slots, on the
+    params' device."""
     model = Transformer(cfg, params["emb"].device)
     b, t = calib_inputs["tokens"].shape
     with torch.no_grad():
@@ -30,6 +31,8 @@ def calibrate_kv_scales(params: dict, calib_inputs: dict, cfg) -> dict:
         model.prefill(params, calib_inputs, cache, BF16_ROLLOUT)
         scales = {}
         for name, slot in cache["slots"].items():
+            if "kv" not in slot:        # an SSM slot holds no KV
+                continue
             kv = slot["kv"]
             amax = {f: getattr(kv, f).float().abs().flatten(1).amax(dim=1)
                     for f in ("k", "v")}
@@ -40,7 +43,8 @@ def calibrate_kv_scales(params: dict, calib_inputs: dict, cfg) -> dict:
 
 def apply_kv_scales(cache: dict, scales: dict) -> dict:
     """Install {slot: {"k_scale": (R,), "v_scale": (R,)}} into `cache`,
-    contiguous or paged (in place; the cache is returned)."""
+    contiguous or paged (in place; the cache is returned).  Slots without
+    KV (SSM) are left as they are."""
     for name, sc in scales.items():
         slot = cache["slots"].get(name, {})
         if "kv" in slot:

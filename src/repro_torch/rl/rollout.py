@@ -9,7 +9,9 @@ steps, and returns per-token rollout logprobs (the pi^FP8 side of TIS).
 GRPO group sampling (`num_samples_per_prompt` > 1) prefills each prompt
 once and forks per-sample block tables over the shared KV blocks,
 copying the partially filled boundary block before the first divergent
-append (copy-on-write), as the reference does.  With `want_routing` an
+append (copy-on-write), and tiling every SSM layer's recurrent state
+G-fold on its batch axis, as the reference does (an attention-free model
+has no pool and no tables to fork).  With `want_routing` an
 MoE model's routing is recorded for rollout router replay: the prefill's
 per prompt and every decode step's per sample, as the reference records
 them.  The scoring helpers (`packed_sequences`,
@@ -28,6 +30,7 @@ from repro_torch.core.precision import PrecisionConfig
 from repro_torch.core.sampling import sample as _sample
 from repro_torch.data import tasks
 from repro_torch.models import attention as attn_mod
+from repro_torch.models.ssm import SSMState
 from repro_torch.models.transformer import Transformer
 from repro_torch.rl.calibration import apply_kv_scales
 
@@ -95,7 +98,8 @@ def generate(rollout_params: dict, prompts, prompt_lengths,
         fp, priv, w = _group_layout(p, g, page_size, shared_prefix_blocks)
         cache = model.init_cache(b, max_len, precision, page_size=page_size,
                                  num_pages=b * fp + n * priv)
-        cache["block_tables"] = _prefill_tables(b, group, w, fp, priv, device)
+        if "block_tables" in cache:
+            cache["block_tables"] = _prefill_tables(b, group, w, fp, priv, device)
     if kv_scales is not None:
         apply_kv_scales(cache, kv_scales)
     moe_slots = [f"s{j}" for j, s in enumerate(model.pattern) if s.ffn == "moe"]
@@ -184,7 +188,8 @@ def _fork_group(cache: dict, b: int, group: int, p: int, page_size: int,
     """Fork the prefilled B-prompt cache into B*G per-sample sequences:
     copy the donor's prompt rows past the shared region to every sibling
     (copy-on-write, before any divergent append), give each sample the
-    shared prefix rows plus its own private run, and tile the lengths."""
+    shared prefix rows plus its own private run, and tile the lengths and
+    the SSM state (G copies of prompt i's at rows i*G .. i*G+G-1)."""
     n = b * group
     pool0 = b * fp
     n_cow = -(-p // page_size) - fp      # donor rows holding prompt tokens
@@ -199,10 +204,16 @@ def _fork_group(cache: dict, b: int, group: int, p: int, page_size: int,
         for sd in cache["slots"].values():
             if "kv" in sd:
                 attn_mod.paged_copy_rows(sd["kv"], src, dst)
-    ii = (torch.arange(n, device=device) // group)[:, None]
-    jj = torch.arange(w, device=device)[None, :]
-    own = pool0 + torch.arange(n, device=device)[:, None] * priv + (jj - fp)
-    cache["block_tables"] = torch.where(jj < fp, ii * fp + jj, own).to(torch.int32)
+    for sd in cache["slots"].values():
+        if "ssm" in sd:
+            st = sd["ssm"]
+            sd["ssm"] = SSMState(torch.repeat_interleave(st.h, group, dim=1),
+                                 torch.repeat_interleave(st.conv, group, dim=1))
+    if "block_tables" in cache:
+        ii = (torch.arange(n, device=device) // group)[:, None]
+        jj = torch.arange(w, device=device)[None, :]
+        own = pool0 + torch.arange(n, device=device)[:, None] * priv + (jj - fp)
+        cache["block_tables"] = torch.where(jj < fp, ii * fp + jj, own).to(torch.int32)
     cache["lengths"] = torch.repeat_interleave(cache["lengths"], group, dim=0)
     return cache
 

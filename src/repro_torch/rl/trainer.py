@@ -412,8 +412,9 @@ class RLTrainer:
             self.params, self.opt_state, update_batch, timings)
         self.last_update_batch = update_batch
 
-        # 6. trainer-side calibration for the *next* rollout (paper §B.2)
-        if rl.calibration == "trainer":
+        # 6. trainer-side calibration for the *next* rollout (paper §B.2);
+        # an attention-free model has no KV to calibrate
+        if rl.calibration == "trainer" and not cfg.attention_free:
             calib = {
                 "tokens": update_batch["packed_tokens"][: rl.prompt_batch],
                 "lengths": (traj.prompt_lengths

@@ -1,6 +1,5 @@
 """Serving engine: the execution mechanism over a paged FP8/BF16 KV pool
-(port of `repro.serving.engine`, the attention-only path: dense and MoE
-decoders).
+(port of `repro.serving.engine`: dense, MoE, SSM and hybrid decoders).
 
 Every admission / eviction / growth / chunking decision lives in the
 ported `Scheduler`; the engine runs the device work of each planned step,
@@ -39,6 +38,18 @@ What it does, as the reference does:
 * The fused decode runs every slot's row; mid-prefill slots have their
   table rows masked to the trash row for it and restored afterwards, and
   their lengths restored.
+* SSM slot state (mamba2, jamba's hybrid pattern): each SSM layer's h and
+  conv tail live slot-indexed in the cache, not in the pool.  A fresh
+  admission zeroes the slot's rows; a swap-out copies them to the host
+  with the victim's blocks and a swap-in restores them into whichever
+  slot it resumes in, charging `state_swap_tokens` as wasted; the fused
+  decode writes back the rows of the slots it masks, so a mid-prefill
+  slot's recurrence never absorbs a decode token.  The per-request state
+  (`request_state_bytes`) is priced into the budget as `state_blocks`
+  block-equivalents; an attention-free model has no pool and no tables
+  and is bounded by it alone.  Its state cannot be rewound or shared, so
+  speculation and the shared-prefix compute skip are off for any SSM
+  pattern.
 
 Where the reference updates its pools functionally (`.at[].set`), the
 port updates them in place.  Host-side state mirrors the reference:
@@ -52,8 +63,8 @@ Observability: one tracer per engine (`obs.tracer`); every site is one
 exactly what it did without one.  The fleet front-end over N replicas is
 `serving.frontend`.
 
-Not ported: SSM / hybrid / enc-dec / multimodal slot state (the model
-refuses those layer patterns).
+Not ported: enc-dec and multimodal slot state (the model refuses those
+layer patterns).
 """
 from __future__ import annotations
 
@@ -71,6 +82,7 @@ from repro_torch.data import tasks
 from repro_torch.kernels.config import KernelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as blocks_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.transformer import Transformer
 from repro_torch.obs.tracer import NULL_TRACER
 from repro_torch.serving.block_manager import BlockManager
@@ -102,12 +114,19 @@ def kv_bytes_per_token(cfg, precision: PrecisionConfig) -> int:
 
 def request_state_bytes(cfg, precision: PrecisionConfig) -> int:
     """Constant per-request slot-state bytes beyond the paged KV blocks:
-    0 for the attention-only patterns the port serves (dense and MoE
-    decoders: routing carries no state between steps).  SSM state and
-    cross-attention KV are not ported; their patterns raise."""
+    the SSM recurrent state, h f32 + the conv tail bf16 per SSM layer,
+    never quantized (0 for dense and MoE decoders: routing carries no
+    state between steps).  Cross-attention KV is not ported; its pattern
+    raises."""
+    total = 0
+    repeats = blocks_mod.n_repeats(cfg)
     for spec in blocks_mod.layer_pattern(cfg):
         blocks_mod.check_supported(spec)
-    return 0
+        if spec.mixer == "ssm":
+            h = cfg.ssm_heads * cfg.ssm_head_dim * cfg.ssm_state * 4
+            conv = (cfg.ssm_conv - 1) * ssm_mod.conv_channels(cfg) * 2
+            total += repeats * (h + conv)
+    return total
 
 
 def _weak_hook(method):
@@ -206,10 +225,13 @@ class ServingEngine:
         if cfg.frontend is not None:
             raise NotImplementedError(
                 "multimodal prefixes are not ported yet: ROADMAP queue 1")
-        # raises for SSM and cross-attention layer patterns
+        # raises for cross-attention layer patterns
         self.model = Transformer(cfg, resolve_device(device))
         self.device = self.model.device
-        self.kernels = KernelConfig.resolve(kernel_config, precision)
+        # an attention-free model takes no attention kernels (raises when
+        # one is asked for, as the reference asserts)
+        self.kernels = KernelConfig.resolve(kernel_config, precision,
+                                            attention_free=cfg.attention_free)
         self.prompt_pad = prompt_pad   # one-shot prefill width
         self.params = params
         self.cfg = cfg
@@ -234,19 +256,26 @@ class ServingEngine:
                                    prefill_chunk=prefill_chunk,
                                    budget=step_budget,
                                    spec=spec, proposer=proposer)
-        # the served patterns are attention-only: the paged KV is the
-        # whole carried state, so speculation's rewind and the shared-
-        # prefix compute skip are both sound (the scheduler reads these)
-        self._spec_ok = True
-        self._chunk_skip_ok = True
-        # per-request slot state beyond paged KV: none for these patterns
+        # speculation's rewind and the shared-prefix compute skip are sound
+        # only where the paged KV is the whole carried state: an attention-
+        # only pattern (SSM state advances in place and cannot be rewound
+        # or shared); the scheduler reads these
+        attention_only = all(s.mixer == "attn" for s in blocks_mod.layer_pattern(cfg))
+        self._spec_ok = attention_only
+        self._chunk_skip_ok = attention_only
+        if spec is not None and not self._spec_ok:
+            raise ValueError(
+                "speculative decoding needs an attention-only decoder (paged "
+                "KV is the only state the rewind can truncate); this config "
+                "has SSM state")
+        # per-request constant footprint beyond the paged KV (SSM state),
+        # priced into the byte budget as block-equivalents
         self.state_bytes = request_state_bytes(cfg, precision)
-        self.state_blocks = 0
-        self.state_swap_tokens = 0
 
         per_tok = max(kv_bytes_per_token(cfg, precision), 1)
         if kv_budget_bytes is None:
-            kv_budget_bytes = per_tok * max_slots * max_seq_len
+            kv_budget_bytes = per_tok * max_slots * max_seq_len \
+                + max_slots * self.state_bytes
         # a block is `block_size` tokens at bf16 KV width, so fp8 KV doubles
         # the tokens each block holds (the block-capacity mechanism)
         per_tok_bf16 = max(kv_bytes_per_token(
@@ -256,6 +285,11 @@ class ServingEngine:
             block_bytes=block_size * per_tok_bf16, per_tok=per_tok,
             prefix_sharing=prefix_sharing, host_blocks=host_kv_blocks)
         self._fresh_pool()
+        # block-equivalents one admitted request's slot state pins against
+        # the budget, and the token-units a swap of it costs
+        self.state_blocks = -(-self.state_bytes // max(self.block_mgr.block_bytes, 1)) \
+            if self.state_bytes else 0
+        self.state_swap_tokens = self.state_blocks * self.block_mgr.block_size
         self.done: List[Request] = []
         self._next_rid = 0
         self.stats = dict(preemptions=0, wasted_tokens=0, emitted=0,
@@ -283,12 +317,14 @@ class ServingEngine:
             self.max_slots, self.max_seq_len, self.precision,
             page_size=self.block_mgr.block_size,
             num_pages=self.block_mgr.num_blocks)
+        self.has_paged_kv = "block_tables" in self.cache
         self._lengths = np.zeros((self.max_slots,), np.int64)
         self.slot_req: List[Optional[Request]] = [None] * self.max_slots
         self.queue: List[Request] = []
         self.pending_tok = np.zeros((self.max_slots,), np.int32)
         # host tier: host block id -> {layer-stack name: (k, v)} CPU rows
-        # over the R layers; rid -> pending token while swapped out
+        # over the R layers; rid -> {"state": the slot's SSM rows or None,
+        # "pending": token} while swapped out
         self.host_pool: Dict[int, Dict[str, tuple]] = {}
         self._host_state: Dict[int, dict] = {}
         # host ids retired before their swap-out copy ran (a same-plan
@@ -385,18 +421,28 @@ class ServingEngine:
         return self.block_mgr.block_size
 
     @property
+    def _state_blocks_in_use(self) -> int:
+        """Block-equivalents pinned by the active slots' SSM state (from
+        slot occupancy, so plan-time slot updates are priced at once)."""
+        return self.state_blocks * sum(r is not None for r in self.slot_req)
+
+    @property
     def _effective_blocks(self) -> int:
         """Block limit left for paged KV under the (possibly shrunk)
-        token budget."""
+        token budget, the active slots' state netted out first (a shrink
+        can force a preemption on an attention-free model)."""
         return min(self.block_mgr.num_blocks,
-                   self.block_mgr.blocks_for_tokens(self.budget_tokens))
+                   self.block_mgr.blocks_for_tokens(self.budget_tokens)) \
+            - self._state_blocks_in_use
 
     @property
     def kv_pressure(self) -> float:
-        """Fraction of the (possibly shrunk) block budget in live use."""
+        """Fraction of the (possibly shrunk) block budget in live use:
+        pool blocks plus slot-state block-equivalents."""
         budget = min(self.block_mgr.num_blocks,
                      self.block_mgr.blocks_for_tokens(self.budget_tokens))
-        return self.block_mgr.blocks_in_use / max(budget, 1)
+        used = self.block_mgr.blocks_in_use + self._state_blocks_in_use
+        return used / max(budget, 1)
 
     def gauge_snapshot(self) -> dict:
         """Point-in-time pool/slot/spec gauges (JSON-native)."""
@@ -406,7 +452,7 @@ class ServingEngine:
             "blocks_in_use": bm.blocks_in_use,
             "blocks_free": bm.num_free_blocks - bm.num_cached_blocks,
             "blocks_cached": bm.num_cached_blocks,
-            "state_block_equiv": 0,
+            "state_block_equiv": self._state_blocks_in_use,
             "slots_active": sum(r is not None for r in self.slot_req),
             "max_slots": self.max_slots,
             "queue_len": len(self.queue),
@@ -429,7 +475,8 @@ class ServingEngine:
         """True until the first prefill locks the pool's KV scales."""
         return (self.precision.kv_quantized
                 and self.precision.calculate_kv_scales
-                and not self._scales_calibrated)
+                and not self._scales_calibrated
+                and not self.cfg.attention_free)
 
     def _prefill_precision(self) -> PrecisionConfig:
         """Only the first forward after a (re)load calibrates the KV
@@ -445,7 +492,10 @@ class ServingEngine:
         return None
 
     def _reserve_blocks(self, req: Request) -> int:
-        """Paged-KV blocks a request needs at admission time."""
+        """Paged-KV blocks a request needs at admission time (its constant
+        state footprint is priced separately, `state_blocks`)."""
+        if self.cfg.attention_free:
+            return 0
         retained = self.block_mgr.swapped_tokens(req.rid)
         if self.admission == "reserve":
             # worst case: full prompt + every token it may still generate
@@ -457,26 +507,60 @@ class ServingEngine:
 
     # -- cache surgery ------------------------------------------------------
     def _set_table_row(self, slot: int, ids: List[int]):
+        if not self.has_paged_kv:       # attention-free: no block tables
+            return
         w = self.cache["block_tables"].shape[1]
         row = np.full((w,), -1, np.int32)
         row[:len(ids)] = ids[:w]
         self.cache["block_tables"][slot] = torch.from_numpy(row).to(self.device)
 
     def _clear_slot(self, slot: int):
-        self.cache["block_tables"][slot] = -1
+        if self.has_paged_kv:
+            self.cache["block_tables"][slot] = -1
         self._lengths[slot] = 0
+
+    def _kv_slots(self):
+        return [(name, sd["kv"]) for name, sd in self.cache["slots"].items() if "kv" in sd]
+
+    def _ssm_slots(self):
+        return [(name, sd["ssm"]) for name, sd in self.cache["slots"].items() if "ssm" in sd]
+
+    def _write_slot_state(self, slot: int, state: Optional[dict] = None):
+        """The one writer of a slot's SSM rows (all R layers): `state`, a
+        `_snapshot_slot_state` of the request that resumes here, or zeros
+        for a fresh occupant (the previous occupant's h/conv would be its
+        prefill's initial state)."""
+        for name, st in self._ssm_slots():
+            if state is None:
+                st.h[:, slot] = 0
+                st.conv[:, slot] = 0
+            else:
+                h, conv = state[name]
+                st.h[:, slot] = h.to(self.device)
+                st.conv[:, slot] = conv.to(self.device)
+
+    def _snapshot_slot_state(self, slot: int) -> dict:
+        """Host copies of the slot's SSM rows, {slot name: (h, conv)} over
+        the R layers (empty without SSM layers)."""
+        return {name: (_to_host(st.h[:, slot]), _to_host(st.conv[:, slot]))
+                for name, st in self._ssm_slots()}
 
     def _slot_view(self, slot: int) -> dict:
         """Batch-1 cache view for a prefill into `slot`: the pools are
-        shared (and written in place), the table row is sliced."""
-        return {"slots": self.cache["slots"],
-                "block_tables": self.cache["block_tables"][slot:slot + 1]}
+        shared (and written in place), the table row and the SSM rows
+        are sliced (views, written in place too)."""
+        slots = {name: ({"ssm": sd["ssm"].rows(slot, slot + 1)} if "ssm" in sd else sd)
+                 for name, sd in self.cache["slots"].items()}
+        view = {"slots": slots}
+        if self.has_paged_kv:
+            view["block_tables"] = self.cache["block_tables"][slot:slot + 1]
+        return view
 
     def _copy_block(self, src: int, dst: int):
-        """Duplicate pool row `src` into `dst` in every layer (the device
-        half of copy-on-write)."""
-        for sd in self.cache["slots"].values():
-            attn_mod.paged_copy_rows(sd["kv"], [src], [dst])
+        """Duplicate pool row `src` into `dst` in every attention layer
+        (the device half of copy-on-write)."""
+        for _, kv in self._kv_slots():
+            attn_mod.paged_copy_rows(kv, [src], [dst])
 
     # -- execution mechanism -------------------------------------------------
     def execute(self, decision: ScheduleDecision):
@@ -596,6 +680,7 @@ class ServingEngine:
             return self._swap_in(act.slot, act.req, act)
         if act.moves:       # host-cached prefix hits revived by copy-in
             self._promote_blocks(act.moves)
+        self._write_slot_state(act.slot)    # a fresh occupant starts at zero
         self._lengths[act.slot] = act.req.prefilled
         return act.n_promoted * self.block_size
 
@@ -652,9 +737,8 @@ class ServingEngine:
         if self.faults.enabled:
             # may raise HostCopyError: the allocator then drops the entry
             self.faults.on_demote_copy(self)
-        self.host_pool[host] = {
-            name: (_to_host(sd["kv"].k[:, dev]), _to_host(sd["kv"].v[:, dev]))
-            for name, sd in self.cache["slots"].items()}
+        self.host_pool[host] = {name: (_to_host(kv.k[:, dev]), _to_host(kv.v[:, dev]))
+                                for name, kv in self._kv_slots()}
 
     def _host_drop_block(self, host: int):
         """The allocator's `host_drop` hook.  A drop can come before the
@@ -671,8 +755,7 @@ class ServingEngine:
         storage."""
         hids = [h for h, _ in moves]
         idx = torch.tensor([d for _, d in moves], device=self.device)
-        for name, sd in self.cache["slots"].items():
-            kv = sd["kv"]
+        for name, kv in self._kv_slots():
             kv.k[:, idx] = torch.stack(
                 [self.host_pool[h][name][0] for h in hids], dim=1).to(self.device)
             kv.v[:, idx] = torch.stack(
@@ -691,14 +774,16 @@ class ServingEngine:
         self._host_dead_on_arrival.difference_update(h for _, h in act.moves)
         if moves:
             idx = torch.tensor([d for d, _ in moves], device=self.device)
-            rows = {name: (_to_host(sd["kv"].k[:, idx]), _to_host(sd["kv"].v[:, idx]))
-                    for name, sd in self.cache["slots"].items()}
+            rows = {name: (_to_host(kv.k[:, idx]), _to_host(kv.v[:, idx]))
+                    for name, kv in self._kv_slots()}
             for j, (_, h) in enumerate(moves):
                 self.host_pool[h] = {name: (k[:, j], v[:, j])
                                      for name, (k, v) in rows.items()}
-        # the pending token is read here, at the action's place in execute
-        # order (it is only current once an earlier same-step swap-in ran)
+        # the SSM rows and the pending token are read here, at the action's
+        # place in execute order (they are only current once an earlier
+        # same-step swap-in ran)
         self._host_state[req.rid] = {
+            "state": self._snapshot_slot_state(act.slot) or None,
             "pending": int(self.pending_tok[act.slot])
             if req.prefilled >= len(req.prompt) else 0}
         req.preemptions += 1
@@ -709,15 +794,22 @@ class ServingEngine:
 
     def _swap_in(self, slot: int, req: Request, act: Admit) -> int:
         """The device half of an allocator promote: copy the host-tier tail
-        back into fresh pool rows (no recompute).  The leading `n_shared`
-        entries came from a prefix hit and already hold the prompt's KV;
-        only the restored tokens count as `wasted`.  Returns them."""
+        back into fresh pool rows (no recompute), and the SSM rows into
+        this slot.  The leading `n_shared` entries came from a prefix hit
+        and already hold the prompt's KV; only the restored tokens (plus
+        `state_swap_tokens` for SSM state) count as `wasted`.  Returns
+        them."""
         if act.moves:
             self._promote_blocks(act.moves)
         hs = self._host_state.pop(req.rid, None) or {}
+        state = hs.get("state")
+        if state:
+            self._write_slot_state(slot, state)
         retained = act.retained
         s = min(act.n_shared, self.block_mgr.blocks_for_tokens(retained))
         restored = max(retained - s * self.block_size, 0)
+        if state:
+            restored += self.state_swap_tokens
         req.wasted_tokens += restored
         self.stats["wasted_tokens"] += restored
         self._lengths[slot] = retained
@@ -779,8 +871,9 @@ class ServingEngine:
     def _exec_decode(self, decode_slots: List[int]):
         """One fused decode step over every slot's row.  Mid-prefill slots'
         table rows point at the trash row for its duration (the batch-wide
-        KV write must not land in their real, possibly shared, blocks) and
-        their lengths are restored after it."""
+        KV write must not land in their real, possibly shared, blocks),
+        and their SSM rows and lengths are restored after it (the fused
+        recurrence advances every row)."""
         # a request finished by this step's final prefill chunk was freed
         decode_slots = [i for i in decode_slots
                         if self.slot_req[i] is not None]
@@ -795,23 +888,29 @@ class ServingEngine:
                 [self.slot_req[i].cached_tokens + 1 for i in decode_slots])
         masked = [i for i, r in enumerate(self.slot_req)
                   if r is not None and i not in decode_slots]
-        tables = self.cache["block_tables"]
+        tables = self.cache.get("block_tables")
         if masked:
             midx = torch.tensor(masked, device=self.device)
-            saved_rows = tables[midx]
-            tables[midx] = -1
+            saved_state = {name: (st.h[:, midx], st.conv[:, midx])
+                           for name, st in self._ssm_slots()}
+            if tables is not None:
+                saved_rows = tables[midx]
+                tables[midx] = -1
         saved_lengths = self._lengths.copy()
         self.cache["lengths"] = torch.from_numpy(
             self._lengths.astype(np.int32)).to(self.device)
-        live = attn_mod._live_blocks(self._lengths + 1, tables.shape[1],
-                                     self.block_size)
+        live = None if tables is None else attn_mod._live_blocks(
+            self._lengths + 1, tables.shape[1], self.block_size)
         logits, self.cache = self.model.decode_step(
             self.params, torch.from_numpy(self.pending_tok), self.cache,
             self.precision, use_kernel=self.kernels.decode, live_blocks=live)
         # decode_step advanced every row; masked slots did not decode
         self._lengths += 1
         if masked:
-            tables[midx] = saved_rows
+            if tables is not None:
+                tables[midx] = saved_rows
+            for name, st in self._ssm_slots():
+                st.h[:, midx], st.conv[:, midx] = saved_state[name]
             self._lengths[masked] = saved_lengths[masked]
         next_toks, next_logps = self._sample(logits)
         next_toks = next_toks.cpu().numpy()

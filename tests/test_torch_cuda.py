@@ -53,7 +53,12 @@ one bf16 rounding of its plain version (E 4-8, odd M, a layer view of the
 sync's storage, no copy), `_dot`'s batched GEMM and its backward, the
 stable top-k on planted ties, a reduced granite-moe decode step and chunk
 on the card against the CPU (with the launches per MoE layer), and the
-FP8 router's sync at N 40.
+FP8 router's sync at N 40.  SSM and hybrid: kernel 3 at mamba2's w_in
+width (N 6448, stored at 6528) through `ops.fp8_matmul` within one bf16
+rounding of plain, a reduced mamba2 and a reduced jamba period's prefill,
+decode steps and chunk on the card against the CPU (logits within 0.5,
+SSM states within 1e-2), and the engine's SSM write-back around a
+piggybacked decode and its swap-in under a budget cut, both bit-equal.
 """
 import pytest
 
@@ -1190,3 +1195,179 @@ def test_fp8_router_sync_on_card(cuda):
     lg = moe.router_logits(x.to(cuda), q_gpu.layer(1)).cpu()
     assert lg.shape == (16, 40)
     assert torch.allclose(lg, lc, rtol=2 ** -7, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# SSM and hybrid
+# ---------------------------------------------------------------------------
+
+def _plain_matmul(a, wq, a_s):
+    """Kernel 3's plain version on the padded operands `ops.fp8_matmul`
+    hands the kernel, cut to the weight's N, in f32."""
+    from repro_torch.kernels import fp8_gemm as fg
+    n = wq.data.shape[1]
+    return fg.fp8_gemm_ref(a, ops._gemm_weight(wq.data), a_s, wq.scales)[:, :n].float()
+
+
+def test_gemm_at_mamba2_w_in_width_on_card(cuda):
+    """Kernel 3 at mamba2's w_in shape (K 1536, N 6448: stored at N 6528)
+    through `ops.fp8_matmul` at M 1, 8, 33 and 128: within one bf16
+    rounding of the plain version on the same operands, the (M, 6448)
+    result a view of the padded output (an SSM's split takes it as is)."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    k, n = 1536, 2 * 3072 + 2 * 128 + 48
+    w = (torch.randn((2, k, n), generator=gen, device=cuda) * k ** -0.5).to(torch.bfloat16)
+    wq = ops.quantize_weight(w).layer(1)
+    x = torch.randn((128, k), generator=gen, device=cuda).to(torch.bfloat16)
+    for m in (1, 8, 33, 128):
+        xq = ops.quantize_activation(x[:m])
+        y = ops.fp8_matmul(xq, wq)
+        a = xq.data.contiguous()
+        yp = _plain_matmul(a, wq, xq.scales)
+        torch.cuda.synchronize()
+        assert tuple(y.shape) == (m, n) and bool(torch.isfinite(y).all())
+        scale = yp.abs().max().item()
+        assert torch.allclose(y.float(), yp, rtol=2 ** -7, atol=1e-5 * scale), m
+
+
+def test_ssd_scan_on_card_matches_cpu(cuda):
+    """`ssd_scan` with bf16 chunk inputs and an h0 (B 2, T 128, H 4 of 16,
+    N 8, chunk 64): on the card the intra-chunk product is one bf16
+    batched GEMM with f32 sums (`_BmmF32`), on the CPU the rounded
+    operands widened to f32.  y and the final state within 1e-3 of their
+    largest entries, and the gradients of xh and dt within 1e-2 of
+    theirs (the backward rounds the product's gradient to bf16 on the
+    card, as `_dot`'s does)."""
+    from repro_torch.models import ssm as tssm
+    gen = torch.Generator().manual_seed(12)
+    b, t, h, p, n = 2, 128, 4, 16, 8
+    xh = torch.randn((b, t, h, p), generator=gen).to(torch.bfloat16)
+    dt = torch.rand((b, t, h), generator=gen) * 0.5
+    a = -torch.linspace(1.0, 4.0, h)
+    bm = torch.randn((b, t, n), generator=gen).to(torch.bfloat16)
+    cm = torch.randn((b, t, n), generator=gen).to(torch.bfloat16)
+    h0 = torch.randn((b, h, p, n), generator=gen)
+    out = {}
+    for dev in ("cpu", cuda):
+        x_, dt_ = (v.detach().to(dev).requires_grad_() for v in (xh, dt))
+        y, hl = tssm.ssd_scan(x_, dt_, a.to(dev), bm.to(dev), cm.to(dev), chunk=64,
+                              h0=h0.to(dev))
+        (y.square().mean() + hl.square().mean()).backward()
+        out[str(dev)] = [v.detach().float().cpu() for v in (y, hl, x_.grad, dt_.grad)]
+    for i, (c, g) in enumerate(zip(out["cpu"], out[str(cuda)])):
+        assert bool(torch.isfinite(g).all())
+        tol = 1e-3 if i < 2 else 1e-2
+        assert (c - g).abs().max().item() <= tol * c.abs().max().item(), i
+
+
+def _state_cfgs():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import tasks
+    ssm = get_config("mamba2-780m").reduced(n_layers=2, vocab_size=tasks.VOCAB_SIZE)
+    hybrid = dataclasses.replace(get_config("jamba-1.5-large-398b").reduced(
+        n_layers=8, vocab_size=tasks.VOCAB_SIZE, n_experts=0, top_k=0, moe_period=1,
+        moe_offset=0), n_layers=8)
+    return {"ssm": ssm, "hybrid": hybrid}
+
+
+@pytest.mark.parametrize("pattern", ["ssm", "hybrid"])
+def test_ssm_decode_step_and_chunk_on_card_match_cpu(cuda, pattern):
+    """A reduced mamba2 (2 layers, d 128, d_inner 256) and a reduced
+    jamba period (1 attention, 7 SSM layers) under `PrecisionConfig()`:
+    prefill, two decode steps and one prefill chunk on the card (kernels
+    1 and 3; kernels 4 and 5 for the hybrid) against the same calls on
+    the CPU: logits within 0.5 (chip_smoke's kernel-vs-plain band), every
+    SSM state within 1e-2 of its largest entry; kernel 1 : kernel 3 at 1 :
+    1 in an SSM layer."""
+    import numpy as np
+    cfg = _state_cfgs()[pattern]
+    prec = PrecisionConfig()
+    params = Transformer(cfg, "cpu").init_params(6)
+    tokens = torch.randint(4, 19, (3, 12), generator=torch.Generator().manual_seed(5),
+                           dtype=torch.int32)
+    lengths = torch.tensor([12, 7, 9], dtype=torch.int32)
+    chunk = torch.randint(4, 19, (3, 5), generator=torch.Generator().manual_seed(6),
+                          dtype=torch.int32)
+    out = {}
+    for dev in ("cpu", cuda):
+        model = Transformer(cfg, dev)
+        roll, _ = sync_policy_weights(_to(params, dev), prec)
+        cache = model.init_cache(3, 24, prec, page_size=4)
+        build.reset_launch_counts()
+        l0, cache = model.prefill(roll, {"tokens": tokens.to(dev), "lengths": lengths},
+                                  cache, prec)
+        l1, cache = model.decode_step(roll, l0.argmax(-1), cache, prec)
+        l2, cache = model.decode_step(roll, l1.argmax(-1), cache, prec)
+        l3, cache = model.prefill_chunk(roll, chunk, (lengths + 2).numpy(),
+                                        np.array([5, 3, 1]), cache,
+                                        prec.replace(calculate_kv_scales=False),
+                                        use_kernel=True)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            launches = dict(build.LAUNCHES)
+            if pattern == "ssm":
+                assert launches["quant_act"] == launches["fp8_gemm"] == 2 * cfg.n_layers * 4
+            else:
+                assert launches["paged_decode"] == 2 and launches["paged_prefill"] == 1
+        states = {name: (sd["ssm"].h.cpu(), sd["ssm"].conv.float().cpu())
+                  for name, sd in cache["slots"].items() if "ssm" in sd}
+        out[str(dev)] = [t.cpu() for t in (l0, l1, l2, l3)], states
+    (lc, sc), (lg, sg) = out["cpu"], out[str(cuda)]
+    for a, b in zip(lc, lg):
+        assert bool(torch.isfinite(b).all())
+        assert (a - b).abs().max().item() <= 0.5
+    assert sc.keys() == sg.keys() and len(sc) == (1 if pattern == "ssm" else 7)
+    for name in sc:
+        for a, b in zip(sc[name], sg[name]):
+            assert (a - b).abs().max().item() <= 1e-2 * a.abs().max().item(), name
+
+
+@pytest.mark.parametrize("pattern", ["ssm", "hybrid"])
+def test_engine_ssm_write_back_and_swap_in_on_card(cuda, pattern):
+    """The engine on the card with SSM slot state, W8A8 linears over a
+    bf16 KV pool (an FP8 pool's scales come from the first prefill, which
+    differs between these runs): a piggybacked decode between a long
+    prompt's chunks leaves that slot's state alone (the write-back), and a
+    budget cut that swaps requests out and back in serves the roomy run's
+    tokens bit for bit (the swap-in)."""
+    from repro_torch.core.precision import FP8_LINEAR_ROLLOUT
+    from repro_torch.data import tasks
+    from repro_torch.serving import StepBudget, request_state_bytes
+    cfg = _state_cfgs()[pattern]
+    prec = FP8_LINEAR_ROLLOUT
+    roll, _ = sync_policy_weights(Transformer(cfg, cuda).init_params(7), prec)
+    long_prompt = tasks.random_prompt(3, 20)
+
+    def engine(**kw):
+        return ServingEngine(roll, cfg, prec, max_slots=2, max_seq_len=48, prefill_chunk=4,
+                             eos_id=None, device=cuda, **kw)
+    alone = engine()
+    alone.submit(long_prompt, max_new=5, rid=0)
+    want = alone.run(max_steps=100).completed[0].generated
+    eng = engine(step_budget=StepBudget(prefill_tokens=4))
+    eng.submit(tasks.random_prompt(9, 5), max_new=12, rid=1)
+    eng.step()
+    eng.submit(long_prompt, max_new=5, rid=0)
+    rep = eng.run(max_steps=100)
+    assert {r.rid: r.generated for r in rep.completed}[0] == want
+
+    per = max(kv_bytes_per_token(cfg, prec), 1)
+    state = request_state_bytes(cfg, prec)
+    runs = {}
+    for name, budget, shrink in (("roomy", per * 4 * 200 + 16 * state, None),
+                                 ("tight", per * 4 * 10 + int(2.5 * state), 4)):
+        eng = ServingEngine(roll, cfg, prec, max_slots=4, max_seq_len=48,
+                            admission="ondemand", eos_id=None, kv_budget_bytes=budget,
+                            device=cuda)
+        for i in range(5):
+            eng.submit(tasks.random_prompt(i, 5 + i % 5), max_new=8, rid=i)
+        full = eng.budget_tokens
+        while eng.queue or any(r is not None for r in eng.slot_req):
+            if shrink is not None and eng.stats["steps"] >= shrink:
+                eng.budget_tokens, shrink = int(full * 0.6), None
+            assert not eng.step().is_empty
+        runs[name] = eng.stats["swap_ins"], {r.rid: r.generated for r in eng.done}
+    assert runs["roomy"][0] == 0 and runs["tight"][0] >= 1
+    assert runs["tight"][1] == runs["roomy"][1]
