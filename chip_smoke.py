@@ -5,7 +5,7 @@
 
 Needs one CUDA card, nvcc and the checkout's `src/`; imports nothing of
 JAX or of the JAX package.  Phases (any failure exits non-zero), run in
-the order 1-5, 7, 6, 8-13:
+the order 1-5, 7, 6, 8-14:
 
 1. the card's name and power limit (nvidia-smi);
 2. build the six CUDA kernels from `src/repro_torch/csrc` (nvcc, sm_90a);
@@ -221,6 +221,33 @@ the order 1-5, 7, 6, 8-13:
        steps (kernel 6 once a step), the expert-batched kernel 3 at E 16
        (fc1, fc2, M 8) bit-equal per expert to the 2-D kernel and timed,
        kernels 4-6 at (G 8, D 128) within 1e-2; the peak under 80 GB.
+14. Enc-dec and VLM at full width and depth, `PrecisionConfig()`:
+    a. seamless-m4t-medium (12 + 12 layers, d 1024, 16 heads of 64, a
+       two-matrix relu MLP, vocab 256206): the sync (kernel 2 17 times:
+       the decoder's, the cross attention's and the encoder's leaves and
+       w_patch), greedy and GRPO `generate` over 8 prompts with 256-1024
+       frames each (kernel 1 and kernel 3 counted exactly: a prefill 133
+       : 193 with the encoder, a decode step 72 : 96), greedy under
+       BF16_ROLLOUT, decode-step logits through the kernels against
+       plain (within 0.5), the engine (8 slots, `max_src_len` 1024, 16
+       requests, two of them one prompt with other frames, which must
+       decode otherwise) roomy and under the budget cut (bit-equal, the
+       victims' cross KV swapped out and back), `launch.serve.run --arch
+       seamless-m4t-medium`, `launch.steps` (a B 8 prefill over S 1056
+       with frames of S, 32 serve steps, kernel 6 once a layer and step;
+       LONG_500K is not run: the reference sizes the cross cache and the
+       encoder's attention at S), kernels 4-6 at (G 1, D 64) within 1e-2
+       and kernels 4 and 6 timed there;
+    b. pixtral-12b (40 layers, d 5120, 32/8 heads of 128, d_ff 14336,
+       vocab 131072, 1024 patches): the sync (8 leaves), greedy `generate`
+       over 8 prompts of 64-128 text tokens after 1024 patches at page
+       size 16 (the block table counts the prefix: no write falls past
+       it), decode-step logits through the kernels against plain (each
+       layer's input forced, within 0.5; the free-running gap logged), the
+       prefill's last logits against `forward_train`'s (causal
+       against prefix-LM over the patches: logged), `launch.steps` (B 8,
+       S 2048 with 1024 patches, 16 serve steps), kernel 3 at w_patch (M
+       8192) and wg (M 8) held and timed; the peak under 80 GB.
 
 The line before the last is the `kernels` JSON object; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
@@ -363,6 +390,20 @@ SHRINK_FRAC = 0.6
 # versions, over its largest entry (set before its first reading; kernel
 # 3 alone is held within 2**-7)
 FORCED_LAYER_RTOL = 5e-2
+# phase 14: enc-dec and VLM at full width and depth.  Seamless requests
+# carry ENCDEC_FRAMES frames (padded to ENCDEC_SRC, the engine's
+# max_src_len); pixtral's rollout pages its 1024-patch prefix at
+# VLM_PAGE, its `launch.steps` cell is VLM_STEPS_S positions (1024 of them
+# patches) and VLM_STEPS serve steps (its cache holds S + 1), and kernel 3
+# is timed at w_patch over a B-8 prefill's patch rows
+ENCDEC = "seamless-m4t-medium"
+VLM = "pixtral-12b"
+ENCDEC_FRAMES = (256, 1024)
+ENCDEC_SRC = 1024
+VLM_PAGE = 16
+VLM_STEPS_S = 2048
+VLM_STEPS = 16
+VLM_PATCH_M = 8 * 1024
 
 
 def check(cond, msg):
@@ -851,13 +892,19 @@ def check_trajectory(traj, n_rows, max_new, vocab, tag):
                   f"{tag}: kv scale not finite and positive")
 
 
-def _prefilled(model, roll, prec, prompts, lengths, dev):
-    """A paged cache prefilled with `prompts`, and each row's next token."""
+def _prefilled(model, roll, prec, prompts, lengths, dev, extra=None, room=2):
+    """A paged cache prefilled with `prompts` (and `extra` inputs: an
+    enc-dec model's frames and src_lengths, a VLM's patches), with `room`
+    positions past the longest row, and each row's next token."""
     import torch
-    cache = model.init_cache(len(prompts), prompts.shape[1] + 2, prec, page_size=16)
+    extra = extra or {}
+    prefix = extra["patches"].shape[1] if "patches" in extra else 0
+    src = extra["frames"].shape[1] if "frames" in extra else 0
+    cache = model.init_cache(len(prompts), prefix + prompts.shape[1] + room, prec,
+                             page_size=16, src_len=src)
     logits, cache = model.prefill(roll, {"tokens": torch.from_numpy(prompts).to(dev),
-                                         "lengths": torch.from_numpy(lengths).to(dev)},
-                                  cache, prec)
+                                         "lengths": torch.from_numpy(lengths).to(dev),
+                                         **extra}, cache, prec)
     return cache, logits.argmax(-1)
 
 
@@ -881,13 +928,13 @@ def _hold_decode_logits(lk, lp, what=""):
     return err
 
 
-def decode_logits_check(model, roll, prec, prompts, lengths, dev):
+def decode_logits_check(model, roll, prec, prompts, lengths, dev, extra=None):
     """One decode step through the kernels vs the plain versions called on
     the same CUDA tensors (the same cache, cloned)."""
     import copy
 
     from repro_torch.kernels import ops
-    cache, tok = _prefilled(model, roll, prec, prompts, lengths, dev)
+    cache, tok = _prefilled(model, roll, prec, prompts, lengths, dev, extra)
     twin = copy.deepcopy(cache)
     lk, _ = model.decode_step(roll, tok, cache, prec)
     with mock.patch.object(ops, "_route", lambda t, kernel, plain: plain):
@@ -895,7 +942,7 @@ def decode_logits_check(model, roll, prec, prompts, lengths, dev):
     return _hold_decode_logits(lk, lp)
 
 
-def forced_decode_logits_check(model, roll, prec, prompts, lengths, dev):
+def forced_decode_logits_check(model, roll, prec, prompts, lengths, dev, extra=None):
     """`decode_logits_check` teacher-forced: each layer of the plain step
     takes the kernel step's input to that layer, so no gap compounds over
     the layers (through random weights a last-bit difference that moves
@@ -910,7 +957,7 @@ def forced_decode_logits_check(model, roll, prec, prompts, lengths, dev):
     import torch
     from repro_torch.kernels import ops
     from repro_torch.models import blocks
-    cache, tok = _prefilled(model, roll, prec, prompts, lengths, dev)
+    cache, tok = _prefilled(model, roll, prec, prompts, lengths, dev, extra)
     twin, free = copy.deepcopy(cache), copy.deepcopy(cache)
     step = blocks.apply_slot_decode
     inputs, outputs = [], {"kernel": [], "plain": []}     # in layer order
@@ -988,16 +1035,12 @@ def chunk_logits_check(model, roll, prec, prompts, lengths, dev):
     return err
 
 
-def profile_decode_step(model, roll, prec, prompts, lengths, dev, tag=""):
+def profile_decode_step(model, roll, prec, prompts, lengths, dev, tag="", extra=None):
     """Device-busy share of one decode step: kernel time on the stream
-    (torch.profiler) over the step's wall time without the profiler.  The
-    keys of the result start with `tag`."""
-    import torch
-    cache = model.init_cache(len(prompts), prompts.shape[1] + 4, prec, page_size=16)
-    logits, cache = model.prefill(roll, {"tokens": torch.from_numpy(prompts).to(dev),
-                                         "lengths": torch.from_numpy(lengths).to(dev)},
-                                  cache, prec)
-    tok = logits.argmax(-1)
+    (torch.profiler) over the step's wall time without the profiler
+    (`extra`: the prefill's frames or patches).  The keys of the result
+    start with `tag`."""
+    cache, tok = _prefilled(model, roll, prec, prompts, lengths, dev, extra, room=4)
     model.decode_step(roll, tok, cache, prec)          # warm
     _, wall_ms = _sync_ms(model.decode_step, roll, tok, cache, prec)
     _, busy_ms, n_kernels, by_name = _profile(lambda: model.decode_step(roll, tok, cache, prec))
@@ -1384,13 +1427,16 @@ def _sync_ms(fn, *args):
 def _path_launches(tag, need, ratio):
     """Read the counts of the run just driven; every kernel in `need` must
     have launched, and kernel 1 once per distinct linear input (`ratio`,
-    the model's `_quant_ratio`; see `check_quant_per_gemm`)."""
+    the model's `_quant_ratio`; see `check_quant_per_gemm`; None for a path
+    that mixes prefills and decode steps of unequal ratios, which
+    `check_forward_launches` counts exactly)."""
     from repro_torch.kernels import build
     launches = dict(build.LAUNCHES)
     log(f"{tag} launches: {launches}")
     for name in need:
         check(launches[name] > 0, f"kernel {name} was not launched on {tag}")
-    check_quant_per_gemm(launches, tag, ratio)
+    if ratio is not None:
+        check_quant_per_gemm(launches, tag, ratio)
     return launches
 
 
@@ -2488,36 +2534,85 @@ def hold_attention_kernels(dev, gen, cfg):
     return errs
 
 
+def _slot_launches(cfg, spec, prefill=False):
+    """Kernel 1 and kernel 3 launches of one layer, one kernel-1 call per
+    distinct linear input: attention 2 : 4 (q/k/v share one), an SSM mixer
+    2 : 2 (w_in, w_out); an enc-dec decoder's cross attention 2 : 2 at
+    decode (q, wo over the cross cache) and 3 : 4 at prefill (its k/v from
+    the encoder output share one, then q and wo); a gated MLP 2 : 3 (wu
+    shares wg's input), a two-matrix MLP or an MoE layer (the experts' fc1
+    and fc2) 2 : 2."""
+    q, g = 2, (4 if spec.mixer == "attn" else 2)
+    if spec.cross:
+        q, g = q + (3 if prefill else 2), g + (4 if prefill else 2)
+    if spec.ffn is not None:
+        q, g = q + 2, g + (3 if spec.ffn == "mlp" and cfg.mlp_gated else 2)
+    return q, g
+
+
 def _quant_ratio(cfg):
-    """Kernel 1 : kernel 3 launches of one period of `cfg`'s layer pattern,
-    one kernel-1 call per distinct linear input: attention 2 : 4 (q/k/v
-    share one), a gated MLP 2 : 3 (wu shares wg's input), a two-matrix MLP
-    or an MoE layer (the experts' fc1 and fc2) 2 : 2, an SSM mixer 2 : 2
-    (w_in, w_out).  Dense gated 4 : 7, starcoder2 and MoE 4 : 6, mamba2
-    2 : 2, jamba's period 32 : 38."""
+    """Kernel 1 : kernel 3 launches of one period of `cfg`'s layer pattern
+    at decode (`_slot_launches`).  Dense gated 4 : 7, starcoder2 and MoE
+    4 : 6, mamba2 2 : 2, jamba's period 32 : 38, seamless 6 : 8."""
     from repro_torch.models.blocks import layer_pattern
     q = g = 0
     for spec in layer_pattern(cfg):
-        q, g = q + 2, g + (4 if spec.mixer == "attn" else 2)
-        if spec.ffn is not None:
-            q, g = q + 2, g + (3 if spec.ffn == "mlp" and cfg.mlp_gated else 2)
+        a, b = _slot_launches(cfg, spec)
+        q, g = q + a, g + b
     return q, g
+
+
+def _forward_launches(cfg, prefill):
+    """(kernel 1, kernel 3) launches of one forward of the whole model: a
+    decode step, or a prefill — whose prefix (a VLM's patches, an enc-dec
+    model's frames) takes w_patch (1 : 1), and whose encoder layers run
+    as decoder layers without cross attention.  Seamless: a prefill
+    1 + 12 x 4 + 12 x 7 = 133 : 1 + 12 x 6 + 12 x 10 = 193, a decode
+    step 72 : 96; pixtral: a prefill 161 : 281, a decode step 160 : 280."""
+    from repro_torch.models.blocks import layer_pattern, n_repeats
+    q = g = 0
+    stacks = [(layer_pattern(cfg), n_repeats(cfg))]
+    if prefill and cfg.is_encdec:
+        stacks.append((layer_pattern(cfg, decoder=False), n_repeats(cfg, decoder=False)))
+    for pattern, repeats in stacks:
+        for spec in pattern:
+            a, b = _slot_launches(cfg, spec, prefill)
+            q, g = q + a * repeats, g + b * repeats
+    if prefill and cfg.frontend is not None:
+        q, g = q + 1, g + 1
+    return q, g
+
+
+def check_forward_launches(launches, tag, cfg, prefills, decodes):
+    """Kernel 1 and kernel 3 launched exactly as `prefills` prefills and
+    `decodes` decode steps of `cfg` launch them (`_forward_launches`)."""
+    (pq, pg), (dq, dg) = _forward_launches(cfg, True), _forward_launches(cfg, False)
+    want = (prefills * pq + decodes * dq, prefills * pg + decodes * dg)
+    got = (launches["quant_act"], launches["fp8_gemm"])
+    check(got == want, f"{tag}: kernel 1 and kernel 3 launched {got} times, not {want} "
+                       f"({prefills} prefills, {decodes} decode steps)")
 
 
 def _sync_leaves(cfg):
     """Kernel-2 launches of one sync: the quantized (layer-stacked) leaves
     of one period of the pattern — wq, wk, wv, wo or an SSM mixer's w_in
-    and w_out, then the MLP's (wg, wu, wd; no wu without the gate) or the
-    experts' fc1 and fc2; the router stays bf16 under `PrecisionConfig()`.
-    Dense 7 (starcoder2 6), MoE 6, mamba2 2, jamba's period 38."""
+    and w_out, an enc-dec decoder's cross wq, wk, wv, wo, then the MLP's
+    (wg, wu, wd; no wu without the gate) or the experts' fc1 and fc2; the
+    router stays bf16 under `PrecisionConfig()` — and the same of the
+    encoder's pattern, and w_patch.  Dense 7 (starcoder2 6), MoE 6,
+    mamba2 2, jamba's period 38, seamless 10 + 6 + 1, pixtral 7 + 1."""
     from repro_torch.models.blocks import layer_pattern
-    n = 0
-    for spec in layer_pattern(cfg):
-        n += 4 if spec.mixer == "attn" else 2
-        if spec.ffn == "mlp":
-            n += 3 if cfg.mlp_gated else 2
-        elif spec.ffn == "moe":
-            n += 2
+    n = 1 if cfg.frontend is not None else 0
+    patterns = [layer_pattern(cfg)] + ([layer_pattern(cfg, decoder=False)]
+                                       if cfg.is_encdec else [])
+    for pattern in patterns:
+        for spec in pattern:
+            n += 4 if spec.mixer == "attn" else 2
+            n += 4 if spec.cross else 0
+            if spec.ffn == "mlp":
+                n += 3 if cfg.mlp_gated else 2
+            elif spec.ffn == "moe":
+                n += 2
     return n
 
 
@@ -2908,22 +3003,28 @@ def moe_path(dev, gen, results, extra):
 # phase 13: SSM and hybrid at full width
 # ---------------------------------------------------------------------------
 
-def state_engine_runs(roll, cfg, prec, dev, trace, slots, block_size, stats, tag, need):
+def state_engine_runs(roll, cfg, prec, dev, trace, slots, block_size, stats, tag, need,
+                      frames=None, **engine_kw):
     """The engine over `trace` twice on the same synced weights: roomy, then
     with its budget cut to SHRINK_FRAC after SHRINK_AT decode steps (the
-    launcher's `--shrink-at`), so that victims' SSM rows (and KV blocks)
-    go to the host and come back.  Greedy completions must be bit-equal,
-    with at least one swap-in.  Launch counts are zeroed before and read
-    after the two runs (`need`).  Fills `stats`."""
+    launcher's `--shrink-at`), so that victims' SSM or cross rows (and KV
+    blocks) go to the host and come back.  Greedy completions must be
+    bit-equal, with at least one swap-in.  Launch counts are zeroed before
+    and read after the two runs (`need`; an enc-dec model's exactly, by
+    its prefills and decode steps).  `frames[i]` go with request i;
+    `engine_kw` override the engine's arguments (an enc-dec engine
+    prefills one-shot).  Fills `stats`; returns the roomy run's report."""
     from repro_torch.kernels import build
     from repro_torch.serving import ServingEngine
 
     def engine():
-        eng = ServingEngine(roll, cfg, prec, max_slots=slots, max_seq_len=ENGINE_MAX_SEQ,
-                            block_size=block_size, admission="ondemand", prefill_chunk=128,
-                            eos_id=None, device=dev)
+        kw = dict(max_slots=slots, max_seq_len=ENGINE_MAX_SEQ, block_size=block_size,
+                  admission="ondemand", prefill_chunk=128, eos_id=None, device=dev)
+        kw.update(engine_kw)
+        eng = ServingEngine(roll, cfg, prec, **kw)
         for i, p in enumerate(trace):
-            eng.submit(p, max_new=ENGINE_MAX_NEW, rid=i)
+            eng.submit(p, max_new=ENGINE_MAX_NEW, rid=i,
+                       frames=None if frames is None else frames[i])
         return eng
 
     def cut(eng):
@@ -2937,8 +3038,12 @@ def state_engine_runs(roll, cfg, prec, dev, trace, slots, block_size, stats, tag
     # --- the serving engine: roomy, then under a budget cut ------------------
     rep_roomy, roomy_ms = _sync_ms(lambda: roomy.run(max_steps=4000))
     rep_tight, tight_ms = _sync_ms(cut, tight)
-    launches = _path_launches(f"{tag} engine", need, _quant_ratio(cfg))
+    launches = _path_launches(f"{tag} engine", need,
+                              None if cfg.is_encdec else _quant_ratio(cfg))
     # ----------------------------------------------------------------------
+    if cfg.is_encdec:       # one-shot prefills: one per request and run
+        check_forward_launches(launches, f"{tag} engine", cfg, 2 * len(trace),
+                               rep_roomy.steps + rep_tight.steps)
     check_engine_report(roomy, rep_roomy, len(trace), f"{tag} roomy")
     check_engine_report(tight, rep_tight, len(trace), f"{tag} under the cut")
     check(rep_roomy.preemptions == 0 and rep_tight.swap_ins >= 1,
@@ -2958,7 +3063,7 @@ def state_engine_runs(roll, cfg, prec, dev, trace, slots, block_size, stats, tag
     log(f"{tag} engine: roomy and cut runs bit-equal over {len(trace)} requests; the cut "
         f"preempted {rep_tight.preemptions} (swap-ins {rep_tight.swap_ins}, wasted "
         f"{rep_tight.wasted_tokens} tokens, {tight.state_blocks} state blocks a request)")
-    return launches
+    return rep_roomy
 
 
 def chunked_state_check(model, roll, prec, dev, prompt, tag):
@@ -3430,6 +3535,386 @@ def ssm_hybrid_path(dev, gen, extra):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: enc-dec and VLM at full width and depth
+# ---------------------------------------------------------------------------
+
+def encdec_frames(b, pad, d, lo, hi, seed):
+    """`b` requests' frames (`tasks.random_frames`, lo-hi of them, seeded
+    lengths) zero-padded to `pad`: (frames (b, pad, d) f32 numpy, their
+    lengths)."""
+    import numpy as np
+    from repro_torch.data import tasks
+    lengths = np.random.default_rng(seed).integers(lo, hi + 1, size=b).astype(np.int32)
+    frames = np.zeros((b, pad, d), np.float32)
+    for i, n in enumerate(lengths):
+        frames[i, :n] = tasks.random_frames(seed + 1 + i, int(n), d)
+    return frames, lengths
+
+
+def _frames_in(frames, lengths, dev):
+    import torch
+    return {"frames": torch.from_numpy(frames).to(dev, torch.bfloat16),
+            "src_lengths": torch.from_numpy(lengths).to(dev)}
+
+
+def encdec_attention_rows(dev, gen, cfg, traj, extra):
+    """Kernels 4 and 6 timed at the model's heads: kernel 4 at the greedy
+    run's final context lengths (B 8, page size 16), kernel 6 at B 8 over
+    a cache of 1057 positions — each beside its plain version, the SDPA
+    yardstick and its byte bound (phase 6's rows)."""
+    import torch
+    from repro_torch.kernels import fp8_kv_attention as fa
+    kvh, g, dh = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.d_head
+    lengths = (traj.prompt_lengths + traj.response_lengths).to(torch.int32)
+    q, kq, vq, ks, vs, tables, lengths, _ = decode_case(
+        dev, gen, b=8, kvh=kvh, g=g, d=dh, bs=16, max_len=int(lengths.max()), lengths=lengths)
+    kf, vf = fa._live_kv(kq, vq, ks, vs, tables, lengths)
+    row = timed_row(
+        lambda: fa.fp8_paged_decode_attention(q, kq, vq, ks, vs, tables, lengths),
+        lambda: fa.fp8_paged_decode_attention_ref(q, kq, vq, ks, vs, tables, lengths),
+        library=sdpa_decode_yardstick(q, kf, vf, lengths))
+    del kf, vf
+    ctx = int(lengths.sum())
+    nbytes = 2 * ctx * kvh * dh + 2 * 2 * 8 * kvh * g * dh + tables.numel() * 4 + 8 * 4
+    row["bound_ms"], row["bound_by"] = bound(nbytes, 4 * ctx * kvh * g * dh, BF16_TC_FLOPS)
+    extra.append(dict(kernel="paged_decode", model=cfg.name, shape=[8, kvh, g, dh],
+                      context=ctx, **row))
+    rows = {"paged_decode": row}
+    args = contiguous_case(dev, gen, 8, CONTIG_SHAPE[1] + 1,
+                           [1057, 1, 0, 300, 512, 999, 64, 700], kvh, g, dh)
+    row = decode_row(args)
+    extra.append(dict(kernel="decode", model=cfg.name, shape=[8, kvh, g, dh],
+                      s_max=CONTIG_SHAPE[1] + 1, context=int(args[-1].sum()), **row))
+    rows["decode"] = row
+    for name, row in rows.items():
+        log(f"{cfg.name} {name} (KVH {kvh}, G {g}, D {dh}): device {row['device_ms']:.4f} ms, "
+            f"ms {row['ms']:.4f}, bound {row['bound_ms']:.5f} ({row['bound_by']}), plain "
+            f"{row['plain_ms']:.3f}, library {row['library_ms']}")
+    return {name: {k: row[k] for k in ("ms", "device_ms", "bound_ms", "plain_ms",
+                                       "library_ms")} for name, row in rows.items()}
+
+
+def encdec_path(dev, gen, extra):
+    """14a: seamless-m4t-medium at full width and depth (12 + 12 layers,
+    d 1024, 16 heads of 64, vocab 256206) under `PrecisionConfig()`: the
+    sync (kernel 2 over the decoder's, the cross attention's and the
+    encoder's leaves and w_patch), greedy and GRPO `generate` over 8
+    prompts with 256-1024 frames each (padded to ENCDEC_SRC, masked by
+    `src_lengths`) and greedy under BF16_ROLLOUT, decode-step logits
+    through the kernels against the plain versions, the engine (8 slots,
+    16 requests with frames, `max_src_len` ENCDEC_SRC) roomy and under a
+    budget cut (bit-equal, the victims' cross KV swapped out and back;
+    two requests with one prompt and other frames decode otherwise),
+    `launch.serve.run --arch seamless-m4t-medium`, `launch.steps` (a B 8
+    prefill over S 1056 with frames of S, CONTIG_STEPS serve steps
+    through kernel 6; LONG_500K not run), kernels 4-6 at (G 1, D 64)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core.precision import BF16_ROLLOUT, PrecisionConfig
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import steps
+    from repro_torch.models import Transformer
+    from repro_torch.rl import SamplerConfig, generate, sync_policy_weights
+    from repro_torch.serving import request_state_bytes
+    cfg = get_config(ENCDEC)
+    prec = PrecisionConfig()
+    stats = {"cross_kv_bytes_per_request": request_state_bytes(cfg, prec, src_len=ENCDEC_SRC)}
+    fresh_peak(cfg.name, stats)
+    model = Transformer(cfg, dev)
+    params, init_ms = _sync_ms(model.init_params, SEED)
+    build.reset_launch_counts()
+    roll, sync_stats = sync_policy_weights(params, prec)
+    check(build.LAUNCHES["quant_weight"] == _sync_leaves(cfg),
+          f"{cfg.name}: kernel 2 launched {build.LAUNCHES['quant_weight']} times")
+    stats.update(init_ms=init_ms, sync_ms=sync_stats["sync_ms"])
+    log(f"{cfg.name}: {cfg.n_enc_layers} + {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.d_head}; cross KV {stats['cross_kv_bytes_per_request'] / 1e6:.2f}"
+        f" MB a request at {ENCDEC_SRC} frames")
+
+    prompts, lengths = make_prompts(np.random.default_rng(SEED))
+    frames, src_lengths = encdec_frames(8, ENCDEC_SRC, cfg.d_model, *ENCDEC_FRAMES, SEED + 50)
+    src = _frames_in(frames, src_lengths, dev)
+    sampler = torch.Generator(device=dev).manual_seed(SEED)
+    greedy_cfg = SamplerConfig(max_new_tokens=32, temperature=0.0)
+    build.reset_launch_counts()
+    # --- the enc-dec rollout path: greedy and GRPO generate -------------------
+    greedy, g_ms = _sync_ms(lambda: generate(roll, prompts, lengths, None, cfg, prec, greedy_cfg,
+                                             page_size=16, extra_inputs=src, device=dev))
+    group, grp_ms = _sync_ms(lambda: generate(
+        roll, prompts, lengths, sampler, cfg, prec, SamplerConfig(max_new_tokens=32),
+        page_size=16, num_samples_per_prompt=4, shared_prefix_blocks=int(lengths.min()) // 16,
+        extra_inputs=src, device=dev))
+    launches = _path_launches(f"{cfg.name} rollout path",
+                              ("quant_act", "fp8_gemm", "paged_decode"), None)
+    # ----------------------------------------------------------------------
+    decodes = _decode_steps(greedy) + _decode_steps(group)
+    check_forward_launches(launches, f"{cfg.name} rollout path", cfg, 2, decodes)
+    check(launches["paged_decode"] == cfg.n_layers * decodes,
+          f"{cfg.name}: kernel 4 launched {launches['paged_decode']} times")
+    check_trajectory(greedy, 8, 32, cfg.vocab_size, f"{cfg.name} greedy")
+    check_trajectory(group, 32, 32, cfg.vocab_size, f"{cfg.name} group")
+    bf16, b_ms = _sync_ms(lambda: generate(params, prompts, lengths, None, cfg, BF16_ROLLOUT,
+                                           greedy_cfg, page_size=16, extra_inputs=src,
+                                           device=dev))
+    check_trajectory(bf16, 8, 32, cfg.vocab_size, f"{cfg.name} BF16_ROLLOUT")
+    stats.update(rollout_launches=launches, greedy_generate_s=g_ms / 1e3,
+                 group_generate_s=grp_ms / 1e3, bf16_generate_s=b_ms / 1e3,
+                 greedy_tokens_per_s=float(greedy.response_mask.sum()) / (g_ms / 1e3),
+                 group_tokens_per_s=float(group.response_mask.sum()) / (grp_ms / 1e3),
+                 fp8_bf16_greedy_token_agreement=float(
+                     (bf16.response_tokens == greedy.response_tokens).float().mean()))
+    del params, group, bf16
+    stats["decode_logit_max_abs_err"] = decode_logits_check(model, roll, prec, prompts,
+                                                            lengths, dev, extra=src)
+    stats.update(profile_decode_step(model, roll, prec, prompts, lengths, dev, "encdec_",
+                                     extra=src))
+
+    trace = engine_trace(n=16)
+    trace[15] = trace[14]               # one prompt, other frames
+    eframes, elens = encdec_frames(16, ENCDEC_SRC, cfg.d_model, *ENCDEC_FRAMES, SEED + 70)
+    req_frames = [eframes[i, :n] for i, n in enumerate(elens)]
+    rep = state_engine_runs(roll, cfg, prec, dev, trace, 8, ENGINE_BLOCK_SIZE, stats, cfg.name,
+                            ("quant_act", "fp8_gemm", "paged_decode"), frames=req_frames,
+                            prefill_chunk=None, prompt_pad=max(len(p) for p in trace),
+                            max_src_len=ENCDEC_SRC)
+    done = {r.rid: r.generated for r in rep.completed}
+    check(done[14] != done[15], f"{cfg.name}: one prompt with other frames decoded the same")
+    out, serve_ms = _sync_ms(launch_serve.run, ["--arch", ENCDEC, "--precision", "default",
+                                                "--requests", "8", "--max-new", "16",
+                                                "--slots", "4", "--src-pad", "256"])
+    check(out["completed"] == 8 and not out["stalled"],
+          f"{cfg.name}: launch.serve completed {out['completed']}")
+    stats["launch_serve"] = {k: out[k] for k in ("completed", "steps", "emitted_tokens",
+                                                 "state_bytes_per_request", "serve_wall_s")}
+    log(f"{cfg.name} launch.serve.run: " + json.dumps(stats["launch_serve"]))
+
+    shape = ShapeConfig("encdec_steps", CONTIG_SHAPE[1], 8, "prefill")
+    cprompts, clengths = make_prompts(np.random.default_rng(SEED + 7), b=8, lo=512, hi=1024)
+    tokens = np.zeros((8, shape.seq_len), np.int32)
+    tokens[:, :cprompts.shape[1]] = cprompts
+    sframes, slens = encdec_frames(8, shape.seq_len, cfg.d_model, ENCDEC_FRAMES[0], shape.seq_len,
+                                   SEED + 90)
+    batch = {"tokens": torch.from_numpy(tokens).to(dev), "lengths": torch.from_numpy(clengths),
+             **_frames_in(sframes, slens, dev)}
+    prefill_step = steps.make_prefill_step(cfg, shape, prec, device=dev)
+    serve_step = steps.make_serve_step(cfg, prec, device=dev)
+    build.reset_launch_counts()
+    # --- launch.steps: prefill over frames of S, then CONTIG_STEPS serve steps
+    (logits, cache), prefill_ms = _sync_ms(prefill_step, roll, batch)
+    step_ms = []
+    for _ in range(CONTIG_STEPS):
+        (logits, cache), ms = _sync_ms(serve_step, roll, logits.argmax(-1), cache)
+        step_ms.append(ms)
+    launches = _path_launches(f"{cfg.name} launch.steps", ("quant_act", "fp8_gemm", "decode"),
+                              None)
+    # ----------------------------------------------------------------------
+    check_forward_launches(launches, f"{cfg.name} launch.steps", cfg, 1, CONTIG_STEPS)
+    check(launches["decode"] == cfg.n_layers * CONTIG_STEPS,
+          f"{cfg.name}: kernel 6 launched {launches['decode']} times")
+    check(bool(torch.isfinite(logits).all()), f"{cfg.name}: serve-step logits not finite")
+    cross_gb = sum(sd["cross"].k.numel() * 2 for sd in cache["slots"].values()) / 1e9
+    del cache
+    stats.update(steps_launches=launches, steps_prefill_ms=prefill_ms, serve_step_ms=step_ms,
+                 steps_cross_cache_gb=cross_gb)
+    log(f"{cfg.name} launch.steps: prefill (B 8, S {shape.seq_len}, frames of S) "
+        f"{prefill_ms:.1f} ms, serve steps {[round(x, 1) for x in step_ms[:4]]}... ms (median "
+        f"{sorted(step_ms)[len(step_ms) // 2]:.1f}); cross caches {cross_gb:.3f} GB.  LONG_500K "
+        "not run: the reference sizes the cross cache and the encoder's full attention at S "
+        "(S^2 = 2.7e11 scores a head, a 12.9 GB fp8 cross cache), as cache_specs shows")
+    stats["kernel_errs"] = hold_attention_kernels(dev, gen, cfg)
+    stats["attention_rows"] = encdec_attention_rows(dev, gen, cfg, greedy, extra)
+    del roll
+    stats["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    check(stats["peak_gb"] * 1e9 < CARD_BYTES, f"{cfg.name} peak {stats['peak_gb']:.1f} GB")
+    log(f"enc-dec {cfg.name}: " + json.dumps(stats))
+    return stats
+
+
+def patch_gemm_rows(dev, gen, roll, extra):
+    """Kernel 3 at pixtral's w_patch (K 5120, N 5120) over a prefill's
+    VLM_PATCH_M patch rows — one weight, operations-bound — and at its wg
+    (5120 -> 14336) at M 8, the 40 layers rotated (cold in L2, bytes-
+    bound), each beside its plain version and its bound; w_patch's output
+    held within one bf16 rounding of plain."""
+    import torch
+    from repro_torch.kernels import fp8_gemm as fg
+    from repro_torch.kernels import fp8_quant as fq
+    from repro_torch.kernels import ops
+    w = roll["frontend"]["w_patch"]
+    k, n = w.data.shape
+    m = VLM_PATCH_M
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    a, a_s = fq.quantize_activation_kernel(x)
+    wk = ops._gemm_weight(w.data)
+    y = fg.fp8_gemm(a, wk, a_s, w.scales)
+    yp = fg.fp8_gemm_ref(a, wk, a_s, w.scales).float()
+    torch.cuda.synchronize()
+    err = (y.float() - yp).abs().max().item()
+    check(torch.allclose(y.float(), yp, rtol=2 ** -7, atol=1e-5 * yp.abs().max().item()),
+          "pixtral: kernel 3 at w_patch disagrees with its plain version")
+    del y, yp
+    row = timed_row(lambda: fg.fp8_gemm(a, wk, a_s, w.scales),
+                    lambda: fg.fp8_gemm_ref(a, wk, a_s, w.scales), plain_reps=3, plain_warmup=1)
+    nbytes = m * k + k * n + m * (k // 128) * 4 + (k // 128) * (n // 128) * 4 + m * n * 2
+    row["bound_ms"], row["bound_by"] = bound(nbytes, 2 * m * n * k, FP8_TC_FLOPS)
+    row["max_abs_err"] = err
+    extra.append(dict(kernel="fp8_gemm", shape=[m, k, n], weight="pixtral w_patch", **row))
+    log(f"pixtral fp8_gemm w_patch M {m} K {k} N {n}: device {row['device_ms']:.4f} ms, ms "
+        f"{row['ms']:.4f} (bound {row['bound_ms']:.4f}, {row['bound_by']}), plain "
+        f"{row['plain_ms']:.3f}, max|kernel-plain| {err:.3e}")
+    rows = {"w_patch": row}
+    stack = roll["blocks"]["s0"]["mlp"]["wg"]
+    row = gemm_row(stack, 8, gen)
+    extra.append(dict(kernel="fp8_gemm", shape=[8, *stack.data.shape[1:]],
+                      weight="pixtral wg", **row))
+    rows["wg"] = row
+    return {name: {key: r[key] for key in ("ms", "device_ms", "bound_ms", "bound_by",
+                                             "plain_ms")} for name, r in rows.items()}
+
+
+def vlm_path(dev, gen, extra):
+    """14b: pixtral-12b at full width and depth (40 layers, d 5120, 32/8
+    heads of 128, d_ff 14336, vocab 131072, 1024 patches) under
+    `PrecisionConfig()`: the sync (8 leaves), greedy `generate` over 8
+    prompts of 64-128 text tokens after 1024 patches at page size 16 (the
+    block table sized for the prefix: no write past it), decode-step
+    logits through the kernels against the plain versions (each layer's
+    input forced to the kernel step's; the free-running gap logged), the
+    prefill's
+    last logits against `forward_train`'s at that position (the
+    reference's causal prefill over the patches: logged, not held),
+    `launch.steps` (a B 8 prefill over S 2048, 1024 of them patches, and
+    VLM_STEPS serve steps through kernel 6), kernel 3 at w_patch and wg
+    timed; the peak under 80 GB."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core.precision import PrecisionConfig
+    from repro_torch.kernels import build
+    from repro_torch.launch import steps
+    from repro_torch.models import Transformer, forward_train
+    from repro_torch.rl import SamplerConfig, generate, sync_policy_weights
+    cfg = get_config(VLM)
+    prec = PrecisionConfig()
+    stats = {}
+    fresh_peak(cfg.name, stats)
+    model = Transformer(cfg, dev)
+    params, init_ms = _sync_ms(model.init_params, SEED)
+    build.reset_launch_counts()
+    roll, sync_stats = sync_policy_weights(params, prec)
+    check(build.LAUNCHES["quant_weight"] == _sync_leaves(cfg),
+          f"{cfg.name}: kernel 2 launched {build.LAUNCHES['quant_weight']} times")
+    stats.update(init_ms=init_ms, sync_ms=sync_stats["sync_ms"],
+                 sync_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del params
+    log(f"{cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.param_count() / 1e9:.2f}B "
+        f"decoder params + w_patch; sync {stats['sync_ms']:.1f} ms, peak so far "
+        f"{stats['sync_peak_gb']:.2f} GB")
+
+    prompts, lengths = make_prompts(np.random.default_rng(SEED))
+    p = cfg.frontend_len
+    patches = torch.randn((8, p, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    caches = []
+    real_init = Transformer.init_cache
+
+    def spy(self, *args, **kw):
+        caches.append(real_init(self, *args, **kw))
+        return caches[-1]
+    build.reset_launch_counts()
+    # --- the VLM rollout path: greedy generate after the patches -------------
+    with mock.patch.object(Transformer, "init_cache", spy):
+        greedy, g_ms = _sync_ms(lambda: generate(
+            roll, prompts, lengths, None, cfg, prec,
+            SamplerConfig(max_new_tokens=32, temperature=0.0), page_size=VLM_PAGE,
+            extra_inputs={"patches": patches}, device=dev))
+    launches = _path_launches(f"{cfg.name} rollout path",
+                              ("quant_act", "fp8_gemm", "paged_decode"), None)
+    # ----------------------------------------------------------------------
+    decodes = _decode_steps(greedy)
+    check_forward_launches(launches, f"{cfg.name} rollout path", cfg, 1, decodes)
+    check(launches["paged_decode"] == cfg.n_layers * decodes,
+          f"{cfg.name}: kernel 4 launched {launches['paged_decode']} times")
+    check_trajectory(greedy, 8, 32, cfg.vocab_size, f"{cfg.name} greedy")
+    table = caches[0]["block_tables"].shape[1] * VLM_PAGE
+    last = p + int(lengths.max()) + decodes          # one past the last position written
+    text_only = -(-(prompts.shape[1] + 33) // VLM_PAGE) * VLM_PAGE
+    check(last <= table, f"{cfg.name}: a write at {last - 1} falls past a table of {table}")
+    stats.update(rollout_launches=launches, greedy_generate_s=g_ms / 1e3,
+                 greedy_tokens_per_s=float(greedy.response_mask.sum()) / (g_ms / 1e3),
+                 table_positions=table, last_position_written=last - 1,
+                 text_only_table_positions=text_only)
+    log(f"{cfg.name} generate: table of {table} positions, last write at {last - 1} (a table "
+        f"counting only the text would hold {text_only})")
+    del greedy, caches
+    # held teacher-forced, as 13b: free-running, the kernels' last-bit
+    # differences compound over 40 layers and 1024 + 128 positions of
+    # context (0.64 on the H100 against the 0.5 band); logged beside it
+    stats["decode_logit_max_abs_err"] = forced_decode_logits_check(
+        model, roll, prec, prompts, lengths, dev, extra={"patches": patches})
+    stats.update(profile_decode_step(model, roll, prec, prompts, lengths, dev, "vlm_",
+                                     extra={"patches": patches}))
+    # the reference's train-inference split over the patches (kept)
+    n = int(lengths[:2].min())
+    two = {"tokens": torch.from_numpy(prompts[:2, :n]).to(dev), "patches": patches[:2]}
+    with torch.no_grad():
+        last_logits, _ = model.prefill(roll, dict(two, lengths=torch.tensor([n, n])),
+                                       model.init_cache(2, p + n + 1, prec), prec)
+        full, aux = forward_train(roll, two, cfg, prec)
+        gap = (last_logits - full[:, -1]).abs().max().item()
+        scale = full[:, -1].abs().max().item()
+    del full
+    stats["prefill_vs_forward_train_gap"] = gap
+    log(f"{cfg.name}: prefill (causal over the patches) vs forward_train (prefix-LM) at the "
+        f"last prompt position: max abs gap {gap:.4f} on logits of max magnitude {scale:.3f} "
+        "(the reference's semantics; logged, not held)")
+
+    shape = ShapeConfig("vlm_steps", VLM_STEPS_S, 8, "prefill")
+    specs = steps.input_specs(cfg, shape)
+    t = specs["tokens"].shape[1]
+    cprompts, clengths = make_prompts(np.random.default_rng(SEED + 7), b=8, lo=512,
+                                      hi=t - VLM_STEPS)
+    tokens = np.zeros((8, t), np.int32)
+    tokens[:, :cprompts.shape[1]] = cprompts
+    spatches = torch.randn(tuple(specs["patches"].shape), generator=gen,
+                           device=dev).to(torch.bfloat16)
+    batch = {"tokens": torch.from_numpy(tokens).to(dev), "lengths": torch.from_numpy(clengths),
+             "patches": spatches}
+    prefill_step = steps.make_prefill_step(cfg, shape, prec, device=dev)
+    serve_step = steps.make_serve_step(cfg, prec, device=dev)
+    build.reset_launch_counts()
+    # --- launch.steps: 1024 patches + text, then VLM_STEPS serve steps ------
+    (logits, cache), prefill_ms = _sync_ms(prefill_step, roll, batch)
+    step_ms = []
+    for _ in range(VLM_STEPS):
+        (logits, cache), ms = _sync_ms(serve_step, roll, logits.argmax(-1), cache)
+        step_ms.append(ms)
+    launches = _path_launches(f"{cfg.name} launch.steps", ("quant_act", "fp8_gemm", "decode"),
+                              None)
+    # ----------------------------------------------------------------------
+    check_forward_launches(launches, f"{cfg.name} launch.steps", cfg, 1, VLM_STEPS)
+    check(launches["decode"] == cfg.n_layers * VLM_STEPS,
+          f"{cfg.name}: kernel 6 launched {launches['decode']} times")
+    check(bool(torch.isfinite(logits).all()), f"{cfg.name}: serve-step logits not finite")
+    del cache, spatches, batch
+    stats.update(steps_launches=launches, steps_prefill_ms=prefill_ms, serve_step_ms=step_ms)
+    log(f"{cfg.name} launch.steps: prefill (B 8, S {VLM_STEPS_S}, {specs['patches'].shape[1]} "
+        f"patches) {prefill_ms:.1f} ms, serve steps {[round(x, 1) for x in step_ms]} ms")
+    stats["gemm"] = patch_gemm_rows(dev, gen, roll, extra)
+    del roll
+    stats["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    check(stats["peak_gb"] * 1e9 < CARD_BYTES, f"{cfg.name} peak {stats['peak_gb']:.1f} GB")
+    log(f"VLM {cfg.name}: " + json.dumps(stats))
+    return stats
+
+
+def encdec_vlm_path(dev, gen, extra):
+    """Phase 14: 14a then 14b."""
+    return {"encdec": encdec_path(dev, gen, extra), "vlm": vlm_path(dev, gen, extra)}
+
+
+# ---------------------------------------------------------------------------
 # phase 6: times at the main paths' shapes
 # ---------------------------------------------------------------------------
 
@@ -3851,6 +4336,10 @@ def main() -> int:
     ssm_hybrid = ssm_hybrid_path(dev, gen, ssm_extra)
     log("kernel_timings_ssm " + json.dumps(ssm_extra))
     log("phase 13 peaks (GB): " + json.dumps({k: v["peak_gb"] for k, v in ssm_hybrid.items()}))
+    encdec_extra = []
+    encdec_vlm = encdec_vlm_path(dev, gen, encdec_extra)
+    log("kernel_timings_encdec_vlm " + json.dumps(encdec_extra))
+    log("phase 14 peaks (GB): " + json.dumps({k: v["peak_gb"] for k, v in encdec_vlm.items()}))
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, "
         f"wall {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

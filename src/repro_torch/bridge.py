@@ -13,8 +13,10 @@ bf16 and fp8 arrays cross as raw bits (`arr.view(np.uint16)` ->
 same way (raw fp8 bytes and f32 scales, one layer or stacked by layer), so
 a test can start the port's decode from the reference's exact cache;
 `ssm_state_from_numpy` does the same for an `SSMState` (h f32, conv tail
-bf16).  SSM params (f32 `dt_bias`, `a_log`, `D` among them) cross as any
-other leaf.
+bf16).  SSM params (f32 `dt_bias`, `a_log`, `D` among them), an enc-dec
+model's encoder (`enc/blocks/...`, `enc/final_norm_scale`) and cross
+attention (`blocks/s0/cross/...`), and a frontend's `frontend/w_patch`
+cross as any other leaf.
 """
 from __future__ import annotations
 

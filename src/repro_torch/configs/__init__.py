@@ -7,10 +7,13 @@ the reference's dense assigned architectures: llama3.2-3b (tied
 embeddings), stablelm-3b (D 80, no GQA), starcoder2-15b (G 12, a classic
 gelu MLP) and mistral-large-123b, and its MoE ones: granite-moe-3b-a800m
 (40 experts top-8, D 64, tied embeddings) and grok-1-314b (8 experts
-top-2), the SSM model mamba2-780m (attention-free) and the hybrid
+top-2), the SSM model mamba2-780m (attention-free), the hybrid
 jamba-1.5-large-398b (one attention per 8 layers, MoE every other
-layer).  mistral-large-123b, grok-1-314b and jamba-1.5-large-398b are too
-large for one card: meta specs and reduced runs (jamba also one
+layer), the encoder-decoder seamless-m4t-medium (frames through an
+encoder, cross attention in every decoder layer) and the VLM pixtral-12b
+(projected patches as a prefix ahead of the text): all twelve of the
+reference's.  mistral-large-123b, grok-1-314b and jamba-1.5-large-398b
+are too large for one card: meta specs and reduced runs (jamba also one
 full-width period).
 """
 from repro_torch.configs.base import (
@@ -28,8 +31,10 @@ from repro_torch.configs.jamba_1_5_large_398b import CONFIG as jamba_1_5_large_3
 from repro_torch.configs.llama3_2_3b import CONFIG as llama3_2_3b
 from repro_torch.configs.mamba2_780m import CONFIG as mamba2_780m
 from repro_torch.configs.mistral_large_123b import CONFIG as mistral_large_123b
+from repro_torch.configs.pixtral_12b import CONFIG as pixtral_12b
 from repro_torch.configs.qwen3_8b import CONFIG as qwen3_8b
 from repro_torch.configs.qwen3_30b_a3b import CONFIG as qwen3_30b_a3b
+from repro_torch.configs.seamless_m4t_medium import CONFIG as seamless_m4t_medium
 from repro_torch.configs.stablelm_3b import CONFIG as stablelm_3b
 from repro_torch.configs.starcoder2_15b import CONFIG as starcoder2_15b
 
@@ -37,7 +42,8 @@ REGISTRY = {c.name: c for c in (qwen3_8b, llama3_2_3b, stablelm_3b,
                                 starcoder2_15b, mistral_large_123b,
                                 qwen3_30b_a3b, granite_moe_3b_a800m,
                                 grok_1_314b, mamba2_780m,
-                                jamba_1_5_large_398b)}
+                                jamba_1_5_large_398b, seamless_m4t_medium,
+                                pixtral_12b)}
 
 
 def get_config(name: str) -> ArchConfig:
@@ -79,10 +85,21 @@ def tiny_ssm_serving_config() -> ArchConfig:
         ssm_state=8, ssm_head_dim=16)
 
 
+def tiny_encdec_serving_config() -> ArchConfig:
+    """Reduced seamless-m4t-medium: enc-dec with per-request frames and
+    cross-attention KV held beside the paged decoder self-KV
+    (`repro.configs.tiny_encdec_serving_config`, the same overrides)."""
+    from repro_torch.data import tasks
+    return get_config("seamless-m4t-medium").reduced(
+        n_layers=2, n_enc_layers=2, d_model=64, d_ff=128,
+        vocab_size=tasks.VOCAB_SIZE, n_heads=4, n_kv_heads=2, d_head=16)
+
+
 __all__ = ["ALL_SHAPES", "ArchConfig", "DECODE_32K", "LONG_500K",
            "PREFILL_32K", "REGISTRY", "ShapeConfig", "TRAIN_4K", "get_config",
            "granite_moe_3b_a800m", "grok_1_314b", "jamba_1_5_large_398b",
            "llama3_2_3b", "mamba2_780m", "mistral_large_123b",
-           "qwen3_30b_a3b", "qwen3_8b", "stablelm_3b", "starcoder2_15b",
+           "pixtral_12b", "qwen3_30b_a3b", "qwen3_8b", "seamless_m4t_medium",
+           "stablelm_3b", "starcoder2_15b", "tiny_encdec_serving_config",
            "tiny_hybrid_serving_config", "tiny_serving_config",
            "tiny_ssm_serving_config"]

@@ -122,10 +122,11 @@ class ArchConfig:
         return self.n_experts > 0 and i % self.moe_period == self.moe_offset
 
     def param_count(self) -> int:
-        """Analytic parameter count of a decoder (the ported families: an
-        MoE layer holds its experts' fc1/fc2 and the router, an SSM mixer
-        its projections, conv and per-head leaves; mamba2 blocks have no
-        MLP)."""
+        """Analytic parameter count, the reference's: the decoder (an MoE
+        layer holds its experts' fc1/fc2 and the router, an SSM mixer its
+        projections, conv and per-head leaves; mamba2 blocks have no MLP)
+        and an encoder's attention and MLP layers (cross attention and
+        w_patch are not counted, as in the reference)."""
         d, f, v = self.d_model, self.d_ff, self.vocab_size
         per_attn = d * (self.n_heads * self.d_head) * 2 \
             + d * (self.n_kv_heads * self.d_head) * 2
@@ -144,6 +145,7 @@ class ArchConfig:
                 total += per_ssm
             if self.family != "ssm":
                 total += per_moe if self.is_moe_layer(i) else per_mlp
+        total += self.n_enc_layers * (per_attn + per_mlp)
         return total
 
     # ------------------------------------------------------------------

@@ -4,9 +4,11 @@
 Every RL step the BF16 training weights are blockwise-quantized and
 handed to the rollout engine (paper §2.1.2).  The port's params are nested
 dicts with the reference's key names and layer-stacked leaves, so the same
-path regexes select the same leaves ("blocks/s0/attn/wq", ...).  Linear
-weights become `QuantizedTensor`s through kernel 2 (one launch per stacked
-leaf); embeddings, norms and the lm_head pass through by reference.
+path regexes select the same leaves ("blocks/s0/attn/wq", an enc-dec
+model's "blocks/s0/cross/wq" and "enc/blocks/s0/attn/wq", a frontend's
+"frontend/w_patch", ...).  Linear weights become `QuantizedTensor`s
+through kernel 2 (one launch per stacked leaf, and one for the 2-D
+w_patch); embeddings, norms and the lm_head pass through by reference.
 An MoE router is cast to the configured router dtype instead (paper
 §2.2.4, fig. 6): bf16 or f32, or under the FP8 ablation quantized like a
 linear (E4M3, f32 block scales).

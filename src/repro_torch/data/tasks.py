@@ -1,5 +1,5 @@
-"""Toy token space, prompt recipes and the rule-based verifier (port of
-`repro.data.tasks`; the enc-dec `random_frames` is not ported)."""
+"""Toy token space, prompt and frame recipes and the rule-based verifier
+(port of `repro.data.tasks`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -32,6 +32,14 @@ def random_prompt(seed: int, length: int) -> np.ndarray:
     rng = np.random.default_rng(seed)
     return np.concatenate(
         [[BOS], rng.integers(4, 19, size=length - 1)]).astype(np.int32)
+
+
+def random_frames(seed: int, n: int, d_model: int) -> np.ndarray:
+    """Deterministic synthetic encoder frame embeddings (n, d_model) f32 —
+    the audio frontend's stand-in for enc-dec traces, the reference's
+    draw."""
+    return np.random.default_rng(seed).normal(
+        size=(n, d_model)).astype(np.float32)
 
 
 def sample_problem(rng: np.random.Generator, max_operand: int = 99) -> Problem:

@@ -26,7 +26,11 @@ resolved one.  `--arch` takes any name of the port's registry, the MoE
 models (qwen3-30b-a3b, granite-moe-3b-a800m, grok-1-314b), mamba2-780m
 and jamba-1.5-large-398b (`--reduced` keeps its 8-layer period) included;
 an attention-free model resolves `--kernel-config` to `off` and refuses
-a kernel, and `--shrink-at` preempts on its slot state alone.
+a kernel, and `--shrink-at` preempts on its slot state alone; an
+enc-dec model (`--arch seamless-m4t-medium`) gets synthetic source frames
+per request (`tasks.random_frames`, 3 to `--src-pad` of them), served
+through the same `submit(..., frames=...)` path a real frontend would
+feed.
 """
 from __future__ import annotations
 
@@ -61,6 +65,7 @@ from repro_torch.serving import (
     SpecConfig,
     StepBudget,
     kv_bytes_per_token,
+    request_state_bytes,
 )
 
 # the reference's rollout presets; "fp8" (the default, as in the
@@ -117,6 +122,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--spec-k", type=int, default=None,
                     help="speculative decoding: draft up to K tokens per "
                          "verify with the n-gram proposer")
+    ap.add_argument("--src-pad", type=int, default=8,
+                    help="enc-dec: source-frame capacity per slot (requests "
+                         "carry up to this many frames)")
     ap.add_argument("--shrink-at", type=int, default=None,
                     help="shrink the KV budget after N engine steps")
     ap.add_argument("--shrink-frac", type=float, default=0.5,
@@ -167,6 +175,8 @@ def _parser() -> argparse.ArgumentParser:
 
 def _check_args(ap, args):
     """The reference's mutual-exclusion and range checks."""
+    if args.src_pad < 1:
+        ap.error("--src-pad must be >= 1 (frames per enc-dec request)")
     if args.chaos_seed is not None and args.crash_replica is not None:
         ap.error("--chaos-seed and --crash-replica are mutually "
                  "exclusive (random schedule vs one explicit crash)")
@@ -283,9 +293,12 @@ def run(argv=None) -> dict:
     precision = PRECISIONS[args.precision]
     params = Transformer(cfg, device).init_params(args.seed)
     rollout_params, sync_stats = sync_policy_weights(params, precision)
+    state_bytes = request_state_bytes(cfg, precision,
+                                      src_len=args.src_pad if cfg.is_encdec else 0)
     budget = None
     if args.budget_tokens:
-        budget = args.budget_tokens * max(kv_bytes_per_token(cfg, precision), 1)
+        budget = args.budget_tokens * max(kv_bytes_per_token(cfg, precision), 1) \
+            + args.slots * state_bytes
     fleet = args.replicas > 1 or args.update_every is not None
     tracing = args.trace_out is not None or args.events_out is not None
     tracers = []
@@ -307,13 +320,19 @@ def run(argv=None) -> dict:
                          if args.prefill_budget else None),
             kernel_config=args.kernel_config,
             spec=SpecConfig(num_draft_tokens=args.spec_k) if args.spec_k else None,
-            device=device)
+            max_src_len=args.src_pad, device=device)
 
     target = (ServingFrontend([mk_engine(i) for i in range(args.replicas)])
               if fleet else mk_engine(0))
     rng = np.random.default_rng(args.seed)
     for i in range(args.requests):
-        target.submit(tasks.sample_problem(rng).prompt_ids, max_new=args.max_new, rid=i)
+        prob = tasks.sample_problem(rng)
+        frames = None
+        if cfg.is_encdec:
+            # synthetic frame embeddings stand in for the audio frontend
+            n = int(rng.integers(min(3, args.src_pad), args.src_pad + 1))
+            frames = tasks.random_frames(args.seed * 1000 + i, n, cfg.d_model)
+        target.submit(prob.prompt_ids, max_new=args.max_new, rid=i, frames=frames)
     t0 = time.perf_counter()
     if fleet:
         # only the replicas hold version 0 now, so an update frees it

@@ -14,13 +14,15 @@ before any launch (the reference's XLA scatter drops it silently).
 
 `input_specs`, `cache_specs` and `param_specs` are the counterpart of the
 reference's `ShapeDtypeStruct` stand-ins: tensors on the "meta" device,
-with shapes and dtypes and no storage.  The port runs dense, MoE, SSM and
-hybrid text decoders, so there are no frontend specs; an SSM layer's cache
-is its O(1) recurrent state (h f32, conv tail bf16), so jamba's LONG_500K
-cache holds dense KV in only its attention layers and mamba2's none.
-`make_train_step` and `make_opt_specs` (the TRAIN_4K cell's step) are not
-ported yet; the RL trainer's update is `rl.RLTrainer.update_fn` (ROADMAP
-queue 1).
+with shapes and dtypes and no storage.  An SSM layer's cache is its O(1)
+recurrent state (h f32, conv tail bf16), so jamba's LONG_500K cache holds
+dense KV in only its attention layers and mamba2's none.  The frontends
+are stubs, as in the reference: a VLM's inputs are precomputed patch
+embeddings (B, P, D), P = min(frontend_len, S // 2), ahead of S - P text
+tokens; an enc-dec model's are frames (B, S, D) with `src_lengths`, and
+its cache holds cross K/V over S source positions.  `make_train_step`
+and `make_opt_specs` (the TRAIN_4K cell's step) are not ported yet; the
+RL trainer's update is `rl.RLTrainer.update_fn` (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -37,35 +39,38 @@ from repro_torch.models.transformer import Transformer
 META = torch.device("meta")
 
 
-def _text_only(cfg: ArchConfig) -> None:
-    if cfg.frontend is not None or cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: frontends and encoder-decoders are not ported "
-            "(ROADMAP queue 1)")
-
-
 def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict:
     """Model inputs of one cell as meta tensors: train and prefill take
-    tokens (B, S) (prefill also lengths (B,)); decode one token (B,)
-    against a cache of seq_len."""
-    _text_only(cfg)
+    tokens (B, S) (prefill also lengths (B,)) — a VLM patches (B, P, D)
+    bf16 and tokens (B, S - P), P = min(frontend_len, S // 2), an enc-dec
+    model also frames (B, S, D) bf16 and src_lengths (B,); decode takes
+    one token (B,) against a cache of seq_len."""
     b, s = shape.global_batch, shape.seq_len
     i32 = dict(dtype=torch.int32, device=META)
-    if shape.kind == "train":
-        return {"tokens": torch.empty((b, s), **i32)}
+    bf16 = dict(dtype=torch.bfloat16, device=META)
+    if shape.kind == "decode":
+        return {"tokens": torch.empty((b,), **i32)}
+    specs = {"tokens": torch.empty((b, s), **i32)}
     if shape.kind == "prefill":
-        return {"tokens": torch.empty((b, s), **i32),
-                "lengths": torch.empty((b,), **i32)}
-    return {"tokens": torch.empty((b,), **i32)}
+        specs["lengths"] = torch.empty((b,), **i32)
+    if cfg.frontend == "vision_patches":
+        p = min(cfg.frontend_len, s // 2)
+        specs["patches"] = torch.empty((b, p, cfg.d_model), **bf16)
+        specs["tokens"] = torch.empty((b, s - p), **i32)
+    elif cfg.is_encdec:
+        specs["frames"] = torch.empty((b, s, cfg.d_model), **bf16)
+        specs["src_lengths"] = torch.empty((b,), **i32)
+    return specs
 
 
 def cache_specs(cfg: ArchConfig, shape: ShapeConfig,
                 precision: PrecisionConfig) -> dict:
     """The contiguous rollout cache of a cell (S_max = seq_len) on meta:
-    KV for the attention layers, the recurrent state for the SSM ones."""
-    _text_only(cfg)
-    return Transformer(cfg, META).init_cache(shape.global_batch, shape.seq_len,
-                                             precision)
+    KV for the attention layers, the recurrent state for the SSM ones, and
+    an enc-dec decoder's cross K/V over seq_len source positions."""
+    return Transformer(cfg, META).init_cache(
+        shape.global_batch, shape.seq_len, precision,
+        src_len=shape.seq_len if cfg.is_encdec else 0)
 
 
 def param_specs(cfg: ArchConfig, precision: Optional[PrecisionConfig] = None) -> dict:
@@ -102,13 +107,16 @@ def param_specs(cfg: ArchConfig, precision: Optional[PrecisionConfig] = None) ->
 def make_prefill_step(cfg: ArchConfig, shape: ShapeConfig,
                       precision: PrecisionConfig, device=None):
     """Prompt processing into a fresh contiguous cache of seq_len + 1
-    positions (and zero SSM state); returns only the last-position logits
-    (B, V) f32 and the cache."""
+    positions (and zero SSM state; cross caches over seq_len source
+    positions for an enc-dec model, whose batch carries frames of
+    seq_len); returns only the last-position logits (B, V) f32 and the
+    cache."""
     model = Transformer(cfg, device)
     b, s = shape.global_batch, shape.seq_len
+    src = s if cfg.is_encdec else 0
 
     def prefill_step(params, batch):
-        cache = model.init_cache(b, s + 1, precision)
+        cache = model.init_cache(b, s + 1, precision, src_len=src)
         return model.prefill(params, batch, cache, precision)
 
     return prefill_step

@@ -38,8 +38,18 @@ pool gather is sized by
 Caches are updated in place (eager PyTorch needs no functional copy);
 a decode write at or past S_max raises (`IndexError` here; the steps of
 `Transformer.decode_step` raise a `ValueError` before it), where the
-reference's XLA scatter drops it.  The `repeat` impl (a tensor-parallel
-layout) and cross-attention are not ported.
+reference's XLA scatter drops it.
+
+Cross attention (enc-dec decoders) is plain PyTorch, as the reference's
+is jnp: in training `attention_forward` takes the encoder output as
+`kv_src` (no RoPE, not causal, a source-length mask); for rollout and
+serving `cross_attention_cache` projects and quantizes the cross K/V once
+per request (per-tensor scales, recalibrated from their amax when
+`calculate_kv_scales` is set, else the cache's seeded scales) and
+`cross_attention_decode` attends over their dequantized copy under the
+`src_lengths` mask (with the QDQ under `quantize_attention`).  The encoder
+is `attention_forward` with `causal=False` under a bidirectional mask.
+The `repeat` impl (a tensor-parallel layout) is not ported.
 """
 from __future__ import annotations
 
@@ -182,15 +192,21 @@ def paged_copy_rows(cache: PagedKVCache, src, dst) -> None:
     cache.v[..., dst, :, :, :] = cache.v[..., src, :, :, :]
 
 
-def _project_qkv(x, params, cfg, precision):
-    """q (B,S,H,D), k/v (B,S,KVH,D) in x.dtype (pre-RoPE)."""
+def _project_qkv(x, params, cfg, precision, kv_src=None):
+    """q (B,S,H,D) from x, k/v (B,S',KVH,D) from x or the cross-attention
+    source `kv_src` (B,S',D), in x.dtype (pre-RoPE)."""
     b, s, _ = x.shape
     h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    # one quantization of x for the three projections
-    q, k, v = linears(x, (params["wq"], params["wk"], params["wv"]), precision=precision)
+    if kv_src is None:
+        # one quantization of x for the three projections
+        q, k, v = linears(x, (params["wq"], params["wk"], params["wv"]), precision=precision)
+    else:
+        q = linear(x, params["wq"], precision=precision)
+        k, v = linears(kv_src, (params["wk"], params["wv"]), precision=precision)
+    sk = k.shape[1]
     q = q.reshape(b, s, h, dh)
-    k = k.reshape(b, s, kvh, dh)
-    v = v.reshape(b, s, kvh, dh)
+    k = k.reshape(b, sk, kvh, dh)
+    v = v.reshape(b, sk, kvh, dh)
     if cfg.qk_norm and "q_norm_scale" in params:
         q = rms_norm(q, params["q_norm_scale"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm_scale"], cfg.norm_eps)
@@ -253,8 +269,9 @@ def _impl() -> str:
 
 
 def _sdpa_chunked(q, k, v, *, lengths=None, kv_chunk: int = 1024,
-                  precision: Optional[PrecisionConfig] = None):
-    """Online-softmax attention over KV chunks (causal [+ lengths]);
+                  precision: Optional[PrecisionConfig] = None, prefix_len: int = 0):
+    """Online-softmax attention over KV chunks (causal [+ a fully visible
+    prefix of `prefix_len` keys] [+ lengths]);
     q (B,S,H,D), k/v (B,S',KVH,D) bf16 -> (B,S,H*D).  Equal to
     the naive path up to f32 accumulation order; scores exist only at
     (..., S, C) per chunk.  The last chunk may be short (the reference
@@ -278,7 +295,10 @@ def _sdpa_chunked(q, k, v, *, lengths=None, kv_chunk: int = 1024,
         k_blk, v_blk = k[:, t0:t0 + c], v[:, t0:t0 + c]
         scores = torch.einsum("bskgd,btkd->bkgst", qg, k_blk).float() * (dh ** -0.5)
         k_pos = t0 + torch.arange(k_blk.shape[1], device=q.device)[None, :]
-        mask = (k_pos <= q_pos)[None]                              # (1, S, C)
+        mask = k_pos <= q_pos                                      # (S, C)
+        if prefix_len:
+            mask = mask | (k_pos < prefix_len)
+        mask = mask[None]                                          # (1, S, C)
         if lengths is not None:
             mask = mask & (k_pos[None] < lengths[:, None, None])   # (B, S, C)
         mask = mask[:, None, None]
@@ -301,18 +321,29 @@ def causal_mask(s: int, device=None) -> torch.Tensor:
 
 
 def attention_forward(x, params, cfg, precision: Optional[PrecisionConfig], *,
-                      positions, mask, lengths=None):
-    """Full-sequence causal attention with no cache (training / scoring):
-    q, k, v from x, RoPE at `positions`, then the naive `_sdpa` under
-    `mask` (B or 1, S, S) — or, under `attention_impl("chunked")`,
-    `_sdpa_chunked` masked causally and by `lengths`.  Differentiable:
-    every op is autograd's."""
-    q, k, v = _project_qkv(x, params, cfg, precision)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    if _impl() == "chunked":
-        out = _sdpa_chunked(q, k, v, lengths=lengths, precision=precision)
+                      positions=None, mask=None, causal: bool = True, kv_src=None,
+                      use_rope: bool = True, prefix_len: int = 0, lengths=None):
+    """Full-sequence attention with no cache (training / scoring / the
+    encoder): q from x, k and v from x or the cross-attention source
+    `kv_src`, RoPE at `positions` (0..S-1 when None; never for a cross
+    source), then the naive `_sdpa` under `mask` (B or 1, S, S'), causal
+    when no mask is given and `causal` — or, for causal self-attention
+    under `attention_impl("chunked")`, `_sdpa_chunked` masked causally,
+    past `lengths` and with the first `prefix_len` keys visible to all.
+    Differentiable: every op is autograd's."""
+    s = x.shape[1]
+    q, k, v = _project_qkv(x, params, cfg, precision, kv_src)
+    if use_rope and kv_src is None:
+        if positions is None:
+            positions = torch.arange(s, device=x.device)[None, :]
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    if _impl() == "chunked" and causal and kv_src is None:
+        out = _sdpa_chunked(q, k, v, lengths=lengths, precision=precision,
+                            prefix_len=prefix_len)
     else:
+        if mask is None and causal and kv_src is None:
+            mask = causal_mask(s, x.device)[None]
         out = _sdpa(q, k, v, mask, precision)
     return linear(out, params["wo"], precision=precision)
 
@@ -503,4 +534,51 @@ def _paged_attention_over_table(x, q, cache: PagedKVCache, block_tables,
         k_pos = torch.arange(w_live * cache.block_size, device=x.device)
         mask = (k_pos[None, :] < new_lengths[:, None])[:, None, :]
         out = _sdpa(q, k_all, v_all, mask, precision)
+    return linear(out, params["wo"], precision=precision)
+
+
+# ---------------------------------------------------------------------------
+# cross-attention KV (enc-dec): static per request, quantized once at prefill
+# ---------------------------------------------------------------------------
+
+def cross_attention_cache(enc_out, params, cfg, precision: PrecisionConfig,
+                          cache: KVCache) -> KVCache:
+    """Project the encoder output (B, S_src, D) to cross K/V and quantize
+    them once into `cache` (one layer's (B, S_src, KVH, D) `KVCache`, a
+    view of the model cache's), in place.  The cache's scales seed the
+    quantization: with
+    `calculate_kv_scales` on they are recalibrated from these K/V's amax
+    x 1.05, otherwise the seeded (pool-wide, calibrated) ones are kept —
+    the reference's `cross_attention_cache(k_scale=, v_scale=)`.  Returns
+    the cache."""
+    b, s, _ = enc_out.shape
+    kvh, dh = cfg.n_kv_heads, cfg.d_head
+    k, v = linears(enc_out, (params["wk"], params["wv"]), precision=precision)
+    k = k.reshape(b, s, kvh, dh)
+    v = v.reshape(b, s, kvh, dh)
+    if cache.max_len != s:
+        raise ValueError(f"{s} source positions for a cross cache of {cache.max_len}")
+    kq, vq = _quantize_kv(k, v, cache, precision, recalibrate=True)
+    cache.k.copy_(kq)
+    cache.v.copy_(vq)
+    return cache
+
+
+def cross_attention_decode(x, params, cfg, cross_cache: KVCache, src_lengths,
+                           precision: PrecisionConfig):
+    """Attend x (B, T, D) over a layer's cross K/V, dequantized as
+    `dequantize_per_tensor` does, keys at or past `src_lengths` (B,)
+    masked, through the naive `_sdpa` (QDQ'd under
+    `quantize_attention`)."""
+    b, s, _ = x.shape
+    h, dh = cfg.n_heads, cfg.d_head
+    q = linear(x, params["wq"], precision=precision).reshape(b, s, h, dh)
+    if cross_cache.quantized:
+        k = dequantize_per_tensor(cross_cache.k, cross_cache.k_scale, x.dtype)
+        v = dequantize_per_tensor(cross_cache.v, cross_cache.v_scale, x.dtype)
+    else:
+        k, v = cross_cache.k, cross_cache.v
+    k_pos = torch.arange(k.shape[1], device=x.device)
+    mask = (k_pos[None, :] < src_lengths.to(x.device)[:, None])[:, None, :]
+    out = _sdpa(q, k, v, mask, precision)
     return linear(out, params["wo"], precision=precision)

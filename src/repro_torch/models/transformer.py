@@ -22,7 +22,15 @@ reference's scan stacks them) and `forward_train` takes a routing to
 replay (`forced_routing`).  SSM layers (mamba2, jamba's hybrid pattern)
 keep their recurrent state slot-indexed in the cache ("ssm", an
 `ssm.SSMState` stacked over the R repeats) in either layout; a paged cache
-of an attention-free model has no pool and no block tables.
+of an attention-free model has no pool and no block tables.  An enc-dec
+model (seamless) runs a bidirectional encoder over projected frames
+(`_encode`); its decoder slots attend over it, in training directly and
+in rollout through per-layer cross caches ("cross", a contiguous
+`attention.KVCache` over the source, slot-indexed in either layout, and
+the cache's "src_lengths"), which `prefill` fills once per request.  A
+VLM (pixtral) projects its patches with `frontend/w_patch` into a prefix
+ahead of the text (`_decoder_inputs`): fully visible in `forward_train`
+(the prefix-LM mask), causal in `prefill`, as in the reference.
 """
 from __future__ import annotations
 
@@ -70,9 +78,16 @@ def _stack_routing(per_layer: dict) -> dict:
     return {name: torch.stack(idx) for name, idx in per_layer.items()}
 
 
+def _enc_pattern(cfg):
+    """The encoder's slots: the decoder's pattern over `n_enc_layers`,
+    without cross attention."""
+    return tuple(blocks_mod.SlotSpec(mixer=s.mixer, ffn=s.ffn, cross=False)
+                 for s in blocks_mod.layer_pattern(cfg, decoder=False))
+
+
 class Transformer(nn.Module):
-    """Dense, MoE, SSM or hybrid decoder on one device (CUDA by
-    default)."""
+    """Dense, MoE, SSM, hybrid, enc-dec or VLM decoder on one device
+    (CUDA by default)."""
 
     def __init__(self, cfg, device=None, dtype=torch.bfloat16):
         super().__init__()
@@ -80,8 +95,6 @@ class Transformer(nn.Module):
         self.device = resolve_device(device)
         self.dtype = dtype
         self.pattern = blocks_mod.layer_pattern(cfg)
-        for spec in self.pattern:
-            blocks_mod.check_supported(spec)
         self.repeats = blocks_mod.n_repeats(cfg)
 
     # ------------------------------------------------------------------
@@ -116,42 +129,56 @@ class Transformer(nn.Module):
         def dense(shape, fan_in, dtype=None):
             return dense_init(gen, shape, fan_in, dtype or dt, dev)
 
+        def attn_leaves(prefix, r, cross=False):
+            yield prefix + ("wq",), dense((r, d, h * dh), d)
+            yield prefix + ("wk",), dense((r, d, kvh * dh), d)
+            yield prefix + ("wv",), dense((r, d, kvh * dh), d)
+            yield prefix + ("wo",), dense((r, h * dh, d), h * dh)
+            yield prefix + ("norm_scale",), ones(r, d)
+            if cfg.qk_norm and not cross:
+                yield prefix + ("q_norm_scale",), ones(r, dh)
+                yield prefix + ("k_norm_scale",), ones(r, dh)
+
+        def stack_leaves(prefix, pattern, r):
+            for j, spec in enumerate(pattern):
+                slot = prefix + (f"s{j}",)
+                if spec.mixer == "ssm":
+                    for name, leaf in ssm_mod.init_ssm_params(dense, ones, cfg, r, dev):
+                        yield slot + ("ssm", name), leaf
+                        del leaf
+                else:
+                    yield from attn_leaves(slot + ("attn",), r)
+                if spec.cross:
+                    yield from attn_leaves(slot + ("cross",), r, cross=True)
+                if spec.ffn is None:
+                    continue
+                if spec.ffn == "moe":
+                    for name, leaf in moe_mod.init_moe_params(dense, ones, cfg, r):
+                        yield slot + ("moe", name), leaf
+                        del leaf    # held here, it would outlive the caller's copy
+                    continue
+                mlp = slot + ("mlp",)
+                yield mlp + ("wg",), dense((r, d, f), d)
+                yield mlp + ("wd",), dense((r, f, d), f)
+                yield mlp + ("norm_scale",), ones(r, d)
+                if cfg.mlp_gated:
+                    yield mlp + ("wu",), dense((r, d, f), d)
+
         yield ("emb",), embed_init(gen, (cfg.vocab_size, d), dt, dev)
-        for j, spec in enumerate(self.pattern):
-            if spec.mixer == "ssm":
-                for name, leaf in ssm_mod.init_ssm_params(dense, ones, cfg, r, dev):
-                    yield ("blocks", f"s{j}", "ssm", name), leaf
-                    del leaf
-            else:
-                attn = ("blocks", f"s{j}", "attn")
-                yield attn + ("wq",), dense((r, d, h * dh), d)
-                yield attn + ("wk",), dense((r, d, kvh * dh), d)
-                yield attn + ("wv",), dense((r, d, kvh * dh), d)
-                yield attn + ("wo",), dense((r, h * dh, d), h * dh)
-                yield attn + ("norm_scale",), ones(r, d)
-                if cfg.qk_norm:
-                    yield attn + ("q_norm_scale",), ones(r, dh)
-                    yield attn + ("k_norm_scale",), ones(r, dh)
-            if spec.ffn is None:
-                continue
-            if spec.ffn == "moe":
-                for name, leaf in moe_mod.init_moe_params(dense, ones, cfg, r):
-                    yield ("blocks", f"s{j}", "moe", name), leaf
-                    del leaf    # held here, it would outlive the caller's copy
-                continue
-            mlp = ("blocks", f"s{j}", "mlp")
-            yield mlp + ("wg",), dense((r, d, f), d)
-            yield mlp + ("wd",), dense((r, f, d), f)
-            yield mlp + ("norm_scale",), ones(r, d)
-            if cfg.mlp_gated:
-                yield mlp + ("wu",), dense((r, d, f), d)
+        yield from stack_leaves(("blocks",), self.pattern, r)
         yield ("final_norm_scale",), ones(d)
         if not cfg.tie_embeddings:
             yield ("lm_head",), dense((d, cfg.vocab_size), d)
+        if cfg.is_encdec:
+            yield from stack_leaves(("enc", "blocks"), _enc_pattern(cfg),
+                                    blocks_mod.n_repeats(cfg, decoder=False))
+            yield ("enc", "final_norm_scale"), ones(d)
+        if cfg.frontend is not None:
+            yield ("frontend", "w_patch"), dense((d, d), d)
 
     def init_cache(self, batch: int, max_len: int, precision: PrecisionConfig,
                    *, page_size: Optional[int] = None,
-                   num_pages: Optional[int] = None) -> dict:
+                   num_pages: Optional[int] = None, src_len: int = 0) -> dict:
         """Rollout cache.  Default layout: one contiguous (B, max_len)
         region per sequence and layer (`attention.KVCache`), plus
         "max_length", the host's bound on the lengths (see `decode_step`).
@@ -161,7 +188,11 @@ class Transformer(nn.Module):
         owns a contiguous run of blocks (identity tables), with it the
         tables start unmapped (-1) for an external allocator.  SSM slots
         hold zero (R, B, ...) recurrent state ("ssm") in either layout; an
-        attention-free paged cache has no block tables."""
+        attention-free paged cache has no block tables.  An enc-dec
+        decoder's slots hold cross caches ("cross", contiguous (R, B,
+        max(src_len, 1), KVH, D) in either layout) and the cache
+        "src_lengths" (B,), all max(src_len, 1) until a prefill sets
+        them."""
         cfg = self.cfg
         lengths = torch.zeros((batch,), dtype=torch.int32, device=self.device)
         paged = page_size is not None
@@ -170,30 +201,36 @@ class Transformer(nn.Module):
             self_owned = num_pages is None
             if self_owned:
                 num_pages = batch * pages_per_seq
+        kv_geo = dict(repeats=self.repeats, device=self.device, dtype=self.dtype)
         slots = {}
         for j, spec in enumerate(self.pattern):
             if spec.mixer == "ssm":
-                slots[f"s{j}"] = {"ssm": ssm_mod.init_ssm_state(
-                    batch, cfg, repeats=self.repeats, device=self.device, dtype=self.dtype)}
+                slot = {"ssm": ssm_mod.init_ssm_state(batch, cfg, **kv_geo)}
             elif paged:
-                slots[f"s{j}"] = {"kv": attn_mod.init_paged_kv_cache(
-                    num_pages, page_size, cfg.n_kv_heads, cfg.d_head, precision,
-                    repeats=self.repeats, device=self.device, dtype=self.dtype)}
+                slot = {"kv": attn_mod.init_paged_kv_cache(
+                    num_pages, page_size, cfg.n_kv_heads, cfg.d_head, precision, **kv_geo)}
             else:
-                slots[f"s{j}"] = {"kv": attn_mod.init_kv_cache(
-                    batch, max_len, cfg.n_kv_heads, cfg.d_head, precision,
-                    repeats=self.repeats, device=self.device, dtype=self.dtype)}
+                slot = {"kv": attn_mod.init_kv_cache(
+                    batch, max_len, cfg.n_kv_heads, cfg.d_head, precision, **kv_geo)}
+            if spec.cross:
+                slot["cross"] = attn_mod.init_kv_cache(
+                    batch, max(src_len, 1), cfg.n_kv_heads, cfg.d_head, precision, **kv_geo)
+            slots[f"s{j}"] = slot
+        cache = {"slots": slots, "lengths": lengths}
+        if cfg.is_encdec:
+            cache["src_lengths"] = torch.full((batch,), max(src_len, 1), dtype=torch.int32,
+                                              device=self.device)
         if not paged:
-            return {"slots": slots, "lengths": lengths, "max_length": 0}
-        if cfg.attention_free:
-            return {"slots": slots, "lengths": lengths}
-        if self_owned:
-            tables = torch.arange(batch * pages_per_seq, dtype=torch.int32,
-                                  device=self.device).reshape(batch, pages_per_seq)
-        else:
-            tables = torch.full((batch, pages_per_seq), -1, dtype=torch.int32,
-                                device=self.device)
-        return {"slots": slots, "lengths": lengths, "block_tables": tables}
+            cache["max_length"] = 0
+        elif not cfg.attention_free:
+            if self_owned:
+                cache["block_tables"] = torch.arange(
+                    batch * pages_per_seq, dtype=torch.int32,
+                    device=self.device).reshape(batch, pages_per_seq)
+            else:
+                cache["block_tables"] = torch.full((batch, pages_per_seq), -1,
+                                                   dtype=torch.int32, device=self.device)
+        return cache
 
     # ------------------------------------------------------------------
     # shared pieces
@@ -212,7 +249,9 @@ class Transformer(nn.Module):
 
     def _layers(self, params, cache):
         """(slot name, spec, layer params, layer cache) for every layer, the
-        layer cache {"kv_cache": ...} or {"ssm_state": ...} (views)."""
+        layer cache {"kv_cache": ...} or {"ssm_state": ...}, with
+        {"cross_cache": ..., "src_lengths": ...} for an enc-dec decoder
+        (views)."""
         for r in range(self.repeats):
             slot_params = _layer(params["blocks"], r)
             for j, spec in enumerate(self.pattern):
@@ -220,7 +259,31 @@ class Transformer(nn.Module):
                 sd = cache["slots"][name]
                 sc = {"ssm_state": sd["ssm"].layer(r)} if "ssm" in sd else \
                     {"kv_cache": sd["kv"].layer(r)}
+                if "cross" in sd:
+                    sc.update(cross_cache=sd["cross"].layer(r),
+                              src_lengths=cache["src_lengths"])
                 yield name, spec, slot_params[name], sc
+
+    def _fill_cross(self, params, inputs, cache, precision):
+        """Enc-dec prefill: encode `inputs["frames"]` (masked by
+        `inputs["src_lengths"]` when given, which then become the cache's)
+        and quantize every decoder layer's cross K/V into the cache's
+        cross caches in place, their current scales seeding the
+        quantization (`attention.cross_attention_cache`)."""
+        src_lengths = inputs.get("src_lengths")
+        if src_lengths is not None:
+            src_lengths = src_lengths.to(self.device, torch.int32)
+        enc_out = _encode(params, inputs["frames"].to(self.device, self.dtype), self.cfg,
+                          precision, src_lengths)
+        if src_lengths is not None:
+            cache["src_lengths"].copy_(src_lengths)
+        for r in range(self.repeats):
+            slot_params = _layer(params["blocks"], r)
+            for j, spec in enumerate(self.pattern):
+                if spec.cross:
+                    attn_mod.cross_attention_cache(
+                        enc_out, slot_params[f"s{j}"]["cross"], self.cfg, precision,
+                        cache["slots"][f"s{j}"]["cross"].layer(r))
 
     # ------------------------------------------------------------------
     # prefill / decode
@@ -231,19 +294,25 @@ class Transformer(nn.Module):
         """Process right-padded prompts `inputs["tokens"]` (B, T) with
         lengths `inputs["lengths"]` (B,), fill the cache, return the logits
         at each last valid position (B, V) f32 and the cache — and with
-        `want_routing` the routing, {MoE slot: (R, B, T, K)}.  A contiguous
-        cache takes T <= S_max and records max(lengths) on the host (one
-        device sync when the lengths are a CUDA tensor).  SSM slots run
-        from the cache's state (zeros in a fresh cache) and leave the
-        state at each row's last valid token in it."""
-        tokens = inputs["tokens"].to(self.device)
-        lengths = inputs["lengths"].to(self.device, torch.int32)
-        b, t = tokens.shape
+        `want_routing` the routing, {MoE slot: (R, B, T, K)}.  A VLM's
+        `inputs["patches"]` (B, P, D) go ahead of the text (P + T
+        positions, attended causally as in the reference; the lengths
+        become lengths + P).  An enc-dec model first encodes
+        `inputs["frames"]` (B, S_src, D), S_src the cross caches' length,
+        into its cross caches (`_fill_cross`).  A contiguous cache takes
+        P + T <= S_max and records max(lengths) + P on the host (one device
+        sync when the lengths are a CUDA tensor).  SSM slots run from the
+        cache's state (zeros in a fresh cache) and leave the state at each
+        row's last valid token in it."""
+        if self.cfg.is_encdec:
+            self._fill_cross(params, inputs, cache, precision)
+        x, prefix_len = _decoder_inputs(params, inputs, self.cfg, precision, self.device)
+        lengths = inputs["lengths"].to(self.device, torch.int32) + prefix_len
+        b, t = x.shape[:2]
         kv0 = _first_kv(cache)
         contiguous = "max_length" in cache
         if isinstance(kv0, attn_mod.KVCache) and t > kv0.max_len:
             raise ValueError(f"prompts of {t} positions exceed the cache's {kv0.max_len}")
-        x = params["emb"][tokens.long()]
         positions = torch.arange(t, device=self.device)[None, :]
         routing = {}
         for name, spec, p, sc in self._layers(params, cache):
@@ -254,7 +323,7 @@ class Transformer(nn.Module):
                 routing.setdefault(name, []).append(aux["topk_idx"])
         cache["lengths"] = lengths
         if contiguous:
-            cache["max_length"] = int(inputs["lengths"].max()) if b else 0
+            cache["max_length"] = int(inputs["lengths"].max()) + prefix_len if b else 0
         idx = torch.clamp(lengths.long() - 1, 0, t - 1)
         x_last = x[torch.arange(b, device=self.device), idx]
         logits = self._unembed(params, x_last, precision)
@@ -371,9 +440,54 @@ def _unbind_layers(tree, repeats: int) -> list:
     return list(tree.unbind(0))
 
 
-def _train_mask(t: int, lengths, device) -> torch.Tensor:
-    """(1, T, T) causal, or (B, T, T) with keys past `lengths` masked."""
+def _decoder_inputs(params, inputs: dict, cfg, precision, device):
+    """(x (B, T, D), prefix_len): the token embeddings, after a VLM's
+    patches (B, P, D) projected by `frontend/w_patch` (P positions of
+    prefix; taken in the embedding's dtype, bf16, as the reference's specs
+    and engine give them)."""
+    x = params["emb"][inputs["tokens"].to(device).long()]
+    if cfg.frontend != "vision_patches":
+        return x, 0
+    patches = inputs["patches"].to(device, x.dtype)
+    proj = linear(patches, params["frontend"]["w_patch"], precision=precision)
+    return torch.cat([proj, x], dim=1), patches.shape[1]
+
+
+def _encode(params, frames, cfg, precision, src_lengths=None, remat: bool = False):
+    """The bidirectional encoder over frames (B, S_src, D) (projected by
+    `frontend/w_patch` for audio frames), keys and queries past
+    `src_lengths` masked, then its final norm.  With `remat` each layer
+    runs under `torch.utils.checkpoint`."""
+    x = frames
+    if cfg.frontend == "audio_frames":
+        x = linear(x, params["frontend"]["w_patch"], precision=precision)
+    mask = None
+    if src_lengths is not None:
+        valid = torch.arange(x.shape[1], device=x.device)[None] \
+            < src_lengths.to(x.device)[:, None]
+        mask = valid[:, None, :] & valid[:, :, None]
+    pattern = _enc_pattern(cfg)
+
+    def body(h, slot_params):
+        for j, spec in enumerate(pattern):
+            h, _ = blocks_mod.apply_slot_full(h, slot_params[f"s{j}"], spec, cfg, precision,
+                                              mask=mask, causal=False)
+        return h
+
+    enc = params["enc"]
+    for slot_params in _unbind_layers(enc["blocks"], blocks_mod.n_repeats(cfg, decoder=False)):
+        x = checkpoint(body, x, slot_params, use_reentrant=False) if remat \
+            else body(x, slot_params)
+    return rms_norm(x, enc["final_norm_scale"], cfg.norm_eps)
+
+
+def _train_mask(t: int, lengths, device, prefix_len: int = 0) -> torch.Tensor:
+    """(1, T, T) causal (the first `prefix_len` keys visible to every
+    query: the prefix-LM mask of a VLM), or (B, T, T) with keys past
+    `lengths` masked."""
     mask = attn_mod.causal_mask(t, device)[None]
+    if prefix_len:
+        mask = mask | (torch.arange(t, device=device) < prefix_len)[None, None, :]
     if lengths is not None:
         valid = torch.arange(t, device=device)[None] < lengths.to(device)[:, None]
         mask = mask & valid[:, None, :]
@@ -385,7 +499,11 @@ def forward_train(params: dict, inputs: dict, cfg,
                   forced_routing: Optional[dict] = None,
                   want_routing: bool = False):
     """Full teacher-forced forward over `inputs["tokens"]` (B, T), keys
-    masked causally and past `inputs["lengths"]` when given.  Returns
+    masked causally and past `inputs["lengths"]` when given; a VLM's
+    `inputs["patches"]` (B, P, D) form a fully visible prefix (logits over
+    P + T positions, aux["prefix_len"] = P), an enc-dec model's decoder
+    attends over the encoded `inputs["frames"]` (masked past
+    `inputs["src_lengths"]`).  Returns
     (logits (B, T, V) f32, aux); aux has the reference's keys: "moe",
     {MoE slot: {"router_entropy", "dropped_frac", "aux_loss",
     "router_logits_amax"}, each (R,) over the repeats} (empty for a
@@ -397,10 +515,16 @@ def forward_train(params: dict, inputs: dict, cfg,
     are deterministic, so the recompute routes as the forward did."""
     model = Transformer(cfg, params["emb"].device)
     dev = model.device
-    tokens = inputs["tokens"].to(dev).long()
     lengths = inputs.get("lengths")
-    t = tokens.shape[1]
-    mask = _train_mask(t, lengths, dev)
+    src_lengths = inputs.get("src_lengths")
+    remat = torch.is_grad_enabled()
+    enc_out = None
+    if cfg.is_encdec:
+        enc_out = _encode(params, inputs["frames"].to(dev, params["emb"].dtype), cfg,
+                          precision, src_lengths, remat=remat)
+    x, prefix_len = _decoder_inputs(params, inputs, cfg, precision, dev)
+    t = x.shape[1]
+    mask = _train_mask(t, lengths, dev, prefix_len)
     positions = torch.arange(t, device=dev)[None, :]
 
     def body(h, slot_params, forced):
@@ -409,14 +533,13 @@ def forward_train(params: dict, inputs: dict, cfg,
             name = f"s{j}"
             h, aux = blocks_mod.apply_slot_full(
                 h, slot_params[name], spec, cfg, precision,
-                positions=positions, mask=mask, lengths=lengths,
-                forced_topk=forced.get(name) if forced else None)
+                positions=positions, mask=mask, lengths=lengths, prefix_len=prefix_len,
+                forced_topk=forced.get(name) if forced else None,
+                enc_out=enc_out, src_lengths=src_lengths)
             if aux:
                 auxes[name] = aux
         return h, auxes
 
-    x = params["emb"][tokens]
-    remat = torch.is_grad_enabled()
     per_layer = []
     for r, slot_params in enumerate(_unbind_layers(params["blocks"], model.repeats)):
         forced = None if forced_routing is None else \
@@ -432,6 +555,8 @@ def forward_train(params: dict, inputs: dict, cfg,
     aux = {"moe": moe}
     if want_routing:
         aux["routing"] = routing
+    if prefix_len:
+        aux["prefix_len"] = prefix_len
     return model._unembed(params, x, precision), aux
 
 
@@ -440,8 +565,10 @@ def token_logprobs(params: dict, inputs: dict, cfg,
     """log p(token_t | tokens_<t) for t >= 1, (B, T-1) f32 — the
     trainer-side scoring pass behind the TIS ratios and the mismatch KL
     (paper §2.1.3).  Returns (logprobs, aux); `kw` goes to
-    `forward_train` (`forced_routing`, `want_routing`)."""
+    `forward_train` (`forced_routing`, `want_routing`).  A VLM's prefix
+    positions are sliced off first."""
     logits, aux = forward_train(params, inputs, cfg, precision, **kw)
     tokens = inputs["tokens"].to(logits.device).long()
+    logits = logits[:, aux.get("prefix_len", 0):]
     logp = torch.log_softmax(logits[:, :-1], dim=-1)
     return torch.gather(logp, -1, tokens[:, 1:, None])[..., 0], aux

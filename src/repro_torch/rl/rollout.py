@@ -11,7 +11,13 @@ once and forks per-sample block tables over the shared KV blocks,
 copying the partially filled boundary block before the first divergent
 append (copy-on-write), and tiling every SSM layer's recurrent state
 G-fold on its batch axis, as the reference does (an attention-free model
-has no pool and no tables to fork).  With `want_routing` an
+has no pool and no tables to fork), and an enc-dec model's cross caches
+and source lengths likewise.  `extra_inputs` carries an enc-dec model's
+`frames` (B, S_src, D) and `src_lengths` (B,), or a VLM's `patches` (B, P,
+D), whose P positions the cache is sized for (the reference counts only
+the text there, so its decode writes past the block table land in the
+last table entry's block; the port sizes the table with the prefix).
+With `want_routing` an
 MoE model's routing is recorded for rollout router replay: the prefill's
 per prompt and every decode step's per sample, as the reference records
 them.  The scoring helpers (`packed_sequences`,
@@ -64,7 +70,8 @@ def generate(rollout_params: dict, prompts, prompt_lengths,
              kv_scales: Optional[dict] = None, page_size: int = 8,
              num_samples_per_prompt: int = 1,
              shared_prefix_blocks: Optional[int] = None,
-             want_routing: bool = False, device=None) -> Trajectory:
+             want_routing: bool = False, extra_inputs: Optional[dict] = None,
+             device=None) -> Trajectory:
     """Sample `num_samples_per_prompt` responses per right-padded prompt.
 
     Runs on `device` (CUDA when not given; without CUDA that raises).
@@ -72,9 +79,11 @@ def generate(rollout_params: dict, prompts, prompt_lengths,
     With a group size of 1 every sequence owns a contiguous run of blocks
     (identity tables).  With a larger group the prompts are prefilled once
     and samples share the prompt's first `shared_prefix_blocks` blocks
-    read-only; that bound must not exceed min(prompt_lengths) //
-    page_size (the default None shares nothing).  Rows come back grouped:
-    sample s of prompt i is row i * num_samples_per_prompt + s.
+    read-only; that bound must not exceed min(prompt_lengths + P) //
+    page_size, P a VLM's patch prefix (the default None shares nothing).
+    Rows come back grouped: sample s of prompt i is row i *
+    num_samples_per_prompt + s.  `extra_inputs` go to the prefill with
+    the prompts (`frames` and `src_lengths`, or `patches`).
 
     With `want_routing` and MoE layers, `routing` is {"prefill": {slot:
     (R, B, P, K)} — per prompt, the prefill is shared by a group —,
@@ -90,23 +99,28 @@ def generate(rollout_params: dict, prompts, prompt_lengths,
     group = num_samples_per_prompt
     assert group >= 1
     n = b * group
-    max_len = p + g + 1
+    inputs = {"tokens": prompts, "lengths": prompt_lengths}
+    inputs.update({k: torch.as_tensor(v, device=device)
+                   for k, v in (extra_inputs or {}).items()})
+    src_len = inputs["frames"].shape[1] if "frames" in inputs else 0
+    # the prefill writes prefix + text positions: size the table for both
+    pos = p + (inputs["patches"].shape[1] if "patches" in inputs else 0)
+    max_len = pos + g + 1
 
     if group == 1:
-        cache = model.init_cache(b, max_len, precision, page_size=page_size)
-    else:
-        fp, priv, w = _group_layout(p, g, page_size, shared_prefix_blocks)
         cache = model.init_cache(b, max_len, precision, page_size=page_size,
-                                 num_pages=b * fp + n * priv)
+                                 src_len=src_len)
+    else:
+        fp, priv, w = _group_layout(pos, g, page_size, shared_prefix_blocks)
+        cache = model.init_cache(b, max_len, precision, page_size=page_size,
+                                 num_pages=b * fp + n * priv, src_len=src_len)
         if "block_tables" in cache:
             cache["block_tables"] = _prefill_tables(b, group, w, fp, priv, device)
     if kv_scales is not None:
         apply_kv_scales(cache, kv_scales)
     moe_slots = [f"s{j}" for j, s in enumerate(model.pattern) if s.ffn == "moe"]
     want_routing = want_routing and bool(moe_slots)
-    out = model.prefill(
-        rollout_params, {"tokens": prompts, "lengths": prompt_lengths}, cache,
-        precision, want_routing=want_routing)
+    out = model.prefill(rollout_params, inputs, cache, precision, want_routing=want_routing)
     logits0, cache = out[:2]
     routing = None
     if want_routing:
@@ -115,7 +129,7 @@ def generate(rollout_params: dict, prompts, prompt_lengths,
                               device=device) for name in moe_slots}}
 
     if group > 1:
-        cache = _fork_group(cache, b, group, p, page_size, fp, priv, w)
+        cache = _fork_group(cache, b, group, pos, page_size, fp, priv, w)
         logits0 = torch.repeat_interleave(logits0, group, dim=0)
         prompts = torch.repeat_interleave(prompts, group, dim=0)
         prompt_lengths = torch.repeat_interleave(prompt_lengths, group, dim=0)
@@ -188,8 +202,11 @@ def _fork_group(cache: dict, b: int, group: int, p: int, page_size: int,
     """Fork the prefilled B-prompt cache into B*G per-sample sequences:
     copy the donor's prompt rows past the shared region to every sibling
     (copy-on-write, before any divergent append), give each sample the
-    shared prefix rows plus its own private run, and tile the lengths and
-    the SSM state (G copies of prompt i's at rows i*G .. i*G+G-1)."""
+    shared prefix rows plus its own private run, and tile the lengths, the
+    SSM state, the cross caches and the source lengths (G copies of
+    prompt i's at rows i*G .. i*G+G-1; the per-layer cross scales are
+    shared).  `p` counts the prefilled positions, a VLM's prefix
+    included."""
     n = b * group
     pool0 = b * fp
     n_cow = -(-p // page_size) - fp      # donor rows holding prompt tokens
@@ -209,6 +226,13 @@ def _fork_group(cache: dict, b: int, group: int, p: int, page_size: int,
             st = sd["ssm"]
             sd["ssm"] = SSMState(torch.repeat_interleave(st.h, group, dim=1),
                                  torch.repeat_interleave(st.conv, group, dim=1))
+        if "cross" in sd:
+            cr = sd["cross"]
+            sd["cross"] = attn_mod.KVCache(torch.repeat_interleave(cr.k, group, dim=1),
+                                           torch.repeat_interleave(cr.v, group, dim=1),
+                                           cr.k_scale, cr.v_scale)
+    if "src_lengths" in cache:
+        cache["src_lengths"] = torch.repeat_interleave(cache["src_lengths"], group, dim=0)
     if "block_tables" in cache:
         ii = (torch.arange(n, device=device) // group)[:, None]
         jj = torch.arange(w, device=device)[None, :]

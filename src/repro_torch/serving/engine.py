@@ -1,5 +1,6 @@
 """Serving engine: the execution mechanism over a paged FP8/BF16 KV pool
-(port of `repro.serving.engine`: dense, MoE, SSM and hybrid decoders).
+(port of `repro.serving.engine`: dense, MoE, SSM, hybrid and enc-dec
+decoders).
 
 Every admission / eviction / growth / chunking decision lives in the
 ported `Scheduler`; the engine runs the device work of each planned step,
@@ -50,6 +51,17 @@ What it does, as the reference does:
   and is bounded by it alone.  Its state cannot be rewound or shared, so
   speculation and the shared-prefix compute skip are off for any SSM
   pattern.
+* Enc-dec slot state (seamless): each request carries `frames` through
+  `submit()` (at most `max_src_len` of them); its one-shot prefill
+  encodes them padded to `max_src_len` (`src_lengths` masks the padding)
+  and quantizes every decoder layer's cross K/V once into the slot's rows
+  of the cross caches, with the pool-wide per-layer cross scales (set by
+  the first prefill's calibration, then kept).  The cross rows and the
+  slot's source length go to the host with a swap-out and come back with
+  the swap-in, charged like SSM state; `request_state_bytes(src_len)`
+  prices the cross KV into the budget.  Decoder KV depends on the
+  frames, so prefix sharing, the shared-prefix skip, speculation and
+  chunked prefill are off for enc-dec.
 
 Where the reference updates its pools functionally (`.at[].set`), the
 port updates them in place.  Host-side state mirrors the reference:
@@ -63,8 +75,9 @@ Observability: one tracer per engine (`obs.tracer`); every site is one
 exactly what it did without one.  The fleet front-end over N replicas is
 `serving.frontend`.
 
-Not ported: enc-dec and multimodal slot state (the model refuses those
-layer patterns).
+A VLM (pixtral) is refused: the reference's engine has no patch input
+(its one-shot prefill never passes `patches`), so no engine run of the
+reference exists to port.
 """
 from __future__ import annotations
 
@@ -112,20 +125,23 @@ def kv_bytes_per_token(cfg, precision: PrecisionConfig) -> int:
     return n_attn * 2 * cfg.n_kv_heads * cfg.d_head * elem
 
 
-def request_state_bytes(cfg, precision: PrecisionConfig) -> int:
+def request_state_bytes(cfg, precision: PrecisionConfig, src_len: int = 0) -> int:
     """Constant per-request slot-state bytes beyond the paged KV blocks:
     the SSM recurrent state, h f32 + the conv tail bf16 per SSM layer,
-    never quantized (0 for dense and MoE decoders: routing carries no
-    state between steps).  Cross-attention KV is not ported; its pattern
-    raises."""
+    never quantized, and the cross-attention KV an enc-dec decoder holds
+    over `src_len` encoder positions (quantized once at prefill, so FP8
+    halves it); 0 for dense and MoE decoders (routing carries no state
+    between steps)."""
     total = 0
     repeats = blocks_mod.n_repeats(cfg)
     for spec in blocks_mod.layer_pattern(cfg):
-        blocks_mod.check_supported(spec)
         if spec.mixer == "ssm":
             h = cfg.ssm_heads * cfg.ssm_head_dim * cfg.ssm_state * 4
             conv = (cfg.ssm_conv - 1) * ssm_mod.conv_channels(cfg) * 2
             total += repeats * (h + conv)
+        if spec.cross:
+            elem = 1 if precision.kv_quantized else 2
+            total += repeats * 2 * src_len * cfg.n_kv_heads * cfg.d_head * elem
     return total
 
 
@@ -150,6 +166,7 @@ class Request:
     rid: int
     prompt: np.ndarray           # (P,) unpadded
     max_new: int
+    frames: Optional[np.ndarray] = None   # (S_src, D) enc-dec source frames
     generated: List[int] = dataclasses.field(default_factory=list)
     # parallel to `generated`: the weight version live when each token was
     # sampled, and its logprob (only with want_logps=True)
@@ -219,13 +236,19 @@ class ServingEngine:
                  tracer=None,
                  faults=None,
                  replica_index: int = 0,
+                 max_src_len: int = 8,
                  device=None):
         if admission not in ("reserve", "ondemand"):
             raise ValueError(f"unknown admission {admission!r}")
-        if cfg.frontend is not None:
+        if cfg.frontend == "vision_patches":
             raise NotImplementedError(
-                "multimodal prefixes are not ported yet: ROADMAP queue 1")
-        # raises for cross-attention layer patterns
+                "the serving engine takes no patch input: the reference's engine "
+                "never passes `patches` to its prefill, so a VLM has no engine path "
+                "to port (serve it through rl.generate or launch.steps)")
+        if prefill_chunk is not None and cfg.is_encdec:
+            raise ValueError(
+                "enc-dec requests prefill one-shot (the encoder pass over frames is "
+                "not chunkable); leave prefill_chunk unset")
         self.model = Transformer(cfg, resolve_device(device))
         self.device = self.model.device
         # an attention-free model takes no attention kernels (raises when
@@ -256,21 +279,27 @@ class ServingEngine:
                                    prefill_chunk=prefill_chunk,
                                    budget=step_budget,
                                    spec=spec, proposer=proposer)
+        self.src_pad = max_src_len     # enc-dec frames capacity per slot
         # speculation's rewind and the shared-prefix compute skip are sound
         # only where the paged KV is the whole carried state: an attention-
         # only pattern (SSM state advances in place and cannot be rewound
-        # or shared); the scheduler reads these
-        attention_only = all(s.mixer == "attn" for s in blocks_mod.layer_pattern(cfg))
+        # or shared, cross KV is the frames'); the scheduler reads these
+        attention_only = not cfg.is_encdec and all(
+            s.mixer == "attn" and not s.cross for s in blocks_mod.layer_pattern(cfg))
         self._spec_ok = attention_only
         self._chunk_skip_ok = attention_only
         if spec is not None and not self._spec_ok:
             raise ValueError(
                 "speculative decoding needs an attention-only decoder (paged "
                 "KV is the only state the rewind can truncate); this config "
-                "has SSM state")
-        # per-request constant footprint beyond the paged KV (SSM state),
-        # priced into the byte budget as block-equivalents
-        self.state_bytes = request_state_bytes(cfg, precision)
+                "has SSM or cross state")
+        # prefix sharing keys blocks by prompt tokens; an enc-dec decoder's
+        # self-KV also depends on the frames
+        prefix_sharing = prefix_sharing and not cfg.is_encdec
+        # per-request constant footprint beyond the paged KV (SSM state,
+        # cross KV), priced into the byte budget as block-equivalents
+        self.state_bytes = request_state_bytes(
+            cfg, precision, src_len=max_src_len if cfg.is_encdec else 0)
 
         per_tok = max(kv_bytes_per_token(cfg, precision), 1)
         if kv_budget_bytes is None:
@@ -316,15 +345,16 @@ class ServingEngine:
         self.cache = self.model.init_cache(
             self.max_slots, self.max_seq_len, self.precision,
             page_size=self.block_mgr.block_size,
-            num_pages=self.block_mgr.num_blocks)
+            num_pages=self.block_mgr.num_blocks,
+            src_len=self.src_pad if self.cfg.is_encdec else 0)
         self.has_paged_kv = "block_tables" in self.cache
         self._lengths = np.zeros((self.max_slots,), np.int64)
         self.slot_req: List[Optional[Request]] = [None] * self.max_slots
         self.queue: List[Request] = []
         self.pending_tok = np.zeros((self.max_slots,), np.int32)
         # host tier: host block id -> {layer-stack name: (k, v)} CPU rows
-        # over the R layers; rid -> {"state": the slot's SSM rows or None,
-        # "pending": token} while swapped out
+        # over the R layers; rid -> {"state": the slot's SSM and cross rows
+        # or None, "pending": token} while swapped out
         self.host_pool: Dict[int, Dict[str, tuple]] = {}
         self._host_state: Dict[int, dict] = {}
         # host ids retired before their swap-out copy ran (a same-plan
@@ -333,7 +363,10 @@ class ServingEngine:
         self._scales_calibrated = False
 
     # ------------------------------------------------------------------
-    def submit(self, prompt_ids, max_new: int, rid: Optional[int] = None):
+    def submit(self, prompt_ids, max_new: int, rid: Optional[int] = None,
+               frames=None):
+        """Queue a request; an enc-dec model needs its `frames` (S_src,
+        d_model), S_src <= `max_src_len`."""
         prompt = np.asarray(prompt_ids, np.int32)
         if self.scheduler.prefill_chunk is None and \
                 len(prompt) > self.prompt_pad:
@@ -347,11 +380,26 @@ class ServingEngine:
             raise ValueError(
                 f"prompt ({len(prompt)}) + max_new ({max_new}) exceeds "
                 f"max_seq_len={self.max_seq_len}")
+        if self.cfg.is_encdec:
+            if frames is None:
+                raise ValueError(
+                    "encoder-decoder serving needs frames=(S_src, d_model) "
+                    "source embeddings per request")
+            frames = np.asarray(frames, np.float32)
+            if frames.ndim != 2 or frames.shape[1] != self.cfg.d_model:
+                raise ValueError(
+                    f"frames must be (S_src, d_model={self.cfg.d_model}); "
+                    f"got {frames.shape}")
+            if frames.shape[0] > self.src_pad:
+                raise ValueError(
+                    f"{frames.shape[0]} frames exceed max_src_len={self.src_pad}")
+        elif frames is not None:
+            raise ValueError("frames only apply to encoder-decoder models")
         if rid is None:
             rid = self._next_rid
         # rid keys BlockManager ownership: keep auto-assignment monotonic
         self._next_rid = max(self._next_rid, rid + 1)
-        self.queue.append(Request(rid=rid, prompt=prompt, max_new=max_new))
+        self.queue.append(Request(rid=rid, prompt=prompt, max_new=max_new, frames=frames))
         if self.tracer.enabled:
             self.tracer.record_submit(self, self.queue[-1])
 
@@ -525,35 +573,62 @@ class ServingEngine:
     def _ssm_slots(self):
         return [(name, sd["ssm"]) for name, sd in self.cache["slots"].items() if "ssm" in sd]
 
+    def _cross_slots(self):
+        return [(name, sd["cross"]) for name, sd in self.cache["slots"].items()
+                if "cross" in sd]
+
     def _write_slot_state(self, slot: int, state: Optional[dict] = None):
-        """The one writer of a slot's SSM rows (all R layers): `state`, a
-        `_snapshot_slot_state` of the request that resumes here, or zeros
-        for a fresh occupant (the previous occupant's h/conv would be its
-        prefill's initial state)."""
-        for name, st in self._ssm_slots():
-            if state is None:
+        """The one writer of a slot's non-KV state rows (all R layers):
+        `state`, a `_snapshot_slot_state` of the request that resumes
+        here, or for a fresh occupant zero SSM rows (the previous
+        occupant's h/conv would be its prefill's initial state; cross rows
+        need no reset: the enc-dec prefill overwrites them and
+        `src_lengths` masks their padding)."""
+        if state is None:
+            for _, st in self._ssm_slots():
                 st.h[:, slot] = 0
                 st.conv[:, slot] = 0
-            else:
-                h, conv = state[name]
-                st.h[:, slot] = h.to(self.device)
-                st.conv[:, slot] = conv.to(self.device)
+            return
+        for name, st in self._ssm_slots():
+            h, conv = state[name]["ssm"]
+            st.h[:, slot] = h.to(self.device)
+            st.conv[:, slot] = conv.to(self.device)
+        for name, cr in self._cross_slots():
+            k, v = state[name]["cross"]
+            cr.k[:, slot] = k.to(self.device)
+            cr.v[:, slot] = v.to(self.device)
 
     def _snapshot_slot_state(self, slot: int) -> dict:
-        """Host copies of the slot's SSM rows, {slot name: (h, conv)} over
-        the R layers (empty without SSM layers)."""
-        return {name: (_to_host(st.h[:, slot]), _to_host(st.conv[:, slot]))
-                for name, st in self._ssm_slots()}
+        """Host copies of the slot's non-KV state rows over the R layers,
+        {slot name: {"ssm": (h, conv)} and / or {"cross": (k, v)}} (empty
+        without SSM or cross layers)."""
+        state = {}
+        for name, st in self._ssm_slots():
+            state.setdefault(name, {})["ssm"] = (_to_host(st.h[:, slot]),
+                                                 _to_host(st.conv[:, slot]))
+        for name, cr in self._cross_slots():
+            state.setdefault(name, {})["cross"] = (_to_host(cr.k[:, slot]),
+                                                   _to_host(cr.v[:, slot]))
+        return state
 
     def _slot_view(self, slot: int) -> dict:
         """Batch-1 cache view for a prefill into `slot`: the pools are
-        shared (and written in place), the table row and the SSM rows
-        are sliced (views, written in place too)."""
-        slots = {name: ({"ssm": sd["ssm"].rows(slot, slot + 1)} if "ssm" in sd else sd)
-                 for name, sd in self.cache["slots"].items()}
+        shared (and written in place), the table row, the SSM rows, the
+        cross rows and the source length are sliced (views, written in
+        place too; the cross scales are the pool-wide ones)."""
+        slots = {}
+        for name, sd in self.cache["slots"].items():
+            view = {"ssm": sd["ssm"].rows(slot, slot + 1)} if "ssm" in sd else {"kv": sd["kv"]}
+            if "cross" in sd:
+                cr = sd["cross"]
+                view["cross"] = attn_mod.KVCache(cr.k[:, slot:slot + 1], cr.v[:, slot:slot + 1],
+                                                 cr.k_scale, cr.v_scale)
+            slots[name] = view
         view = {"slots": slots}
         if self.has_paged_kv:
             view["block_tables"] = self.cache["block_tables"][slot:slot + 1]
+        if "src_lengths" in self.cache:
+            view["src_lengths"] = self.cache["src_lengths"][slot:slot + 1]
         return view
 
     def _copy_block(self, src: int, dst: int):
@@ -717,6 +792,14 @@ class ServingEngine:
         self._set_table_row(slot, self.block_mgr.blocks_of(req.rid))
         inputs = {"tokens": torch.from_numpy(padded),
                   "lengths": torch.tensor([p], dtype=torch.int32)}
+        if self.cfg.is_encdec:
+            # the request's frames padded to the slot's capacity; src_lengths
+            # masks the padding through the encoder and every cross read
+            n = req.frames.shape[0]
+            fr = np.zeros((1, self.src_pad, self.cfg.d_model), np.float32)
+            fr[0, :n] = req.frames
+            inputs["frames"] = torch.from_numpy(fr).to(torch.bfloat16)
+            inputs["src_lengths"] = torch.tensor([n], dtype=torch.int32)
         logits, _ = self.model.prefill(self.params, inputs,
                                        self._slot_view(slot),
                                        self._prefill_precision())
@@ -794,17 +877,19 @@ class ServingEngine:
 
     def _swap_in(self, slot: int, req: Request, act: Admit) -> int:
         """The device half of an allocator promote: copy the host-tier tail
-        back into fresh pool rows (no recompute), and the SSM rows into
-        this slot.  The leading `n_shared` entries came from a prefix hit
-        and already hold the prompt's KV; only the restored tokens (plus
-        `state_swap_tokens` for SSM state) count as `wasted`.  Returns
-        them."""
+        back into fresh pool rows (no recompute), and the SSM and cross
+        rows (and the source length) into this slot.  The leading
+        `n_shared` entries came from a prefix hit and already hold the
+        prompt's KV; only the restored tokens (plus `state_swap_tokens`
+        for slot state) count as `wasted`.  Returns them."""
         if act.moves:
             self._promote_blocks(act.moves)
         hs = self._host_state.pop(req.rid, None) or {}
         state = hs.get("state")
         if state:
             self._write_slot_state(slot, state)
+        if self.cfg.is_encdec:
+            self.cache["src_lengths"][slot] = req.frames.shape[0]
         retained = act.retained
         s = min(act.n_shared, self.block_mgr.blocks_for_tokens(retained))
         restored = max(retained - s * self.block_size, 0)

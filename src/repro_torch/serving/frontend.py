@@ -1,6 +1,6 @@
 """Async serving fleet: a streaming front-end over N engine replicas (port
-of `repro.serving.frontend`: host logic, copied; the port's engines have no
-enc-dec path, so requests carry no `frames`).
+of `repro.serving.frontend`: host logic, copied; an enc-dec request's
+`frames` go with it to its replica and with its replay on failover).
 
 `ServingFrontend` owns a list of data-parallel `ServingEngine` replicas
 (same architecture, same precision, independent KV pools) and presents
@@ -105,6 +105,7 @@ class _Tracked:
     req: Request
     prompt: np.ndarray             # ORIGINAL prompt (failover replays keep it)
     max_new: int                   # original budget
+    frames: Optional[np.ndarray] = None
     deadline_clock: Optional[int] = None   # fleet clock bound (submit+deadline)
     reported: int = 0          # engine-side generated tokens already streamed
     finished: bool = False
@@ -250,7 +251,7 @@ class ServingFrontend:
         return i
 
     def submit(self, prompt_ids, max_new: int, rid: Optional[int] = None,
-               deadline_tokens: Optional[int] = None) -> int:
+               frames=None, deadline_tokens: Optional[int] = None) -> int:
         """Dispatch one request; returns the rid.  `deadline_tokens`
         bounds its lifetime on the FLEET clock: if it has not finished
         by ``clock_at_submit + deadline_tokens``, it is aborted with a
@@ -266,10 +267,10 @@ class ServingFrontend:
                 "no healthy replica to dispatch to — the whole fleet is "
                 "down or quarantined")
         prompt = np.asarray(prompt_ids, np.int32)
-        self.engines[i].submit(prompt, max_new, rid=rid)
+        self.engines[i].submit(prompt, max_new, rid=rid, frames=frames)
         self._tracked[rid] = _Tracked(
             replica=i, req=self.engines[i].queue[-1], prompt=prompt,
-            max_new=max_new,
+            max_new=max_new, frames=frames,
             deadline_clock=(self.clock_tokens + deadline_tokens
                             if deadline_tokens is not None else None))
         return rid
@@ -408,7 +409,7 @@ class ServingFrontend:
             [t.prompt, np.asarray(streamed, np.int32)])
             if streamed else t.prompt)
         eng = self.engines[dst]
-        eng.submit(prompt, remaining, rid=rid)
+        eng.submit(prompt, remaining, rid=rid, frames=t.frames)
         t.req = eng.queue[-1]
         t.replica = dst
         t.reported = 0

@@ -59,6 +59,11 @@ rounding of plain, a reduced mamba2 and a reduced jamba period's prefill,
 decode steps and chunk on the card against the CPU (logits within 0.5,
 SSM states within 1e-2), and the engine's SSM write-back around a
 piggybacked decode and its swap-in under a budget cut, both bit-equal.
+Enc-dec and VLM: kernels 4-6 at seamless's (G 1, D 64), a reduced
+seamless decode step (cross attention over the cross caches) and a
+reduced pixtral prefill over its patch prefix on the card against the
+CPU (with the launches of each), and the enc-dec engine's preempted run
+(cross KV swapped out and back) equal to its roomy run bit for bit.
 """
 import pytest
 
@@ -942,10 +947,12 @@ def test_fp8_dot_on_card_matches_cpu(cuda, recipe):
 
 
 # (KVH, G, D) of stablelm-3b (G 1, D 80: the 128-lane body with 48 padded
-# lanes), llama3.2-3b (G 3) and starcoder2-15b (G 12: kernel 6's two halves)
+# lanes), llama3.2-3b (G 3), starcoder2-15b (G 12: kernel 6's two halves)
+# and seamless-m4t-medium's decoder (G 1, D 64)
 REGISTRY_HEADS = [pytest.param(32, 1, 80, id="stablelm-3b"),
                   pytest.param(8, 3, 128, id="llama3.2-3b"),
-                  pytest.param(4, 12, 128, id="starcoder2-15b")]
+                  pytest.param(4, 12, 128, id="starcoder2-15b"),
+                  pytest.param(16, 1, 64, id="seamless-m4t-medium")]
 
 
 @pytest.mark.parametrize("kvh,g,d", REGISTRY_HEADS)
@@ -1363,6 +1370,108 @@ def test_engine_ssm_write_back_and_swap_in_on_card(cuda, pattern):
                             device=cuda)
         for i in range(5):
             eng.submit(tasks.random_prompt(i, 5 + i % 5), max_new=8, rid=i)
+        full = eng.budget_tokens
+        while eng.queue or any(r is not None for r in eng.slot_req):
+            if shrink is not None and eng.stats["steps"] >= shrink:
+                eng.budget_tokens, shrink = int(full * 0.6), None
+            assert not eng.step().is_empty
+        runs[name] = eng.stats["swap_ins"], {r.rid: r.generated for r in eng.done}
+    assert runs["roomy"][0] == 0 and runs["tight"][0] >= 1
+    assert runs["tight"][1] == runs["roomy"][1]
+
+
+def _encdec_vlm_cfgs():
+    from repro_torch.configs import get_config, tiny_encdec_serving_config
+    return {"encdec": tiny_encdec_serving_config(),
+            "vlm": get_config("pixtral-12b").reduced(n_layers=2)}
+
+
+@pytest.mark.parametrize("pattern", ["encdec", "vlm"])
+def test_encdec_decode_and_vlm_prefill_on_card_match_cpu(cuda, pattern):
+    """Under `PrecisionConfig()`: a reduced seamless (2 + 2 layers) prefill
+    over frames (encoder, cross caches) and two decode steps on a paged
+    cache (kernel 4, the cross attention plain), and a reduced pixtral (2
+    layers, 8 patches) prefill over its prefix and one serve step on a
+    contiguous cache (kernel 6), on the card against the same calls on
+    the CPU: logits within 0.5 (chip_smoke's kernel-vs-plain band), cross
+    scales within 1e-2; kernel 1 and kernel 3 launched as the path's
+    prefill and decode steps count them."""
+    cfg = _encdec_vlm_cfgs()[pattern]
+    prec = PrecisionConfig()
+    params = Transformer(cfg, "cpu").init_params(8)
+    g = torch.Generator().manual_seed(9)
+    tokens = torch.randint(4, 19, (3, 10), generator=g, dtype=torch.int32)
+    lengths = torch.tensor([10, 6, 8], dtype=torch.int32)
+    extra = {}
+    if pattern == "encdec":
+        extra = {"frames": torch.randn((3, 12, cfg.d_model), generator=g).to(torch.bfloat16),
+                 "src_lengths": torch.tensor([12, 5, 9], dtype=torch.int32)}
+    else:
+        extra = {"patches": torch.randn((3, cfg.frontend_len, cfg.d_model),
+                                        generator=g).to(torch.bfloat16)}
+    out = {}
+    for dev in ("cpu", cuda):
+        model = Transformer(cfg, dev)
+        roll, _ = sync_policy_weights(_to(params, dev), prec)
+        inputs = {k: v.to(dev) for k, v in dict(extra, tokens=tokens, lengths=lengths).items()}
+        build.reset_launch_counts()
+        if pattern == "encdec":
+            cache = model.init_cache(3, 16, prec, page_size=4, src_len=12)
+            l0, cache = model.prefill(roll, inputs, cache, prec)
+            l1, cache = model.decode_step(roll, l0.argmax(-1), cache, prec)
+            l2, cache = model.decode_step(roll, l1.argmax(-1), cache, prec)
+            logits = [l0, l1, l2]
+            scales = torch.stack([sd["cross"].k_scale for sd in cache["slots"].values()])
+        else:
+            cache = model.init_cache(3, cfg.frontend_len + 12, prec)
+            l0, cache = model.prefill(roll, inputs, cache, prec)
+            l1, cache = model.decode_step(roll, l0.argmax(-1), cache, prec)
+            logits, scales = [l0, l1], torch.zeros(1)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            launches = dict(build.LAUNCHES)
+            # per layer: prefill 7 : 10 (seamless, + its encoder 4 : 6) or
+            # 4 : 7 (pixtral), w_patch 1 : 1; decode 6 : 8 or 4 : 7
+            n = cfg.n_layers
+            if pattern == "encdec":
+                want = (1 + n * 4 + n * 7 + 2 * n * 6, 1 + n * 6 + n * 10 + 2 * n * 8)
+                assert launches["paged_decode"] == 2 * n
+            else:
+                want = (1 + n * 4 + n * 4, 1 + n * 7 + n * 7)
+                assert launches["decode"] == n
+            assert (launches["quant_act"], launches["fp8_gemm"]) == want
+        out[str(dev)] = [t.cpu() for t in logits], scales.cpu()
+    (lc, sc), (lg, sg) = out["cpu"], out[str(cuda)]
+    for a, b in zip(lc, lg):
+        assert bool(torch.isfinite(b).all())
+        assert (a - b).abs().max().item() <= 0.5
+    assert torch.allclose(sc, sg, rtol=1e-2)
+
+
+def test_encdec_engine_preempt_resume_on_card(cuda):
+    """The enc-dec engine on the card, W8A8 linears over a bf16 KV pool:
+    the reference's pressured trace (5 requests with 6 frames each, 4
+    slots, a budget of ~2.5 requests' state + 40 tokens of KV cut to 60%
+    at decode step 4) swaps requests out with their cross KV and back in,
+    and serves the roomy run's tokens bit for bit."""
+    from repro_torch.configs import tiny_encdec_serving_config
+    from repro_torch.core.precision import FP8_LINEAR_ROLLOUT
+    from repro_torch.data import tasks
+    from repro_torch.serving import request_state_bytes
+    cfg = tiny_encdec_serving_config()
+    prec = FP8_LINEAR_ROLLOUT
+    roll, _ = sync_policy_weights(Transformer(cfg, cuda).init_params(7), prec)
+    per = max(kv_bytes_per_token(cfg, prec), 1)
+    state = request_state_bytes(cfg, prec, src_len=8)
+    runs = {}
+    for name, budget, shrink in (("roomy", per * 4 * 200 + 16 * state, None),
+                                 ("tight", per * 4 * 10 + int(2.5 * state), 4)):
+        eng = ServingEngine(roll, cfg, prec, max_slots=4, max_seq_len=48,
+                            admission="ondemand", eos_id=None, kv_budget_bytes=budget,
+                            device=cuda)
+        for i in range(5):
+            eng.submit(tasks.random_prompt(i, 5 + i % 5), max_new=8, rid=i,
+                       frames=tasks.random_frames(100 + i, 6, cfg.d_model))
         full = eng.budget_tokens
         while eng.queue or any(r is not None for r in eng.slot_req):
             if shrink is not None and eng.stats["steps"] >= shrink:

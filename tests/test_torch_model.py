@@ -40,6 +40,7 @@ from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.core import precision as tp  # noqa: E402
 from repro_torch.core.quant import QuantizedTensor  # noqa: E402
 from repro_torch.models import Transformer  # noqa: E402
+from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.rl import sync_policy_weights as tsync  # noqa: E402
 
 jax.config.update("jax_platform_name", "cpu")
@@ -248,12 +249,19 @@ def test_full_fp8_prefill_matches_reference(setup):
 
 
 def test_unported_layer_kinds_raise():
-    """Cross-attention (enc-dec) is the one layer kind still to port; SSM
-    and hybrid slots are held to the reference in test_torch_ssm.py."""
+    """Every layer kind is ported (cross attention since the enc-dec
+    slice, held to the reference in test_torch_encdec.py): an enc-dec
+    pattern builds with its cross and encoder leaves; the attention
+    impl the port lacks (`repeat`, a tensor-parallel layout) raises."""
     cfg = tconfigs.tiny_serving_config()
-    for kw in (dict(n_enc_layers=2),):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            Transformer(cfg.reduced(**kw), "cpu")
+    model = Transformer(cfg.reduced(n_enc_layers=2), "cpu")
+    params = model.init_params(0)
+    assert {"attn", "cross", "mlp"} <= set(params["blocks"]["s0"])
+    assert "q_norm_scale" not in params["blocks"]["s0"]["cross"]
+    assert set(params["enc"]) == {"blocks", "final_norm_scale"}
+    with pytest.raises(ValueError, match="naive and chunked"):
+        with tattn.attention_impl("repeat"):
+            pass
 
 
 def test_moe_layer_kind_builds():

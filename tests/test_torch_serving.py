@@ -345,9 +345,11 @@ def test_engine_refuses_what_is_not_ported(setup):
                          tracer=recording).tracer is recording
     assert ServingEngine(troll, tcfg, tp.BF16_ROLLOUT, device="cpu",
                          tracer=NULL_TRACER).tracer is NULL_TRACER
-    # enc-dec is still to port (SSM and hybrid serve: test_torch_hybrid_serving.py)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ServingEngine(troll, tcfg.reduced(n_enc_layers=2),
+    # a VLM has no engine path: the reference's engine never passes patches
+    # (SSM, hybrid and enc-dec serve: test_torch_hybrid_serving.py,
+    # test_torch_encdec.py)
+    with pytest.raises(NotImplementedError, match="patch"):
+        ServingEngine(troll, tcfg.reduced(frontend="vision_patches", frontend_len=4),
                       tp.BF16_ROLLOUT, device="cpu")
 
 
