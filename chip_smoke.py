@@ -5,7 +5,7 @@
 
 Needs one CUDA card, nvcc and the checkout's `src/`; imports nothing of
 JAX or of the JAX package.  Phases (any failure exits non-zero), run in
-the order 1-5, 7, 6, 8-14:
+the order 1-5, 7, 6, 8-15:
 
 1. the card's name and power limit (nvidia-smi);
 2. build the six CUDA kernels from `src/repro_torch/csrc` (nvcc, sm_90a);
@@ -248,6 +248,32 @@ the order 1-5, 7, 6, 8-14:
        against prefix-LM over the patches: logged), `launch.steps` (B 8,
        S 2048 with 1024 patches, 16 serve steps), kernel 3 at w_patch (M
        8192) and wg (M 8) held and timed; the peak under 80 GB.
+15. The distributed runtime: kernel 1 on one (1, n) f32 row, the row
+    `compressed_psum` quantizes, bit-equal to plain at qwen3-8b's wq
+    (16.8M) and wg (50.3M) gradient sizes and at an odd n padded to 128,
+    and timed beside its byte bound; then DIST_RANKS spawned ranks on
+    cuda:0 joined by gloo (one card runs several ranks only over gloo;
+    `distributed.host_collectives` copies each collective's operands
+    through the host and counts them), each reporting back:
+    a. `compressed_psum` of each rank's seeded wq and wg gradients, bf16
+       and f32: equal on every rank, bit-equal to one process summing
+       the four contributions quantized by the plain version, within 0.03
+       of the exact sum, kernel 1 once a call a rank; ms a call and the
+       bytes gathered against `comm_bytes` logged;
+    b. llama3.2-3b at full width (2 of 28 layers, the only cut), f32
+       params and moments, a (2, 2) data x model mesh with ZeRO-3, B 8 x
+       256, 3 steps: the first run as `make_train_step` runs it
+       (`make_loss_and_grads`, then `adamw.update`) and held against the
+       same in one process (loss within 1e-5 relative, each rank's
+       gradient shards within 1e-4 of max|g|), an all-gather and a
+       reduction among its collectives (`CommDebugMode`), the others
+       `make_train_step`'s; each rank's resident param + moment bytes
+       under 0.3 of one process's; the losses and walls logged;
+    c. `pipeline_apply` over 4 stages, each one full-width qwen3-8b
+       decoder layer (bf16, the training layer body), 8 microbatches of
+       (1, 128, 4096): bit-equal to the layers in sequence in one
+       process, the wall and `bubble_fraction(4, 8)` logged.
+    Phase 15 must end within DIST_PHASE_S (150 s).
 
 The line before the last is the `kernels` JSON object; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
@@ -404,6 +430,23 @@ VLM_PAGE = 16
 VLM_STEPS_S = 2048
 VLM_STEPS = 16
 VLM_PATCH_M = 8 * 1024
+# phase 15: the distributed runtime.  Ranks on one card join a gloo group;
+# 15a sums qwen3-8b's wq and wg gradients compressed, 15b trains two of
+# llama3.2-3b's layers at full width on a (2, 2) mesh, 15c pipelines four
+# qwen3-8b layers; kernel 1 is held on one long f32 row at each leaf's n
+# and at an odd n
+DIST_RANKS = 4
+DIST_TIMEOUT_S = 150
+DIST_PHASE_S = 150
+DIST_GRAD_LEAVES = (("wq", (4096, 4096)), ("wg", (4096, 12288)))
+DIST_SUM_REPS = 2
+DIST_ROWS = (4096 * 4096, 4096 * 12288, 4 * 333)
+DIST_TRAIN = "llama3.2-3b"
+DIST_TRAIN_LAYERS = 2
+DIST_TRAIN_BT = (8, 256)
+DIST_STEPS = 3
+DIST_PIPE_M = 8
+DIST_PIPE_T = 128
 
 
 def check(cond, msg):
@@ -3915,6 +3958,386 @@ def encdec_vlm_path(dev, gen, extra):
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the distributed runtime, DIST_RANKS ranks on cuda:0 over gloo
+# ---------------------------------------------------------------------------
+
+def long_row_quant(dev, gen, extra):
+    """Kernel 1 on the one (1, n) f32 row `compressed_psum` hands it — each
+    gradient leaf flattened, padded to 128 and widened: bit-equal to its
+    plain version at every DIST_ROWS n (one of them odd), and timed at
+    the two leaves' n beside the byte bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import fp8_quant as fq
+    from repro_torch.kernels import ops
+    for n in DIST_ROWS:
+        x = F.pad(torch.randn((1, n), generator=gen, device=dev) * 1e-3, (0, (-n) % 128))
+        qt = ops.quantize_activation(x)
+        q, s = qt.data, qt.scales
+        qr, sr = fq.quantize_activation_ref(x)
+        check(torch.equal(q.view(torch.uint8), qr.view(torch.uint8)) and torch.equal(s, sr),
+              f"kernel 1 on a (1, {n}) f32 row differs from its plain version")
+        if n % 128:
+            continue
+        row = timed_row(lambda: fq.quantize_activation_kernel(x),
+                        lambda: fq.quantize_activation_ref(x), reps=10, plain_reps=3)
+        row["bound_ms"], row["bound_by"] = bound(n * 4 + n + n // 128 * 4, 6 * n, F32_FLOPS)
+        extra.append(dict(kernel="quant_act", shape=[1, n], input="float32", **row))
+        log(f"15: kernel 1 at (1, {n}) f32 bit-equal to plain; device {row['device_ms']:.4f} "
+            f"ms (bound {row['bound_ms']:.4f}, {row['bound_by']}), ms {row['ms']:.4f}, "
+            f"plain {row['plain_ms']:.3f}")
+        del x, qt, q, s, qr, sr
+
+
+def _dist_grad(r, shape, dtype, dev):
+    """Rank r's seeded gradient of a leaf."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1000 + r)
+    return (torch.randn(shape, generator=gen, device=dev) * 1e-3).to(dtype)
+
+
+def _plain_psum(xs):
+    """One process: each contribution flattened, padded, widened and
+    quantized by kernel 1's plain version, then dequantized and summed in
+    rank order in f32 (what `compressed_psum` computes)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import fp8_quant as fq
+    n = xs[0].numel()
+    total = None
+    for x in xs:
+        q, s = fq.quantize_activation_ref(F.pad(x.reshape(1, -1), (0, (-n) % 128)).float())
+        term = q.float() * torch.repeat_interleave(s, 128, dim=-1)
+        total = term if total is None else total + term
+    return total.reshape(-1)[:n].reshape(xs[0].shape).to(xs[0].dtype)
+
+
+def _digest(t) -> str:
+    """A short hash of a tensor's bytes."""
+    import hashlib
+
+    import torch
+    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def dist_compress(rank, world, dev):
+    """15a: `compressed_psum` of each rank's seeded gradient of qwen3-8b's
+    wq and wg leaves, bf16 and f32: kernel 1 once a call, the result's
+    digest, ms per call; rank 0 also holds it bit-equal to `_plain_psum`
+    of the four contributions and within 0.03 of the exact sum."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed.compression import comm_bytes, compressed_psum
+    from repro_torch.kernels import build
+    out = []
+    for leaf, shape in DIST_GRAD_LEAVES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = _dist_grad(rank, shape, dtype, dev)
+            compressed_psum(x)                       # warm
+            torch.cuda.synchronize()
+            dist.barrier()
+            n0 = build.LAUNCHES["quant_act"]
+            y = compressed_psum(x)
+            launches = build.LAUNCHES["quant_act"] - n0
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            for _ in range(DIST_SUM_REPS):
+                compressed_psum(x)
+            torch.cuda.synchronize()
+            rec = dict(leaf=leaf, dtype=str(dtype).split(".")[-1], launches=launches,
+                       ms=(time.perf_counter() - t0) / DIST_SUM_REPS * 1e3, digest=_digest(y))
+            if rank == 0:
+                xs = [x] + [_dist_grad(r, shape, dtype, dev) for r in range(1, world)]
+                rec["bit_equal_plain"] = bool(torch.equal(_plain_psum(xs).view(torch.uint8),
+                                                          y.view(torch.uint8)))
+                exact = torch.stack([t.float() for t in xs]).sum(0)
+                rec["rel_err"] = float((y.float() - exact).abs().mean() / exact.abs().mean())
+                n = x.numel()
+                n_pad = n + (-n) % 128
+                rec["gathered_bytes"] = (world - 1) * (n_pad + 4 * n_pad // 128)
+                rec["comm_bytes"] = comm_bytes(n, world, True)
+                del xs, exact
+            out.append(rec)
+            del x, y
+    return out
+
+
+def _local_bytes(tree) -> int:
+    """Bytes of a tree's tensors that this rank holds (a DTensor's local
+    shard)."""
+    from repro_torch.core.fp8_params import tree_leaves
+    return sum((t.to_local() if hasattr(t, "to_local") else t).nbytes
+               for t in tree_leaves(tree))
+
+
+def dist_train(rank, world, dev):
+    """15b: llama3.2-3b at full width, DIST_TRAIN_LAYERS of its layers, f32
+    params and moments, on a (2, 2) data x model mesh with ZeRO-3: the
+    first of DIST_STEPS steps runs as `make_train_step` runs it
+    (`make_loss_and_grads`, then `adamw.update`) with its collectives
+    counted (CommDebugMode) and its loss and gradients held against the
+    same in this process alone (every rank runs it and compares its own
+    shards); the later steps are `make_train_step`'s; the resident bytes,
+    the losses and walls."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.fp8_params import tree_fill, tree_leaves
+    from repro_torch.distributed.sharding import ShardingRules, distribute
+    from repro_torch.launch import steps
+    from repro_torch.models import Transformer
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(get_config(DIST_TRAIN), n_layers=DIST_TRAIN_LAYERS)
+    params = Transformer(cfg, dev, dtype=torch.float32).init_params(SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, DIST_TRAIN_BT, generator=gen,
+                                     device=dev)}
+    full_bytes = 3 * _local_bytes(params)          # params + f32 m and v
+    loss1, grads1 = steps.make_loss_and_grads(cfg, device=dev)(params, batch)
+    mesh = init_device_mesh("cuda", (2, world // 2), mesh_dim_names=("data", "model"))
+    rules = ShardingRules(mesh, zero3=True)
+    specs = rules.params(params)
+    dparams = distribute(params, specs, mesh)
+    want = distribute(grads1, specs, mesh)          # this rank's shards of them
+    del params, grads1
+    opt = adamw.AdamWConfig(lr=1e-4)
+    state = adamw.init(dparams, opt)
+    resident = _local_bytes(dparams) + _local_bytes({"m": state.m, "v": state.v})
+    loss_and_grads = steps.make_loss_and_grads(cfg, rules=rules)
+    step = steps.make_train_step(cfg, opt_cfg=opt, rules=rules)
+    comm = CommDebugMode()
+    losses, walls = [], []
+    for i in range(DIST_STEPS):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        if i == 0:
+            with comm:
+                loss, grads = loss_and_grads(dparams, batch)
+                # reduced to the params' layouts (what `update` does first)
+                grads = tree_fill(dparams, [
+                    g.redistribute(p.device_mesh, p.placements)
+                    for p, g in zip(tree_leaves(dparams), tree_leaves(grads))])
+                dparams, state, _ = adamw.update(dparams, grads, state, opt)
+        else:
+            dparams, state, loss = step(dparams, state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        if i == 0:
+            grad_err = max(float((g.to_local() - w.to_local()).abs().max())
+                           / (float(w.to_local().abs().max()) or 1.0)
+                           for g, w in zip(tree_leaves(grads), tree_leaves(want)))
+            del grads, want
+    return dict(loss_one_process=float(loss1), loss_sharded=losses[0], grad_err=grad_err,
+                resident_bytes=resident, one_process_bytes=full_bytes,
+                comms={str(k).split(".")[-1]: v for k, v in comm.get_comm_counts().items()},
+                losses=losses, walls=walls)
+
+
+def dist_pipeline(rank, world, dev):
+    """15c: `pipeline_apply` over `world` stages, each one full-width
+    qwen3-8b decoder layer (bf16, the training layer body), on
+    DIST_PIPE_M microbatches of (1, DIST_PIPE_T, d); rank 0 holds it
+    bit-equal to the layers run in sequence in this process."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.pipeline import bubble_fraction, pipeline_apply
+    from repro_torch.models import Transformer
+    from repro_torch.models import blocks as blocks_mod
+    from repro_torch.models.transformer import _layer, _train_mask
+    cfg = dataclasses.replace(get_config("qwen3-8b"), n_layers=world)
+    stack = {}
+    for path, leaf in Transformer(cfg, dev).iter_params(SEED):
+        if path[0] == "blocks":
+            stack.setdefault(path[2], {})[path[3]] = leaf
+        del leaf
+    spec = blocks_mod.layer_pattern(cfg)[0]
+    t = DIST_PIPE_T
+    positions = torch.arange(t, device=dev)[None, :]
+    mask = _train_mask(t, None, dev)
+
+    def stage_fn(p, h):
+        return blocks_mod.apply_slot_full(h, p, spec, cfg, None, positions=positions,
+                                          mask=mask)[0]
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    xs = torch.randn((DIST_PIPE_M, 1, t, cfg.d_model), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("stage",))
+    piped = pipeline_apply(stage_fn, mesh)
+    with torch.no_grad():
+        piped(stack, xs)                            # warm
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        out = piped(stack, xs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rec = dict(wall_s=wall, bubble=bubble_fraction(world, DIST_PIPE_M), digest=_digest(out))
+        if rank == 0:
+            seq = []
+            for m in range(DIST_PIPE_M):
+                h = xs[m]
+                for s in range(world):
+                    h = stage_fn(_layer(stack, s), h)
+                seq.append(h)
+            rec["bit_equal_sequential"] = bool(torch.equal(out, torch.stack(seq)))
+            rec["finite"] = bool(torch.isfinite(out.float()).all())
+    return rec
+
+
+def _dist_rank(rank, world, store_path, out_q):
+    """One rank of phase 15 (a spawned process): join the gloo group
+    through a FileStore on cuda:0, run 15a-15c, report."""
+    import datetime
+    import traceback
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = torch.device("cuda", 0)
+        dist.init_process_group("gloo", store=dist.FileStore(store_path, world), rank=rank,
+                                world_size=world,
+                                timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+        from repro_torch.distributed import host_collectives
+        if host_collectives.needs_host(dev):
+            host_collectives.install()
+        from repro_torch.kernels import build
+        build.library()
+        res = {"rank": rank}
+        for name, fn in (("15a", dist_compress), ("15b", dist_train), ("15c", dist_pipeline)):
+            t0 = time.perf_counter()
+            res[name] = fn(rank, world, dev)
+            res[name + "_s"] = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            dist.barrier()
+        res["host_copied"] = dict(host_collectives.HOST_COPIED)
+        res["host_bytes"] = dict(host_collectives.HOST_BYTES)
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out_q.put((rank, True, res))
+    except BaseException:
+        out_q.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def distributed_path(dev, gen, extra):
+    """Phase 15: kernel 1 on long f32 rows, then DIST_RANKS spawned ranks
+    on cuda:0 joined by gloo (collectives through the host: one card runs
+    several ranks only over gloo) run 15a-15c; their reports are held
+    here."""
+    import gc
+    import multiprocessing as mp
+    import queue
+    import shutil
+    import tempfile
+
+    import torch
+    t_phase = time.perf_counter()
+    long_row_quant(dev, gen, extra)
+    # the ranks are other processes: hand them the blocks this process's
+    # allocator still caches from the earlier phases
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
+    out_q = ctx.Queue()
+    procs = [ctx.Process(target=_dist_rank, args=(r, DIST_RANKS, f"{tmp}/store", out_q))
+             for r in range(DIST_RANKS)]
+    for p in procs:
+        p.start()
+    reports, errors = {}, []
+    try:
+        deadline = time.perf_counter() + DIST_TIMEOUT_S
+        while len(reports) + len(errors) < DIST_RANKS:
+            try:
+                rank, ok, res = out_q.get(timeout=max(1.0, deadline - time.perf_counter()))
+            except queue.Empty:
+                break
+            if ok:
+                reports[rank] = res
+            else:
+                errors.append(f"rank {rank}:\n{res}")
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not errors, "phase 15 ranks failed\n" + "\n".join(errors))
+    check(len(reports) == DIST_RANKS,
+          f"phase 15: {DIST_RANKS - len(reports)} ranks sent nothing in {DIST_TIMEOUT_S} s")
+    r0 = reports[0]
+    # 15a
+    for i, rec in enumerate(r0["15a"]):
+        tag = f"15a {rec['leaf']} {rec['dtype']}"
+        digests = {reports[r]["15a"][i]["digest"] for r in reports}
+        check(len(digests) == 1, f"{tag}: the sum differs between ranks")
+        check(rec["bit_equal_plain"], f"{tag}: not bit-equal to the plain one-process sum")
+        check(rec["rel_err"] < 0.03, f"{tag}: mean relative error {rec['rel_err']}")
+        check(all(reports[r]["15a"][i]["launches"] == 1 for r in reports),
+              f"{tag}: kernel 1 launches per call per rank "
+              f"{[reports[r]['15a'][i]['launches'] for r in sorted(reports)]}")
+        log(f"{tag}: equal on {DIST_RANKS} ranks, bit-equal to the plain sum, rel err "
+            f"{rec['rel_err']:.4f}, kernel 1 once a call a rank, ms per call "
+            f"{[round(reports[r]['15a'][i]['ms'], 2) for r in sorted(reports)]}, gathered "
+            f"{rec['gathered_bytes']} B a rank (comm_bytes {rec['comm_bytes']})")
+    # 15b
+    b = r0["15b"]
+    rel = abs(b["loss_sharded"] - b["loss_one_process"]) / abs(b["loss_one_process"])
+    check(rel <= 1e-5, f"15b: sharded loss {b['loss_sharded']} vs one process "
+                       f"{b['loss_one_process']}")
+    err = max(reports[r]["15b"]["grad_err"] for r in reports)
+    check(err <= 1e-4, f"15b: sharded gradients {err} of max|g| from the one-process step")
+    share = max(reports[r]["15b"]["resident_bytes"] for r in reports) / b["one_process_bytes"]
+    check(share <= 0.3, f"15b: a rank holds {share:.3f} of the one-process param + moment bytes")
+    comms = set(b["comms"])
+    check("all_gather_into_tensor" in comms and comms & {"all_reduce", "reduce_scatter_tensor"},
+          f"15b: collectives {b['comms']}")
+    check(all(reports[r]["15b"]["losses"] == b["losses"] for r in reports)
+          and all(v == v and abs(v) < 1e4 for v in b["losses"]),
+          f"15b: losses {[reports[r]['15b']['losses'] for r in sorted(reports)]}")
+    log(f"15b {DIST_TRAIN} x{DIST_TRAIN_LAYERS} layers, (2, 2) mesh, ZeRO-3, B x T "
+        f"{DIST_TRAIN_BT}: loss {b['loss_sharded']:.6f} (one process "
+        f"{b['loss_one_process']:.6f}, rel {rel:.2e}), grads within {err:.2e} of max|g|, "
+        f"resident {share:.3f} of one process's bytes, collectives {b['comms']}, "
+        f"losses {b['losses']}, walls (s) {[round(w, 2) for w in b['walls']]}")
+    # 15c
+    c = r0["15c"]
+    check(c["bit_equal_sequential"] and c["finite"],
+          "15c: the pipeline differs from the layers in sequence")
+    check(len({reports[r]["15c"]["digest"] for r in reports}) == 1,
+          "15c: the stages hold different outputs")
+    log(f"15c {DIST_RANKS} stages of qwen3-8b layers, M {DIST_PIPE_M} x (1, {DIST_PIPE_T}, "
+        f"d): bit-equal to the sequence, wall {c['wall_s']:.3f} s, bubble_fraction "
+        f"{c['bubble']:.4f}")
+    log("15: host-copied collectives " + json.dumps(r0["host_copied"]) + ", their operand "
+        "bytes on rank 0 " + json.dumps(r0["host_bytes"]) + ", rank peaks (GB) "
+        + json.dumps([round(reports[r]["peak_gb"], 2) for r in sorted(reports)])
+        + ", seconds " + json.dumps({k: round(r0[k], 1) for k in ("15a_s", "15b_s", "15c_s")}))
+    wall = time.perf_counter() - t_phase
+    log(f"phase 15: {wall:.1f} s")
+    check(wall <= DIST_PHASE_S, f"phase 15 took {wall:.1f} s (budget {DIST_PHASE_S} s)")
+    return {"compress": r0["15a"], "train": b, "pipeline": c, "wall_s": wall}
+
+
+# ---------------------------------------------------------------------------
 # phase 6: times at the main paths' shapes
 # ---------------------------------------------------------------------------
 
@@ -4340,6 +4763,9 @@ def main() -> int:
     encdec_vlm = encdec_vlm_path(dev, gen, encdec_extra)
     log("kernel_timings_encdec_vlm " + json.dumps(encdec_extra))
     log("phase 14 peaks (GB): " + json.dumps({k: v["peak_gb"] for k, v in encdec_vlm.items()}))
+    dist_extra = []
+    distributed_path(dev, gen, dist_extra)
+    log("kernel_timings_distributed " + json.dumps(dist_extra))
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, "
         f"wall {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -12,7 +12,16 @@ without CUDA, it raises — it never carries on silently on the CPU.
 """
 from __future__ import annotations
 
+import sys
+
 import torch
+
+
+def is_dtensor(x) -> bool:
+    """True for a `torch.distributed.tensor.DTensor` (checked without
+    importing that package: no DTensor exists before it is imported)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
 
 
 def resolve_device(device=None) -> torch.device:

@@ -104,6 +104,21 @@ def tree_leaves(tree):
         yield tree
 
 
+def tree_fill(like, leaves):
+    """`like`'s dict structure with its leaves taken in order from the
+    iterable `leaves` (the inverse of `tree_leaves`)."""
+    return _fill(like, iter(leaves))
+
+
+def _fill(like, it):
+    # module-level, not a closure: a recursive closure is a reference
+    # cycle, and the leaves it holds (a step's gradients) would wait for
+    # the collector
+    if isinstance(like, dict):
+        return {k: _fill(v, it) for k, v in like.items()}
+    return next(it)
+
+
 def count_quantized(params: dict) -> dict:
     """How much of the model went fp8 (leaf and byte counts)."""
     n_q = n_raw = bytes_q = bytes_raw = 0

@@ -1,8 +1,20 @@
-"""Step builders and input specs for prefill and decode (port of
-`repro.launch.steps`, the serving half).
+"""Step builders and input specs for training, prefill and decode (port
+of `repro.launch.steps`).
 
-    prefill_step(params, batch)      -> (last_logits, cache)
-    serve_step(params, tokens, cache) -> (logits, cache)
+    train_step(params, opt_state, batch) -> (params, opt_state, loss)
+    prefill_step(params, batch)          -> (last_logits, cache)
+    serve_step(params, tokens, cache)    -> (logits, cache)
+
+The train step is the learner-side LM step: `forward_train`, the mean
+next-token CE over the text positions (after a VLM's prefix), plus
+`moe_aux_coef` x the mean of each MoE layer's aux loss, its gradient,
+then `optim.adamw.update` (in place).  With `rules`
+(`distributed.ShardingRules` on a `DeviceMesh`) the same step runs
+sharded: params and moments are DTensors laid out by `rules.params`
+(`distributed.distribute`), the batch is laid out by `rules.batch_spec`,
+the model's `constrain` calls take the rules' activation layouts, and
+DTensor's sharding propagation inserts the collectives (the reference's
+GSPMD).
 
 Both run the contiguous-cache path of `models.Transformer` on CUDA unless
 given a device: the prefill fills a cache of seq_len + 1 positions and
@@ -20,9 +32,8 @@ dense KV in only its attention layers and mamba2's none.  The frontends
 are stubs, as in the reference: a VLM's inputs are precomputed patch
 embeddings (B, P, D), P = min(frontend_len, S // 2), ahead of S - P text
 tokens; an enc-dec model's are frames (B, S, D) with `src_lengths`, and
-its cache holds cross K/V over S source positions.  `make_train_step`
-and `make_opt_specs` (the TRAIN_4K cell's step) are not ported yet; the
-RL trainer's update is `rl.RLTrainer.update_fn` (ROADMAP queue 1).
+its cache holds cross K/V over S source positions.  `make_opt_specs`
+gives the AdamW state of `param_specs` on meta (f32 or fp8 moments).
 """
 from __future__ import annotations
 
@@ -30,11 +41,14 @@ from typing import Optional
 
 import torch
 
+from repro_torch import is_dtensor, resolve_device
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core import fp8_params
 from repro_torch.core.precision import E4M3, PrecisionConfig, RouterDtype
 from repro_torch.core.quant import QuantizedTensor
-from repro_torch.models.transformer import Transformer
+from repro_torch.models.common import activation_sharding
+from repro_torch.models.transformer import Transformer, forward_train
+from repro_torch.optim import adamw
 
 META = torch.device("meta")
 
@@ -132,3 +146,81 @@ def make_serve_step(cfg: ArchConfig, precision: PrecisionConfig, device=None):
         return model.decode_step(params, tokens, cache, precision)
 
     return serve_step
+
+
+def _lm_loss(params, batch, cfg, precision, moe_aux_coef):
+    logits, aux = forward_train(params, batch, cfg, precision)
+    tokens = batch["tokens"]
+    logits = logits[:, aux.get("prefix_len", 0):]
+    lp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    ce = -torch.mean(torch.gather(lp, -1, tokens[:, 1:, None].long()))
+    if is_dtensor(ce):
+        # the loss is a plain scalar, the same on every rank (a sharded MoE
+        # layer's aux losses are plain: it routes replicated)
+        ce = ce.full_tensor()
+    if aux["moe"]:
+        ce = ce + moe_aux_coef * sum(v["aux_loss"].mean() for v in aux["moe"].values())
+    return ce
+
+
+def make_loss_and_grads(cfg: ArchConfig, precision: Optional[PrecisionConfig] = None,
+                        moe_aux_coef: float = 1e-2, *, device=None, rules=None):
+    """The train step's loss and gradient: (params, batch) -> (loss,
+    grads), grads a tree like params (DTensors with `rules`, in the
+    layouts autograd left them).  Devices and layouts as in
+    `make_train_step`."""
+    dev = None if rules is not None else resolve_device(device)
+
+    def loss_and_grads(params, batch):
+        leaves = list(fp8_params.tree_leaves(params))
+        if rules is None:
+            batch = {k: v.to(dev) for k, v in batch.items()}
+        else:
+            from repro_torch.distributed.sharding import distribute, register_dtensor_ops
+
+            register_dtensor_ops()
+            mesh = leaves[0].device_mesh
+            batch = {k: v.to(mesh.device_type) for k, v in batch.items()}
+            batch = distribute(batch, rules.batch_spec(batch), mesh)
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            with activation_sharding(rules), torch.enable_grad():
+                loss = _lm_loss(params, batch, cfg, precision, moe_aux_coef)
+                grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+        return loss.detach(), fp8_params.tree_fill(params, grads)
+
+    return loss_and_grads
+
+
+def make_train_step(cfg: ArchConfig, precision: Optional[PrecisionConfig] = None,
+                    opt_cfg: Optional[adamw.AdamWConfig] = None,
+                    moe_aux_coef: float = 1e-2, *, device=None, rules=None):
+    """Learner-side LM training step (forward + backward + AdamW), params
+    and moments updated in place.  One device (CUDA unless `device` says
+    otherwise; params and moments on it, the batch moved there), or with
+    `rules` sharded over `rules.mesh`: params and moments are DTensors
+    (`distributed.distribute(params, rules.params(params), mesh)`, then
+    `adamw.init`), each rank hands the whole batch and keeps its
+    `rules.batch_spec` shard, and the loss comes back replicated."""
+    if opt_cfg is None:
+        opt_cfg = adamw.AdamWConfig()
+    loss_and_grads = make_loss_and_grads(cfg, precision, moe_aux_coef,
+                                         device=device, rules=rules)
+
+    def train_step(params, opt_state, batch):
+        loss, grads = loss_and_grads(params, batch)
+        params, opt_state, _ = adamw.update(params, grads, opt_state, opt_cfg)
+        return params, opt_state, loss
+
+    return train_step
+
+
+def make_opt_specs(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig) -> adamw.AdamWState:
+    """The AdamW state of `param_specs(cfg)` on meta: step (), and f32
+    moments or `QuantizedTensor` ones (E4M3 payload, f32 scales per 128
+    elements of the last axis) under `opt_cfg.fp8_moments`."""
+    return adamw.init(param_specs(cfg), opt_cfg)

@@ -61,6 +61,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import is_dtensor
 from repro_torch.core.fp8_linear import linear, linears
 from repro_torch.core.precision import E4M3, PrecisionConfig
 from repro_torch.core.quant import (
@@ -71,7 +72,7 @@ from repro_torch.core.quant import (
 )
 from repro_torch.kernels import ops
 from repro_torch.kernels.config import KernelConfig
-from repro_torch.models.common import apply_rope, rms_norm
+from repro_torch.models.common import apply_rope, constrain, rms_norm, split_dim
 
 _NEG_INF = -1e30
 
@@ -195,7 +196,6 @@ def paged_copy_rows(cache: PagedKVCache, src, dst) -> None:
 def _project_qkv(x, params, cfg, precision, kv_src=None):
     """q (B,S,H,D) from x, k/v (B,S',KVH,D) from x or the cross-attention
     source `kv_src` (B,S',D), in x.dtype (pre-RoPE)."""
-    b, s, _ = x.shape
     h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     if kv_src is None:
         # one quantization of x for the three projections
@@ -203,13 +203,17 @@ def _project_qkv(x, params, cfg, precision, kv_src=None):
     else:
         q = linear(x, params["wq"], precision=precision)
         k, v = linears(kv_src, (params["wk"], params["wv"]), precision=precision)
-    sk = k.shape[1]
-    q = q.reshape(b, s, h, dh)
-    k = k.reshape(b, sk, kvh, dh)
-    v = v.reshape(b, sk, kvh, dh)
+    q = split_dim(q, -1, (h, dh))
+    k = split_dim(k, -1, (kvh, dh))
+    v = split_dim(v, -1, (kvh, dh))
     if cfg.qk_norm and "q_norm_scale" in params:
         q = rms_norm(q, params["q_norm_scale"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm_scale"], cfg.norm_eps)
+    # head-parallel (or seq-parallel fallback) so the O(S^2) score tensor
+    # shards over the model axis; K/V stay compatible with q's layout
+    q = constrain(q, "act_qkv")
+    k = constrain(k, "act_kv", n_heads=cfg.n_heads)
+    v = constrain(v, "act_kv", n_heads=cfg.n_heads)
     return q, k, v
 
 
@@ -219,18 +223,95 @@ def _qdq_probs(p: torch.Tensor) -> torch.Tensor:
     return qdq(p.to(torch.bfloat16)).float()
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose backward hands on a contiguous gradient: a DTensor's
+    local shard must be laid out as its (contiguous) metadata says, or
+    the views after it fail."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _sdpa_sharded(q, k, v, mask, precision):
+    """`_sdpa` of DTensors: each rank attends its own (batch, query, head)
+    shard of q over every key, as GSPMD partitions the reference's
+    attention.  q keeps its layout (the rules' "act_qkv": batch over the
+    data axes, heads or the sequence over the model axis); K/V keep q's
+    batch and head shards where their heads divide as q's do, and are
+    gathered elsewhere, each local query head then taking its own KV head
+    (gradients of gathered K/V are partial sums: `to_local`'s
+    `grad_placements`).  Returns (B, S, H*D) laid out as q."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh = q.device_mesh
+    b, s, h, dh = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    q_pl = [p if isinstance(p, Shard) and p.dim < 3 else Replicate() for p in q.placements]
+    kv_pl, kv_grad, kv_split = [], [], 1
+    for i, p in enumerate(q_pl):
+        if p == Shard(0) or (p == Shard(2) and kvh % (kv_split * mesh.size(i)) == 0):
+            kv_split *= mesh.size(i) if p == Shard(2) else 1
+            kv_pl.append(p)
+            kv_grad.append(p)
+        else:
+            kv_pl.append(Replicate())
+            # a gathered K/V serves only this rank's queries or heads
+            kv_grad.append(Replicate() if p == Replicate() else Partial())
+    ql = _ContiguousGrad.apply(q.redistribute(mesh, q_pl).to_local())
+    kl = _ContiguousGrad.apply(k.redistribute(mesh, kv_pl).to_local(grad_placements=kv_grad))
+    vl = _ContiguousGrad.apply(v.redistribute(mesh, kv_pl).to_local(grad_placements=kv_grad))
+    _, q_off = compute_local_shape_and_global_offset(q.shape, mesh, q_pl)
+    _, kv_off = compute_local_shape_and_global_offset(k.shape, mesh, kv_pl)
+    heads = (q_off[2] + torch.arange(ql.shape[2], device=ql.device)) // g - kv_off[2]
+    if kl.shape[2] * g != ql.shape[2] or not torch.equal(
+            heads, torch.arange(kl.shape[2], device=ql.device).repeat_interleave(g)):
+        kl, vl = kl[:, :, heads], vl[:, :, heads]       # one KV head per query head
+    if mask is not None:
+        if is_dtensor(mask):
+            mask = mask.full_tensor()
+        if mask.shape[0] > 1:
+            mask = mask[q_off[0]:q_off[0] + ql.shape[0]]
+        mask = mask[:, q_off[1]:q_off[1] + ql.shape[1]]
+    # contiguous: the DTensor's strides are a contiguous tensor's
+    out = _sdpa(ql, kl, vl, mask, precision).contiguous()
+    return DTensor.from_local(out, mesh, q_pl, run_check=False, shape=(b, s, h * dh),
+                              stride=(s * h * dh, h * dh, 1))
+
+
 def _sdpa(q, k, v, mask, precision: Optional[PrecisionConfig] = None):
     """Naive grouped attention. q (B,S,H,D), k/v (B,S',KVH,D) in bf16;
     mask broadcast (B,S,S') or None.  Under `precision.quantize_attention`
     q, k and v are QDQ'd in 1x128 tiles along D (one tile, zero-padded,
     at D 80) and so is the normalized P (`_qdq_probs`), as the reference's
-    jnp branch does."""
+    jnp branch does.  DTensors go through `_sdpa_sharded`."""
+    if is_dtensor(q):
+        return _sdpa_sharded(q, k, v, mask, precision)
     b, s, h, dh = q.shape
     kvh = k.shape[2]
     g = h // kvh
     fp8 = precision is not None and precision.quantize_attention
     if fp8:
         q, k, v = qdq(q), qdq(k), qdq(v)
+    if _impl() == "repeat" and g > 1:
+        # flat-head attention: K/V repeated across the group so the scores
+        # keep one head axis that the model axis divides
+        k = constrain(torch.repeat_interleave(k, g, dim=2), "act_qkv")
+        v = constrain(torch.repeat_interleave(v, g, dim=2), "act_qkv")
+        scores = torch.einsum("bshd,bthd->bhst", q, k).float() * (dh ** -0.5)
+        if mask is not None:
+            scores = torch.where(mask[:, None], scores, _NEG_INF)
+        p = torch.softmax(scores, dim=-1)
+        if fp8:
+            p = _qdq_probs(p)
+        out = torch.einsum("bhst,bthd->bshd", p.to(v.dtype), v)
+        return out.reshape(b, s, h * dh)
     qg = q.reshape(b, s, kvh, g, dh)
     scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float() * (dh ** -0.5)
     if mask is not None:
@@ -251,11 +332,14 @@ _IMPL_CTX = threading.local()
 
 @contextlib.contextmanager
 def attention_impl(name: str):
-    """naive — the full (S, S') scores (the default); chunked — online
-    softmax over KV chunks, for prompts whose naive scores would not fit
-    (B 1, S 32768: 137 GB of f32 scores naive, 4.3 GB per chunk)."""
-    if name not in ("naive", "chunked"):
-        raise ValueError(f"attention impl {name!r}: the port has naive and chunked")
+    """naive — the full (S, S') scores, (KVH, G)-grouped (the default);
+    chunked — online softmax over KV chunks, for prompts whose naive
+    scores would not fit (B 1, S 32768: 137 GB of f32 scores naive, 4.3 GB
+    per chunk); repeat — K/V repeated to the H flat heads before the
+    scores: the (KVH, G) reshape cannot be head-sharded when KVH < tp, a
+    flat head axis can."""
+    if name not in ("naive", "chunked", "repeat"):
+        raise ValueError(f"attention impl {name!r}: the port has naive, chunked and repeat")
     prev = getattr(_IMPL_CTX, "impl", "naive")
     _IMPL_CTX.impl = name
     try:
@@ -345,6 +429,7 @@ def attention_forward(x, params, cfg, precision: Optional[PrecisionConfig], *,
         if mask is None and causal and kv_src is None:
             mask = causal_mask(s, x.device)[None]
         out = _sdpa(q, k, v, mask, precision)
+    out = constrain(out, "act_btd")
     return linear(out, params["wo"], precision=precision)
 
 
@@ -488,11 +573,15 @@ def _contiguous_attention(x, q, cache: KVCache, new_lengths, params, precision,
             new_lengths.to(torch.int32),
         ).reshape(b, 1, h * dh).to(x.dtype)
     else:
+        # reshard the fp8 payload (not the dequantized copy) when the
+        # attention math needs the cache replicated over tp
+        k_raw = constrain(cache.k, "kv_gather")
+        v_raw = constrain(cache.v, "kv_gather")
         if cache.quantized:
-            k_all = dequantize_per_tensor(cache.k, cache.k_scale, x.dtype)
-            v_all = dequantize_per_tensor(cache.v, cache.v_scale, x.dtype)
+            k_all = dequantize_per_tensor(k_raw, cache.k_scale, x.dtype)
+            v_all = dequantize_per_tensor(v_raw, cache.v_scale, x.dtype)
         else:
-            k_all, v_all = cache.k, cache.v
+            k_all, v_all = k_raw, v_raw
         k_pos = torch.arange(cache.max_len, device=x.device)
         mask = (k_pos[None, :] < new_lengths[:, None])[:, None, :]
         out = _sdpa(q, k_all, v_all, mask, precision)

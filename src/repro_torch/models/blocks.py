@@ -19,7 +19,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import rms_norm
+from repro_torch.models.common import constrain, rms_norm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,7 +139,8 @@ def apply_slot_full(x, slot_params, spec: SlotSpec, cfg, precision, *,
     if spec.mixer == "ssm":
         x = _ssm_full(x, slot_params, cfg, precision, ssm_state, lengths, chunk_start)
         x = _cross(x, slot_params, spec, cfg, precision, cross_cache, src_lengths, enc_out)
-        return _ffn(x, slot_params, spec, cfg, precision, forced_topk)
+        x, aux = _ffn(x, slot_params, spec, cfg, precision, forced_topk)
+        return constrain(x, "act_btd"), aux
     p = slot_params["attn"]
     xn = rms_norm(x, p["norm_scale"], cfg.norm_eps)
     if kv_cache is None:
@@ -156,7 +157,8 @@ def apply_slot_full(x, slot_params, spec: SlotSpec, cfg, precision, *,
             xn, p, cfg, kv_cache, precision, lengths=lengths,
             positions=positions, block_tables=block_tables)
     x = _cross(x + h, slot_params, spec, cfg, precision, cross_cache, src_lengths, enc_out)
-    return _ffn(x, slot_params, spec, cfg, precision, forced_topk)
+    x, aux = _ffn(x, slot_params, spec, cfg, precision, forced_topk)
+    return constrain(x, "act_btd"), aux
 
 
 def apply_slot_decode(x, slot_params, spec: SlotSpec, cfg, precision, *,

@@ -1,11 +1,98 @@
-"""Shared model components: norms, RoPE, initializers (port of
-`repro.models.common`)."""
+"""Shared model components: norms, RoPE, initializers, the
+activation-sharding hook (port of `repro.models.common`)."""
 from __future__ import annotations
 
+import contextlib
+import math
+import threading
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch import is_dtensor
+
+
+# ---------------------------------------------------------------------------
+# Activation-sharding hook.  The launcher installs mesh rules; model code
+# calls `constrain(x, "act_btd")`, which returns x itself when no rules are
+# active or x is not a DTensor.
+# ---------------------------------------------------------------------------
+
+_SHARDING_CTX = threading.local()
+
+
+@contextlib.contextmanager
+def activation_sharding(rules):
+    """`rules` maps logical names -> specs (`distributed.ShardingRules`)."""
+    prev = getattr(_SHARDING_CTX, "rules", None)
+    _SHARDING_CTX.rules = rules
+    try:
+        yield
+    finally:
+        _SHARDING_CTX.rules = prev
+
+
+def split_dim(x: torch.Tensor, dim: int, sizes: tuple) -> torch.Tensor:
+    """`x.unflatten(dim, sizes)` (as a reshape: its backward takes a
+    gradient of any layout).  A DTensor sharded on `dim` over mesh dims
+    whose shard count does not divide sizes[0] (a projection's H·D over
+    16 ranks into (24 heads, D)) is first gathered on those mesh dims: a
+    shard cannot be split unevenly (GSPMD reshards such a view by itself,
+    DTensor refuses it)."""
+    dim = dim % x.dim()
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate, Shard
+
+        on_dim = [i for i, p in enumerate(x.placements) if p == Shard(dim)]
+        if sizes[0] % math.prod(x.device_mesh.shape[i] for i in on_dim):
+            x = x.redistribute(x.device_mesh, [Replicate() if i in on_dim else p
+                                               for i, p in enumerate(x.placements)])
+    return x.reshape(*x.shape[:dim], *sizes, *x.shape[dim + 1:])
+
+
+def active_rules():
+    """The rules `activation_sharding` installed in this thread (None
+    outside it)."""
+    return getattr(_SHARDING_CTX, "rules", None)
+
+
+def replicate_like(t: torch.Tensor, x) -> torch.Tensor:
+    """Plain `t` as a DTensor replicated on DTensor `x`'s mesh."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    return DTensor.from_local(t, x.device_mesh, [Replicate()] * x.device_mesh.ndim,
+                              run_check=False)
+
+
+def zero_gather(w: torch.Tensor) -> torch.Tensor:
+    """A DTensor weight gathered over the active rules' ZeRO axes (its TP
+    shards kept), as ZeRO-3 gathers a weight before it is used; `w`
+    itself without rules, without ZeRO or for a plain tensor."""
+    rules = active_rules()
+    if rules is None or not rules.dpz or not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate
+
+    zero = [w.device_mesh.mesh_dim_names.index(a) for a in rules.dpz]
+    return w.redistribute(w.device_mesh, [Replicate() if i in zero else p
+                                          for i, p in enumerate(w.placements)])
+
+
+def constrain(x: torch.Tensor, name: str, **meta) -> torch.Tensor:
+    """x redistributed to the active rules' layout for activation `name`
+    (the reference's `with_sharding_constraint`): the DTensor's own mesh
+    takes the spec's placements.  Without rules, for a plain tensor, or
+    for a name the rules do not know, x itself."""
+    rules = active_rules()
+    if rules is None or not is_dtensor(x):
+        return x
+    spec = rules.activation(name, tuple(x.shape), meta=meta)
+    if spec is None:
+        return x
+    from repro_torch.distributed.sharding import placements
+
+    return x.redistribute(x.device_mesh, placements(rules.mesh, spec))
 
 
 # The card's reduction kernels and GEMM library pick their algorithm, and so
@@ -26,9 +113,12 @@ def pad_rows(x2d: torch.Tensor) -> torch.Tensor:
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     xf = x.float()
-    sq = (xf * xf).reshape(-1, xf.shape[-1])
-    var = torch.mean(pad_rows(sq), dim=-1)[: sq.shape[0]]
-    y = xf * torch.rsqrt(var.reshape(xf.shape[:-1] + (1,)) + eps)
+    if is_dtensor(x):   # each rank reduces its own rows: no row padding
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    else:
+        sq = (xf * xf).reshape(-1, xf.shape[-1])
+        var = torch.mean(pad_rows(sq), dim=-1)[: sq.shape[0]].reshape(xf.shape[:-1] + (1,))
+    y = xf * torch.rsqrt(var + eps)
     return (y * scale.float()).to(x.dtype)
 
 
@@ -44,6 +134,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     angles = positions[..., None].float() * freqs                # (..., S, D/2)
     cos = torch.cos(angles)[..., None, :]                        # (..., S, 1, D/2)
     sin = torch.sin(angles)[..., None, :]
+    if is_dtensor(x):   # replicated operands (their backward may run on another thread)
+        cos, sin = replicate_like(cos, x), replicate_like(sin, x)
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.core.fp8_linear import linear, linears
 from repro_torch.core.precision import PrecisionConfig
+from repro_torch.models.common import constrain
 
 
 def _silu(x: torch.Tensor) -> torch.Tensor:
@@ -51,4 +52,5 @@ def mlp_forward(x: torch.Tensor, params: dict, cfg,
         h = act(g) * u
     else:
         h = act(linear(x, params["wg"], precision=precision))
+    h = constrain(h, "act_btf")
     return linear(h, params["wd"], precision=precision)

@@ -21,6 +21,16 @@ scatters to distinct slots), so a checkpointed layer's recompute routes
 as its forward did.  Top-k ranks with a stable descending sort, so equal
 probabilities rank the lower expert first, as `jax.lax.top_k` does
 (`torch.topk` promises no order among ties).
+
+Sharded (x a DTensor, in a `distributed.ShardingRules` step): the
+routing, dispatch and combine run replicated — each rank gathers the
+layer's input and the router weight once and routes every token, so the
+routing and aux statistics are the global ones — and only the experts run
+sharded: the dispatched (E, G·C, D) batch takes the rules' "act_ecd"
+layout (EP over the experts, or TP inside them) against the sharded
+fc1/fc2.  The layer's output comes back replicated.  (DTensor has no
+sharding strategy for the dispatch's integer sorts, scatters and
+gathers.)
 """
 from __future__ import annotations
 
@@ -29,9 +39,11 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import is_dtensor
 from repro_torch.core.fp8_linear import _dot, linear
 from repro_torch.core.precision import PrecisionConfig
 from repro_torch.core.quant import QuantizedTensor, dequantize
+from repro_torch.models.common import constrain
 from repro_torch.models.mlp import _ACT
 
 
@@ -114,9 +126,13 @@ def moe_forward(x: torch.Tensor, params: dict, cfg,
     g = b if t > 1 else 1
     n_g = (b * t) // g
     cap = group_capacity(n_g, cfg)
-    xg = x.reshape(g, n_g, d)
+    mesh = x.device_mesh if is_dtensor(x) else None
+    router_w = params["router"]
+    if mesh is not None:    # route replicated (the module docstring)
+        x, router_w = x.full_tensor(), router_w.full_tensor()
+    xg = constrain(x.reshape(g, n_g, d), "act_gnd")
 
-    logits = router_logits(xg.reshape(-1, d), params["router"])      # (N, E)
+    logits = router_logits(xg.reshape(-1, d), router_w)              # (N, E)
     probs = torch.softmax(logits, dim=-1)
     if forced_topk_idx is not None:
         topk_idx = forced_topk_idx.to(x.device).reshape(-1, k_top).long()
@@ -129,14 +145,24 @@ def moe_forward(x: torch.Tensor, params: dict, cfg,
         topk_idx.reshape(g, n_g, k_top), cap, e)
     rows = torch.arange(g, device=x.device)[:, None]
     x_pad = torch.cat([xg, xg.new_zeros((g, 1, d))], dim=1)
-    expert_in = x_pad[rows, token_for_slot]                           # (G, E·C, D)
+    expert_in = constrain(x_pad[rows, token_for_slot], "act_gnd")    # (G, E·C, D)
     expert_in = expert_in.reshape(g, e, cap, d).transpose(0, 1).reshape(e, g * cap, d)
+    if mesh is not None:
+        from torch.distributed.tensor import DTensor, Replicate
+
+        expert_in = DTensor.from_local(expert_in, mesh, [Replicate()] * mesh.ndim,
+                                       run_check=False)
+    expert_in = constrain(expert_in, "act_ecd")
 
     h = _expert_ffn(expert_in, params, cfg, precision)               # (E, G·C, D)
+    h = constrain(h, "act_ecd")
+    if mesh is not None:
+        h = h.full_tensor()
 
     h = h.reshape(e, g, cap, d).transpose(0, 1).reshape(g, e * cap, d)
+    h = constrain(h, "act_gnd")
     h_pad = torch.cat([h, h.new_zeros((g, 1, d))], dim=1)
-    h_unit = h_pad[rows, flat_for_unit].reshape(g, n_g, k_top, d)
+    h_unit = constrain(h_pad[rows, flat_for_unit].reshape(g, n_g, k_top, d), "act_gnkd")
     w_unit = (gates * keep.reshape(-1, k_top)).reshape(g, n_g, k_top, 1)
     out = torch.sum(h_unit.float() * w_unit, dim=2)                   # (G, n_g, D)
 
@@ -156,7 +182,10 @@ def moe_forward(x: torch.Tensor, params: dict, cfg,
         "aux_loss": e * torch.sum(load * importance),
         "router_logits_amax": logits.abs().max(),
     }
-    return out.reshape(b, t, d).to(x.dtype), aux
+    out = out.reshape(b, t, d).to(x.dtype)
+    if mesh is not None:
+        out = DTensor.from_local(out, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    return out, aux
 
 
 def _expert_ffn(expert_in: torch.Tensor, params: dict, cfg,

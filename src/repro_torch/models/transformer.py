@@ -34,6 +34,7 @@ ahead of the text (`_decoder_inputs`): fully visible in `forward_train`
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import numpy as np
@@ -41,7 +42,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import resolve_device
+from repro_torch import is_dtensor, resolve_device
 from repro_torch.core.fp8_linear import linear
 from repro_torch.core.precision import PrecisionConfig
 from repro_torch.core.quant import QuantizedTensor
@@ -49,7 +50,17 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as blocks_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import dense_init, embed_init, pad_rows, rms_norm
+from repro_torch.models.common import (
+    activation_sharding,
+    active_rules,
+    constrain,
+    dense_init,
+    embed_init,
+    pad_rows,
+    replicate_like,
+    rms_norm,
+    zero_gather,
+)
 
 
 def _layer(tree, r: int):
@@ -239,13 +250,18 @@ class Transformer(nn.Module):
     def _unembed(self, params, x, precision):
         x = rms_norm(x, params["final_norm_scale"], self.cfg.norm_eps)
         head = params["emb"].T if self.cfg.tie_embeddings else params["lm_head"]
+        # ZeRO-3 gathers the head over the data axes before its GEMM, so the
+        # logits come out batch- and vocab-sharded (never partial sums)
+        head = zero_gather(head)
         # the lm_head is never quantized (paper §2.1.1); logits are rounded
         # to the activation dtype (bf16), then widened to f32.  Rows are
         # padded to ROW_FLOOR (models.common) for row-count-independent sums.
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1])
         logits = linear(pad_rows(x2), head, precision=precision, quantized=False)
-        return logits[: x2.shape[0]].reshape(lead + (-1,)).float()
+        # logits are the biggest activation (B, T, V f32): the rules shard T
+        # over the model axis so the CE stays local
+        return constrain(logits[: x2.shape[0]].reshape(lead + (-1,)).float(), "logits")
 
     def _layers(self, params, cache):
         """(slot name, spec, layer params, layer cache) for every layer, the
@@ -427,6 +443,24 @@ class Transformer(nn.Module):
 # training / scoring forward
 # ---------------------------------------------------------------------------
 
+def _remat_context():
+    """`checkpoint`'s context_fn: the recompute, which autograd may run on
+    another thread (a CUDA backward does), sees the forward's
+    activation-sharding rules and attention impl."""
+    rules, impl = active_rules(), attn_mod._impl()
+
+    @contextlib.contextmanager
+    def recompute():
+        with activation_sharding(rules), attn_mod.attention_impl(impl):
+            yield
+
+    return contextlib.nullcontext(), recompute()
+
+
+def _checkpoint(fn, *args):
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=_remat_context)
+
+
 def _unbind_layers(tree, repeats: int) -> list:
     """The R per-layer trees of a stacked param tree.  A stacked leaf is
     unbound once, so the backward stacks the layers' gradients in one op
@@ -440,12 +474,58 @@ def _unbind_layers(tree, repeats: int) -> list:
     return list(tree.unbind(0))
 
 
+class _SumOverGroup(torch.autograd.Function):
+    """Sum over a process group (the functional all-reduce); the gradient
+    passes through, since every rank holds the whole sum's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group_name):
+        c10d = torch.ops._c10d_functional
+        return c10d.wait_tensor(c10d.all_reduce(x.contiguous(), "sum", group_name))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _embed(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """emb[tokens].  A DTensor table is looked up vocab-parallel (Megatron's
+    embedding; DTensor's strategies for sharded index ops differ between
+    torch releases): each rank gathers its vocab rows at full width, looks
+    up the tokens that fall in them (zeros for the others), and the
+    lookups are summed over the vocab mesh dims; the rows' gradients come
+    back as partial sums over the token shards."""
+    if not is_dtensor(emb):
+        return emb[tokens]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh = emb.device_mesh
+    if not is_dtensor(tokens):
+        tokens = replicate_like(tokens, emb)
+    vocab = [i for i, p in enumerate(emb.placements) if p == Shard(0)]
+    table_pl = [Shard(0) if i in vocab else Replicate() for i in range(mesh.ndim)]
+    tok_pl = [Replicate() if i in vocab else p for i, p in enumerate(tokens.placements)]
+    table = emb.redistribute(mesh, table_pl).to_local(grad_placements=[
+        p if i in vocab else Replicate() if tok_pl[i] == Replicate() else Partial()
+        for i, p in enumerate(table_pl)])
+    _, offset = compute_local_shape_and_global_offset(emb.shape, mesh, table_pl)
+    rows = tokens.redistribute(mesh, tok_pl).to_local() - offset[0]
+    hit = (rows >= 0) & (rows < table.shape[0])
+    x = table[rows.clamp(0, table.shape[0] - 1)] * hit[..., None].to(table.dtype)
+    for i in vocab:
+        x = _SumOverGroup.apply(x, mesh.get_group(i).group_name)
+    shape = (*tokens.shape, emb.shape[-1])
+    return DTensor.from_local(x, mesh, tok_pl, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
+
+
 def _decoder_inputs(params, inputs: dict, cfg, precision, device):
     """(x (B, T, D), prefix_len): the token embeddings, after a VLM's
     patches (B, P, D) projected by `frontend/w_patch` (P positions of
     prefix; taken in the embedding's dtype, bf16, as the reference's specs
     and engine give them)."""
-    x = params["emb"][inputs["tokens"].to(device).long()]
+    x = _embed(params["emb"], inputs["tokens"].to(device).long())
     if cfg.frontend != "vision_patches":
         return x, 0
     patches = inputs["patches"].to(device, x.dtype)
@@ -476,8 +556,7 @@ def _encode(params, frames, cfg, precision, src_lengths=None, remat: bool = Fals
 
     enc = params["enc"]
     for slot_params in _unbind_layers(enc["blocks"], blocks_mod.n_repeats(cfg, decoder=False)):
-        x = checkpoint(body, x, slot_params, use_reentrant=False) if remat \
-            else body(x, slot_params)
+        x = _checkpoint(body, x, slot_params) if remat else body(x, slot_params)
     return rms_norm(x, enc["final_norm_scale"], cfg.norm_eps)
 
 
@@ -523,6 +602,7 @@ def forward_train(params: dict, inputs: dict, cfg,
         enc_out = _encode(params, inputs["frames"].to(dev, params["emb"].dtype), cfg,
                           precision, src_lengths, remat=remat)
     x, prefix_len = _decoder_inputs(params, inputs, cfg, precision, dev)
+    x = constrain(x, "act_btd")
     t = x.shape[1]
     mask = _train_mask(t, lengths, dev, prefix_len)
     positions = torch.arange(t, device=dev)[None, :]
@@ -544,8 +624,8 @@ def forward_train(params: dict, inputs: dict, cfg,
     for r, slot_params in enumerate(_unbind_layers(params["blocks"], model.repeats)):
         forced = None if forced_routing is None else \
             {name: idx[r] for name, idx in forced_routing.items()}
-        x, auxes = checkpoint(body, x, slot_params, forced, use_reentrant=False) \
-            if remat else body(x, slot_params, forced)
+        x, auxes = _checkpoint(body, x, slot_params, forced) if remat \
+            else body(x, slot_params, forced)
         per_layer.append(auxes)
     moe, routing = {}, {}
     for name in per_layer[0] if per_layer else ():

@@ -16,6 +16,13 @@ leading axis of at most `CHUNK_ELEMS` elements (one layer of a stacked
 stay at one chunk's size instead of 7 GB per temporary per leaf.  A
 moment block never crosses the leading axis, so each element's arithmetic
 is the whole-leaf one, bit for bit.
+
+Sharded params (DTensors laid out by `distributed.ShardingRules`) keep
+f32 moments sharded as they are (ZeRO: each rank holds only its shards):
+each gradient is first redistributed to its param's placements (the
+reduce-scatter / all-reduce of data parallelism), the global norm sums
+every shard once, and each rank updates its local shards with the same
+arithmetic.  fp8 moments of sharded params are not supported.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import is_dtensor
 from repro_torch.core.fp8_params import tree_leaves
 from repro_torch.core.precision import E4M3, ScaleFormat
 from repro_torch.core.quant import (
@@ -77,9 +85,30 @@ def _store_moment(x: torch.Tensor, fp8: bool):
     return _quant_moment(x) if fp8 else x
 
 
+def _local(t):
+    """A DTensor's local shard (under no_grad the tensor itself, so
+    in-place writes land in the DTensor); `t` itself otherwise."""
+    if isinstance(t, QuantizedTensor):
+        return QuantizedTensor(_local(t.data), _local(t.scales), t.block)
+    return t.to_local() if is_dtensor(t) else t
+
+
+def _sharded_zero_moment(p, fp8: bool):
+    """A zero f32 moment of a DTensor param: its local shard's, with the
+    param's placements."""
+    from torch.distributed.tensor import DTensor
+
+    if fp8:
+        raise NotImplementedError("fp8 moments of sharded params")
+    return DTensor.from_local(_zero_moment(p.to_local(), False), p.device_mesh,
+                              p.placements, run_check=False)
+
+
 def _zero_moment(p: torch.Tensor, fp8: bool):
     """A zero moment for `p`; with fp8, `_quant_moment` of zeros (zero
     payload, the scale of amax 0) built without an f32 copy of the leaf."""
+    if is_dtensor(p):
+        return _sharded_zero_moment(p, fp8)
     if not fp8:
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
     shape = tuple(p.shape) or (1,)
@@ -121,7 +150,7 @@ def init(params: dict, config: AdamWConfig) -> AdamWState:
     def zero(p):
         return _zero_moment(p, config.fp8_moments)
 
-    dev = next(tree_leaves(params)).device
+    dev = _local(next(tree_leaves(params))).device
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       m=_map(zero, params), v=_map(zero, params))
 
@@ -135,9 +164,14 @@ def _schedule(config: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in f32 (leaf by leaf and
-    chunk by chunk, so no leaf is widened whole)."""
+    chunk by chunk, so no leaf is widened whole; a DTensor leaf shard by
+    shard, each counted once)."""
     total = None
     for g in tree_leaves(tree):
+        if is_dtensor(g):
+            sq = torch.sum(torch.square(g.float())).full_tensor()
+            total = sq if total is None else total + sq
+            continue
         for r in _chunk_ranges(g):
             sq = torch.sum(torch.square(_chunk(g, r).float()))
             total = sq if total is None else total + sq
@@ -175,6 +209,8 @@ def _write_moment(dst, src):
 def update(params: dict, grads: dict, state: AdamWState, config: AdamWConfig):
     """Returns (params, new_state, stats); params and the moments are
     updated in place (the returned trees are the same objects)."""
+    grads = _map(lambda p, g: g.redistribute(p.device_mesh, p.placements)
+                 if is_dtensor(p) else g, params, grads)
     gnorm = global_norm(grads)
     one = torch.ones((), dtype=torch.float32, device=gnorm.device)
     if config.grad_clip > 0:
@@ -189,6 +225,7 @@ def update(params: dict, grads: dict, state: AdamWState, config: AdamWConfig):
     bc2 = 1.0 - torch.pow(torch.tensor(config.b2, device=stepf.device), stepf)
 
     def upd(p, g, m, v):
+        p, g, m, v = _local(p), _local(g), _local(m), _local(v)
         for r in _chunk_ranges(p):
             pc, mc, vc = _chunk(p, r), _chunk(m, r), _chunk(v, r)
             new_p, new_m, new_v = _update_leaf(
@@ -206,6 +243,7 @@ def update(params: dict, grads: dict, state: AdamWState, config: AdamWConfig):
 def state_bytes(state: AdamWState) -> int:
     total = 0
     for leaf in tree_leaves({"m": state.m, "v": state.v}):
+        leaf = _local(leaf)
         if isinstance(leaf, QuantizedTensor):
             total += leaf.data.numel() + 4 * leaf.scales.numel()
         else:

@@ -64,6 +64,11 @@ seamless decode step (cross attention over the cross caches) and a
 reduced pixtral prefill over its patch prefix on the card against the
 CPU (with the launches of each), and the enc-dec engine's preempted run
 (cross KV swapped out and back) equal to its roomy run bit for bit.
+The distributed runtime: kernel 1 on one long (1, n) f32 row (the
+compressed gradient sum's) and an odd n padded to 128, bit-equal to
+plain; `constrain` returns a plain CUDA tensor itself; `_dot` of DTensors
+on a 1-rank cuda mesh through the registered `mm.dtype` strategy, equal
+to the plain tensors' with its gradients.
 """
 import pytest
 
@@ -1480,3 +1485,67 @@ def test_encdec_engine_preempt_resume_on_card(cuda):
         runs[name] = eng.stats["swap_ins"], {r.rid: r.generated for r in eng.done}
     assert runs["roomy"][0] == 0 and runs["tight"][0] >= 1
     assert runs["tight"][1] == runs["roomy"][1]
+
+
+# ---------------------------------------------------------------------------
+# the distributed runtime's pieces on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [4096 * 64, 4 * 333])
+def test_quant_act_long_f32_row_bit_equal_on_card(cuda, n):
+    """Kernel 1 on the one (1, n) f32 row `compressed_psum` quantizes
+    (padded to 128), bit-equal to its plain version."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = F.pad(torch.randn((1, n), generator=gen, device=cuda) * 1e-3, (0, (-n) % 128))
+    qt = ops.quantize_activation(x)
+    qr, sr = fq.quantize_activation_ref(x)
+    q, s = qt.data, qt.scales
+    assert torch.equal(_bits(q), _bits(qr)) and torch.equal(s, sr)
+
+
+def test_constrain_is_a_no_op_on_plain_cuda_tensors(cuda):
+    from repro_torch.distributed.sharding import MeshShape, ShardingRules
+    from repro_torch.models.common import activation_sharding, constrain
+    x = torch.ones((2, 16, 64), device=cuda)
+    with activation_sharding(ShardingRules(MeshShape(("data", "model"), (2, 4)))):
+        assert constrain(x, "act_btd") is x
+        assert constrain(x, "logits") is x
+    assert constrain(x, "act_btd") is x
+
+
+@pytest.mark.parametrize("experts", [0, 3], ids=["mm", "bmm"])
+def test_dot_on_a_one_rank_mesh_uses_the_mm_dtype_strategy(cuda, tmp_path, experts):
+    """`_dot` of DTensors on a 1-rank cuda mesh: `aten::mm.dtype` and, for
+    stacked experts, `aten::bmm.dtype` (no DTensor strategies of their
+    own) take the registered mm / bmm strategies; the result and both
+    gradients equal the plain tensors' bit for bit."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.distributed import host_collectives
+    from repro_torch.distributed.sharding import register_dtensor_ops
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        if host_collectives.needs_host(cuda):
+            host_collectives.install()
+        register_dtensor_ops()
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("model",))
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        lead = (experts,) if experts else ()
+        x = torch.randn(lead + (24, 64), generator=gen, device=cuda).to(torch.bfloat16)
+        w = torch.randn(lead + (64, 40), generator=gen, device=cuda).to(torch.bfloat16)
+        want = fp8_linear._dot(x.requires_grad_(), w.requires_grad_())
+        want.float().sum().backward()
+        dx = DTensor.from_local(x.detach().clone(), mesh, [Shard(0)]).requires_grad_()
+        dw = DTensor.from_local(w.detach().clone(), mesh, [Replicate()]).requires_grad_()
+        got = fp8_linear._dot(dx, dw)
+        assert isinstance(got, DTensor) and got.placements == (Shard(0),)
+        got.float().sum().backward()
+        assert torch.equal(got.to_local(), want)
+        assert torch.equal(dx.grad.to_local(), x.grad)
+        assert torch.equal(dw.grad.full_tensor(), w.grad)
+    finally:
+        dist.destroy_process_group()

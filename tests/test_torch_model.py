@@ -251,16 +251,17 @@ def test_full_fp8_prefill_matches_reference(setup):
 def test_unported_layer_kinds_raise():
     """Every layer kind is ported (cross attention since the enc-dec
     slice, held to the reference in test_torch_encdec.py): an enc-dec
-    pattern builds with its cross and encoder leaves; the attention
-    impl the port lacks (`repeat`, a tensor-parallel layout) raises."""
+    pattern builds with its cross and encoder leaves; every attention impl
+    of the reference is ported (`repeat` since the distributed slice), and
+    a name neither package has raises."""
     cfg = tconfigs.tiny_serving_config()
     model = Transformer(cfg.reduced(n_enc_layers=2), "cpu")
     params = model.init_params(0)
     assert {"attn", "cross", "mlp"} <= set(params["blocks"]["s0"])
     assert "q_norm_scale" not in params["blocks"]["s0"]["cross"]
     assert set(params["enc"]) == {"blocks", "final_norm_scale"}
-    with pytest.raises(ValueError, match="naive and chunked"):
-        with tattn.attention_impl("repeat"):
+    with pytest.raises(ValueError, match="naive, chunked and repeat"):
+        with tattn.attention_impl("flash"):
             pass
 
 

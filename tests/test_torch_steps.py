@@ -30,6 +30,8 @@ and cross through `repro_torch.bridge`; a reference cache crosses through
   cache as it was; `apply_kv_scales` on a contiguous cache.
 Run with `-s` to print the measured gaps.
 """
+import functools
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -215,9 +217,32 @@ def test_attention_prefill_contiguous_matches_reference(setup, name, impl):
 
 
 def test_attention_impl_rejects_unported_names():
-    with pytest.raises(ValueError, match="naive and chunked"):
-        with tattn_mod.attention_impl("repeat"):
+    with pytest.raises(ValueError, match="naive, chunked and repeat"):
+        with tattn_mod.attention_impl("flash"):
             pass
+
+
+@pytest.mark.parametrize("kvh", [1, 2, 4])
+def test_sdpa_repeat_matches_reference(kvh):
+    """`attention_impl("repeat")`: K/V repeated to the flat heads, against
+    the reference's `_sdpa` under the same impl (causal mask; one and two
+    KV groups, and none)."""
+    rng = np.random.default_rng(kvh)
+    b, s, h, dh = 2, 9, 4, 16
+    q, k, v = (rng.standard_normal(shape).astype(np.float32)
+               for shape in ((b, s, h, dh), (b, s, kvh, dh), (b, s, kvh, dh)))
+    mask = np.tril(np.ones((s, s), bool))[None]
+    with jattn_mod.attention_impl("repeat"):
+        want = jax.jit(lambda *a: jattn_mod._sdpa(*a, None, None))(
+            *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)), jnp.asarray(mask))
+    with tattn_mod.attention_impl("repeat"):
+        got = tattn_mod._sdpa(*(torch.tensor(x).to(torch.bfloat16) for x in (q, k, v)),
+                              torch.tensor(mask), None)
+    assert _ulp_gap(_f32(got), _f32(want)) <= 1
+    with tattn_mod.attention_impl("naive"):
+        naive = tattn_mod._sdpa(*(torch.tensor(x).to(torch.bfloat16) for x in (q, k, v)),
+                                torch.tensor(mask), None)
+    assert _ulp_gap(_f32(got), _f32(naive)) <= 1
 
 
 # ---------------------------------------------------------------------------
@@ -387,3 +412,142 @@ def test_kv_cache_bridge_is_bit_exact(setup):
     np.testing.assert_array_equal(t.k.view(torch.uint8).numpy(),
                                   np.asarray(kv.k).view(np.uint8))
     np.testing.assert_array_equal(t.v_scale.numpy(), np.asarray(kv.v_scale))
+
+
+# ---------------------------------------------------------------------------
+# the learner-side train step and the optimizer's specs
+# ---------------------------------------------------------------------------
+
+def _by_path(tree, prefix=""):
+    """{"a/b": leaf} of a nested dict (the reference's or the port's; a
+    quantized moment is one leaf)."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_by_path(v, f"{prefix}/{k}" if prefix else str(k)))
+        return out
+    return {prefix: tree}
+
+
+def _jax_tree(tree):
+    """A port param tree as the reference's: nested dicts of jax arrays,
+    each in its leaf's dtype (an MoE router stays bf16), on copies (a jax
+    array may alias a numpy buffer, and the port's step updates in place
+    while the reference's may still be running)."""
+    if isinstance(tree, dict):
+        return {k: _jax_tree(v) for k, v in tree.items()}
+    return jnp.asarray(tree.float().numpy().copy()).astype(str(tree.dtype).split(".")[-1])
+
+
+def _train_cfgs(kind):
+    if kind == "dense":
+        return jconfigs.tiny_serving_config(), tconfigs.tiny_serving_config()
+    name = {"moe": "granite-moe-3b-a800m", "vlm": "pixtral-12b"}[kind]
+    kw = dict(n_layers=2, d_model=64, d_ff=64, n_heads=4, n_kv_heads=2, d_head=16,
+              vocab_size=64)
+    return (jconfigs.get_config(name).reduced(**kw),
+            tconfigs.get_config(name).reduced(**kw))
+
+
+@pytest.mark.parametrize("kind", ["dense", "moe", "vlm"])
+def test_train_step_matches_reference(kind):
+    """One `make_train_step` (CE after a VLM's prefix, + the MoE aux loss,
+    then AdamW) against the reference's jitted one on the same f32 params
+    (the port's seeded draw, handed to both): the loss within 1e-5, and
+    the updated params within f32 rounding, except where a near-zero
+    gradient's sign differs (AdamW's first step moves a param by about
+    lr x sign(g): at most 2 lr apart, in under 1% of elements)."""
+    from repro.optim import AdamWConfig as JAdamWConfig
+    from repro.optim import init as jinit
+
+    from repro_torch.optim import adamw as tadamw
+
+    jcfg, tcfg = _train_cfgs(kind)
+    tparams = Transformer(tcfg, "cpu", dtype=torch.float32).init_params(0)
+    params = _jax_tree(tparams)
+    rng = np.random.default_rng(3)
+    batch = {"tokens": rng.integers(0, jcfg.vocab_size, (2, 8)).astype(np.int32)}
+    if kind == "vlm":
+        batch["patches"] = rng.standard_normal((2, 4, jcfg.d_model)).astype(np.float32)
+    lr = 1e-3
+    jopt = JAdamWConfig(lr=lr)
+    jstep = jax.jit(jsteps.make_train_step(jcfg, opt_cfg=jopt))
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    jparams, _, jloss = jstep(params, jinit(params, jopt), jbatch)
+    topt = tadamw.AdamWConfig(lr=lr)
+    tstep = tsteps.make_train_step(tcfg, opt_cfg=topt, device="cpu")
+    tparams, tstate, tloss = tstep(tparams, tadamw.init(tparams, topt),
+                                   {k: torch.tensor(v) for k, v in batch.items()})
+    assert int(tstate.step) == 1
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
+    n_far = n_all = 0
+    jleaves, tleaves = _by_path(jparams), _by_path(tparams)
+    assert set(jleaves) == set(tleaves)
+    for path, a in jleaves.items():
+        # rounding: f32, or one ulp of a bf16 leaf (an MoE router)
+        ulp = 1e-6 * np.abs(np.asarray(a, np.float32)) if a.dtype == jnp.float32 else \
+            2.0 ** (np.floor(np.log2(np.maximum(np.abs(np.asarray(a, np.float32)), 1e-30))) - 7)
+        a, b = np.asarray(a, np.float32), tleaves[path].float().numpy()
+        d = np.abs(a - b)
+        assert np.all(d <= 2 * lr * 1.01 + ulp), f"{path} moved apart"
+        n_far += int((d > 10 * ulp + 1e-7).sum())
+        n_all += d.size
+    assert n_far <= 0.01 * n_all, (n_far, n_all)
+
+
+def _moment_specs(x):
+    if isinstance(x, QuantizedTensor) or hasattr(x, "scales"):
+        return (_spec(x.data), _spec(x.scales))
+    return _spec(x)
+
+
+# the reference's param specs once per config for the module (its
+# `make_opt_specs` calls `param_specs`, an eval_shape of init_params)
+_REF_PARAM_SPECS = functools.lru_cache(maxsize=None)(jsteps.param_specs)
+
+
+@pytest.mark.parametrize("fp8", [False, True], ids=["f32", "fp8"])
+def test_opt_specs_match_reference(fp8, monkeypatch):
+    """`make_opt_specs` on meta against the reference's `jax.eval_shape`
+    of the AdamW state, f32 and fp8 moments, for every registry config."""
+    from repro.optim import AdamWConfig as JAdamWConfig
+
+    from repro_torch.optim import adamw as tadamw
+
+    monkeypatch.setattr(jsteps, "param_specs", _REF_PARAM_SPECS)
+    for name in sorted(jconfigs.REGISTRY):
+        want = jsteps.make_opt_specs(jconfigs.get_config(name), JAdamWConfig(fp8_moments=fp8))
+        got = tsteps.make_opt_specs(tconfigs.get_config(name),
+                                    tadamw.AdamWConfig(fp8_moments=fp8))
+        assert _spec(got.step) == _spec(want.step)
+        for moment in ("m", "v"):
+            jleaves = _by_path(getattr(want, moment))
+            tleaves = _by_path(getattr(got, moment))
+            assert set(jleaves) == set(tleaves), name
+            for path, a in jleaves.items():
+                b = tleaves[path]
+                assert (b.data if fp8 else b).is_meta
+                assert _moment_specs(b) == _moment_specs(a), (name, path)
+
+
+def test_loss_and_grads_are_freed_by_refcount():
+    """The gradients `make_loss_and_grads` returns die with their last
+    reference, the collector off: no reference cycle keeps a step's
+    gradients (a full model's worth on the card) alive."""
+    import gc
+    import weakref
+
+    cfg = tconfigs.tiny_serving_config()
+    params = Transformer(cfg, "cpu", dtype=torch.float32).init_params(0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 8), generator=torch.Generator().manual_seed(0))
+    loss_and_grads = tsteps.make_loss_and_grads(cfg, device="cpu")
+    loss_and_grads(params, {"tokens": tokens})   # the first call's lazy imports hold frames
+    gc.collect()
+    gc.disable()
+    try:
+        loss, grads = loss_and_grads(params, {"tokens": tokens})
+        ref = weakref.ref(grads["emb"])
+        del loss, grads
+        assert ref() is None
+    finally:
+        gc.enable()
