@@ -268,12 +268,31 @@ the order 1-5, 7, 6, 8-15:
        gradient shards within 1e-4 of max|g|), an all-gather and a
        reduction among its collectives (`CommDebugMode`), the others
        `make_train_step`'s; each rank's resident param + moment bytes
-       under 0.3 of one process's; the losses and walls logged;
+       under 0.3 of one process's; the losses and walls logged; then one
+       update with fp8 moments of the same params sharded and in one
+       process: each rank's moment payload and scale bytes equal to the
+       one-process moments' same slices, its param shards equal;
     c. `pipeline_apply` over 4 stages, each one full-width qwen3-8b
-       decoder layer (bf16, the training layer body), 8 microbatches of
+       decoder layer (bf16, the training layer body), each rank holding
+       only its own stage's slice (`shard_stages`), 8 microbatches of
        (1, 128, 4096): bit-equal to the layers in sequence in one
-       process, the wall and `bubble_fraction(4, 8)` logged.
+       process, the wall and `bubble_fraction(4, 8)` logged;
+    d. llama3.2-3b at full width (2 of 28 layers) under
+       `PrecisionConfig()`: the sharded W8A8 `make_prefill_step` (B 8 x
+       256) and 4 `make_serve_step` calls on the (2, 2) mesh with ZeRO-3,
+       kernels 1 and 3 on each rank's shards and kernel 6 over its local
+       KV heads: logits within LOGIT_ATOL of one process's, the decisive
+       argmax equal, kernel 1, 3 and 6 launches counted exactly on each
+       rank.
     Phase 15 must end within DIST_PHASE_S (150 s).
+16. The roofline (`roofline.analysis.count_step`, the H100's peaks): a
+    7a serve step and a 7c LONG_500K step were counted in phase 7, each
+    on its own beside the step the profiler times; each step's roofline
+    bound must not exceed the profiled step's device-busy time (the ratio
+    is logged).  Then one dry-run cell
+    (`launch.dryrun`, llama3.2-3b decode_32k on the single-pod mesh, a
+    fake process group of 256 ranks, meta DTensors) in a subprocess: its
+    record's status ok.
 
 The line before the last is the `kernels` JSON object; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
@@ -281,6 +300,7 @@ The line before the last is the `kernels` JSON object; the last line is
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -447,6 +467,17 @@ DIST_TRAIN_BT = (8, 256)
 DIST_STEPS = 3
 DIST_PIPE_M = 8
 DIST_PIPE_T = 128
+# 15d: the sharded W8A8 prefill + DIST_SERVE_STEPS serve steps of
+# llama3.2-3b at full width, DIST_SERVE_LAYERS of its layers
+DIST_SERVE = "llama3.2-3b"
+DIST_SERVE_LAYERS = 2
+DIST_SERVE_BT = (8, 256)
+DIST_SERVE_STEPS = 4
+# phase 16: `roofline.analysis.count_step` over a 7a and a 7c serve step
+# (stashed here by phase 7) and one dry-run cell in a subprocess
+ROOFLINE_COUNTS = {}
+DRYRUN_CELL = ("llama3.2-3b", "decode_32k", "single")
+DRYRUN_TIMEOUT_S = 300
 
 
 def check(cond, msg):
@@ -1511,6 +1542,7 @@ def contiguous_7a(dev, cfg, roll, prec, stats):
     from repro_torch.launch import steps
     from repro_torch.models import Transformer
     from repro_torch.rl import SamplerConfig, generate
+    from repro_torch.roofline.analysis import count_step
     shape = ShapeConfig(*CONTIG_SHAPE)
     b = shape.global_batch
     prompts, lengths = make_prompts(np.random.default_rng(SEED + 7), b=b, lo=512, hi=1024)
@@ -1585,7 +1617,13 @@ def contiguous_7a(dev, cfg, roll, prec, stats):
     # one serve step through the kernels vs the plain versions, same tensors
     twin = copy.deepcopy(cache)
     tok = toks[-1]
-    lk, _ = serve_step(roll, tok, cache)
+    # phase 16 reads this step's count (roofline) against its device time:
+    # counted on its own first (a shallow copy of the cache: the count's
+    # step writes the K/V row the kernel step rewrites with the same
+    # values, and its lengths stay), then the kernel step profiled alone
+    _, costs = count_step(serve_step, roll, tok, dict(cache))
+    (lk, _), busy, _, _ = _profile(lambda: serve_step(roll, tok, cache))
+    ROOFLINE_COUNTS["7a"] = dict(costs=costs, busy_ms=busy, shape=("7a", shape.seq_len, b))
     with mock.patch.object(ops, "_route", lambda t, kernel, plain: plain):
         lpl, _ = serve_step(roll, tok, twin)
     torch.cuda.synchronize()
@@ -1674,6 +1712,7 @@ def contiguous_7c(dev, gen, cfg, roll, prec, stats, extra, results):
     from repro_torch.core.quant import calibrate_scale, quantize_per_tensor
     from repro_torch.kernels import build
     from repro_torch.launch import steps
+    from repro_torch.roofline.analysis import count_step
     b, s_len = LONG_500K.global_batch, LONG_500K.seq_len
     kvh, g, d = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.d_head
     fresh_peak("long500k", stats)
@@ -1700,6 +1739,12 @@ def contiguous_7c(dev, gen, cfg, roll, prec, stats, extra, results):
         f"has {card_gb:.1f} GB")
     serve_step = steps.make_serve_step(cfg, prec, device=dev)
     tok = torch.randint(4, 19, (b,), generator=gen, device=dev)
+    # phase 16's count (roofline) of one step, on its own, before the
+    # cell's launches are counted: a shallow copy of the cache, so the
+    # count's step writes the K/V row that the first step rewrites with
+    # the same values, and the cache's lengths stay (the cache is full
+    # after the cell's 4 steps; there is no room for a fifth)
+    _, costs = count_step(serve_step, roll, tok, dict(cache))
     build.reset_launch_counts()
     # --- the LONG_500K decode cell: 4 serve steps, the last one profiled ---
     step_ms = []
@@ -1709,6 +1754,8 @@ def contiguous_7c(dev, gen, cfg, roll, prec, stats, extra, results):
         step_ms.append(ms)
     (logits, cache), busy_ms, n_kernels, by_name = _profile(
         lambda: serve_step(roll, tok, cache))
+    ROOFLINE_COUNTS["7c"] = dict(costs=costs, busy_ms=busy_ms,
+                                 shape=("long_500k", s_len, b))
     launches = _path_launches("LONG_500K decode 7c", ("quant_act", "fp8_gemm", "decode"),
                               _quant_ratio(cfg))
     # ----------------------------------------------------------------------
@@ -4141,6 +4188,128 @@ def dist_train(rank, world, dev):
                 losses=losses, walls=walls)
 
 
+def dist_fp8_moments(rank, world, dev):
+    """15b's fp8 step: one AdamW update with fp8 moments of llama3.2-3b's
+    f32 params (DIST_TRAIN_LAYERS layers, seeded gradients) sharded on the
+    (2, 2) mesh and in this process: every rank holds each moment's local
+    payload and scale bytes equal to the same slice of the one-process
+    moment's, and its param shards equal."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.fp8_params import tree_leaves
+    from repro_torch.distributed.sharding import ShardingRules, distribute, local_shard
+    from repro_torch.models import Transformer
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(get_config(DIST_TRAIN), n_layers=DIST_TRAIN_LAYERS)
+    params = Transformer(cfg, dev, dtype=torch.float32).init_params(SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+
+    def draw(t):
+        if isinstance(t, dict):
+            return {k: draw(v) for k, v in t.items()}
+        return torch.randn(t.shape, generator=gen, device=dev) * 1e-3
+    grads = draw(params)
+    opt = adamw.AdamWConfig(lr=1e-4, fp8_moments=True)
+    mesh = init_device_mesh("cuda", (2, world // 2), mesh_dim_names=("data", "model"))
+    rules = ShardingRules(mesh, zero3=True)
+    specs = rules.params(params)
+    dparams, dgrads = distribute(params, specs, mesh), distribute(grads, specs, mesh)
+    state = adamw.init(dparams, opt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dparams, state, _ = adamw.update(dparams, dgrads, state, opt)
+    torch.cuda.synchronize()
+    sharded_s = time.perf_counter() - t0
+    del dgrads
+    state1 = adamw.init(params, opt)       # the one-process update, in place
+    one, state1, _ = adamw.update(params, grads, state1, opt)
+    del grads
+    bad, leaves = [], 0
+    for name in ("m", "v"):
+        for q1, q2 in zip(tree_leaves(getattr(state1, name)), tree_leaves(getattr(state, name))):
+            leaves += 1
+            for a, b in ((q1.data, q2.data), (q1.scales, q2.scales)):
+                if not torch.equal(local_shard(a, b).contiguous().view(torch.uint8),
+                                   b.to_local().contiguous().view(torch.uint8)):
+                    bad.append(name)
+    params_equal = all(torch.equal(local_shard(a, b), b.to_local())
+                       for a, b in zip(tree_leaves(one), tree_leaves(dparams)))
+    aligned = sum(adamw._moment_layout(p)[3] for p in tree_leaves(dparams))
+    return dict(moment_leaves=leaves, mismatched=bad, params_equal=params_equal,
+                aligned_leaves=aligned, update_s=sharded_s)
+
+
+def dist_serve(rank, world, dev):
+    """15d: llama3.2-3b at full width, DIST_SERVE_LAYERS of its layers,
+    `PrecisionConfig()` (W8A8 linears, FP8 KV): the sharded
+    `make_prefill_step` and DIST_SERVE_STEPS `make_serve_step` calls on a
+    (2, 2) mesh with ZeRO-3, fed the one-process run's greedy tokens,
+    against the same steps in this process: each step's largest logit
+    gap and decisive-argmax agreement, the kernel launches of the sharded
+    path alone (counts zeroed just before it), the walls."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core import fp8_params
+    from repro_torch.core.precision import PrecisionConfig
+    from repro_torch.distributed.sharding import ShardingRules, distribute
+    from repro_torch.kernels import build
+    from repro_torch.launch import steps
+    from repro_torch.models import Transformer
+    cfg = dataclasses.replace(get_config(DIST_SERVE), n_layers=DIST_SERVE_LAYERS)
+    prec = PrecisionConfig()
+    roll = fp8_params.quantize_params(Transformer(cfg, dev).init_params(SEED), prec)
+    b, t = DIST_SERVE_BT
+    shape = ShapeConfig("15d", t, b, "prefill")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, t), generator=gen, device=dev),
+             "lengths": torch.randint(t // 2, t - DIST_SERVE_STEPS, (b,), generator=gen,
+                                      device=dev, dtype=torch.int32)}
+    logits, cache = steps.make_prefill_step(cfg, shape, prec, device=dev)(roll, batch)
+    serve = steps.make_serve_step(cfg, prec, device=dev)
+    one, toks = [logits], []
+    for _ in range(DIST_SERVE_STEPS):
+        toks.append(logits.argmax(-1))
+        logits, cache = serve(roll, toks[-1], cache)
+        one.append(logits)
+    del cache
+    mesh = init_device_mesh("cuda", (2, world // 2), mesh_dim_names=("data", "model"))
+    rules = ShardingRules(mesh, zero3=True)
+    droll = distribute(roll, rules.params(roll), mesh)
+    prefill2 = steps.make_prefill_step(cfg, shape, prec, rules=rules)
+    serve2 = steps.make_serve_step(cfg, prec, rules=rules)
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    walls, gaps, agree = [], [], []
+    t0 = time.perf_counter()
+    logits2, cache2 = prefill2(droll, batch)
+    outs = [logits2]
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter() - t0)
+    for tok in toks:
+        t0 = time.perf_counter()
+        logits2, cache2 = serve2(droll, tok, cache2)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        outs.append(logits2)
+    launches = dict(build.LAUNCHES)
+    for a, b2 in zip(one, outs):
+        full = b2.full_tensor()
+        gaps.append(float((full - a).abs().max()))
+        decisive = _top2_gap(a) > DECISIVE_GAP
+        agree.append(bool((full.argmax(-1) == a.argmax(-1))[decisive].all()))
+    finite = all(bool(torch.isfinite(o.to_local()).all()) for o in outs)
+    return dict(gaps=gaps, agree=agree, launches=launches, walls=walls, finite=finite,
+                local_cache_shape=list(cache2["slots"]["s0"]["kv"].k.to_local().shape))
+
+
 def dist_pipeline(rank, world, dev):
     """15c: `pipeline_apply` over `world` stages, each one full-width
     qwen3-8b decoder layer (bf16, the training layer body), on
@@ -4153,7 +4322,8 @@ def dist_pipeline(rank, world, dev):
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.configs import get_config
-    from repro_torch.distributed.pipeline import bubble_fraction, pipeline_apply
+    from repro_torch.core.fp8_params import tree_leaves
+    from repro_torch.distributed.pipeline import bubble_fraction, pipeline_apply, shard_stages
     from repro_torch.models import Transformer
     from repro_torch.models import blocks as blocks_mod
     from repro_torch.models.transformer import _layer, _train_mask
@@ -4177,15 +4347,17 @@ def dist_pipeline(rank, world, dev):
                      device=dev).to(torch.bfloat16)
     mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("stage",))
     piped = pipeline_apply(stage_fn, mesh)
+    mine = shard_stages(stack, mesh)                # this rank's stage only
     with torch.no_grad():
-        piped(stack, xs)                            # warm
+        piped(mine, xs)                             # warm
         torch.cuda.synchronize()
         dist.barrier()
         t0 = time.perf_counter()
-        out = piped(stack, xs)
+        out = piped(mine, xs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        rec = dict(wall_s=wall, bubble=bubble_fraction(world, DIST_PIPE_M), digest=_digest(out))
+        rec = dict(wall_s=wall, bubble=bubble_fraction(world, DIST_PIPE_M), digest=_digest(out),
+                   local_stage_dims=sorted({t.to_local().shape[0] for t in tree_leaves(mine)}))
         if rank == 0:
             seq = []
             for m in range(DIST_PIPE_M):
@@ -4219,7 +4391,9 @@ def _dist_rank(rank, world, store_path, out_q):
         from repro_torch.kernels import build
         build.library()
         res = {"rank": rank}
-        for name, fn in (("15a", dist_compress), ("15b", dist_train), ("15c", dist_pipeline)):
+        for name, fn in (("15a", dist_compress), ("15b", dist_train),
+                         ("15b8", dist_fp8_moments), ("15c", dist_pipeline),
+                         ("15d", dist_serve)):
             t0 = time.perf_counter()
             res[name] = fn(rank, world, dev)
             res[name + "_s"] = time.perf_counter() - t0
@@ -4318,23 +4492,113 @@ def distributed_path(dev, gen, extra):
         f"{b['loss_one_process']:.6f}, rel {rel:.2e}), grads within {err:.2e} of max|g|, "
         f"resident {share:.3f} of one process's bytes, collectives {b['comms']}, "
         f"losses {b['losses']}, walls (s) {[round(w, 2) for w in b['walls']]}")
+    # 15b's fp8 step
+    f = r0["15b8"]
+    check(all(not reports[r]["15b8"]["mismatched"] and reports[r]["15b8"]["params_equal"]
+              for r in reports),
+          "15b fp8 step: sharded moments or params differ from one process's "
+          + json.dumps({r: reports[r]["15b8"]["mismatched"] for r in reports}))
+    log(f"15b fp8 step: {f['moment_leaves']} moment leaves' payloads and scales bit-equal to "
+        f"one process's on {DIST_RANKS} ranks, params equal; {f['aligned_leaves']} leaves "
+        f"with aligned blocks; update {f['update_s']:.2f} s")
     # 15c
     c = r0["15c"]
     check(c["bit_equal_sequential"] and c["finite"],
           "15c: the pipeline differs from the layers in sequence")
     check(len({reports[r]["15c"]["digest"] for r in reports}) == 1,
           "15c: the stages hold different outputs")
+    check(all(reports[r]["15c"]["local_stage_dims"] == [1] for r in reports),
+          "15c: a rank holds more than its own stage's params")
     log(f"15c {DIST_RANKS} stages of qwen3-8b layers, M {DIST_PIPE_M} x (1, {DIST_PIPE_T}, "
-        f"d): bit-equal to the sequence, wall {c['wall_s']:.3f} s, bubble_fraction "
-        f"{c['bubble']:.4f}")
+        f"d), each rank holding its own stage's slice: bit-equal to the sequence, wall "
+        f"{c['wall_s']:.3f} s, bubble_fraction {c['bubble']:.4f}")
+    # 15d
+    d = r0["15d"]
+    layers = DIST_SERVE_LAYERS
+    n_steps = 1 + DIST_SERVE_STEPS
+    want = {"quant_act": 4 * layers * n_steps, "fp8_gemm": 7 * layers * n_steps,
+            "decode": layers * DIST_SERVE_STEPS}
+    for r in sorted(reports):
+        got = {k: reports[r]["15d"]["launches"].get(k, 0) for k in want}
+        check(got == want, f"15d rank {r}: launches {got}, want {want}")
+        check(max(reports[r]["15d"]["gaps"]) <= LOGIT_ATOL and all(reports[r]["15d"]["agree"])
+              and reports[r]["15d"]["finite"],
+              f"15d rank {r}: logits {reports[r]['15d']['gaps']} (tol {LOGIT_ATOL}), decisive "
+              f"argmax {reports[r]['15d']['agree']}")
+    log(f"15d {DIST_SERVE} x{layers} layers, (2, 2) mesh, ZeRO-3, PrecisionConfig(), B x T "
+        f"{DIST_SERVE_BT}: prefill + {DIST_SERVE_STEPS} serve steps, logit gaps to one "
+        f"process {[round(g, 4) for g in d['gaps']]} (tol {LOGIT_ATOL}), decisive argmax "
+        f"equal {d['agree']}, launches a rank {want} on each of {DIST_RANKS} ranks, local "
+        f"cache layer {d['local_cache_shape']}, walls (s) "
+        f"{[round(w, 3) for w in d['walls']]}")
     log("15: host-copied collectives " + json.dumps(r0["host_copied"]) + ", their operand "
         "bytes on rank 0 " + json.dumps(r0["host_bytes"]) + ", rank peaks (GB) "
         + json.dumps([round(reports[r]["peak_gb"], 2) for r in sorted(reports)])
-        + ", seconds " + json.dumps({k: round(r0[k], 1) for k in ("15a_s", "15b_s", "15c_s")}))
+        + ", seconds " + json.dumps({k: round(r0[k], 1) for k in
+                                    ("15a_s", "15b_s", "15b8_s", "15c_s", "15d_s")}))
     wall = time.perf_counter() - t_phase
     log(f"phase 15: {wall:.1f} s")
     check(wall <= DIST_PHASE_S, f"phase 15 took {wall:.1f} s (budget {DIST_PHASE_S} s)")
-    return {"compress": r0["15a"], "train": b, "pipeline": c, "wall_s": wall}
+    return {"compress": r0["15a"], "train": b, "fp8_step": f, "pipeline": c, "serve": d,
+            "wall_s": wall}
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the roofline count against the card, one dry-run cell
+# ---------------------------------------------------------------------------
+
+def roofline_path():
+    """Phase 16: `roofline.analysis.count_step` of the 7a and 7c serve
+    steps (counted in phase 7, each beside the step the profiler times,
+    which runs uncounted): each step's roofline bound (`step_time_s` at
+    the H100's peaks) must not exceed the profiled step's device-busy
+    time, else the count is wrong; then one dry-run
+    cell (`launch.dryrun`, a fake process group of 256 ranks, meta
+    DTensors) in a subprocess on this machine's torch, its status ok."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.roofline.analysis import analyze
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen3-8b")
+    out = {}
+    for tag in ("7a", "7c"):
+        rec = ROOFLINE_COUNTS[tag]
+        shape = ShapeConfig(rec["shape"][0], rec["shape"][1], rec["shape"][2], "decode")
+        terms = analyze(rec["costs"], cfg, shape, "decode", 1)
+        bound_ms = terms.step_time_s * 1e3
+        ratio = bound_ms / rec["busy_ms"]
+        k = rec["costs"]["kernels"]
+        log(f"16 {tag} serve step: roofline bound {bound_ms:.3f} ms ({terms.dominant}; "
+            f"compute {terms.compute_s * 1e3:.3f}, memory {terms.memory_s * 1e3:.3f} ms: "
+            f"{rec['costs']['flops']:.4g} FLOPs, {rec['costs']['bytes']:.4g} bytes, of which "
+            f"kernels {json.dumps(k)}), device busy {rec['busy_ms']:.3f} ms, bound / busy "
+            f"{ratio:.3f}")
+        check(bound_ms <= rec["busy_ms"], f"16 {tag}: the roofline bound {bound_ms:.3f} ms "
+              f"exceeds the measured device-busy {rec['busy_ms']:.3f} ms: the count is wrong")
+        out[tag] = dict(bound_ms=bound_ms, busy_ms=rec["busy_ms"], ratio=ratio,
+                        dominant=terms.dominant, flops=rec["costs"]["flops"],
+                        bytes=rec["costs"]["bytes"])
+    arch, shape_name, mesh = DRYRUN_CELL
+    out_dir = ROOT / "build" / "dryrun"
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                           "--shape", shape_name, "--mesh", mesh, "--out", str(out_dir)],
+                          capture_output=True, text=True, env=env, timeout=DRYRUN_TIMEOUT_S)
+    path = out_dir / f"{arch}__{shape_name}__{mesh}__fp8.json"
+    check(proc.returncode == 0 and path.exists(),
+          f"16: the dry-run cell failed (rc {proc.returncode}): {proc.stderr[-3000:]}")
+    record = json.loads(path.read_text())
+    check(record["status"] == "ok", f"16: dry-run status {record['status']}")
+    roof = record["roofline"]
+    log(f"16 dry run {arch} {shape_name} {mesh} (fake group of {record['n_devices']}): status "
+        f"{record['status']} in {time.perf_counter() - t0:.1f} s; memory "
+        + json.dumps({k: v for k, v in record["memory"].items() if k.endswith("bytes")
+                      or k == "peak_bytes_est"})
+        + f"; roofline compute {roof['compute_s']:.4e} s, memory {roof['memory_s']:.4e} s, "
+        f"collective {roof['collective_s']:.4e} s, dominant {roof['dominant']}")
+    out["dryrun"] = dict(status=record["status"], memory=record["memory"], roofline=roof)
+    log(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4766,6 +5030,7 @@ def main() -> int:
     dist_extra = []
     distributed_path(dev, gen, dist_extra)
     log("kernel_timings_distributed " + json.dumps(dist_extra))
+    roofline_path()
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, "
         f"wall {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

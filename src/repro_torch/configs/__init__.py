@@ -46,6 +46,15 @@ REGISTRY = {c.name: c for c in (qwen3_8b, llama3_2_3b, stablelm_3b,
                                 pixtral_12b)}
 
 
+# the reference's two groups: its ten assigned architectures (the dry
+# run's cells) and the paper's own two Qwen3 models
+ASSIGNED = {c.name: c for c in (
+    seamless_m4t_medium, stablelm_3b, llama3_2_3b, mistral_large_123b,
+    starcoder2_15b, jamba_1_5_large_398b, granite_moe_3b_a800m,
+    grok_1_314b, mamba2_780m, pixtral_12b)}
+PAPER = {c.name: c for c in (qwen3_8b, qwen3_30b_a3b)}
+
+
 def get_config(name: str) -> ArchConfig:
     key = name.replace("_", "-")
     if key not in REGISTRY:
@@ -95,8 +104,8 @@ def tiny_encdec_serving_config() -> ArchConfig:
         vocab_size=tasks.VOCAB_SIZE, n_heads=4, n_kv_heads=2, d_head=16)
 
 
-__all__ = ["ALL_SHAPES", "ArchConfig", "DECODE_32K", "LONG_500K",
-           "PREFILL_32K", "REGISTRY", "ShapeConfig", "TRAIN_4K", "get_config",
+__all__ = ["ALL_SHAPES", "ASSIGNED", "ArchConfig", "DECODE_32K", "LONG_500K",
+           "PAPER", "PREFILL_32K", "REGISTRY", "ShapeConfig", "TRAIN_4K", "get_config",
            "granite_moe_3b_a800m", "grok_1_314b", "jamba_1_5_large_398b",
            "llama3_2_3b", "mamba2_780m", "mistral_large_123b",
            "pixtral_12b", "qwen3_30b_a3b", "qwen3_8b", "seamless_m4t_medium",

@@ -111,6 +111,14 @@ class ArchConfig:
             cells.append(LONG_500K)
         return tuple(cells)
 
+    def skipped_shapes(self) -> Tuple[Tuple[ShapeConfig, str], ...]:
+        """The cells `shapes` leaves out, each with its reason (the
+        reference's): LONG_500K for a pure full-attention arch."""
+        if self.sub_quadratic:
+            return ()
+        return ((LONG_500K, "pure full-attention arch: 500k dense decode "
+                            "requires sub-quadratic attention (DESIGN.md §4)"),)
+
     def is_attn_layer(self, i: int) -> bool:
         if self.attention_free:
             return False
@@ -147,6 +155,15 @@ class ArchConfig:
                 total += per_moe if self.is_moe_layer(i) else per_mlp
         total += self.n_enc_layers * (per_attn + per_mlp)
         return total
+
+    def active_param_count(self) -> int:
+        """Params a token activates (the reference's): an MoE layer counts
+        top_k of its n_experts experts' fc1/fc2."""
+        if self.n_experts == 0:
+            return self.param_count()
+        n_moe_layers = sum(self.is_moe_layer(i) for i in range(self.n_layers))
+        inactive = n_moe_layers * (self.n_experts - self.top_k) * 3 * self.d_model * self.d_ff
+        return self.param_count() - inactive
 
     # ------------------------------------------------------------------
     def reduced(self, **overrides) -> "ArchConfig":

@@ -19,13 +19,28 @@ kernels 1 and 2 on the card (their plain versions on the CPU); the three
 GEMMs are `_dot`s of the dequantized bf16 operands with f32 sums, as the
 reference's run in XLA.
 `linear` takes it for a bf16 weight under `precision.fp8_training`.
+
+Sharded W8A8 (a `QuantizedTensor` of DTensors, laid out by
+`distributed.ShardingRules`, in a sharded prefill or serve step): kernels
+1 and 3 run on each rank's local shards (`_sharded_linears`).  Per mesh
+dim, a weight sharded where x is split by data (ZeRO) is gathered first;
+then a column-parallel weight (N sharded) takes x replicated there and
+gives y sharded on N, a row-parallel one (K sharded) takes x sharded on K
+and its local products are summed over that mesh dim in f32 (within one
+bf16 rounding of one process: each partial is rounded to bf16 first), an
+expert-parallel one (E sharded) takes x sharded on E.  A shard of K or N
+that is not a multiple of 128 would split a 128x128 scale block (and for
+K a 1x128 activation tile): such a weight is gathered over those mesh
+dims and the linear runs replicated there.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
+from repro_torch import is_dtensor
 from repro_torch.core.precision import E4M3, E5M2, Fp8Recipe, PrecisionConfig, ScaleFormat
 from repro_torch.core.quant import QuantizedTensor, dequantize
 from repro_torch.kernels import ops
@@ -99,9 +114,52 @@ def _dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             out = torch.matmul(x3.float(), w.float())
         return out.to(x.dtype).reshape(*x.shape[:-1], w.shape[-1])
     if x.is_cuda or x.is_meta:
+        if _nested_rows(x):
+            out = _MmF32.apply(_flatten_rows(x), w)
+            return _unflatten_rows(out.to(x.dtype), x)
         out = _MmF32.apply(x.reshape(-1, x.shape[-1]), w)
         return out.to(x.dtype).reshape(*x.shape[:-1], w.shape[-1])
     return torch.matmul(x.float(), w.float()).to(x.dtype)
+
+
+def _nested_rows(x) -> bool:
+    """A DTensor whose batch dim several mesh dims shard (("pod", "data")
+    on the multi-pod mesh) and no other leading dim: DTensor cannot
+    unflatten such rows again after a 2-D GEMM."""
+    if not is_dtensor(x) or x.dim() <= 2:
+        return False
+    lead = [p.dim for p in x.placements if p.is_shard() and p.dim < x.dim() - 1]
+    return len(lead) > 1 and set(lead) == {0}
+
+
+def _flatten_rows(x):
+    """x (*lead, K) -> (M, K), rank by rank (so that the gradient is
+    unflattened rank by rank too)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    local = x.to_local()
+    places = [Shard(1) if p.is_shard(x.dim() - 1) else p for p in x.placements]
+    shape = (math.prod(x.shape[:-1]), x.shape[-1])
+    return DTensor.from_local(local.reshape(-1, local.shape[-1]), x.device_mesh, places,
+                              run_check=False, shape=shape, stride=(shape[1], 1))
+
+
+def _unflatten_rows(out, x):
+    """`out` (M, N), the GEMM of x's flattened rows, back to (*lead, N)
+    rank by rank: laid out with x's batch shards (the GEMM's strategy may
+    have split the rows otherwise), each rank's rows are then its own
+    rows of x, in order."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    target = [Shard(0) if p.is_shard(0) else q if q.is_shard(1) or not q.is_shard()
+              else Replicate() for p, q in zip(x.placements, out.placements)]
+    out = out.redistribute(out.device_mesh, target)
+    local = out.to_local()
+    local = local.reshape(*x.to_local().shape[:-1], local.shape[-1])
+    places = [Shard(x.dim() - 1) if q.is_shard(1) else q for q in target]
+    shape = (*x.shape[:-1], out.shape[-1])
+    return DTensor.from_local(local, x.device_mesh, places, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
 
 
 def fp8_linear_rollout(x: torch.Tensor, w_q: QuantizedTensor, *,
@@ -124,6 +182,8 @@ def linear(x: torch.Tensor, w, *, precision: Optional[PrecisionConfig] = None,
         if not quantized:  # excluded layer got a quantized weight: dequant
             return _dot(x, dequantize(w, x.dtype))
         fmt = precision.scale_format if precision else ScaleFormat.FP32
+        if is_dtensor(w.data):
+            return _sharded_linears(x, [w], fmt)[0]
         return fp8_linear_rollout(x, w, scale_format=fmt)
     if precision is not None and precision.fp8_training and quantized:
         if w.dim() == 3:
@@ -143,9 +203,115 @@ def linears(x: torch.Tensor, ws, *, precision: Optional[PrecisionConfig] = None
     weights, `BF16_ROLLOUT`, excluded layers) each goes through `linear`."""
     if all(isinstance(w, QuantizedTensor) for w in ws):
         fmt = precision.scale_format if precision else ScaleFormat.FP32
+        if any(is_dtensor(w.data) for w in ws):
+            return _sharded_linears(x, ws, fmt)
         x_q = ops.quantize_activation(x, scale_format=fmt)
         return [ops.fp8_matmul(x_q, w, out_dtype=x.dtype) for w in ws]
     return [linear(x, w, precision=precision) for w in ws]
+
+
+def _sharded_plan(x, w):
+    """(payload placements, x placements, y placements, mesh dims to sum
+    over) of the sharded W8A8 linear x @ w (the module docstring)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = w.data.device_mesh
+    nd = w.data.dim()
+    k_dim, n_dim = nd - 2, nd - 1
+    xk = x.dim() - 1
+    w_pl, x_pl, y_pl, reduce = list(w.data.placements), [], [], []
+    for i, pw in enumerate(w_pl):
+        px = x.placements[i]
+        if not isinstance(pw, Shard) or not isinstance(px, Shard):
+            continue
+        if nd == 3 and pw.dim == 0:
+            keep = px.dim == 0          # experts split as x's
+        else:
+            keep = px.dim == xk         # x split by data there: ZeRO
+        if not keep:
+            w_pl[i] = Replicate()
+    for d in (k_dim, n_dim):            # a shard that splits a 128-block
+        on = [i for i, p in enumerate(w_pl) if p == Shard(d)]
+        local = w.data.shape[d] // math.prod(mesh.size(i) for i in on)
+        if on and local % 128:
+            for i in on:
+                w_pl[i] = Replicate()
+    for i, pw in enumerate(w_pl):
+        px = x.placements[i]
+        if isinstance(px, Partial) or px == Shard(xk):
+            px = Replicate()
+        if pw == Shard(k_dim):
+            x_pl.append(Shard(xk))
+            y_pl.append(Replicate())
+            reduce.append(i)
+        elif pw == Shard(n_dim):
+            x_pl.append(Replicate())
+            y_pl.append(Shard(xk))
+        elif nd == 3 and pw == Shard(0):
+            x_pl.append(Shard(0))
+            y_pl.append(Shard(0))
+        else:
+            x_pl.append(px)
+            y_pl.append(px)
+    return w_pl, x_pl, y_pl, reduce
+
+
+def _local_blocks(w, w_pl):
+    """This rank's payload of `w` under placements `w_pl` and the scale
+    blocks that cover it (each kept shard of K or N is whole 128-blocks)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    from repro_torch.models.common import redistribute
+
+    mesh = w.data.device_mesh
+    data = redistribute(w.data, w_pl).to_local()
+    s_pl = [p if p == q and isinstance(p, Shard) else Replicate()
+            for p, q in zip(w_pl, w.scales.placements)]
+    scales = w.scales.redistribute(mesh, s_pl).to_local()
+    _, off = compute_local_shape_and_global_offset(w.data.shape, mesh, w_pl)
+    _, s_off = compute_local_shape_and_global_offset(w.scales.shape, mesh, s_pl)
+    for d, blk in enumerate(w.block):
+        start = off[d] // blk - s_off[d]
+        n = -(-data.shape[d] // blk)
+        if (start, n) != (0, scales.shape[d]):
+            scales = scales.narrow(d, start, n)
+    return ops.k_major(data), scales.contiguous()
+
+
+def _sharded_linears(x, ws, fmt) -> list:
+    """W8A8 linears of x against `QuantizedTensor`s of DTensors on each
+    rank's shards (the module docstring): one kernel-1 call per distinct
+    local input, one kernel-3 call per weight; DTensors out."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models.common import replicate_like
+
+    mesh = ws[0].data.device_mesh
+    if not is_dtensor(x):
+        x = replicate_like(x, ws[0].data)
+    quantized, outs = {}, []
+    for w in ws:
+        w_pl, x_pl, y_pl, reduce = _sharded_plan(x, w)
+        key = tuple(x_pl)
+        if key not in quantized:
+            xl = x.redistribute(mesh, x_pl).to_local().contiguous()
+            quantized[key] = ops.quantize_activation(xl, scale_format=fmt)
+        data, scales = _local_blocks(w, w_pl)
+        y = ops.fp8_matmul(quantized[key], QuantizedTensor(data, scales, w.block[-2:]
+                                                           if data.dim() == 2 else w.block),
+                           out_dtype=x.dtype)
+        if reduce:      # row-parallel: the partial products summed in f32
+            c10d = torch.ops._c10d_functional
+            y = y.float()
+            for i in reduce:
+                y = c10d.wait_tensor(c10d.all_reduce(y, "sum", mesh.get_group(i).group_name))
+            y = y.to(x.dtype)
+        shape = (*x.shape[:-1], w.data.shape[-1])
+        outs.append(DTensor.from_local(y.contiguous(), mesh, y_pl, run_check=False,
+                                       shape=shape,
+                                       stride=torch.empty(shape, device="meta").stride()))
+    return outs
 
 
 # ---------------------------------------------------------------------------

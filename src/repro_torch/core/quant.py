@@ -79,6 +79,14 @@ class QuantizedTensor(NamedTuple):
     scales: torch.Tensor
     block: tuple
 
+    @property
+    def shape(self):
+        return self.data.shape
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
     def layer(self, r: int) -> "QuantizedTensor":
         """Slice `r` of a layer-stacked tensor (views, no copy)."""
         return QuantizedTensor(self.data[r], self.scales[r], self.block[1:])

@@ -28,10 +28,31 @@ def bubble_fraction(n_stages: int, n_microbatches: int) -> float:
     return (n_stages - 1) / (n_microbatches + n_stages - 1)
 
 
+def shard_stages(params_stacked, mesh, stage_axis: str = "stage"):
+    """Lay a stacked (S, ...) tree out over the `stage_axis` mesh dim, as
+    the reference's `in_specs` P(stage_axis) do: DTensors sharded on dim
+    0 there (replicated over any other mesh dim), so each rank keeps only
+    its own stage's slice (`distribute` copies it out; nothing is
+    communicated)."""
+    from repro_torch.distributed.sharding import distribute
+
+    def specs(tree):
+        if isinstance(tree, dict):
+            return {k: specs(v) for k, v in tree.items()}
+        return (stage_axis,) + (None,) * (tree.dim() - 1)
+
+    return distribute(params_stacked, specs(params_stacked), mesh)
+
+
 def _stage_slice(tree, s: int):
-    """Slice s of a stacked (S, ...) tree (views)."""
+    """This stage's params: the local slice of a `shard_stages` DTensor,
+    or slice s of a plain stacked (S, ...) tree (views)."""
+    from repro_torch import is_dtensor
+
     if isinstance(tree, dict):
         return {k: _stage_slice(v, s) for k, v in tree.items()}
+    if is_dtensor(tree):
+        return tree.to_local()[0]
     return tree[s]
 
 
@@ -41,7 +62,9 @@ def pipeline_apply(stage_fn: Callable, mesh, stage_axis: str = "stage"):
     stage_fn       : (stage_params, x) -> y, same shape.
     mesh           : a `DeviceMesh` with a `stage_axis` dim; this rank is
                      stage `mesh.get_local_rank(stage_axis)`.
-    params_stacked : (S, ...) tree — stage s uses slice s.
+    params_stacked : (S, ...) tree — stage s uses slice s: `shard_stages`
+                     DTensors, each rank holding only its own slice, or
+                     plain tensors holding every stage's.
     x_microbatched : (M, mb, ...) — M microbatches, the same on every rank.
     Result         : (M, mb, ...) = stack of stage_{S-1}(...stage_0(x_m)),
                      on every rank.

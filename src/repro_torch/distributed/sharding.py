@@ -104,13 +104,26 @@ def placements(mesh, spec) -> list:
     return out
 
 
+def local_shard(full: torch.Tensor, like) -> torch.Tensor:
+    """This rank's shard of the whole plain tensor `full` under DTensor
+    `like`'s layout (views; no communication)."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    shape, off = compute_local_shape_and_global_offset(full.shape, like.device_mesh,
+                                                       like.placements)
+    for d, (n, o) in enumerate(zip(shape, off)):
+        full = full.narrow(d, o, n)
+    return full
+
+
 def distribute(tree, specs, mesh):
     """Lay out every tensor of `tree` as a DTensor on `mesh` under the
     matching spec of `specs` (`ShardingRules.params` / `batch_spec`):
     each rank copies its shard out of the full tensor it holds (every rank
     must hold the same values; nothing is communicated, and the DTensors
     share no storage with `tree`).  A `QuantizedTensor`'s payload and
-    scales are laid out as two DTensors."""
+    scales are laid out as two DTensors.  Meta tensors (the dry run's)
+    stay on meta."""
     from torch.distributed.tensor import DTensor, Shard
 
     if isinstance(tree, dict):
@@ -120,7 +133,7 @@ def distribute(tree, specs, mesh):
                                distribute(tree.scales, specs.scales, mesh), tree.block)
     places = placements(mesh, specs)
     coord = mesh.get_coordinate()
-    local = tree.to(mesh.device_type)
+    local = tree if tree.is_meta else tree.to(mesh.device_type)
     # mesh dims split in mesh-dim order, DTensor's order for a dim that
     # several mesh dims shard
     for i, p in enumerate(places):

@@ -22,7 +22,11 @@ returns only the last-position logits; each serve step appends one token
 and attends through kernel 6 (`fp8_decode_attention`).  They are eager,
 like the paged path (no `torch.compile`, no CUDA graph).  A serve step
 whose write would land past the cache raises a `ValueError` on the host
-before any launch (the reference's XLA scatter drops it silently).
+before any launch (the reference's XLA scatter drops it silently).  With
+`rules` they run sharded too: W8A8 params as DTensors, the batch by
+`rules.batch_spec`, the cache by `rules.cache_spec` (`shard_cache`, each
+rank allocating its own shards), kernels 1 and 3 on each rank's weight
+shards (`core.fp8_linear`) and kernel 6 over its local KV heads.
 
 `input_specs`, `cache_specs` and `param_specs` are the counterpart of the
 reference's `ShapeDtypeStruct` stand-ins: tensors on the "meta" device,
@@ -118,16 +122,91 @@ def param_specs(cfg: ArchConfig, precision: Optional[PrecisionConfig] = None) ->
     return fp8_params._map_with_path(rollout, specs)
 
 
+def _sharded_device(device, rules):
+    """The device of a sharded step's local tensors: `device`, else the
+    mesh's (the current CUDA device for a "cuda" mesh)."""
+    return resolve_device(device if device is not None else rules.mesh.device_type)
+
+
+def shard_cache(cfg: ArchConfig, batch: int, max_len: int, precision: PrecisionConfig,
+                rules, *, src_len: int = 0, device=None) -> dict:
+    """`Transformer.init_cache`'s contiguous cache laid out by
+    `rules.cache_spec` on `rules.mesh`: each tensor a DTensor of which
+    this rank allocates only its own shard, at the init values (zeros;
+    ones for the KV scales).  The lengths (B,) stay plain tensors, whole
+    on every rank, and "max_length" a host int.  On `device` ("meta" for
+    the dry run), else the mesh's."""
+    import dataclasses
+
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    from repro_torch.distributed.sharding import placements
+
+    dev = _sharded_device(device, rules)
+    mesh = rules.mesh
+    meta = Transformer(cfg, META).init_cache(batch, max_len, precision, src_len=src_len)
+
+    def build(tree, spec, key):
+        if isinstance(tree, dict):
+            return {k: build(v, spec[k], k) for k, v in tree.items()}
+        if dataclasses.is_dataclass(tree):
+            return type(tree)(**{f.name: build(getattr(tree, f.name), getattr(spec, f.name),
+                                               f.name)
+                                 for f in dataclasses.fields(tree)})
+        if not isinstance(tree, torch.Tensor):
+            return tree
+        value = max(src_len, 1) if key == "src_lengths" else 1 if "scale" in key else 0
+        if key in ("lengths", "src_lengths"):
+            return torch.full(tree.shape, value, dtype=tree.dtype, device=dev)
+        places = placements(mesh, spec)
+        local_shape, _ = compute_local_shape_and_global_offset(tree.shape, mesh, places)
+        local = torch.zeros(local_shape, dtype=tree.dtype, device=dev)
+        if value:
+            local.fill_(value)
+        return DTensor.from_local(local, mesh, places, run_check=False, shape=tree.shape,
+                                  stride=tree.stride())
+
+    return build(meta, rules.cache_spec(meta), "")
+
+
+def _shard_batch(batch: dict, rules, dev) -> dict:
+    """The batch on `dev`, its token, patch and frame tensors laid out by
+    `rules.batch_spec` (the lengths stay plain, whole on every rank)."""
+    from repro_torch.distributed.sharding import distribute, register_dtensor_ops
+
+    register_dtensor_ops()
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    split = {k: v for k, v in batch.items() if k in ("tokens", "patches", "frames")}
+    return {**batch, **distribute(split, rules.batch_spec(split), rules.mesh)}
+
+
 def make_prefill_step(cfg: ArchConfig, shape: ShapeConfig,
-                      precision: PrecisionConfig, device=None):
+                      precision: PrecisionConfig, device=None, *, rules=None):
     """Prompt processing into a fresh contiguous cache of seq_len + 1
     positions (and zero SSM state; cross caches over seq_len source
     positions for an enc-dec model, whose batch carries frames of
     seq_len); returns only the last-position logits (B, V) f32 and the
-    cache."""
-    model = Transformer(cfg, device)
+    cache.  With `rules` (`distributed.ShardingRules` on a mesh) the step
+    runs sharded: params are DTensors (`distributed.distribute(params,
+    rules.params(params), mesh)`, W8A8 payloads and scales included, each
+    linear through kernels 1 and 3 on the local shards), the batch is laid
+    out by `rules.batch_spec`, the cache by `rules.cache_spec`
+    (`shard_cache`), and the logits come back as a DTensor."""
     b, s = shape.global_batch, shape.seq_len
     src = s if cfg.is_encdec else 0
+    if rules is not None:
+        dev = _sharded_device(device, rules)
+        model = Transformer(cfg, dev)
+
+        def sharded_prefill_step(params, batch):
+            batch = _shard_batch(batch, rules, dev)
+            cache = shard_cache(cfg, b, s + 1, precision, rules, src_len=src, device=dev)
+            with activation_sharding(rules):
+                return model.prefill(params, batch, cache, precision)
+
+        return sharded_prefill_step
+    model = Transformer(cfg, device)
 
     def prefill_step(params, batch):
         cache = model.init_cache(b, s + 1, precision, src_len=src)
@@ -136,10 +215,24 @@ def make_prefill_step(cfg: ArchConfig, shape: ShapeConfig,
     return prefill_step
 
 
-def make_serve_step(cfg: ArchConfig, precision: PrecisionConfig, device=None):
+def make_serve_step(cfg: ArchConfig, precision: PrecisionConfig, device=None, *,
+                    rules=None):
     """One decode token (B,) against an existing contiguous cache, through
     kernel 6 on the card (its plain version on the CPU) in the attention
-    layers and the recurrent step in the SSM ones."""
+    layers and the recurrent step in the SSM ones.  With `rules` the step
+    runs sharded, as `make_prefill_step`'s: the tokens laid out by
+    `rules.batch_spec`, the cache a `shard_cache` (or a sharded prefill's),
+    kernel 6 over each rank's local KV heads."""
+    if rules is not None:
+        dev = _sharded_device(device, rules)
+        model = Transformer(cfg, dev)
+
+        def sharded_serve_step(params, tokens, cache):
+            tokens = _shard_batch({"tokens": tokens}, rules, dev)["tokens"]
+            with activation_sharding(rules):
+                return model.decode_step(params, tokens, cache, precision)
+
+        return sharded_serve_step
     model = Transformer(cfg, device)
 
     def serve_step(params, tokens, cache):
@@ -180,7 +273,7 @@ def make_loss_and_grads(cfg: ArchConfig, precision: Optional[PrecisionConfig] = 
 
             register_dtensor_ops()
             mesh = leaves[0].device_mesh
-            batch = {k: v.to(mesh.device_type) for k, v in batch.items()}
+            batch = {k: v if v.is_meta else v.to(mesh.device_type) for k, v in batch.items()}
             batch = distribute(batch, rules.batch_spec(batch), mesh)
         for p in leaves:
             p.requires_grad_(True)

@@ -49,7 +49,8 @@ per request (per-tensor scales, recalibrated from their amax when
 `cross_attention_decode` attends over their dequantized copy under the
 `src_lengths` mask (with the QDQ under `quantize_attention`).  The encoder
 is `attention_forward` with `causal=False` under a bidirectional mask.
-The `repeat` impl (a tensor-parallel layout) is not ported.
+`attention_impl` selects the naive, chunked or `repeat` impl (the last,
+K/V repeated to the flat heads, a tensor-parallel layout).
 """
 from __future__ import annotations
 
@@ -72,7 +73,13 @@ from repro_torch.core.quant import (
 )
 from repro_torch.kernels import ops
 from repro_torch.kernels.config import KernelConfig
-from repro_torch.models.common import apply_rope, constrain, rms_norm, split_dim
+from repro_torch.models.common import (
+    apply_rope,
+    constrain,
+    redistribute,
+    rms_norm,
+    split_dim,
+)
 
 _NEG_INF = -1e30
 
@@ -130,6 +137,11 @@ class PagedKVCache:
     @property
     def block_size(self) -> int:
         return self.k.shape[-3]
+
+    @property
+    def num_blocks(self) -> int:
+        """Usable blocks (the trash row excluded)."""
+        return self.k.shape[-4] - 1
 
     def layer(self, r: int) -> "PagedKVCache":
         """Layer `r` of a stacked cache; views, so writes land in the pool."""
@@ -269,10 +281,12 @@ def _sdpa_sharded(q, k, v, mask, precision):
     vl = _ContiguousGrad.apply(v.redistribute(mesh, kv_pl).to_local(grad_placements=kv_grad))
     _, q_off = compute_local_shape_and_global_offset(q.shape, mesh, q_pl)
     _, kv_off = compute_local_shape_and_global_offset(k.shape, mesh, kv_pl)
-    heads = (q_off[2] + torch.arange(ql.shape[2], device=ql.device)) // g - kv_off[2]
+    # host index arithmetic (no device sync; meta tensors hold no values)
+    heads = (q_off[2] + torch.arange(ql.shape[2])) // g - kv_off[2]
     if kl.shape[2] * g != ql.shape[2] or not torch.equal(
-            heads, torch.arange(kl.shape[2], device=ql.device).repeat_interleave(g)):
-        kl, vl = kl[:, :, heads], vl[:, :, heads]       # one KV head per query head
+            heads, torch.arange(kl.shape[2]).repeat_interleave(g)):
+        idx = heads.to(kl.device)
+        kl, vl = kl[:, :, idx], vl[:, :, idx]           # one KV head per query head
     if mask is not None:
         if is_dtensor(mask):
             mask = mask.full_tensor()
@@ -462,7 +476,9 @@ def attention_prefill(x, params, cfg, cache, precision: PrecisionConfig, *,
     k = apply_rope(k, positions, cfg.rope_theta)
 
     kq, vq = _quantize_kv(k, v, cache, precision, recalibrate=True)
-    if isinstance(cache, KVCache):
+    if isinstance(cache, KVCache) and is_dtensor(cache.k):
+        _write_sharded(cache, kq, vq, None)
+    elif isinstance(cache, KVCache):
         cache.k[:, :s] = kq
         cache.v[:, :s] = vq
     else:
@@ -547,6 +563,10 @@ def attention_decode(x, params, cfg, cache, lengths,
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
     kq, vq = _quantize_kv(k, v, cache, precision, recalibrate=False)
+    if isinstance(cache, KVCache) and is_dtensor(cache.k):
+        _write_sharded(cache, kq, vq, lengths)
+        return _contiguous_attention(x, q, cache, lengths + 1, params,
+                                     precision, use_kernel=use_kernel)
     if isinstance(cache, KVCache):
         rows = torch.arange(b, device=x.device)
         cache.k[rows, lengths.long()] = kq[:, 0]
@@ -566,7 +586,9 @@ def _contiguous_attention(x, q, cache: KVCache, new_lengths, params, precision,
     reference's dequantized full-S_max copy through `_sdpa`."""
     b, _, h, dh = q.shape
     kvh = cache.k.shape[-2]
-    if use_kernel:
+    if use_kernel and is_dtensor(q):
+        out = _decode_kernel_sharded(q, cache, new_lengths).to(x.dtype)
+    elif use_kernel:
         out = ops.fp8_decode_attention(
             q.reshape(b, kvh, h // kvh, dh).to(torch.bfloat16).contiguous(),
             cache.k, cache.v, cache.k_scale, cache.v_scale,
@@ -586,6 +608,91 @@ def _contiguous_attention(x, q, cache: KVCache, new_lengths, params, precision,
         mask = (k_pos[None, :] < new_lengths[:, None])[:, None, :]
         out = _sdpa(q, k_all, v_all, mask, precision)
     return linear(out, params["wo"], precision=precision)
+
+
+def _local(t):
+    """A DTensor's local tensor (a replicated scale's is the scale)."""
+    return t.to_local() if is_dtensor(t) else t
+
+
+def _write_sharded(cache: KVCache, kq, vq, pos) -> None:
+    """Write K/V into a sharded contiguous layer cache (DTensors laid out
+    by `ShardingRules.cache_spec`), each rank into its own shard with no
+    collective beyond laying kq/vq out as the cache is: rows [0, s) of the
+    sequence (prefill, `pos` None) or one row per sequence at `pos` (B,)
+    (decode; plain lengths, every rank's the same).  Where the cache
+    shards the sequence (a B=1 cell), a rank writes only the positions it
+    holds."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh = cache.k.device_mesh
+    dst_pl = list(cache.k.placements)
+    src_pl = [Replicate() if p == Shard(1) else p for p in dst_pl]
+    _, off = compute_local_shape_and_global_offset(cache.k.shape, mesh, dst_pl)
+    for dst, src in ((cache.k, kq), (cache.v, vq)):
+        dl = dst.to_local()
+        sl = redistribute(src, src_pl).to_local()
+        s_lo, s_len = off[1], dl.shape[1]
+        if pos is None:
+            a, e = max(s_lo, 0), min(sl.shape[1], s_lo + s_len)
+            if e > a:
+                dl[:, a - s_lo:e - s_lo] = sl[:, a:e]
+            continue
+        rows = torch.arange(dl.shape[0], device=dl.device)
+        p = _local(pos)[off[0]:off[0] + dl.shape[0]].long() - s_lo
+        if s_len == dst.shape[1]:
+            dl[rows, p] = sl[:, 0]
+            continue
+        inside = ((p >= 0) & (p < s_len))[:, None, None]
+        p = p.clamp(0, s_len - 1)
+        raw = dl.view(torch.uint8)     # fp8 takes no where: select bytes
+        raw[rows, p] = torch.where(inside, sl[:, 0].view(torch.uint8), raw[rows, p])
+
+
+def _decode_kernel_sharded(q, cache: KVCache, new_lengths):
+    """Kernel 6 over each rank's local KV heads: q (B, 1, H, D) keeps its
+    batch and head shards; the cache keeps q's batch shards and its KV
+    heads where they split as q's heads do, and is gathered over the mesh
+    dims that shard it otherwise (the head dim, or the sequence of a B=1
+    cell).  A local query head whose KV head is not laid out beside it
+    (uneven groups) takes its own copy of that head's cache (G = 1).
+    Returns (B, 1, H*D) laid out as q."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh = q.device_mesh
+    b, _, h, dh = q.shape
+    kvh = cache.k.shape[-2]
+    g = h // kvh
+    q_pl = [p if p in (Shard(0), Shard(2)) else Replicate() for p in q.placements]
+    kv_pl, kv_split = [], 1
+    for i, p in enumerate(q_pl):
+        if p == Shard(2) and kvh % (kv_split * mesh.size(i)) == 0:
+            kv_split *= mesh.size(i)
+            kv_pl.append(p)
+        else:
+            kv_pl.append(p if p == Shard(0) else Replicate())
+    ql = q.redistribute(mesh, q_pl).to_local()
+    kl = redistribute(cache.k, kv_pl).to_local()
+    vl = redistribute(cache.v, kv_pl).to_local()
+    _, q_off = compute_local_shape_and_global_offset(q.shape, mesh, q_pl)
+    _, kv_off = compute_local_shape_and_global_offset(cache.k.shape, mesh, kv_pl)
+    bl, hl = ql.shape[0], ql.shape[2]
+    heads = (q_off[2] + torch.arange(hl)) // g - kv_off[2]
+    if kl.shape[2] * g == hl and torch.equal(
+            heads, torch.arange(kl.shape[2]).repeat_interleave(g)):
+        ql = ql.reshape(bl, kl.shape[2], g, dh)
+    else:       # one KV head per query head
+        idx = heads.to(kl.device)
+        kl, vl = (t.view(torch.uint8)[:, :, idx].contiguous().view(t.dtype) for t in (kl, vl))
+        ql = ql.reshape(bl, hl, 1, dh)
+    lens = _local(new_lengths)[q_off[0]:q_off[0] + bl].to(torch.int32).contiguous()
+    out = ops.fp8_decode_attention(ql.to(torch.bfloat16).contiguous(), kl, vl,
+                                   _local(cache.k_scale), _local(cache.v_scale), lens)
+    out = out.reshape(bl, 1, hl * dh).contiguous()
+    return DTensor.from_local(out, mesh, q_pl, run_check=False, shape=(b, 1, h * dh),
+                              stride=(h * dh, h * dh, 1))
 
 
 def _gather_live(cache: PagedKVCache, phys, dtype):

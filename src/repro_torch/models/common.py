@@ -79,6 +79,23 @@ def zero_gather(w: torch.Tensor) -> torch.Tensor:
                                           for i, p in enumerate(w.placements)])
 
 
+_FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
+
+
+def redistribute(x, places):
+    """`x.redistribute(x.device_mesh, places)`; an fp8 DTensor moves as its
+    raw bytes (gloo has no fp8 type)."""
+    if x.dtype not in _FP8:
+        return x.redistribute(x.device_mesh, places)
+    from torch.distributed.tensor import DTensor
+
+    raw = DTensor.from_local(x.to_local().view(torch.uint8), x.device_mesh, x.placements,
+                             run_check=False, shape=x.shape, stride=x.stride())
+    raw = raw.redistribute(x.device_mesh, places)
+    return DTensor.from_local(raw.to_local().view(x.dtype), x.device_mesh, raw.placements,
+                              run_check=False, shape=x.shape, stride=x.stride())
+
+
 def constrain(x: torch.Tensor, name: str, **meta) -> torch.Tensor:
     """x redistributed to the active rules' layout for activation `name`
     (the reference's `with_sharding_constraint`): the DTensor's own mesh
@@ -92,7 +109,7 @@ def constrain(x: torch.Tensor, name: str, **meta) -> torch.Tensor:
         return x
     from repro_torch.distributed.sharding import placements
 
-    return x.redistribute(x.device_mesh, placements(rules.mesh, spec))
+    return redistribute(x, placements(rules.mesh, spec))
 
 
 # The card's reduction kernels and GEMM library pick their algorithm, and so

@@ -19,18 +19,30 @@ build (B, nc, Q, N, H) tensors).
 State layout: `SSMState` holds one layer's h (B, H, P, N) and conv tail
 (B, W-1, C), or all R layers' stacked on a leading axis; the model writes
 each layer's new state into the cache in place.
+
+Sharded (x a DTensor, in a `distributed.ShardingRules` step) each rank
+runs the plain mixer on its own rows of the batch: sequences are
+independent, so only the params (and the rank's rows of the state) are
+gathered; the output and the new state come back split by batch, and
+`SSMState.copy_` lays the new state out as the cache holds it (the
+rules keep it replicated, as the reference's spec does: a gather).
+DTensor has no strategies for the scan's splits, gathers and per-chunk
+loop.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import is_dtensor
 from repro_torch.core.fp8_linear import _BmmF32, linear
 from repro_torch.core.precision import PrecisionConfig
-from repro_torch.models.common import rms_norm
+from repro_torch.core.quant import QuantizedTensor
+from repro_torch.models.common import redistribute, rms_norm
 
 CHUNK = 64
 
@@ -51,8 +63,60 @@ class SSMState:
         return SSMState(self.h[:, start:stop], self.conv[:, start:stop])
 
     def copy_(self, other: "SSMState") -> None:
-        self.h.copy_(other.h)
-        self.conv.copy_(other.conv)
+        """Write `other` into this state; into a sharded (DTensor) state
+        each rank writes its shard of `other` laid out as this state is."""
+        for dst, src in ((self.h, other.h), (self.conv, other.conv)):
+            if is_dtensor(dst):
+                dst.to_local().copy_(redistribute(src, dst.placements).to_local())
+            else:
+                dst.copy_(src)
+
+
+def _gathered(t):
+    """A DTensor (or a `QuantizedTensor` of DTensors, its payload in kernel
+    3's layout) whole on every rank, as a plain tensor; `t` otherwise."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.kernels import ops
+
+    if isinstance(t, QuantizedTensor):
+        if not is_dtensor(t.data):
+            return t
+        return QuantizedTensor(ops.k_major(_gathered(t.data)), _gathered(t.scales), t.block)
+    if not is_dtensor(t):
+        return t
+    return redistribute(t, [Replicate()] * t.device_mesh.ndim).to_local()
+
+
+def _batch_local(fn, x, params, state, lengths=None):
+    """`fn(x, params, state, lengths)`, the plain mixer, of a DTensor x on
+    this rank's rows of the batch (split as x's is, over the mesh dims
+    that split it evenly), with the params and the state's rows gathered.
+    Returns the output and the new state (None without one) as DTensors
+    split by batch the same way."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh = x.device_mesh
+    on = [i for i, p in enumerate(x.placements) if p == Shard(0)]
+    if x.shape[0] % math.prod(mesh.size(i) for i in on):
+        on = []
+    pl = [Shard(0) if i in on else Replicate() for i in range(mesh.ndim)]
+    (b, *_), (start, *_) = compute_local_shape_and_global_offset(x.shape, mesh, pl)
+
+    def rows(t):
+        return None if t is None else _gathered(t)[start:start + b]
+
+    def spread(t):
+        shape = (x.shape[0], *t.shape[1:])
+        return DTensor.from_local(t.contiguous(), mesh, pl, run_check=False, shape=shape,
+                                  stride=torch.empty(shape, device="meta").stride())
+
+    params = {k: _gathered(v) for k, v in params.items()}
+    if state is not None:
+        state = SSMState(rows(state.h), rows(state.conv))
+    out, new = fn(redistribute(x, pl).to_local(), params, state, rows(lengths))
+    return spread(out), None if new is None else SSMState(spread(new.h), spread(new.conv))
 
 
 def conv_channels(cfg) -> int:
@@ -229,7 +293,13 @@ def ssm_forward(x: torch.Tensor, params: dict, cfg,
     ends at the last valid token: the returned state is a function of the
     valid tokens only (chunked and padded prefills hand decode the state a
     one-shot unpadded pass would).  Outputs at invalid positions are
-    garbage the caller masks.  Returns (out (B, T, D), new state or None)."""
+    garbage the caller masks.  Returns (out (B, T, D), new state or None).
+    A DTensor x runs on each rank's rows (the module docstring)."""
+    if is_dtensor(x):
+        return _batch_local(
+            lambda x, p, s, n: ssm_forward(x, p, cfg, precision, state=s,
+                                           return_state=return_state, lengths=n),
+            x, params, state, lengths)
     b, t, _ = x.shape
     di, n, h, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     proj = linear(x, params["w_in"], precision=precision)
@@ -267,7 +337,11 @@ def ssm_decode(x: torch.Tensor, params: dict, cfg, state: SSMState,
                precision: Optional[PrecisionConfig] = None
                ) -> Tuple[torch.Tensor, SSMState]:
     """O(1) recurrent step on x (B, 1, D): h <- h exp(a dt) + dt x (x) B,
-    y = C.h + D x.  Returns (out (B, 1, D), new state)."""
+    y = C.h + D x.  Returns (out (B, 1, D), new state).  A DTensor x runs on
+    each rank's rows (the module docstring)."""
+    if is_dtensor(x):
+        return _batch_local(lambda x, p, s, n: ssm_decode(x, p, cfg, s, precision),
+                            x, params, state)
     b = x.shape[0]
     di, n, h, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     proj = linear(x, params["w_in"], precision=precision)

@@ -258,7 +258,9 @@ class Transformer(nn.Module):
         # padded to ROW_FLOOR (models.common) for row-count-independent sums.
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1])
-        logits = linear(pad_rows(x2), head, precision=precision, quantized=False)
+        # a DTensor's rows are each rank's own: no padding
+        logits = linear(x2 if is_dtensor(x2) else pad_rows(x2), head, precision=precision,
+                        quantized=False)
         # logits are the biggest activation (B, T, V f32): the rules shard T
         # over the model axis so the CE stays local
         return constrain(logits[: x2.shape[0]].reshape(lead + (-1,)).float(), "logits")
@@ -339,10 +341,11 @@ class Transformer(nn.Module):
                 routing.setdefault(name, []).append(aux["topk_idx"])
         cache["lengths"] = lengths
         if contiguous:
-            cache["max_length"] = int(inputs["lengths"].max()) + prefix_len if b else 0
+            # meta lengths (the dry run) hold no values: the padded length bounds them
+            cache["max_length"] = 0 if not b else t if lengths.is_meta \
+                else int(inputs["lengths"].max()) + prefix_len
         idx = torch.clamp(lengths.long() - 1, 0, t - 1)
-        x_last = x[torch.arange(b, device=self.device), idx]
-        logits = self._unembed(params, x_last, precision)
+        logits = self._unembed(params, _rows_at(x, idx), precision)
         if want_routing:
             return logits, cache, _stack_routing(routing)
         return logits, cache
@@ -421,7 +424,7 @@ class Transformer(nn.Module):
                 f"decode step past the cache: a length reaches {cache['max_length']}"
                 f" and the cache holds {kv0.max_len} positions")
         lengths = cache["lengths"]
-        x = params["emb"][tokens.to(self.device).long()][:, None, :]
+        x = _embed(params["emb"], tokens.to(self.device).long())[:, None, :]
         routing = {}
         for name, spec, p, sc in self._layers(params, cache):
             x, aux = blocks_mod.apply_slot_decode(
@@ -520,6 +523,28 @@ def _embed(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
                               stride=torch.empty(shape, device="meta").stride())
 
 
+def _rows_at(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x (B, T, D)[arange(B), idx] -> (B, D).  A DTensor x keeps its batch
+    and feature shards (a sharded sequence is gathered first); `idx` is a
+    plain (B,) tensor, the same on every rank."""
+    if not is_dtensor(x):
+        return x[torch.arange(x.shape[0], device=idx.device), idx]
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh = x.device_mesh
+    x_pl = [Replicate() if p in (Shard(1),) or not isinstance(p, (Shard, Replicate))
+            else p for p in x.placements]
+    xl = x.redistribute(mesh, x_pl).to_local()
+    _, off = compute_local_shape_and_global_offset(x.shape, mesh, x_pl)
+    rows = idx[off[0]:off[0] + xl.shape[0]]
+    out = xl[torch.arange(xl.shape[0], device=xl.device), rows.to(xl.device)]
+    shape = (x.shape[0], x.shape[2])
+    return DTensor.from_local(out.contiguous(), mesh,
+                              [Shard(1) if p == Shard(2) else p for p in x_pl],
+                              run_check=False, shape=shape, stride=(shape[1], 1))
+
+
 def _decoder_inputs(params, inputs: dict, cfg, precision, device):
     """(x (B, T, D), prefix_len): the token embeddings, after a VLM's
     patches (B, P, D) projected by `frontend/w_patch` (P positions of
@@ -596,6 +621,8 @@ def forward_train(params: dict, inputs: dict, cfg,
     dev = model.device
     lengths = inputs.get("lengths")
     src_lengths = inputs.get("src_lengths")
+    if is_dtensor(src_lengths):     # whole on every rank: plain masks
+        src_lengths = src_lengths.full_tensor()
     remat = torch.is_grad_enabled()
     enc_out = None
     if cfg.is_encdec:

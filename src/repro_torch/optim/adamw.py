@@ -18,11 +18,17 @@ moment block never crosses the leading axis, so each element's arithmetic
 is the whole-leaf one, bit for bit.
 
 Sharded params (DTensors laid out by `distributed.ShardingRules`) keep
-f32 moments sharded as they are (ZeRO: each rank holds only its shards):
-each gradient is first redistributed to its param's placements (the
-reduce-scatter / all-reduce of data parallelism), the global norm sums
-every shard once, and each rank updates its local shards with the same
-arithmetic.  fp8 moments of sharded params are not supported.
+their moments sharded as they are (ZeRO: each rank holds only its
+shards): each gradient is first redistributed to its param's placements
+(the reduce-scatter / all-reduce of data parallelism), the global norm
+sums every shard once, and each rank updates its local shards with the
+same arithmetic.  fp8 moments keep the one-process payload and scales bit
+for bit (`_moment_layout`): where a rank's shard of the last axis starts
+and ends on 128-block boundaries (or the last axis is not sharded), its
+local blocks are the global ones and the scales shard with the payload;
+where a shard boundary splits a block, the scales of the last axis are
+replicated and each block's amax is reduced (max) over the ranks that
+share it before the scale is taken.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import is_dtensor
 from repro_torch.core.fp8_params import tree_leaves
@@ -40,6 +47,7 @@ from repro_torch.core.quant import (
     _amax_to_scale,
     dequantize,
     quantize_blockwise,
+    saturating_cast,
 )
 
 # f32 elements per update chunk: 2**26 (256 MiB per f32 temporary)
@@ -93,15 +101,81 @@ def _local(t):
     return t.to_local() if is_dtensor(t) else t
 
 
+def _moment_layout(p):
+    """The fp8 moment blocks of a DTensor param `p` against its shards:
+    (block, n_blocks, shard start on the last axis, aligned, mesh dims
+    sharding the last axis, scale placements).  Blocks are 1 x
+    min(128, N) of the global last axis N (a 0-dim param is one (1,)
+    block); `aligned` when this layout's shards of the last axis start and
+    end on block boundaries, and then the scales shard like the payload;
+    otherwise their last axis is replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    shape = tuple(p.shape) or (1,)
+    last = len(shape) - 1
+    blk = min(128, shape[-1])
+    places = list(p.placements)
+    on = [i for i, q in enumerate(places) if q == Shard(last)]
+    mesh = p.device_mesh
+    ways = math.prod(mesh.size(i) for i in on)
+    # the rules' shards are even: L = N / ways, starting at multiples of L
+    aligned = ways == 1 or (shape[-1] % ways == 0 and (shape[-1] // ways) % blk == 0)
+    _, off = compute_local_shape_and_global_offset(shape, mesh, places)
+    s_pl = places if aligned else [Replicate() if q == Shard(last) else q for q in places]
+    return blk, -(-shape[-1] // blk), off[-1], aligned, on, s_pl
+
+
 def _sharded_zero_moment(p, fp8: bool):
-    """A zero f32 moment of a DTensor param: its local shard's, with the
-    param's placements."""
+    """A zero moment of a DTensor param: its local shard's (f32), with the
+    param's placements; with fp8 a zero payload laid out like `p` and the
+    scale of amax 0 in `_moment_layout`'s scale layout."""
     from torch.distributed.tensor import DTensor
 
-    if fp8:
-        raise NotImplementedError("fp8 moments of sharded params")
-    return DTensor.from_local(_zero_moment(p.to_local(), False), p.device_mesh,
-                              p.placements, run_check=False)
+    mesh = p.device_mesh
+    if not fp8:
+        return DTensor.from_local(_zero_moment(p.to_local(), False), mesh, p.placements,
+                                  run_check=False)
+    blk, nb, off, aligned, _, s_pl = _moment_layout(p)
+    local = p.to_local()
+    shape = tuple(p.shape) or (1,)
+    lshape = tuple(local.shape) or (1,)
+    nbl = -(-lshape[-1] // blk) if aligned else nb
+    scale = _amax_to_scale(torch.zeros((), device=local.device), E4M3, ScaleFormat.FP32)
+    data = DTensor.from_local(torch.zeros(lshape, dtype=E4M3, device=local.device), mesh,
+                              p.placements, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
+    s_shape = shape[:-1] + (nb,)
+    scales = DTensor.from_local(scale.expand(lshape[:-1] + (nbl,)).clone(), mesh, s_pl,
+                                run_check=False, shape=s_shape,
+                                stride=torch.empty(s_shape, device="meta").stride())
+    return QuantizedTensor(data, scales, (1,) * (len(shape) - 1) + (blk,))
+
+
+def _load_shard(m: QuantizedTensor, head: int, n: int) -> torch.Tensor:
+    """f32 values of a local fp8 moment shard of `n` elements along the
+    last axis whose first element sits `head` elements into its first
+    scale block."""
+    full = torch.repeat_interleave(m.scales, m.block[-1], dim=-1)[..., head:head + n]
+    return m.data.float() * full
+
+
+def _store_shard(dst: QuantizedTensor, x: torch.Tensor, head: int, groups: list) -> None:
+    """Quantize the f32 local shard `x` into `dst` (`_load_shard`'s
+    layout) as `quantize_blockwise` quantizes the global leaf: each
+    block's amax over its local elements, reduced (max) over the process
+    groups `groups` that share the block, then the scale and the cast."""
+    blk, nbl = dst.block[-1], dst.scales.shape[-1]
+    n = x.shape[-1]
+    ax = F.pad(x.abs(), (head, nbl * blk - head - n))
+    amax = ax.reshape(*x.shape[:-1], nbl, blk).amax(dim=-1)
+    c10d = torch.ops._c10d_functional
+    for name in groups:
+        amax = c10d.wait_tensor(c10d.all_reduce(amax.contiguous(), "max", name))
+    scales = _amax_to_scale(amax, E4M3, ScaleFormat.FP32)
+    full = torch.repeat_interleave(scales, blk, dim=-1)[..., head:head + n]
+    dst.data.copy_(saturating_cast(x / full, E4M3))
+    dst.scales.copy_(scales)
 
 
 def _zero_moment(p: torch.Tensor, fp8: bool):
@@ -178,13 +252,10 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def _update_leaf(p, g, m, v, *, scale, lr, bc1, bc2, config: AdamWConfig):
-    """The reference's per-leaf AdamW on `p` (any shape: a whole leaf or
-    one chunk of it) -> (new p, stored m, stored v)."""
+def _adam(p, g, m, v, *, scale, lr, bc1, bc2, config: AdamWConfig):
+    """The reference's AdamW arithmetic on f32 moments -> (new p, m, v)."""
     b1, b2 = config.b1, config.b2
     g = g.float() * scale
-    m = _load_moment(m, g)
-    v = _load_moment(v, g)
     m = b1 * m + (1 - b1) * g
     v = b2 * v + (1 - b2) * torch.square(g)
     mhat = m / bc1
@@ -192,9 +263,37 @@ def _update_leaf(p, g, m, v, *, scale, lr, bc1, bc2, config: AdamWConfig):
     delta = mhat / (torch.sqrt(vhat) + config.eps)
     if config.weight_decay:
         delta = delta + config.weight_decay * p.float()
-    new_p = (p.float() - lr * delta).to(p.dtype)
+    return (p.float() - lr * delta).to(p.dtype), m, v
+
+
+def _update_leaf(p, g, m, v, *, scale, lr, bc1, bc2, config: AdamWConfig):
+    """The reference's per-leaf AdamW on `p` (any shape: a whole leaf or
+    one chunk of it) -> (new p, stored m, stored v)."""
+    new_p, m, v = _adam(p, g, _load_moment(m, g), _load_moment(v, g), scale=scale, lr=lr,
+                        bc1=bc1, bc2=bc2, config=config)
     return new_p, _store_moment(m, config.fp8_moments), \
         _store_moment(v, config.fp8_moments)
+
+
+def _update_sharded_fp8(p, g, m, v, **kw) -> None:
+    """One DTensor leaf with fp8 moments, in place, chunk by chunk of its
+    local shard (`_moment_layout`: blocks that straddle a shard boundary
+    reduce their amax over the ranks sharing them)."""
+    blk, _, off, aligned, on, _ = _moment_layout(p)
+    # aligned: every local block is whole; else the scales span the axis
+    head = 0 if aligned else off
+    groups = [] if aligned else [p.device_mesh.get_group(i).group_name for i in on]
+    p, g, m, v = _local(p), _local(g), _local(m), _local(v)
+    if p.dim() == 0:
+        p, g = p[None], g[None]
+    for r in _chunk_ranges(p):
+        pc, mc, vc = _chunk(p, r), _chunk(m, r), _chunk(v, r)
+        n = pc.shape[-1]
+        new_p, new_m, new_v = _adam(pc, _chunk(g, r), _load_shard(mc, head, n),
+                                    _load_shard(vc, head, n), **kw)
+        pc.copy_(new_p)
+        _store_shard(mc, new_m, head, groups)
+        _store_shard(vc, new_v, head, groups)
 
 
 def _write_moment(dst, src):
@@ -225,6 +324,9 @@ def update(params: dict, grads: dict, state: AdamWState, config: AdamWConfig):
     bc2 = 1.0 - torch.pow(torch.tensor(config.b2, device=stepf.device), stepf)
 
     def upd(p, g, m, v):
+        if is_dtensor(p) and isinstance(m, QuantizedTensor):
+            return _update_sharded_fp8(p, g, m, v, scale=scale, lr=lr, bc1=bc1, bc2=bc2,
+                                       config=config)
         p, g, m, v = _local(p), _local(g), _local(m), _local(v)
         for r in _chunk_ranges(p):
             pc, mc, vc = _chunk(p, r), _chunk(m, r), _chunk(v, r)

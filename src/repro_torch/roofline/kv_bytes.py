@@ -124,3 +124,35 @@ def verify_hbm_bytes(geo: KVGeometry, context_len: int, num_drafts: int,
     the verify pass."""
     return prefill_chunk_hbm_bytes(geo, context_len, num_drafts + 1,
                                    context_len + num_drafts + 1, mode)
+
+
+def trace_decode_bytes(geo: KVGeometry, contexts,
+                       mode: str = "paged-clamped") -> int:
+    """Total modeled decode bytes over a trace's per-step slot contexts
+    (one entry per (step, decode slot) with that slot's context length)."""
+    return sum(decode_hbm_bytes(geo, c, mode) for c in contexts)
+
+
+# ---------------------------------------------------------------------------
+# cross-tier (host link) pricing: the two-tier allocator's move costs
+# ---------------------------------------------------------------------------
+
+def cross_tier_block_bytes(geo: KVGeometry) -> int:
+    """Device-side bytes one block-granular tier move (demote or promote)
+    touches: the block's KV payload across attention layers, read or
+    written once on the device end of the host link (both directions cost
+    the same)."""
+    return geo.block_size * geo.token_payload_bytes * geo.n_attn_layers
+
+
+def cross_tier_move_bytes(geo: KVGeometry, n_blocks: int) -> int:
+    """Modeled bytes for `n_blocks` blocks crossing the host link in either
+    direction (an allocator demote / promote's `moves` list)."""
+    return n_blocks * cross_tier_block_bytes(geo)
+
+
+def prefix_revival_bytes(geo: KVGeometry, n_blocks: int) -> int:
+    """Modeled bytes to revive a host-cached prefix of `n_blocks` blocks by
+    copy-in: one promote write per block (recomputing it would write the
+    same payload and also stream the growing context)."""
+    return cross_tier_move_bytes(geo, n_blocks)

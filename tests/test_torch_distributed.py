@@ -13,7 +13,10 @@ reference's results and compares.
     reduced llama3.2-3b of the reference's distributed test against the
     reference's jitted single-device loss, with the reference's shard
     shapes; the reduced granite-moe-3b-a800m against the port's
-    one-process step; the `repeat` attention impl against the naive one.
+    one-process step; the `repeat` attention impl against the naive one;
+  * fp8 AdamW moments of sharded params against one process (bit-equal);
+  * the sharded W8A8 prefill and serve steps against one process, and
+    the same check failing with a fault planted in the sharded linear.
 
 The reference's own sharded step cannot be the oracle: on JAX 0.9 its
 sharded embedding gather raises `ShardingTypeError`
@@ -31,6 +34,18 @@ from _torch_dist_worker import RankGroup
 
 WORLD = 8
 SHAPES = [(4, 333), (2, 256)]
+SERVE_CASES = [("dense", "default"), ("dense", "fp8"), ("ssm", "default")]
+SERVE_STEPS = 3
+# the sharded steps' logits against one process's (max|logit| 1.1-1.3
+# dense, 3.3 SSM): measured gaps 0.0508 dense default, 0.0508 dense
+# FULL_FP8 (one bf16 rounding of the row-parallel partials, then kernel
+# 1's fp8 rounding of the next layer's inputs flipping an element), 0.0
+# SSM (its linears all gathered); the planted faults of SERVE_FAULTS gap
+# 0.30-1.20 (no row-parallel sum 0.86-1.20, scale blocks one off
+# 0.30-0.38)
+SERVE_ATOL = 0.1
+DECISIVE_GAP = 2 * SERVE_ATOL       # argmax cannot flip above it
+SERVE_FAULTS = ["no_reduce", "scale_offset"]
 DTYPES = ["float32", "bfloat16"]
 
 
@@ -47,6 +62,12 @@ def _pipeline_inputs():
     b = (rng.standard_normal((s, d)) * 0.1).astype(np.float32)
     x = rng.standard_normal((m, mb, d)).astype(np.float32)
     return w, b, x
+
+
+def _nested_inputs():
+    rng = np.random.default_rng(4)
+    return {"x": rng.standard_normal((8, 4, 16)).astype(np.float32),
+            "w": rng.standard_normal((16, 8)).astype(np.float32)}
 
 
 def _moe_tokens():
@@ -82,7 +103,8 @@ def _ref_dense():
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    """The group, with every test's job queued in test order."""
+    """The group, with every test's job registered (each is sent to the
+    ranks when a test first collects it)."""
     group = RankGroup(WORLD, str(tmp_path_factory.mktemp("gloo") / "store"))
     for dtype in DTYPES:
         for shape in SHAPES:
@@ -94,6 +116,15 @@ def ranks(tmp_path_factory):
     group.submit("dense_step", "dense_step", params_np=params, tokens=tokens)
     group.submit("moe_step", "moe_step", tokens=_moe_tokens())
     group.submit("repeat_step", "repeat_step", params_np=params, tokens=tokens)
+    group.submit("fp8_moments", "fp8_moments", steps=2)
+    for arch, precision in SERVE_CASES:
+        group.submit(f"serve-{arch}-{precision}", "sharded_serve", arch=arch,
+                     precision=precision, steps=SERVE_STEPS, decisive_gap=DECISIVE_GAP)
+    for fault in SERVE_FAULTS:
+        group.submit(f"serve-fault-{fault}", "sharded_serve", arch="dense",
+                     precision="default", steps=SERVE_STEPS, decisive_gap=DECISIVE_GAP,
+                     fault=fault)
+    group.submit("nested_rows", "nested_rows", **_nested_inputs())
     yield group
     group.close()
 
@@ -159,6 +190,8 @@ def test_pipeline_matches_sequential(ranks):
     for r in got:       # both replicas, every stage
         np.testing.assert_allclose(r["out"], np.asarray(ref), rtol=2e-5, atol=2e-5)
         assert r["bubble"] == ref_bubble(4, 8)
+        # each rank holds only its own stage's slice (`shard_stages`)
+        assert r["local_shapes"] == {"w": (1,) + w.shape[1:], "b": (1,) + b.shape[1:]}
     assert abs(got[0]["bubble"] - 3 / 11) < 1e-9
 
 
@@ -224,3 +257,70 @@ def test_sharded_step_repeat_impl_matches_naive(ranks):
     naive = ranks.collect("dense_step")[0]["losses"][0]
     for r in ranks.collect("repeat_step"):
         np.testing.assert_allclose(r["loss"], naive, rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# fp8 moments of sharded params, sharded W8A8 prefill and serve steps
+# ---------------------------------------------------------------------------
+
+def test_sharded_fp8_moments_match_one_process(ranks):
+    """Two sharded AdamW updates with fp8 moments leave every moment's
+    payload and scales bit-equal to the one-process update's, and the
+    params equal, also where a shard boundary splits a 128-block (wq's
+    last axis, 192 over the 4-way model axis)."""
+    for r in ranks.collect("fp8_moments"):
+        assert r["bad"] == [], r["bad"]
+        assert r["param_diff"] == 0.0
+        assert "m/blocks/s0/attn/wq" in r["straddle"]
+        assert "m/blocks/s0/mlp/wg" not in r["straddle"]
+
+
+def _serve_agrees(r) -> bool:
+    """A rank's sharded steps agree with one process's: every logit within
+    SERVE_ATOL and the argmax equal on each step's decisive rows."""
+    return max(r["gaps"]) <= SERVE_ATOL and all(r["agree"])
+
+
+@pytest.mark.parametrize("arch, precision", SERVE_CASES)
+def test_sharded_serve_steps_match_one_process(ranks, arch, precision):
+    """The sharded W8A8 prefill and serve steps against one process:
+    logits within SERVE_ATOL (row-parallel sums of bf16 partials), the
+    argmax equal on the rows whose top-2 gap exceeds DECISIVE_GAP (3 and
+    4 of the 16 rows dense, 6 SSM), and each rank launching kernels 1 and
+    3 as one process does (an attention layer 4 and 7, with kernel 6 once
+    a decode step under `PrecisionConfig()` and never under FULL_FP8's
+    QDQ branch; an SSM layer, run on each rank's batch rows, 2 and 2)."""
+    layers = 2
+    q, g = (4, 7) if arch == "dense" else (2, 2)
+    for r in ranks.collect(f"serve-{arch}-{precision}"):
+        assert _serve_agrees(r), r
+        assert sum(r["decisive"]) > 0, r["decisive"]
+        for i, calls in enumerate(r["calls"]):
+            assert calls["quant_act"]["calls"] == q * layers
+            assert calls["fp8_gemm"]["calls"] == g * layers
+            want = layers if arch == "dense" and precision == "default" and i else 0
+            assert calls.get("decode", {"calls": 0})["calls"] == want
+
+
+@pytest.mark.parametrize("fault", SERVE_FAULTS)
+def test_sharded_serve_check_catches_planted_faults(ranks, fault):
+    """The check above fails on the dense steps with a fault planted in
+    the sharded W8A8 linear: the row-parallel sum over the TP group
+    dropped, or each weight's scale blocks taken one block off.  The
+    logit gap alone exceeds SERVE_ATOL."""
+    for r in ranks.collect(f"serve-fault-{fault}"):
+        assert max(r["gaps"]) > SERVE_ATOL, r["gaps"]
+        assert not _serve_agrees(r)
+
+
+def test_nested_batch_rows_flatten_rank_by_rank(ranks):
+    """Rows that two mesh dims shard (the multi-pod batch) are flattened
+    for a 2-D GEMM and unflattened again rank by rank (DTensor cannot
+    unflatten them itself): the products and x's gradient equal the
+    plain ones, with w replicated and with w column-sharded."""
+    x, w = _nested_inputs()["x"], _nested_inputs()["w"]
+    y = x @ w
+    for r in ranks.collect("nested_rows"):
+        for name in ("replicated", "column"):
+            np.testing.assert_allclose(r[name]["y"], y, rtol=1e-5, atol=1e-5)
+            np.testing.assert_allclose(r[name]["grad"], 2 * y @ w.T, rtol=1e-5, atol=1e-5)

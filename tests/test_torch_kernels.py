@@ -37,6 +37,7 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.bridge import tensor_from_numpy  # noqa: E402
 from repro_torch.kernels import fp8_gemm as tgemm  # noqa: E402
 from repro_torch.kernels import fp8_kv_attention as tattn  # noqa: E402
+from repro_torch.kernels import fp8_quant as tfq  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 
 jax.config.update("jax_platform_name", "cpu")
@@ -186,9 +187,21 @@ def test_paged_decode_never_reads_stale_table_entries(bs, rem_of_bs):
 
 def test_kernel_launchers_reject_cpu_tensors():
     """The CUDA launch functions never run on the CPU: only `ops` routes CPU
-    tensors, explicitly, to the plain versions."""
+    tensors, explicitly, to the plain versions.  A meta tensor (the dry
+    run's) takes the meta route: empty outputs of the kernel's shapes, no
+    launch and no plain version; any other device raises."""
+    from repro_torch.kernels import build
     _, tin = _quantized_operands(1, 128, 128, 128)
     with pytest.raises(ValueError, match="CUDA"):
         tgemm.fp8_gemm(*tin)
+    before = dict(build.LAUNCHES)
+    qt = tops.quantize_activation(torch.zeros((4, 200), device="meta"))
+    assert qt.data.is_meta and qt.data.shape == (4, 200) and qt.data.dtype == torch.float8_e4m3fn
+    assert qt.scales.shape == (4, 2) and dict(build.LAUNCHES) == before
+
+    class _Elsewhere:
+        is_cuda, is_meta = False, False
+        device = torch.device("xla")
     with pytest.raises(ValueError, match="device"):
-        tops.quantize_activation(torch.zeros((4, 128), device="meta"))
+        tops._route(_Elsewhere(), tfq.quantize_activation_kernel,
+                    tfq.quantize_activation_ref)
